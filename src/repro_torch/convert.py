@@ -1,0 +1,44 @@
+"""Carry weights and plan state across from the JAX package.
+
+``params_from_jax`` turns a nested dict/list/tuple of numpy arrays (the JAX
+package's parameters, taken leaf by leaf with ``np.asarray``) into the same
+tree of torch tensors. Filters are OIHW in both packages and GEMM operands
+(m, k) @ (k, n), so no leaf needs a transpose today; this function is the one
+place where a later slice's layout changes go.
+
+Plan state needs no converter: ``ExecutionPlan.to_json`` / ``from_json``
+(and ``Planner.cache.save`` / ``load``) write and read the same format-v6
+JSON in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_BF16 = "bfloat16"
+
+
+def _leaf(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == _BF16:  # ml_dtypes bfloat16: no numpy counterpart
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a writable, owned copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_jax(tree: Any, device, dtype: Optional[torch.dtype] = None
+                    ) -> Any:
+    """The same nested structure with every array leaf a tensor on
+    ``device`` (cast to ``dtype`` when given). Dict keys, list and tuple
+    order are kept; ``None`` leaves stay ``None``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device, dtype) for v in tree)
+    if tree is None:
+        return None
+    return _leaf(tree, device, dtype)

@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels for the H100 (``csrc/*.cu``, built with ``nvcc``
+for ``sm_90a`` at first use and bound with ``ctypes``), tiled by the
+``repro_torch.plan`` planner, each with a plain PyTorch version beside it.
+
+A wrapper launches its kernel for a CUDA tensor, and raises if it cannot; it
+runs the plain version only for a tensor on the CPU. Consumers go through
+``repro_torch.ops``, which attaches the measured HBM-word counters
+(``conv2d_hbm_words``, ``matmul_hbm_words``, ``im2col_hbm_words``) to every
+dispatch."""
+
+from . import ref  # noqa: F401
+from .conv2d import conv2d, conv2d_hbm_words, conv2d_plain  # noqa: F401
+from .im2col import conv2d_im2col, im2col_hbm_words  # noqa: F401
+from .matmul import matmul, matmul_hbm_words, matmul_plain  # noqa: F401
+
+# The CUDA libraries by kernel name: build state and launch counters. (The
+# submodules' names are shadowed by the functions re-exported above.)
+from .conv2d import KERNEL as _CONV2D_KERNEL  # noqa: E402
+from .matmul import KERNEL as _MATMUL_KERNEL  # noqa: E402
+
+KERNELS = {"conv2d": _CONV2D_KERNEL, "matmul": _MATMUL_KERNEL}
