@@ -1,6 +1,6 @@
 """Aten oracles for the ``torch`` backend (the counterpart of
 ``repro.kernels.ref``): the ground truth the hand-written kernels are held
-against. Both compute in float32 with TF32 off, whatever the input dtype."""
+against. All compute in float32 with TF32 off, whatever the input dtype."""
 
 from __future__ import annotations
 
@@ -43,3 +43,17 @@ def conv2d_ref(
     with no_tf32():
         return F.conv2d(x.float(), w.float(),
                         stride=tuple(stride)).to(out_dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, H, Lq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Lk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Lk, Dh)
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA attention oracle with f32 softmax. Hkv may divide H (grouped KV).
+    ``q_offset`` shifts the causal mask (decode: query position = offset).
+    The ``torch`` backend's attention with no key mask."""
+    from repro_torch.ops.registry import torch_attention  # imports this module
+    return torch_attention(q, k, v, causal=causal, q_offset=q_offset)

@@ -1,5 +1,6 @@
 """``repro_torch.ops`` — backend-registry op dispatch (ExecutionContext ->
-Backend -> kernel), the counterpart of ``repro.ops`` for conv2d and matmul.
+Backend -> kernel), the counterpart of ``repro.ops`` for conv2d, matmul,
+attention and attention_decode.
 
     from repro_torch import ops
     from repro_torch.ops import ExecutionContext
@@ -27,6 +28,9 @@ from .context import (  # noqa: F401
 )
 from .dispatch import (  # noqa: F401
     DispatchDecision,
+    attention,
+    attention_decode,
+    attention_needs,
     conv2d,
     dispatch_call,
     explain,
@@ -42,4 +46,5 @@ from .registry import (  # noqa: F401
     get_backend,
     register_backend,
     registered_ops,
+    torch_attention,
 )

@@ -4,7 +4,9 @@ The counterpart of ``repro.ops.dispatch``, without its runtime-fault layer
 entry that raises propagates.
 
 ``resolve(op, ctx, ...)`` takes the requested backend's entry when its
-declared capabilities cover the call. When they do not, a ``device="cpu"``
+declared capabilities (dtype, and the call features ``needs`` such as
+``per_row_q_offset`` or ``key_mask``) cover the call. When they do not, a
+``device="cpu"``
 context takes the backend's one ``fallback``; a ``device="cuda"`` context
 raises, so a tensor on the card runs a hand-written kernel or nothing. It then
 resolves the LP plan for entries that declare a ``spec_fn`` (through the
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import numbers
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -104,24 +107,20 @@ def record_dispatch():
                 break
 
 
-def _lacks(backend: Backend, op: str, dtype: Optional[str]
+def _lacks(backend: Backend, op: str, dtype: Optional[str],
+           needs: Tuple[str, ...]
            ) -> Tuple[Optional[OpEntry], Tuple[str, ...]]:
     entry = backend.ops.get(op)
     if entry is None:
         return None, (f"op:{op}",)
-    return entry, entry.caps.missing(dtype=dtype)
+    return entry, entry.caps.missing(dtype=dtype, needs=needs)
 
 
 def _resolve_entry(op: str, ctx: ExecutionContext, dtype: Optional[str],
                    needs: Tuple[str, ...]) -> Tuple[OpEntry, DispatchDecision]:
-    if needs:
-        # the reference's optional call features; no entry of the port
-        # declares one yet
-        raise NotImplementedError(
-            f"{op}: no backend of repro_torch serves call features {needs}")
     requested = ctx.resolved_backend()
     backend = get_backend(requested)
-    entry, lacks = _lacks(backend, op, dtype)
+    entry, lacks = _lacks(backend, op, dtype, needs)
     if not lacks:
         return entry, DispatchDecision(op=op, requested=requested,
                                        chosen=requested)
@@ -130,7 +129,8 @@ def _resolve_entry(op: str, ctx: ExecutionContext, dtype: Optional[str],
             f"{op}: backend {requested!r} lacks {', '.join(lacks)}; on the "
             f"card no aten op stands in for its kernel")
     if backend.fallback is not None:
-        entry, more = _lacks(get_backend(backend.fallback), op, dtype)
+        entry, more = _lacks(get_backend(backend.fallback), op, dtype,
+                             needs)
         if not more:
             return entry, DispatchDecision(op=op, requested=requested,
                                            chosen=backend.fallback,
@@ -138,7 +138,8 @@ def _resolve_entry(op: str, ctx: ExecutionContext, dtype: Optional[str],
         lacks = lacks + more
     raise NotImplementedError(
         f"no registered backend can serve op {op!r} (requested "
-        f"{requested!r}, dtype={dtype}; missing: {lacks})")
+        f"{requested!r}, dtype={dtype}, call features {needs}; missing: "
+        f"{lacks})")
 
 
 def _attach_plan_and_words(entry: OpEntry, decision: DispatchDecision,
@@ -256,3 +257,48 @@ def conv2d(x, w, stride=(1, 1), ctx: Optional[ExecutionContext] = None,
     return dispatch_call("conv2d", ctx, x.dtype, (), (x, w),
                          spec_kw={"stride": tuple(stride),
                                   "out_dtype": out_dtype})
+
+
+def attention_needs(q_offset=0, key_mask=None) -> Tuple[str, ...]:
+    """Required capability flags of one attention call (shared with tests):
+    a tensor ``q_offset`` needs ``dynamic_q_offset`` (a scalar) or
+    ``per_row_q_offset`` (a (B,) vector); a key mask needs ``key_mask``."""
+    needs = []
+    if not isinstance(q_offset, numbers.Integral):
+        needs.append("per_row_q_offset" if getattr(q_offset, "ndim", 0)
+                     else "dynamic_q_offset")
+    if key_mask is not None:
+        needs.append("key_mask")
+    return tuple(needs)
+
+
+def attention(q, k, v, causal: bool = True, q_offset=0, key_mask=None,
+              ctx: Optional[ExecutionContext] = None):
+    """GQA attention, (B, H, L, Dh) layout; Hkv divides H.
+
+    ``q_offset``: absolute position of the first query — an int
+    (train/prefill), a tensor scalar (lockstep in-cache calls), or a (B,)
+    tensor (continuous-batching decode, every slot at its own depth).
+    ``key_mask`` is an optional (B, Lk) validity mask over the keys (padded
+    prefill). The ``cuda`` entry serves all three call features."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("attention", ctx, q, k, v)
+    return dispatch_call("attention", ctx, q.dtype,
+                         attention_needs(q_offset, key_mask), (q, k, v),
+                         call_kw={"causal": causal, "q_offset": q_offset,
+                                  "key_mask": key_mask})
+
+
+def attention_decode(q, kp, vp, tables, lengths,
+                     ctx: Optional[ExecutionContext] = None):
+    """One paged decode step: ``q`` is (B, H, 1, hd), ``kp``/``vp`` the
+    shared (num_blocks, KV, block_size, hd) pools, ``tables`` the (B, w)
+    int32 physical-block ids backing each row's logical positions, and
+    ``lengths`` the (B,) valid cache lengths (current token included).
+
+    The ``cuda`` entry follows the tables inside the kernel (no gathered
+    copy); the ``torch`` entry gathers to a contiguous view first."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("attention_decode", ctx, q, kp, vp)
+    return dispatch_call("attention_decode", ctx, q.dtype, (),
+                         (q, kp, vp, tables, lengths))

@@ -1,13 +1,19 @@
 """Backend registry: named backends, per-op entries, declared capabilities
-(the counterpart of ``repro.ops.registry``, conv2d and matmul only).
+(the counterpart of ``repro.ops.registry`` for conv2d, matmul, attention and
+attention_decode).
 
-Three backends ship:
+Each entry's :class:`OpCapabilities` declares its accepted dtypes and the
+optional call features (``ATTN_FLAGS``) it serves. Three backends ship:
 
   * ``torch``  - the aten oracles (``F.conv2d``, ``torch.matmul`` in f32,
-                 TF32 off). Universal: every dtype. Plays the role of the
-                 reference's ``xla``.
+                 TF32 off; :func:`torch_attention` and the gathered paged
+                 decode). Universal: every dtype and flag. Plays the role of
+                 the reference's ``xla``.
   * ``cuda``   - the hand-written CUDA kernels, LP-tiled. Plays the role of
                  ``pallas``. Its entries never call aten for their own work.
+                 Its attention entry declares all three flags: unlike the
+                 Pallas kernel, the CUDA kernel takes the key mask of padded
+                 prefill itself.
   * ``im2col`` - the paper's baseline conv algorithm (aten patch expansion
                  -> the hand-written GEMM), conv2d only.
 
@@ -28,16 +34,31 @@ Gradients: each ``cuda``/``im2col`` entry runs its kernel forward inside a
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import numbers
+from typing import Callable, Dict, FrozenSet, Optional, Tuple
 
 import torch
 
+from repro_torch.core.conv_model import Precision
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d import (_conv_spec, conv2d as _conv2d_cuda,
                                         conv2d_hbm_words)
+from repro_torch.kernels.flash_attention import (NEG_INF, attention_blocks,
+                                                 attention_hbm_words,
+                                                 flash_attention as _flash_cuda,
+                                                 paged_decode_attention,
+                                                 paged_decode_hbm_words,
+                                                 paged_decode_plain)
 from repro_torch.kernels.im2col import conv2d_im2col, im2col_hbm_words
 from repro_torch.kernels.matmul import (_matmul_spec, matmul as _matmul_cuda,
                                         matmul_hbm_words)
+from repro_torch.plan import AttentionSpec
+
+# Capability flags a call can require (derived per call in dispatch.*):
+#   dynamic_q_offset  - q_offset is a tensor scalar (any in-cache path)
+#   per_row_q_offset  - q_offset is a (B,) vector (continuous-batching decode)
+#   key_mask          - a (B, Lk) validity mask over the keys (padded prefill)
+ATTN_FLAGS = ("dynamic_q_offset", "per_row_q_offset", "key_mask")
 
 
 def dtype_name(dtype) -> str:
@@ -48,15 +69,21 @@ def dtype_name(dtype) -> str:
 @dataclasses.dataclass(frozen=True)
 class OpCapabilities:
     """What one backend's op entry can serve: its accepted input dtypes
-    ("*" = anything)."""
+    ("*" = anything) and the optional call features (``flags``) it
+    supports."""
 
     dtypes: Tuple[str, ...] = ("float32", "bfloat16")
+    flags: FrozenSet[str] = frozenset()
 
-    def missing(self, dtype: Optional[str] = None) -> Tuple[str, ...]:
+    def missing(self, dtype: Optional[str] = None,
+                needs: Tuple[str, ...] = ()) -> Tuple[str, ...]:
         """The requirements this entry cannot serve (empty = capable)."""
-        if dtype is None or "*" in self.dtypes or dtype in self.dtypes:
-            return ()
-        return (f"dtype:{dtype}",)
+        out = []
+        if (dtype is not None and "*" not in self.dtypes
+                and dtype not in self.dtypes):
+            out.append(f"dtype:{dtype}")
+        out.extend(f for f in needs if f not in self.flags)
+        return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +150,72 @@ def _torch_conv2d(ctx, plan, x, w, stride=(1, 1), out_dtype=torch.float32):
     return ref.conv2d_ref(x, w, stride=stride, out_dtype=out_dtype)
 
 
+def torch_attention(q, k, v, causal: bool = True, q_offset=0,
+                    key_mask=None) -> torch.Tensor:
+    """GQA attention in aten with the grouping kept factored (no KV repeat):
+    the counterpart of the reference's ``xla_attention``.
+
+    ``q`` is (B, H, Lq, hd), ``k``/``v`` (B, KV, Lk, hd). ``q_offset`` is the
+    absolute position of the first query: an int or tensor scalar for
+    lockstep batches, or a (B,) tensor when every row decodes at its own
+    depth. ``key_mask`` is an optional (B, Lk) validity mask over the keys.
+    Logits, softmax and PV accumulate in f32 (TF32 off); masked logits take
+    the finite -1e30, so a fully masked row averages V."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    g = H // KV
+    dev = q.device
+    qg = q.reshape(B, KV, g, Lq, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    with ref.no_tf32():
+        logits = torch.einsum("bkgqd,bkld->bkgql", qg.float(),
+                              k.float()) * scale.to(dev)
+    mask = None
+    if causal:
+        qpos = torch.arange(Lq, device=dev)
+        if isinstance(q_offset, numbers.Integral):
+            qpos = (qpos + int(q_offset))[None, :]
+        else:
+            off = torch.as_tensor(q_offset, device=dev).long()
+            qpos = (qpos[None, :] + off[:, None] if off.ndim
+                    else (qpos + off)[None, :])
+        kpos = torch.arange(Lk, device=dev)
+        mask = kpos[None, None, :] <= qpos[:, :, None]  # (B|1, Lq, Lk)
+    if key_mask is not None:
+        km = key_mask.to(device=dev, dtype=torch.bool)[:, None, :]
+        mask = km if mask is None else (mask & km)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    with ref.no_tf32():
+        o = torch.einsum("bkgql,bkld->bkgqd", probs, v.float())
+    return o.reshape(B, H, Lq, hd).to(q.dtype)
+
+
+def _torch_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
+                     key_mask=None):
+    return torch_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           key_mask=key_mask)
+
+
+def _torch_attention_decode(ctx, plan, q, kp, vp, tables, lengths):
+    """The counterpart of ``xla_attention_decode``: gather each row's blocks
+    (a copy of the live cache) and attend in f32; the paged kernel's plain
+    version computes exactly that."""
+    return paged_decode_plain(q, kp, vp, tables, lengths)
+
+
 register_backend(Backend(
     name="torch",
     ops={
         "matmul": OpEntry(_torch_matmul, OpCapabilities(dtypes=("*",))),
         "conv2d": OpEntry(_torch_conv2d, OpCapabilities(dtypes=("*",))),
+        "attention": OpEntry(
+            _torch_attention,
+            OpCapabilities(dtypes=("*",), flags=frozenset(ATTN_FLAGS))),
+        "attention_decode": OpEntry(_torch_attention_decode,
+                                    OpCapabilities(dtypes=("*",))),
     },
 ))
 
@@ -182,6 +270,27 @@ def _conv2d_plan_spec(x, w, stride=(1, 1), **kw):
                       h_F, w_F, sh, sw, x.dtype.itemsize * 8)
 
 
+def _attention_plan_spec(q, k, v, **kw):
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = k.dtype.itemsize / 4.0
+    return AttentionSpec(B=B, H=H, KV=KV, Lq=Lq, Lk=Lk, hd=hd,
+                         prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_io))
+
+
+def _attention_decode_plan_spec(q, kp, vp, tables, lengths, **kw):
+    """Paged decode as an AttentionSpec: Lq = 1, Lk = the table window's
+    token capacity (w * block_size) — the keys one decode step streams."""
+    B, H, _, hd = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    w = tables.shape[1]
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = kp.dtype.itemsize / 4.0
+    return AttentionSpec(B=B, H=H, KV=KV, Lq=1, Lk=w * bs, hd=hd,
+                         prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_io))
+
+
 # ---------------------------------------------------------------------------
 # cuda backend: the hand-written kernels, tiled by the plan the dispatcher
 # resolved.
@@ -199,6 +308,65 @@ def _cuda_conv2d(ctx, plan, x, w, stride=(1, 1), out_dtype=torch.float32):
                                     out_dtype=out_dtype, plan=plan),
         lambda x_, w_: ref.conv2d_ref(x_, w_, stride=stride,
                                       out_dtype=out_dtype), x, w)
+
+
+def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
+                    key_mask=None):
+    """GQA via group folding: the g query heads sharing one KV head are
+    stacked along the query axis ((B*Hkv, g*Lq, Dh)), so K/V stream at their
+    (B*Hkv, Lk, Dh) size; the kernel recovers positions with ``q_seq_len``.
+    An int ``q_offset`` is the static case, a tensor scalar or (B,) tensor
+    the dynamic one (one int32 per folded row); the key mask rides along."""
+    B, H, Lq, Dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    row_offs = q_offset
+    if torch.is_tensor(q_offset) and q_offset.ndim:
+        row_offs = q_offset.repeat_interleave(Hkv)  # row b*Hkv+j: batch b
+
+    def fwd(q_, k_, v_):
+        out = _flash_cuda(q_.reshape(B * Hkv, g * Lq, Dh).contiguous(),
+                          k_.reshape(B * Hkv, Lk, Dh).contiguous(),
+                          v_.reshape(B * Hkv, Lk, Dh).contiguous(),
+                          causal=causal, q_offset=row_offs, q_seq_len=Lq,
+                          target=ctx.target, key_mask=key_mask)
+        return out.reshape(B, H, Lq, Dh)
+
+    return _with_aten_grad(
+        fwd, lambda q_, k_, v_: torch_attention(
+            q_, k_, v_, causal=causal, q_offset=q_offset, key_mask=key_mask),
+        q, k, v)
+
+
+def _cuda_attention_decode(ctx, plan, q, kp, vp, tables, lengths):
+    """Paged decode on the block-table-walking kernel; backward recomputes
+    through the gathered aten version."""
+    return _with_aten_grad(
+        lambda q_, kp_, vp_: paged_decode_attention(q_, kp_, vp_, tables,
+                                                    lengths),
+        lambda q_, kp_, vp_: paged_decode_plain(q_, kp_, vp_, tables,
+                                                lengths), q, kp, vp)
+
+
+def _cuda_attention_words(ctx, plan, q, k, v, **kw):
+    B, H, Lq, Dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = k.dtype.itemsize / 4.0
+    bq, bk = attention_blocks(Dh, ctx.target, kv_word=p_kv)
+    return attention_hbm_words(B * Hkv, g * Lq, Lk, Dh, bq, bk,
+                               p_q=p_io, p_kv=p_kv, p_o=p_io)
+
+
+def _cuda_attention_decode_words(ctx, plan, q, kp, vp, tables, lengths,
+                                 **kw):
+    B, H, _, hd = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = kp.dtype.itemsize / 4.0
+    return paged_decode_hbm_words(B, KV, H // KV, tables.shape[1], bs, hd,
+                                  p_q=p_io, p_kv=p_kv, p_o=p_io)
 
 
 def _cuda_matmul_words(ctx, plan, a, b, out_dtype=None, **kw):
@@ -220,6 +388,12 @@ register_backend(Backend(
                           words_fn=_cuda_matmul_words),
         "conv2d": OpEntry(_cuda_conv2d, spec_fn=_conv2d_plan_spec,
                           words_fn=_cuda_conv2d_words),
+        "attention": OpEntry(
+            _cuda_attention, OpCapabilities(flags=frozenset(ATTN_FLAGS)),
+            spec_fn=_attention_plan_spec, words_fn=_cuda_attention_words),
+        "attention_decode": OpEntry(
+            _cuda_attention_decode, spec_fn=_attention_decode_plan_spec,
+            words_fn=_cuda_attention_decode_words),
     },
 ))
 

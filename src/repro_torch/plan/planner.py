@@ -10,9 +10,9 @@ process-wide :class:`PlanCache`) saves/loads the memoized plans. The measured
 autotuner of ``repro.plan.autotune`` is not ported yet: a truthy
 ``autotune`` raises ``NotImplementedError``, and plans never carry a
 ``tuned`` section, although the section round-trips through JSON. Targets
-with mesh axes (the reference's sharding leg) and attention ops (planned
-with the attention kernels, not ported yet) also raise
-``NotImplementedError``.
+with mesh axes (the reference's sharding leg) also raise
+``NotImplementedError``. Attention ops take the closed-form leg
+(:func:`_plan_attention`), as in the reference.
 
 Plans are memoized process-wide, keyed on the (op, target) value pair. The
 LP, the integer refinement and the tile lowering are the reference's, line
@@ -26,13 +26,15 @@ import json
 import threading
 from typing import Any, Dict, Optional, Tuple, Union
 
-from repro_torch.core.bounds import single_processor_bound
+from repro_torch.core.bounds import attention_bound, single_processor_bound
 from repro_torch.core.conv_model import ConvShape, Precision, ceil_div, round_up
-from repro_torch.core.tiling import (Blocking, conv_kernel_footprints,
+from repro_torch.core.tiling import (Blocking, attention_block_size,
+                                     conv_kernel_footprints,
                                      fit_conv_kernel_tiles, matmul_blocking,
                                      optimize_blocking, snap_tile)
 
-from .ops import ConvSpec, MatmulSpec, OpSpec, as_op_spec, op_from_dict
+from .ops import (AttentionSpec, ConvSpec, MatmulSpec, OpSpec, as_op_spec,
+                  op_from_dict)
 from .target import H100, HardwareTarget
 
 # The reference's plan format: v2 spatial conv tiles, v3 ``parallel``, v4
@@ -359,6 +361,35 @@ def _plan_matmul(op: MatmulSpec, target: HardwareTarget) -> ExecutionPlan:
         efficiency=vol / max(lb, 1.0), dtypes=_plan_dtypes(prec))
 
 
+def _plan_attention(op: AttentionSpec, target: HardwareTarget) -> ExecutionPlan:
+    """Closed-form attention plan: the flash schedule's (bq, bk) capacity
+    argument (``core.tiling.attention_block_size``) instead of the conv LP,
+    bounded by Thm 2.1 applied to attention's two GEMMs
+    (``core.bounds.attention_bound``). GQA group folding is accounted here:
+    each of the B*KV kernel batch rows carries g = H/KV stacked query groups,
+    so k/v stream once per folded q tile. The reference's formula, line for
+    line (its ``repro/plan/planner.py:547``)."""
+    prec = op.prec or target.precision
+    mem = target.memory_model()
+    blk = attention_block_size(op.hd, mem.M_eff, p_kv=prec.p_F)
+    g = max(1, op.H // max(op.KV, 1))
+    lqf = g * op.Lq  # the folded query axis of one (batch, kv-head) row
+    sub = max(target.align_sublane, 1)
+    bq = min(blk, round_up(lqf, sub))
+    bk = min(blk, round_up(op.Lk, sub))
+    n_q, n_k = ceil_div(lqf, bq), ceil_div(op.Lk, bk)
+    rows = op.B * op.KV
+    vol = (prec.p_I * rows * n_q * bq * op.hd          # q tiles, loaded once
+           + 2.0 * prec.p_F * rows * n_q * n_k * bk * op.hd  # k/v per q tile
+           + prec.p_O * rows * n_q * bq * op.hd)       # output stores
+    lb = attention_bound(op.B, op.H, op.KV, op.Lq, op.Lk, op.hd,
+                         mem.M_eff, prec).value
+    return ExecutionPlan(
+        op=op, target=target, blocking=(), tiles=(bq, bk),
+        grid=(rows, n_q, n_k), comm_volume=vol, lower_bound=lb,
+        efficiency=vol / max(lb, 1.0), dtypes=_plan_dtypes(prec))
+
+
 def resolve_kernel_plan(
     op: OpSpec,
     plan: Optional[ExecutionPlan] = None,
@@ -419,9 +450,10 @@ def analytic_plan(op: Union[OpSpec, ConvShape],
         built = _plan_conv(op, target)
     elif isinstance(op, MatmulSpec):
         built = _plan_matmul(op, target)
+    elif isinstance(op, AttentionSpec):
+        built = _plan_attention(op, target)
     else:
-        raise NotImplementedError(
-            f"repro_torch plans conv and matmul ops, not {type(op).__name__}")
+        raise TypeError(f"cannot plan {type(op).__name__}")
     return _memoize_plan(key, built)
 
 

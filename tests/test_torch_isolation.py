@@ -39,7 +39,10 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.ops, repro_torch.convert, "
-            "repro_torch.configs.resnet50_convs; "
+            "repro_torch.configs.resnet50_convs, repro_torch.configs, "
+            "repro_torch.configs.qwen2_5_3b, repro_torch.models, "
+            "repro_torch.serving, repro_torch.resilience, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

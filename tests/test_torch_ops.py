@@ -179,7 +179,8 @@ def test_context_rules():
         tops.conv2d(torch.zeros(1, 1, 3, 3, device="meta"),
                     torch.zeros(1, 1, 3, 3, device="meta"), ctx=ctx)
     assert tops.backends() == ("cuda", "im2col", "torch")
-    assert tops.registered_ops() == ("conv2d", "matmul")
+    assert tops.registered_ops() == ("attention", "attention_decode",
+                                     "conv2d", "matmul")
 
 
 def test_backend_env_knob(monkeypatch):
