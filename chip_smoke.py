@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Two paths. The conv path is the paper's experiment: the five ResNet-50
+Three paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -10,10 +10,14 @@ the hand-written GEMM), with bf16 inputs and f32 outputs. The serving path
 is ``repro_torch.serving.Engine`` serving Qwen2.5-3B at its published widths
 (36 layers, d_model 2048, 16 query heads over 2 KV heads, hd 128) with
 seeded random weights, through the hand-written flash-attention and
-paged-decode kernels. Phases, each fatal on failure:
+paged-decode kernels. The int8 path is the paper's mixed-precision claim:
+the same five layers quantized and run through ``ops.conv2d_q`` (int8 in,
+bf16 out), ``ops.matmul_q`` at the reference's GEMM shapes and conv5_x's
+Im2Col GEMM, and the same model served from the int8 paged KV pool
+(``Engine(kv_dtype="int8")``). Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
-  2. build: all four kernels, one nvcc each, started together;
+  2. build: all six kernels, one nvcc per source (five), started together;
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and one main-path shape (TF32 off);
   4. the conv path, launch counters set to 0 just before and read just
@@ -43,14 +47,40 @@ paged-decode kernels. Phases, each fatal on failure:
   8. each attention kernel's time beside its plain version, its library call
      and its bound at the serving shapes, and ``ops.explain``'s words and
      bound ratio for one prefill and one decode call;
-  9. the ``kernels`` JSON line, the card's name and power limit, and the
+  9. the int8 kernels against their plain versions: phase 3's six conv cases
+     (ragged tiles, stride 2, h_F = 1, c_I = 3) and five GEMMs with ragged
+     m/n/k, quantized with ``quantize_conv_operands`` /
+     ``quantize_matmul_operands``, f32 and bf16 out;
+ 10. the int8 conv path, the counter set to 0 just before and read just
+     after: phase 4's bf16 inputs quantized on the card, through
+     ``ops.conv2d_q`` on ``cuda``; one JSON line per layer (tiles, measured
+     words, mixed-precision bound and ratio, the ratio to the bf16 conv's
+     words, which must be <= 0.55 as the reference gates it, median ms,
+     launches, error on the first and last images);
+ 11. the int8 GEMMs, counter to 0 before and read after: (m, k, n) =
+     (512, 384, 256) and (2048, 2048, 2048) (the reference's
+     scripts/verify.py) and conv5_x's Im2Col GEMM (49000, 4608, 512); words,
+     bound ratio, ms, plain ms, ``torch._int_mm`` + scale as library time,
+     error on the first and last rows;
+ 12. the int8 KV serve: phase 7's 8 requests through ``Engine(paged=True,
+     kv_dtype="int8")``, counters to 0 before and read after; every request
+     must finish "length" with 32 tokens, its first token must equal the
+     bf16 paged engine's, every ``attention`` decision must be ``cuda`` and
+     every ``attention_decode_quant`` decision ``torch`` by request, and
+     phase 7's decode check must pass; the share of tokens equal to the bf16
+     pool's, the pool's capacity gain and the serve's times are reported,
+     and the serve is traced as in phase 7; then the int8 conv kernel's
+     plain time and bound per layer;
+ 13. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
 1e-4 for f32 outputs (both sides accumulate in f32, in a different order;
 bf16 x bf16 products are exact in f32) and 2^-7 for bf16 outputs (one bf16
-rounding).
+rounding). The int8 kernels sum exactly in int32 and their plain versions
+exactly in float64, then both convert to f32, scale and cast the same way, so
+their expected error is 0; they are held to the same tolerances.
 
 Teacher-forced logits: the two backends share every bf16 projection and
 differ only in the attention outputs, which may round to neighbouring bf16
@@ -87,6 +117,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ARCH = "qwen2_5_3b"
@@ -142,11 +173,110 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
                                        else "bytes")
 
 
-def serving_phases(gen: torch.Generator, record) -> list:
+def layer_inputs(gen: torch.Generator, i: int, s):
+    """Layer i's bf16 input and filter at its published shape, made on the
+    card from a fixed seed (the conv path's inputs, phases 4, 5 and 10)."""
+    gen.manual_seed(SEED + 1 + i)
+    H = (s.h_O - 1) * s.sh + s.h_F
+    W = (s.w_O - 1) * s.sw + s.w_F
+    x = torch.randn((s.N, s.c_I, H, W), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((s.c_O, s.c_I, s.h_F, s.w_F), generator=gen,
+                     device="cuda") * (s.c_I * s.h_F * s.w_F) ** -0.5).to(
+        torch.bfloat16)
+    return x, w
+
+
+def decode_check(name: str, reqs, cfg, params, ref_ctx, allowance) -> dict:
+    """Every generated token of one engine's requests against the
+    cache-less ``torch`` forward: the token's logit there must lie within
+    ``allowance`` of its row's max (module docstring). Returns the summary
+    row; fails on the first token outside it."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+
+    exact = total = 0
+    gaps = []  # (largest gap, allowed) per request
+    for i, r in enumerate(reqs):
+        seq = np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)
+        with torch.inference_mode():
+            b, _, _ = T.forward(params, cfg, ctx=ref_ctx,
+                                tokens=torch.as_tensor(seq[None],
+                                                       device="cuda"))
+        n, p = len(r.out_tokens), len(r.prompt)
+        rows = b[0, p - 1:p - 1 + n].float()  # the logits each token came from
+        out = torch.as_tensor(r.out_tokens.astype(np.int64), device="cuda")
+        gap = (rows.max(-1).values
+               - rows.gather(1, out[:, None])[:, 0]).max().item()
+        allowed = allowance(b)
+        exact += int((rows.argmax(-1) == out).sum().item())
+        total += n
+        gaps.append((gap, allowed))
+        if not gap <= allowed:
+            fail(f"{name} engine, request {i}: a generated token trails "
+                 f"the torch forward's max logit by {gap}, above {allowed}")
+        del b, rows
+    worst = max(gaps, key=lambda ga: ga[0] / ga[1])
+    row = {"decode_check": name, "tokens": total, "exact_argmax": exact,
+           "max_gap_to_row_max": worst[0], "allowed": worst[1]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
+    """Serve ``prompts`` (32 new tokens each) once more under
+    ``torch.profiler`` and print device time by kernel kind and by kernel,
+    the device's busy share against the untraced serve's wall time, and the
+    traced serve's own wall time and decode step (the profiler's cost on
+    the host)."""
+    from repro_torch.serving import Request
+
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        traced = 1e3 * (time.perf_counter() - t0)
+    by_name, by_kind = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3
+        kind = ("attention kernels" if "flash_kernel" in e.name
+                or "paged_decode_kernel" in e.name else
+                "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
+                else "other aten kernels")
+        for table, key in ((by_name, e.name[:80]), (by_kind, kind)):
+            n, t = table.get(key, (0, 0.0))
+            table[key] = (n + 1, t + ms)
+    busy = sum(t for _, t in by_kind.values())
+    print(json.dumps({
+        "traced": what,
+        "untraced_wall_ms": untraced_ms,
+        "traced_wall_ms": traced,
+        "traced_decode_step_ms_median":
+            1e3 * statistics.median(eng.stats.decode_s),
+        "device_kernel_ms": busy or "not measured",
+        "device_busy_share": busy / untraced_ms if busy else "not measured",
+        "decode_steps": len(eng.stats.decode_s),
+        "by_kind": {k: {"launches": n, "ms": t}
+                    for k, (n, t) in by_kind.items()},
+        "top_kernels": [{"name": k, "launches": n, "ms": t}
+                        for k, (n, t) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][1])
+                        [:10]]}), flush=True)
+
+
+def serving_phases(gen: torch.Generator, record) -> tuple:
     """Phases 6-8 (module docstring): the attention kernels against their
     plain versions, the serving path at full width, and the attention
     kernels' times. Returns the two kernels' entries of the ``kernels``
-    line (``max_abs_err`` is filled in by the caller)."""
+    line (``max_abs_err`` is filled in by the caller) and what the int8
+    serve of phase 12 reuses: the model, its weights, the requests and the
+    bf16 paged engine's results."""
     import numpy as np
 
     from repro_torch import ops
@@ -349,76 +479,14 @@ def serving_phases(gen: torch.Generator, record) -> list:
     # every generated token of both engines against the cache-less torch
     # forward: a near-tie of that row's max (docstring)
     for name, reqs in served.items():
-        exact = total = 0
-        gaps = []  # (largest gap, allowed) per request
-        for i, r in enumerate(reqs):
-            seq = np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)
-            with torch.inference_mode():
-                b, _, _ = T.forward(params, cfg, ctx=ref_ctx,
-                                    tokens=torch.as_tensor(seq[None],
-                                                           device=dev))
-            n, p = len(r.out_tokens), len(r.prompt)
-            rows = b[0, p - 1:p - 1 + n].float()  # the logits each token came from
-            out = torch.as_tensor(r.out_tokens.astype(np.int64), device=dev)
-            gap = (rows.max(-1).values
-                   - rows.gather(1, out[:, None])[:, 0]).max().item()
-            allowed = allowance(b)
-            exact += int((rows.argmax(-1) == out).sum().item())
-            total += n
-            gaps.append((gap, allowed))
-            if not gap <= allowed:
-                fail(f"{name} engine, request {i}: a generated token trails "
-                     f"the torch forward's max logit by {gap}, above "
-                     f"{allowed}")
-            del b, rows
-        worst = max(gaps, key=lambda ga: ga[0] / ga[1])
-        print(json.dumps({"decode_check": name, "tokens": total,
-                          "exact_argmax": exact,
-                          "max_gap_to_row_max": worst[0],
-                          "allowed": worst[1]}), flush=True)
+        decode_check(name, reqs, cfg, params, ref_ctx, allowance)
     torch.cuda.empty_cache()
 
     # where the paged engine's time goes: the same serve again, traced
-    eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
-                 block_size=16, paged=True)
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.serve(reqs)
-        torch.cuda.synchronize()
-        traced = 1e3 * (time.perf_counter() - t0)
-    by_name, by_kind = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.device_time_total / 1e3
-        kind = ("attention kernels" if "flash_kernel" in e.name
-                or "paged_decode_kernel" in e.name else
-                "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
-                else "other aten kernels")
-        for table, key in ((by_name, e.name[:80]), (by_kind, kind)):
-            n, t = table.get(key, (0, 0.0))
-            table[key] = (n + 1, t + ms)
-    busy = sum(t for _, t in by_kind.values())
-    untraced = 1e3 * stats["paged"]["wall_s"]
-    print(json.dumps({
-        "traced": "paged engine, the same 8 requests",
-        "untraced_wall_ms": untraced,
-        "traced_wall_ms": traced,
-        "traced_decode_step_ms_median":
-            1e3 * statistics.median(eng.stats.decode_s),
-        "device_kernel_ms": busy or "not measured",
-        "device_busy_share": busy / untraced if busy else "not measured",
-        "decode_steps": len(eng.stats.decode_s),
-        "by_kind": {k: {"launches": n, "ms": t}
-                    for k, (n, t) in by_kind.items()},
-        "top_kernels": [{"name": k, "launches": n, "ms": t}
-                        for k, (n, t) in sorted(by_name.items(),
-                                                key=lambda kv: -kv[1][1])
-                        [:10]]}), flush=True)
-    del eng, prof
+    trace_serve("paged engine, the same 8 requests",
+                Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
+                       block_size=16, paged=True),
+                prompts, 1e3 * stats["paged"]["wall_s"])
 
     # -- 8. kernel times at the serving shapes ------------------------------
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -527,10 +595,12 @@ def serving_phases(gen: torch.Generator, record) -> list:
                       "measured_words": dec_decode.measured_words,
                       "lower_bound_words": dec_decode.lower_bound,
                       "bound_ratio": dec_decode.bound_ratio}), flush=True)
+    state = {"cfg": cfg, "params": params, "prompts": prompts,
+             "sharing": sharing, "bf16_paged": served["paged"],
+             "bf16_stats": stats["paged"], "ctx": ctx, "ref_ctx": ref_ctx,
+             "allowance": allowance}
     return [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:48",
          "also_replaces": "src/repro/kernels/flash_attention.py:96",
          "launches": serve_launches["flash_attention"], "ms": flash_ms,
          "plain_ms": flash_plain, "bound_ms": flash_bound,
@@ -538,13 +608,305 @@ def serving_phases(gen: torch.Generator, record) -> list:
          "shapes": f"{cfg.name} prefill: B 1, H {H}/{KV}, Lq {Lq}, Lk {Lk}, "
                    f"hd {hd}, bf16, causal + key mask"},
         {"name": "paged_decode", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:257",
          "launches": serve_launches["paged_decode"], "ms": paged_ms,
          "plain_ms": paged_plain, "bound_ms": paged_bound,
          "bound_by": paged_by, "library_ms": None, "ok": True,
          "shapes": f"{cfg.name} decode: B 4, KV {KV}, g {g}, hd {hd}, "
                    f"block 16, w {w}, bf16"},
+    ], state
+
+
+def ptxas(log: str, match: str = "") -> tuple:
+    """(registers per thread, spilling functions) from nvcc's -Xptxas -v
+    report, for the functions whose mangled name contains ``match``."""
+    regs, spills, fn = set(), 0, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        if match not in fn:
+            continue
+        if "Used " in ln:
+            regs.add(int(ln.split("Used ")[1].split()[0]))
+        if "spill" in ln and not ln.strip().startswith("0 bytes"):
+            spills += 1
+    return sorted(regs), spills
+
+
+def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
+    """Phases 9-12 (module docstring): the int8 kernels against their plain
+    versions, the int8 conv path, the int8 GEMMs and the int8 KV serve.
+    ``serve`` is what phase 7 leaves: the model, its weights, its requests
+    and the bf16 paged engine's results. Returns the two int8 kernels'
+    entries of the ``kernels`` line (``max_abs_err`` filled in by the
+    caller)."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.core.conv_model import resnet50_layers
+    from repro_torch.kernels import (KERNELS, conv2d_q, conv2d_q_plain,
+                                     matmul_q, matmul_q_plain)
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.quant import (quantize_conv_operands,
+                                   quantize_matmul_operands)
+    from repro_torch.serving import Engine, Request, kv
+
+    dev = torch.device("cuda")
+    ctx = ExecutionContext(target=H100, backend="cuda")
+
+    def zero_counts():
+        for k in KERNELS.values():
+            k.launches = 0
+
+    # -- 9. int8 kernels against their plain versions -----------------------
+    gen.manual_seed(SEED + 30)
+    conv_cases = [  # (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles): phase 3's
+        (2, 4, 8, 25, 25, 3, 3, 1, 1, (1, 4, 8, 5, 7)),
+        (2, 4, 8, 25, 25, 3, 3, 2, 2, (2, 4, 8, 1, 23)),
+        (2, 4, 8, 25, 25, 3, 3, 2, 1, (1, 4, 8, 23, 4)),
+        (3, 5, 7, 11, 13, 3, 5, 1, 2, None),
+        (4, 3, 32, 20, 20, 7, 7, 2, 2, None),
+        (2, 6, 8, 16, 16, 1, 1, 2, 2, (1, 6, 8, 3, 5)),
+    ]
+    for od in (torch.float32, torch.bfloat16):
+        for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in conv_cases:
+            x = torch.randn((N, cI, H, W), generator=gen, device=dev)
+            w = torch.randn((cO, cI, hF, wF), generator=gen, device=dev)
+            xq, wq, sc = quantize_conv_operands(x, w)
+            got = conv2d_q(xq, wq, sc, (sh, sw), out_dtype=od, tiles=tiles)
+            torch.cuda.synchronize()
+            record("conv2d_q", got, conv2d_q_plain(xq, wq, sc, (sh, sw), od),
+                   f"->{od} {(N, cI, cO, H, W, hF, wF, sh, sw)} "
+                   f"tiles {tiles}")
+        for (m, k, n, tiles) in [(100, 77, 300, None), (130, 129, 257, None),
+                                 (1, 64, 128, None),
+                                 (130, 129, 257, (32, 48, 16)),
+                                 (40, 30, 20, (16, 8, 6))]:
+            a = torch.randn((m, k), generator=gen, device=dev)
+            b = torch.randn((k, n), generator=gen, device=dev)
+            aq, bq, sc = quantize_matmul_operands(a, b)
+            got = matmul_q(aq, bq, sc, out_dtype=od, tiles=tiles)
+            torch.cuda.synchronize()
+            record("matmul_q", got, matmul_q_plain(aq, bq, sc, od),
+                   f"->{od} (m, k, n) {(m, k, n)} tiles {tiles}")
+
+    # -- 10. the int8 conv path ---------------------------------------------
+    layers = resnet50_layers(BATCH)
+    conv_rows = {}
+    zero_counts()
+    for i, (name, s) in enumerate(layers.items()):
+        x, w = layer_inputs(gen, i, s)  # phase 4's bf16 inputs
+        stride = (s.sh, s.sw)
+        bf16 = ops.explain("conv2d", ctx, dtype=x.dtype, spec_args=(x, w),
+                           spec_kw={"stride": stride,
+                                    "out_dtype": torch.float32})
+        xq, wq, sc = quantize_conv_operands(x, w)
+        del x, w
+        d = ops.explain("conv2d_q", ctx, dtype=xq.dtype,
+                        spec_args=(xq, wq, sc),
+                        spec_kw={"stride": stride,
+                                 "out_dtype": torch.bfloat16})
+        before = KERNELS["conv2d_q"].launches
+        out = {}
+
+        def run():
+            out["y"] = ops.conv2d_q(xq, wq, sc, stride, ctx=ctx)
+
+        ms = median_ms(run)
+        launched = KERNELS["conv2d_q"].launches - before
+        if launched <= 0:
+            fail(f"int8 {name}: the conv2d_q kernel was not launched")
+        y = out.pop("y")
+        if y.shape != (s.N, s.c_O, s.h_O, s.w_O) or y.dtype != torch.bfloat16:
+            fail(f"int8 {name}: output {tuple(y.shape)} {y.dtype}")
+        errs = [record("conv2d_q", y[sl],
+                       conv2d_q_plain(xq[sl], wq, sc, stride),
+                       f"int8 {name} images {sl.start}..{sl.stop - 1}")
+                for sl in (slice(0, BLOCK), slice(s.N - BLOCK, s.N))]
+        ratio = d.measured_words / bf16.measured_words
+        if not ratio <= 0.55:
+            fail(f"int8 {name}: {ratio:.3f}x the bf16 conv words, above the "
+                 "reference's 0.55 gate")
+        row = {"int8_layer": name, "backend": "cuda",
+               "tiles": list(d.plan.tiles),
+               "measured_words": d.measured_words,
+               "mixed_precision_bound": d.lower_bound,
+               "bound_ratio": d.bound_ratio,
+               "bf16_conv_words": bf16.measured_words,
+               "int8_over_bf16_words": ratio, "ms": ms,
+               "launches": launched, "max_abs_err": max(errs),
+               "checked_images": [[0, BLOCK - 1], [s.N - BLOCK, s.N - 1]]}
+        conv_rows[name] = row
+        print(json.dumps(row), flush=True)
+        del xq, wq, sc, y
+        torch.cuda.empty_cache()
+    conv_launches = KERNELS["conv2d_q"].launches
+    print(f"int8 conv path launches: conv2d_q {conv_launches}", flush=True)
+    if conv_launches <= 0:
+        fail("the conv2d_q kernel was never launched on the int8 conv path")
+
+    # -- 11. the int8 GEMMs -------------------------------------------------
+    gemms = {"512x384x256": (512, 384, 256),
+             "2048x2048x2048": (2048, 2048, 2048),
+             "conv5_x Im2Col 49000x4608x512": (BATCH * 49, 4608, 512)}
+    mm_rows = {}
+    zero_counts()
+    for label, (m, k, n) in gemms.items():
+        gen.manual_seed(SEED + 40 + m % 97)
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        aq, bq, sc = quantize_matmul_operands(a, b)
+        del a, b
+        d = ops.explain("matmul_q", ctx, dtype=aq.dtype,
+                        spec_args=(aq, bq, sc),
+                        spec_kw={"out_dtype": torch.bfloat16})
+        before = KERNELS["matmul_q"].launches
+        out = {}
+
+        def run():
+            out["y"] = ops.matmul_q(aq, bq, sc, ctx=ctx)
+
+        ms = median_ms(run)
+        if KERNELS["matmul_q"].launches - before <= 0:
+            fail(f"matmul_q {label}: the kernel was not launched")
+        y = out.pop("y")
+        rows_ = min(m, 4096)
+        errs = [record("matmul_q", y[sl], matmul_q_plain(aq[sl], bq, sc),
+                       f"{label} rows {sl.start}..{sl.stop - 1}")
+                for sl in (slice(0, rows_), slice(m - rows_, m))]
+        plain = median_ms(lambda: matmul_q_plain(aq, bq, sc), 0, 1)
+        library = median_ms(lambda: (torch._int_mm(aq, bq).float() * sc).to(
+            torch.bfloat16))
+        ops_ = 2.0 * m * n * k
+        nbytes = m * k + k * n + 2 * m * n + 4 * n
+        bms, by = bound_ms(ops_, nbytes, PEAK_INT8_OPS)
+        row = {"matmul_q": label, "m": m, "k": k, "n": n,
+               "tiles": list(d.plan.tiles), "measured_words": d.measured_words,
+               "mixed_precision_bound": d.lower_bound,
+               "bound_ratio": d.bound_ratio, "ms": ms, "plain_ms": plain,
+               "library_ms": library, "library": "torch._int_mm + scale",
+               "bound_ms": bms, "bound_by": by, "max_abs_err": max(errs),
+               "checked_rows": [[0, rows_ - 1], [m - rows_, m - 1]]}
+        mm_rows[label] = row
+        print(json.dumps(row), flush=True)
+        del aq, bq, sc, y
+        torch.cuda.empty_cache()
+    mm_launches = KERNELS["matmul_q"].launches
+    print(f"int8 GEMM path launches: matmul_q {mm_launches}", flush=True)
+    if mm_launches <= 0:
+        fail("the matmul_q kernel was never launched on the int8 GEMM path")
+
+    # -- 12. int8 KV serving ------------------------------------------------
+    cfg, params = serve["cfg"], serve["params"]
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in serve["prompts"]]
+    eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=serve["ctx"],
+                 block_size=16, paged=True, kv_dtype="int8")
+    torch.cuda.synchronize()
+    zero_counts()
+    with ops.record_dispatch() as log:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {n: KERNELS[n].launches for n in ("flash_attention",
+                                                  "paged_decode")}
+    print(f"int8 KV engine launches: {json.dumps(launched)}", flush=True)
+    if launched["flash_attention"] <= 0:
+        fail("int8 KV engine: the flash_attention kernel was never launched")
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.out_tokens) != 32:
+            fail(f"int8 KV engine: a request finished {r.finish_reason!r} "
+                 f"with {len(r.out_tokens)} tokens, not 'length' with 32")
+    attn = [d for d in log if d.op == "attention"]
+    quant = [d for d in log if d.op == "attention_decode_quant"]
+    if not attn or any(d.chosen != "cuda" for d in attn):
+        fail("int8 KV engine: an attention decision left cuda")
+    if not quant or any(d.requested != "torch" or d.chosen != "torch"
+                        for d in quant):
+        fail("int8 KV engine: an attention_decode_quant decision was not "
+             "torch by request")
+    bf16 = serve["bf16_paged"]
+    if [int(r.out_tokens[0]) for r in reqs] != [int(r.out_tokens[0])
+                                                 for r in bf16]:
+        fail("int8 KV engine: first tokens differ from the bf16 pool's")
+    same = sum(int((a.out_tokens == b.out_tokens).sum())
+               for a, b in zip(reqs, bf16))
+    total = sum(len(r.out_tokens) for r in reqs)
+    check = decode_check("int8 paged", reqs, cfg, params, serve["ref_ctx"],
+                         serve["allowance"])
+    st = eng.stats
+    huge = 10 ** 6  # enough slots that the HBM budget binds
+    gain = (kv.plan_pool_blocks(cfg, 512, huge, 16, target=H100,
+                                quantized=True)
+            / kv.plan_pool_blocks(cfg, 512, huge, 16, target=H100))
+    print(json.dumps({
+        "engine": "paged int8 KV", "requests": len(reqs),
+        "generated_tokens": total, "wall_s": wall, "tok_per_s": total / wall,
+        "prefill_ms_mean": 1e3 * statistics.mean(st.prefill_s),
+        "prefill_ms_median": 1e3 * statistics.median(st.prefill_s),
+        "decode_step_ms_median": 1e3 * statistics.median(st.decode_s),
+        "decode_steps": len(st.decode_s), "num_blocks": eng.num_blocks,
+        "launches": launched, "attention_decisions": len(attn),
+        "attention_decode_quant_decisions": len(quant),
+        "tokens_equal_to_bf16_pool": same / total,
+        "requests_equal_to_bf16_pool": sum(
+            int(np.array_equal(a.out_tokens, b.out_tokens))
+            for a, b in zip(reqs, bf16)),
+        "max_gap_to_row_max": check["max_gap_to_row_max"],
+        "pool_capacity_gain_over_bf16": gain,
+        "bf16_paged_decode_step_ms_median":
+            serve["bf16_stats"]["decode_step_ms_median"]}), flush=True)
+    del eng, reqs
+    # where the int8 pool's decode time goes, beside phase 7's bf16 trace
+    trace_serve("paged int8 KV engine, the same 8 requests",
+                Engine(cfg, params, max_len=512, batch_size=4,
+                       ctx=serve["ctx"], block_size=16, paged=True,
+                       kv_dtype="int8"),
+                serve["prompts"], 1e3 * wall)
+
+    # -- rows 6-7 of the kernel table: plain, library call, bound -----------
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "by": {"bytes": 0.0, "operations": 0.0}}
+    for i, (name, s) in enumerate(layers.items()):
+        x, w = layer_inputs(gen, i, s)
+        xq, wq, sc = quantize_conv_operands(x, w)
+        del x, w
+        torch.cuda.empty_cache()
+        stride = (s.sh, s.sw)
+        plain = median_ms(lambda: conv2d_q_plain(xq, wq, sc, stride), 0, 1)
+        nbytes = xq.numel() + wq.numel() + 2 * s.output_size + 4 * s.c_O
+        bms, by = bound_ms(2.0 * s.G, nbytes, PEAK_INT8_OPS)
+        totals["ms"] += conv_rows[name]["ms"]
+        totals["plain_ms"] += plain
+        totals["bound_ms"] += bms
+        totals["by"][by] += bms
+        print(json.dumps({"kernel_layer": "conv2d_q", "layer": name,
+                          "ms": conv_rows[name]["ms"], "plain_ms": plain,
+                          "library_ms": None, "bound_ms": bms,
+                          "bound_by": by, "gop": 2.0 * s.G / 1e9,
+                          "gbytes": nbytes / 1e9}), flush=True)
+        del xq, wq, sc
+        torch.cuda.empty_cache()
+    mm = {key: sum(r[key] for r in mm_rows.values())
+          for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return [
+        {"name": "conv2d_q", "route": "cuda",
+         "launches": conv_launches, "ms": totals["ms"],
+         "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+         "bound_by": max(totals["by"], key=totals["by"].get),
+         "library_ms": None,
+         "library_note": "none: no PyTorch call convolves int8 on the card",
+         "ok": True,
+         "shapes": "sum over the five ResNet-50 layers at batch 1000, int8 "
+                   "in, bf16 out"},
+        {"name": "matmul_q", "route": "cuda",
+         "launches": mm_launches, "ms": mm["ms"], "plain_ms": mm["plain_ms"],
+         "bound_ms": mm["bound_ms"],
+         "bound_by": max(("bytes", "operations"), key=lambda b: sum(
+             r["bound_ms"] for r in mm_rows.values() if r["bound_by"] == b)),
+         "library_ms": mm["library_ms"], "ok": True,
+         "shapes": "sum over (m, k, n) = " + ", ".join(gemms) + ", int8 in, "
+                   "bf16 out; library torch._int_mm + scale"},
     ]
 
 
@@ -580,12 +942,12 @@ def main() -> None:
     secs = build_all(KERNELS.values())
     print(f"build: {json.dumps(secs)} seconds (parallel nvcc)", flush=True)
     for name, k in KERNELS.items():
-        spills = [ln.strip() for ln in k.build_log.splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
-        regs = sorted({int(ln.split("Used ")[1].split()[0])
-                       for ln in k.build_log.splitlines() if "Used " in ln})
+        # the int8 entries share quant.cu's build: report each one's kernels
+        regs, spills = ptxas(k.build_log, {"conv2d_q": "conv2d_q_kernel",
+                                           "matmul_q": "matmul_q_kernel"}
+                             .get(name, ""))
         print(f"build {name}: registers per thread {regs}; "
-              f"spilling variants {len(spills)}", flush=True)
+              f"spilling variants {spills}", flush=True)
 
     max_err = {name: 0.0 for name in KERNELS}
 
@@ -596,6 +958,7 @@ def main() -> None:
         if not err <= allowed:
             fail(f"{name} {what} disagrees with its plain version")
         max_err[name] = max(max_err[name], err)
+        return err
 
     # -- 3. kernels against their plain versions ----------------------------
     gen.manual_seed(SEED)
@@ -652,20 +1015,11 @@ def main() -> None:
     backends = ("cuda", "im2col")
     ctxs = {be: ExecutionContext(target=H100, backend=be) for be in backends}
 
-    def layer_inputs(i, s):
-        gen.manual_seed(SEED + 1 + i)
-        H = (s.h_O - 1) * s.sh + s.h_F
-        W = (s.w_O - 1) * s.sw + s.w_F
-        x = randn((s.N, s.c_I, H, W), torch.bfloat16)
-        w = randn((s.c_O, s.c_I, s.h_F, s.w_F), torch.bfloat16,
-                  (s.c_I * s.h_F * s.w_F) ** -0.5)
-        return x, w
-
     rows = {}
     for k in KERNELS.values():
         k.launches = 0
     for i, (name, s) in enumerate(layers.items()):
-        x, w = layer_inputs(i, s)
+        x, w = layer_inputs(gen, i, s)
         stride = (s.sh, s.sw)
         kw = {"stride": stride, "out_dtype": torch.float32}
         dec = {be: ops.explain("conv2d", ctxs[be], dtype=x.dtype,
@@ -727,7 +1081,7 @@ def main() -> None:
                   "library_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}}
               for n in KERNELS}
     for i, (name, s) in enumerate(layers.items()):
-        x, w = layer_inputs(i, s)
+        x, w = layer_inputs(gen, i, s)
         stride = (s.sh, s.sw)
         flops = 2.0 * s.G
         conv_bytes = (x.numel() + w.numel()) * 2 + s.output_size * 4
@@ -761,15 +1115,25 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # -- 6.-8. the serving path --------------------------------------------
-    attn_kernels = serving_phases(gen, record)
+    attn_kernels, serve = serving_phases(gen, record)
 
-    # -- 9. summary ---------------------------------------------------------
-    meta = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
-                       "src/repro/kernels/conv2d.py:82"),
-            "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
-                       "src/repro/kernels/matmul.py:41")}
+    # -- 9.-12. the int8 paths ----------------------------------------------
+    quant_kernels = quant_phases(gen, record, serve)
+    del serve
+
+    # -- 13. summary --------------------------------------------------------
+    csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
+    meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
+            "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
+            "flash_attention": (csrc + "flash_attention.cu",
+                                ref + "flash_attention.py:48"),
+            "paged_decode": (csrc + "paged_decode.cu",
+                             ref + "flash_attention.py:257"),
+            "conv2d_q": (csrc + "quant.cu", ref + "quant.py:75"),
+            "matmul_q": (csrc + "quant.cu", ref + "quant.py:324")}
     kernels = []
-    for n, (source, replaces) in meta.items():
+    for n in ("conv2d", "matmul"):
+        source, replaces = meta[n]
         t = totals[n]
         kernels.append({
             "name": n, "route": "cuda", "source": source,
@@ -779,9 +1143,11 @@ def main() -> None:
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"], "ok": True,
             "shapes": "sum over the five ResNet-50 layers at batch 1000"})
-    for k in attn_kernels:
-        k["max_abs_err"] = max_err[k["name"]]
-    kernels += attn_kernels
+    for k in attn_kernels + quant_kernels:
+        source, replaces = meta[k["name"]]
+        k.update(source=source, replaces=replaces,
+                 max_abs_err=max_err[k["name"]])
+    kernels += attn_kernels + quant_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

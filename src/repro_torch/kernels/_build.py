@@ -68,7 +68,7 @@ class CudaKernel:
         if out.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
         self._t0 = time.perf_counter()
         self._tmp = tmp
         return subprocess.Popen(
@@ -109,40 +109,48 @@ class CudaKernel:
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
-    """Build every given kernel's library with one nvcc each, all started
-    together; returns build seconds per source."""
+    """Build every given kernel's library with one nvcc per source (entries
+    that share a source share its build), all started together; returns
+    build seconds per source."""
     kernels = list(kernels)
-    procs: List = [k.start_build() for k in kernels]
-    for k, p in zip(kernels, procs):
+    first: Dict[str, CudaKernel] = {}
+    for k in kernels:
+        first.setdefault(k.source, k)
+    procs: List = [k.start_build() for k in first.values()]
+    for k, p in zip(first.values(), procs):
         k.finish_build(p)
     for k in kernels:
+        built = first[k.source]
+        k.build_seconds, k.build_log = built.build_seconds, built.build_log
         k.fn()
-    return {k.source: k.build_seconds for k in kernels}
+    return {k.source: k.build_seconds for k in first.values()}
 
 
 # ---------------------------------------------------------------------------
 # Launch geometry shared by the kernels' wrappers.
 # ---------------------------------------------------------------------------
 
-MAX_THREADS = 256  # __launch_bounds__ of every kernel in csrc/
-ACC_PER_THREAD = 64  # f32 accumulators a thread holds in registers
+MAX_THREADS = 256  # __launch_bounds__ of the bf16/f32 kernels in csrc/
+MAX_THREADS_Q = 512  # __launch_bounds__ of the int8 kernels (csrc/quant.cu)
+ACC_PER_THREAD = 64  # accumulators a thread holds in registers
 MAX_SMEM_BYTES = 232448  # opt-in dynamic shared memory of one H100 block
 
 
-def micro_tile(rows: int, cols: int, variants: Sequence) -> tuple:
+def micro_tile(rows: int, cols: int, variants: Sequence,
+               max_threads: int = MAX_THREADS) -> tuple:
     """Pick the kernel's compiled micro-tile for a (rows x cols) accumulator
     tile: the first ``(tr, tc)`` of ``variants`` (each tr * tc =
     ACC_PER_THREAD) whose thread grid ceil(rows/tr) x ceil(cols/tc) fits
-    MAX_THREADS. Returns ``(variant, tr, tc, row_groups, col_groups)``;
+    ``max_threads``. Returns ``(variant, tr, tc, row_groups, col_groups)``;
     raises ValueError when the tile holds more accumulators than a CTA's
     registers (a plan made for another target than the H100)."""
     for v, (tr, tc) in enumerate(variants):
         gr, gc = -(-rows // tr), -(-cols // tc)
-        if gr * gc <= MAX_THREADS:
+        if gr * gc <= max_threads:
             return v, tr, tc, gr, gc
     raise ValueError(
         f"a {rows} x {cols} accumulator tile does not fit one CTA's "
-        f"{MAX_THREADS} x {ACC_PER_THREAD} f32 registers; plan for the H100 "
+        f"{max_threads} x {ACC_PER_THREAD} registers; plan for the H100 "
         "target")
 
 

@@ -15,6 +15,7 @@ copy of every layer's cache per step.
 
 from __future__ import annotations
 
+import dataclasses
 import numbers
 from typing import Optional, Tuple
 
@@ -168,7 +169,11 @@ def attention_block(
     shared ``(num_blocks, KV, block_size, hd)`` k/v pool, row i's keys live in
     blocks ``block_tables[i]``, and the step is decode-only (L == 1). The new
     K/V land in physical block ``tables[i, pos // bs]`` at offset ``pos % bs``;
-    dead rows (tables all zero) write reserved garbage block 0.
+    dead rows (tables all zero) write reserved garbage block 0. A 4-tuple
+    ``(kp, ks, vp, vs)`` is the int8 pool: the new K/V rows are quantized
+    per (row, kv head) over hd (:func:`_quantize_kv_row`), codes and scales
+    land together, and the step reads the pool through
+    ``ops.attention_decode_quant``.
 
     A scalar ``cache_index`` writes all rows at one offset (lockstep prefill)
     and attends with a scalar tensor ``q_offset`` (``dynamic_q_offset``); a
@@ -205,17 +210,28 @@ def attention_block(
         if L != 1:
             raise ValueError(
                 f"paged attention is decode-only (L == 1), got L={L}")
-        if len(cache) != 2:
-            raise NotImplementedError(
-                "the int8 KV pool comes with the int8 slice (ROADMAP queue "
-                "1, item 8)")
-        kp, vp = cache
+        quantized = len(cache) == 4  # (kp, ks, vp, vs): int8 pool + scales
+        kp, vp = (cache[0], cache[2]) if quantized else cache
         bs = kp.shape[2]
         pos = (rows if rows is not None
                else torch.full((B,), start, dtype=torch.int32,
                                device=x.device)).long()
         blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
         off = pos % bs
+        if quantized:
+            ks, vs = cache[1], cache[3]
+            kp[blk, :, off], ks[blk, :, off] = _quantize_kv_row(k[:, :, 0, :])
+            vp[blk, :, off], vs[blk, :, off] = _quantize_kv_row(v[:, :, 0, :])
+            # The reference registers the int8-pool decode on xla only
+            # (repro/ops/registry.py:407) and has no Pallas kernel for it;
+            # the port registers it on torch only and asks for that backend
+            # here, so the card never looks for a cuda entry.
+            ctx = ctx if ctx is not None else ops.default_context()
+            o = ops.attention_decode_quant(
+                q.to(cd), kp, ks, vp, vs, block_tables,
+                (pos + 1).to(torch.int32),
+                ctx=dataclasses.replace(ctx, backend="torch"))
+            return project_out(o), (kp, ks, vp, vs)
         kp[blk, :, off] = k[:, :, 0, :].to(kp.dtype)
         vp[blk, :, off] = v[:, :, 0, :].to(vp.dtype)
         o = ops.attention_decode(q.to(cd), kp, vp, block_tables,
@@ -252,6 +268,21 @@ def attention_block(
     o = ops.attention(q, k_att, v_att, causal=cfg.causal, q_offset=q_offset,
                       key_mask=key_mask, ctx=ctx)
     return project_out(o), new_cache
+
+
+def _quantize_kv_row(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of one decode step's (B, KV, hd) k or v
+    row, one scale per (row, kv_head) reduced over hd — the granularity the
+    quantized pool's (num_blocks, KV, bs) scale leaves store. All-zero rows
+    get scale 1.0 (quantize to 0) so dequantization never divides by
+    zero."""
+    qmax = 127.0
+    rf = r.float()
+    amax = rf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(rf / scale[..., None]), -qmax,
+                    qmax).to(torch.int8)
+    return q, scale
 
 
 def _expand_key_mask(attn_mask, start: Optional[int], rows, L: int, Lk: int,

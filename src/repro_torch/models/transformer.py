@@ -139,15 +139,25 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     KV, block_size, hd)`` key pool and value pool (stacked to (repeats, ...)
     like ``init_cache``). Physical block 0 is the reserved garbage block
     (``serving.kv.GARBAGE_BLOCK``): dead batch rows point their tables at
-    it. ``quantized=True`` (the int8 pool) waits for the int8 slice."""
+    it.
+
+    ``quantized=True`` stores the pools as int8 plus per-(block, kv_head,
+    position) f32 scale leaves ``ks``/``vs`` of shape (repeats, num_blocks,
+    KV, block_size) — (0.25 + 1/hd) words per cached element instead of
+    bf16's 0.5, which is what roughly doubles ``serving.kv.plan_pool_blocks``'s
+    block capacity from the same HBM budget. Scales start at 1.0 (the
+    all-zero-row convention of ``quantize_symmetric``)."""
     if set(cfg.pattern) != {"attn"}:
         raise ValueError(
             f"paged cache requires a pure-attention pattern, got {cfg.pattern}")
-    if quantized:
-        raise NotImplementedError(
-            "the int8 KV pool comes with the int8 slice (ROADMAP queue 1, "
-            "item 8)")
     shape = (cfg.repeats, num_blocks, cfg.n_kv_heads, block_size, cfg.hd)
+    if quantized:
+        return {f"b{i}": {
+            "kp": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.ones(shape[:4], dtype=torch.float32, device=device),
+            "vp": torch.zeros(shape, dtype=torch.int8, device=device),
+            "vs": torch.ones(shape[:4], dtype=torch.float32, device=device)}
+            for i in range(len(cfg.pattern))}
     return {f"b{i}": {"kp": torch.zeros(shape, dtype=dtype, device=device),
                       "vp": torch.zeros(shape, dtype=dtype, device=device)}
             for i in range(len(cfg.pattern))}
@@ -216,7 +226,8 @@ def hidden_forward(
 
     A ``block_tables`` tensor marks ``cache`` as a paged pool
     (``init_paged_cache`` layout): decode-only, one query per row, keys
-    read through the table by the paged decode kernel. ``cache`` is updated
+    read through the table by the paged decode kernel (bf16 pool) or the
+    int8-pool decode (``quantized=True`` pool). ``cache`` is updated
     in place and returned.
 
     ``cache_index`` may be a scalar (all rows at one depth: lockstep
@@ -240,8 +251,9 @@ def hidden_forward(
         paged = bc is not None and "kp" in bc
         layer_cache = None
         if bc is not None:
-            layer_cache = ((bc["kp"][r], bc["vp"][r]) if paged
-                           else (bc["k"][r], bc["v"][r]))
+            names = (("kp", "ks", "vp", "vs") if "ks" in bc
+                     else ("kp", "vp") if paged else ("k", "v"))
+            layer_cache = tuple(bc[n][r] for n in names)
         out, _ = attention_block(blk.core, h, cfg, positions,
                                  cache=layer_cache, cache_index=cache_index,
                                  ctx=ctx, attn_mask=attn_mask,

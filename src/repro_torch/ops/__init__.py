@@ -1,6 +1,7 @@
 """``repro_torch.ops`` — backend-registry op dispatch (ExecutionContext ->
 Backend -> kernel), the counterpart of ``repro.ops`` for conv2d, matmul,
-attention and attention_decode.
+attention, attention_decode and the int8 ops conv2d_q, matmul_q and
+attention_decode_quant.
 
     from repro_torch import ops
     from repro_torch.ops import ExecutionContext
@@ -30,11 +31,14 @@ from .dispatch import (  # noqa: F401
     DispatchDecision,
     attention,
     attention_decode,
+    attention_decode_quant,
     attention_needs,
     conv2d,
+    conv2d_q,
     dispatch_call,
     explain,
     matmul,
+    matmul_q,
     record_dispatch,
     resolve,
 )

@@ -259,6 +259,36 @@ def conv2d(x, w, stride=(1, 1), ctx: Optional[ExecutionContext] = None,
                                   "out_dtype": out_dtype})
 
 
+def matmul_q(a, b, scale, ctx: Optional[ExecutionContext] = None,
+             out_dtype=None):
+    """Quantized GEMM: ``a``/``b`` int8 (from
+    ``repro_torch.quant.quantize_matmul_operands``), ``scale`` the folded
+    (1, n) f32 per-column dequant scales. The operands stay int8 into shared
+    memory; the accumulator is scaled once at the store. ``out_dtype``
+    defaults to bf16 (``repro_torch.quant.INT8_SPEC``), not the context
+    accumulator: the narrower store is half of what moves the measured
+    words."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("matmul_q", ctx, a, b, scale)
+    out_dtype = out_dtype or torch.bfloat16
+    return dispatch_call("matmul_q", ctx, a.dtype, (), (a, b, scale),
+                         spec_kw={"out_dtype": out_dtype})
+
+
+def conv2d_q(x, w, scale, stride=(1, 1),
+             ctx: Optional[ExecutionContext] = None, out_dtype=None):
+    """Quantized direct conv2d (VALID padding): int8 ``x``/``w`` plus the
+    folded (1, c_O) f32 scale from
+    ``repro_torch.quant.quantize_conv_operands``. ``out_dtype`` defaults to
+    bf16 (see :func:`matmul_q`)."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("conv2d_q", ctx, x, w, scale)
+    out_dtype = out_dtype or torch.bfloat16
+    return dispatch_call("conv2d_q", ctx, x.dtype, (), (x, w, scale),
+                         spec_kw={"stride": tuple(stride),
+                                  "out_dtype": out_dtype})
+
+
 def attention_needs(q_offset=0, key_mask=None) -> Tuple[str, ...]:
     """Required capability flags of one attention call (shared with tests):
     a tensor ``q_offset`` needs ``dynamic_q_offset`` (a scalar) or
@@ -302,3 +332,18 @@ def attention_decode(q, kp, vp, tables, lengths,
     _check_device("attention_decode", ctx, q, kp, vp)
     return dispatch_call("attention_decode", ctx, q.dtype, (),
                          (q, kp, vp, tables, lengths))
+
+
+def attention_decode_quant(q, kp, ks, vp, vs, tables, lengths,
+                           ctx: Optional[ExecutionContext] = None):
+    """One paged decode step against an int8-quantized KV pool.
+
+    ``kp``/``vp`` are the (num_blocks, KV, block_size, hd) int8 pools and
+    ``ks``/``vs`` their (num_blocks, KV, block_size) f32 per-(block, head,
+    position) scales (written together by the engine's quantizing insert).
+    Registered on the ``torch`` backend only, as the reference registers it
+    on ``xla`` only: callers on the card request ``backend="torch"``."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("attention_decode_quant", ctx, q, kp, ks, vp, vs)
+    return dispatch_call("attention_decode_quant", ctx, q.dtype, (),
+                         (q, kp, ks, vp, vs, tables, lengths))

@@ -1,6 +1,7 @@
 """Backend registry: named backends, per-op entries, declared capabilities
-(the counterpart of ``repro.ops.registry`` for conv2d, matmul, attention and
-attention_decode).
+(the counterpart of ``repro.ops.registry`` for conv2d, matmul, attention,
+attention_decode and the int8 ops conv2d_q, matmul_q and
+attention_decode_quant).
 
 Each entry's :class:`OpCapabilities` declares its accepted dtypes and the
 optional call features (``ATTN_FLAGS``) it serves. Three backends ship:
@@ -11,6 +12,9 @@ optional call features (``ATTN_FLAGS``) it serves. Three backends ship:
                  the reference's ``xla``.
   * ``cuda``   - the hand-written CUDA kernels, LP-tiled. Plays the role of
                  ``pallas``. Its entries never call aten for their own work.
+                 Like ``pallas``, it has no ``attention_decode_quant``: the
+                 int8-pool decode is registered on ``torch`` only, and the
+                 model layer requests that backend by name.
                  Its attention entry declares all three flags: unlike the
                  Pallas kernel, the CUDA kernel takes the key mask of padded
                  prefill itself.
@@ -52,6 +56,11 @@ from repro_torch.kernels.flash_attention import (NEG_INF, attention_blocks,
 from repro_torch.kernels.im2col import conv2d_im2col, im2col_hbm_words
 from repro_torch.kernels.matmul import (_matmul_spec, matmul as _matmul_cuda,
                                         matmul_hbm_words)
+from repro_torch.kernels.quant import (_conv_spec_q, _matmul_spec_q,
+                                       conv2d_q as _conv2d_q_cuda,
+                                       conv2d_q_hbm_words,
+                                       matmul_q as _matmul_q_cuda,
+                                       matmul_q_hbm_words)
 from repro_torch.plan import AttentionSpec
 
 # Capability flags a call can require (derived per call in dispatch.*):
@@ -70,10 +79,12 @@ def dtype_name(dtype) -> str:
 class OpCapabilities:
     """What one backend's op entry can serve: its accepted input dtypes
     ("*" = anything) and the optional call features (``flags``) it
-    supports."""
+    supports. An entry that reads narrow (int8) operands declares the dtype
+    it accumulates in (``accum_dtype``), as the reference's do."""
 
     dtypes: Tuple[str, ...] = ("float32", "bfloat16")
     flags: FrozenSet[str] = frozenset()
+    accum_dtype: Optional[str] = None
 
     def missing(self, dtype: Optional[str] = None,
                 needs: Tuple[str, ...] = ()) -> Tuple[str, ...]:
@@ -206,6 +217,82 @@ def _torch_attention_decode(ctx, plan, q, kp, vp, tables, lengths):
     return paged_decode_plain(q, kp, vp, tables, lengths)
 
 
+# -- quantized oracles: integer-exact math in f32, scale applied once -------
+
+def _torch_conv2d_q(ctx, plan, x, w, scale, stride=(1, 1),
+                    out_dtype=torch.bfloat16):
+    out = ref.conv2d_ref(x.float(), w.float(), stride=stride,
+                         out_dtype=torch.float32)
+    return (out * scale[0][None, :, None, None]).to(out_dtype)
+
+
+def _torch_matmul_q(ctx, plan, a, b, scale, out_dtype=torch.bfloat16):
+    out = ref.matmul_ref(a.float(), b.float(), out_dtype=torch.float32)
+    return (out * scale).to(out_dtype)
+
+
+def _torch_attention_decode_quant(ctx, plan, q, kp, ks, vp, vs, tables,
+                                  lengths):
+    """Paged decode against an int8-quantized pool (the counterpart of
+    ``xla_attention_decode_quant``): ``kp``/``vp`` are (num_blocks, KV, bs,
+    hd) int8 and ``ks``/``vs`` the matching (num_blocks, KV, bs) f32
+    per-(block, head, position) scales written by the engine's quantizing
+    insert. The pool is dequantized in f32; the attention math is then
+    exactly the gathered paged decode of :func:`paged_decode_plain`."""
+    kf = kp.float() * ks[..., None]
+    vf = vp.float() * vs[..., None]
+    return paged_decode_plain(q, kf, vf, tables, lengths)
+
+
+# -- plan specs from call tensors (shared by the instrumented entries) ------
+
+def _matmul_plan_spec(a, b, **kw):
+    m, k = a.shape
+    n = b.shape[1]
+    return _matmul_spec(m, n, k, a.dtype.itemsize * 8)
+
+
+def _conv2d_plan_spec(x, w, stride=(1, 1), **kw):
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    return _conv_spec(N, c_I, c_O, (H - h_F) // sh + 1, (W - w_F) // sw + 1,
+                      h_F, w_F, sh, sw, x.dtype.itemsize * 8)
+
+
+def _conv2d_q_plan_spec(x, w, scale=None, stride=(1, 1),
+                        out_dtype=torch.bfloat16, **kw):
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    return _conv_spec_q(N, c_I, c_O, (H - h_F) // sh + 1,
+                        (W - w_F) // sw + 1, h_F, w_F, sh, sw,
+                        x.dtype, w.dtype, out_dtype)
+
+
+def _matmul_q_plan_spec(a, b, scale=None, out_dtype=torch.bfloat16, **kw):
+    m, k = a.shape
+    n = b.shape[1]
+    return _matmul_spec_q(m, n, k, a.dtype, b.dtype, out_dtype)
+
+
+def _attention_decode_quant_plan_spec(q, kp, ks, vp, vs, tables, lengths,
+                                      **kw):
+    """The quantized pool stream priced at its stored width: p_F counts the
+    int8 block bytes plus the f32 scale per (head, position) row —
+    (0.25 * hd + 1) / hd words per cached element."""
+    B, H, _, hd = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    w = tables.shape[1]
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = (kp.dtype.itemsize / 4.0) + 1.0 / hd
+    return AttentionSpec(B=B, H=H, KV=KV, Lq=1, Lk=w * bs, hd=hd,
+                         prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_io))
+
+
+_INT8 = OpCapabilities(dtypes=("int8",), accum_dtype="float32")
+_ANY_F32_ACC = OpCapabilities(dtypes=("*",), accum_dtype="float32")
+
 register_backend(Backend(
     name="torch",
     ops={
@@ -216,6 +303,13 @@ register_backend(Backend(
             OpCapabilities(dtypes=("*",), flags=frozenset(ATTN_FLAGS))),
         "attention_decode": OpEntry(_torch_attention_decode,
                                     OpCapabilities(dtypes=("*",))),
+        "attention_decode_quant": OpEntry(
+            _torch_attention_decode_quant, _ANY_F32_ACC,
+            spec_fn=_attention_decode_quant_plan_spec),
+        "conv2d_q": OpEntry(_torch_conv2d_q, _ANY_F32_ACC,
+                            spec_fn=_conv2d_q_plan_spec),
+        "matmul_q": OpEntry(_torch_matmul_q, _ANY_F32_ACC,
+                            spec_fn=_matmul_q_plan_spec),
     },
 ))
 
@@ -252,22 +346,6 @@ def _with_aten_grad(kernel_fn: Callable, ref_fn: Callable, *tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _KernelWithAtenGrad.apply(kernel_fn, ref_fn, *tensors)
     return kernel_fn(*tensors)
-
-
-# -- plan specs from call tensors (shared by the instrumented entries) ------
-
-def _matmul_plan_spec(a, b, **kw):
-    m, k = a.shape
-    n = b.shape[1]
-    return _matmul_spec(m, n, k, a.dtype.itemsize * 8)
-
-
-def _conv2d_plan_spec(x, w, stride=(1, 1), **kw):
-    N, c_I, H, W = x.shape
-    c_O, _, h_F, w_F = w.shape
-    sh, sw = stride
-    return _conv_spec(N, c_I, c_O, (H - h_F) // sh + 1, (W - w_F) // sw + 1,
-                      h_F, w_F, sh, sw, x.dtype.itemsize * 8)
 
 
 def _attention_plan_spec(q, k, v, **kw):
@@ -380,6 +458,30 @@ def _cuda_conv2d_words(ctx, plan, x, w, stride=(1, 1), out_dtype=None, **kw):
                             out_dtype=out_dtype or ctx.acc_dtype)
 
 
+def _cuda_conv2d_q(ctx, plan, x, w, scale, stride=(1, 1),
+                   out_dtype=torch.bfloat16):
+    """No autograd wrapper: the quantized entries are the inference path,
+    as in the reference (int8 operands carry no meaningful gradient)."""
+    return _conv2d_q_cuda(x, w, scale, stride=stride, out_dtype=out_dtype,
+                          plan=plan)
+
+
+def _cuda_matmul_q(ctx, plan, a, b, scale, out_dtype=torch.bfloat16):
+    return _matmul_q_cuda(a, b, scale, out_dtype=out_dtype, plan=plan)
+
+
+def _cuda_conv2d_q_words(ctx, plan, x, w, scale=None, stride=(1, 1),
+                         out_dtype=torch.bfloat16, **kw):
+    return conv2d_q_hbm_words(x, w, scale, stride=stride, plan=plan,
+                              target=ctx.target, out_dtype=out_dtype)
+
+
+def _cuda_matmul_q_words(ctx, plan, a, b, scale=None,
+                         out_dtype=torch.bfloat16, **kw):
+    return matmul_q_hbm_words(a, b, scale, plan=plan, target=ctx.target,
+                              out_dtype=out_dtype)
+
+
 register_backend(Backend(
     name="cuda",
     fallback="torch",
@@ -394,6 +496,13 @@ register_backend(Backend(
         "attention_decode": OpEntry(
             _cuda_attention_decode, spec_fn=_attention_decode_plan_spec,
             words_fn=_cuda_attention_decode_words),
+        # int8 streams only (f32/bf16 callers use the full-precision ops)
+        "conv2d_q": OpEntry(_cuda_conv2d_q, _INT8,
+                            spec_fn=_conv2d_q_plan_spec,
+                            words_fn=_cuda_conv2d_q_words),
+        "matmul_q": OpEntry(_cuda_matmul_q, _INT8,
+                            spec_fn=_matmul_q_plan_spec,
+                            words_fn=_cuda_matmul_q_words),
     },
 ))
 

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import _quantize_kv_row
 from repro_torch.models.config import ModelConfig
 from repro_torch.ops import ExecutionContext
 from repro_torch.plan import H100, HardwareTarget
@@ -145,8 +146,14 @@ class Engine:
     budget up front (shared prompt-prefix blocks counted once, refcounted),
     pool exhaustion becomes backpressure, and the decode step reads K/V
     straight out of the pool through per-row block tables
-    (``ops.attention_decode``). ``kv_dtype="int8"`` waits for the int8
-    slice."""
+    (``ops.attention_decode``).
+
+    ``kv_dtype="int8"`` (paged only) quantizes the pool: int8 blocks plus
+    per-(block, kv_head, position) f32 scales, so the same HBM budget holds
+    about twice the blocks (``kv.plan_pool_blocks(quantized=True)``), and
+    each decode step reads the pool through ``ops.attention_decode_quant``.
+    Prefill still runs in the compute dtype into a contiguous row; its
+    landing in the pool quantizes it."""
 
     def __init__(self, cfg: ModelConfig, params: T.Transformer,
                  max_len: int = 512, batch_size: Optional[int] = None,
@@ -189,10 +196,10 @@ class Engine:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
-        if kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8' comes with the int8 slice (ROADMAP queue "
-                "1, item 8)")
+        if kv_dtype == "int8" and not paged:
+            raise ValueError("kv_dtype='int8' requires the paged KV pool "
+                             "(the quantized layout lives on pool blocks)")
+        self.kv_quant = kv_dtype == "int8"
         if batch_size is None:
             batch_size = plan_batch_size(
                 cfg, max_len, self.target,
@@ -200,7 +207,8 @@ class Engine:
         self.batch_size = batch_size
         if paged and num_blocks is None:
             num_blocks = kv.plan_pool_blocks(cfg, max_len, batch_size,
-                                             block_size, target=self.target)
+                                             block_size, target=self.target,
+                                             quantized=self.kv_quant)
         self.num_blocks = num_blocks
         if prefill_bucket is None:
             prefill_bucket = 16 if attn_only else 1
@@ -229,19 +237,27 @@ class Engine:
 
     def _paged_insert(self, pool, row, blocks: List[int]) -> None:
         """Land the first ``len(blocks)`` blocks of a batch-1 contiguous
-        cache row in the pool's physical ``blocks``, in place."""
+        cache row in the pool's physical ``blocks``, in place. For the int8
+        pool each (kv_head, position) row is quantized symmetrically over hd
+        (the decode step's ``layers._quantize_kv_row`` write path, the
+        reference's ``scatter_q``) and its codes and f32 scale land
+        together."""
         bs = self.block_size
         nt = len(blocks)
         ids = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
         for u, leaves in pool.items():
-            for src, dst in (("k", "kp"), ("v", "vp")):
+            for src, dst, sdst in (("k", "kp", "ks"), ("v", "vp", "vs")):
                 r = row[u][src]  # (R, 1, KV, max_len, hd)
                 R, _, KV, L, hd = r.shape
                 rb = r[:, 0, :, :min(nt * bs, L)]
                 if nt * bs > L:  # max_len below a whole block: zero-pad
                     rb = torch.nn.functional.pad(rb, (0, 0, 0, nt * bs - L))
                 rb = rb.reshape(R, KV, nt, bs, hd).transpose(1, 2)
-                leaves[dst][:, ids] = rb.to(leaves[dst].dtype)
+                if self.kv_quant:
+                    leaves[dst][:, ids], leaves[sdst][:, ids] = \
+                        _quantize_kv_row(rb)
+                else:
+                    leaves[dst][:, ids] = rb.to(leaves[dst].dtype)
 
     def _sample(self, logits: torch.Tensor, seeds: np.ndarray,
                 steps: np.ndarray, temps: np.ndarray):
@@ -289,7 +305,7 @@ class Engine:
         dev = self.device
         if self.paged:
             cache = T.init_paged_cache(self.cfg, self.num_blocks, bs,
-                                       device=dev)
+                                       quantized=self.kv_quant, device=dev)
             alloc = kv.BlockAllocator(self.num_blocks)
             tables = np.zeros((B, -(-self.max_len // bs)), np.int32)
             slot_blocks: List[List[int]] = [[] for _ in range(B)]
@@ -379,6 +395,7 @@ class Engine:
             written to the cache (``prompt + generated[:pos - plen]``)."""
             new_alloc = kv.BlockAllocator(self.num_blocks)
             new_cache = T.init_paged_cache(self.cfg, self.num_blocks, bs,
+                                           quantized=self.kv_quant,
                                            device=dev)
             tables_dev.clear()
             for s in range(B):

@@ -223,8 +223,15 @@ def test_cache_helpers(arch):
     paged = T.init_paged_cache(tcfg, 5, 4, device="cpu")
     assert paged["b0"]["kp"].shape == (tcfg.repeats, 5, tcfg.n_kv_heads, 4,
                                        tcfg.hd)
-    with pytest.raises(NotImplementedError, match="int8"):
-        T.init_paged_cache(tcfg, 5, 4, quantized=True, device="cpu")
+    qpool = T.init_paged_cache(tcfg, 5, 4, quantized=True, device="cpu")
+    jpool = JT.init_paged_cache(jcfg, 5, 4, quantized=True)
+    assert sorted(qpool["b0"]) == sorted(jpool["b0"]) == ["kp", "ks", "vp",
+                                                          "vs"]
+    for name, leaf in qpool["b0"].items():
+        want = np.asarray(jpool["b0"][name])
+        assert leaf.shape == want.shape and str(leaf.dtype)[6:] == \
+            str(want.dtype)
+        np.testing.assert_array_equal(leaf.numpy(), want)
 
 
 def test_compute_params_computes_the_same():

@@ -1,7 +1,8 @@
 """repro_torch.serving against repro.serving: the block allocator on the
 schedules of tests/test_kv.py, pool and slot sizing equal to the reference,
-greedy tokens equal to the reference's Engine (paged and contiguous) with
-the reference's parameters carried over, and the port's own engine rules:
+greedy tokens equal to the reference's Engine (paged and contiguous, bf16
+and int8 pools) with the reference's parameters carried over, and the port's
+own engine rules:
 paged output equal to contiguous output, backpressure, stop / length /
 cache_limit accounting, and batch-invariant sampling.
 
@@ -311,10 +312,136 @@ def test_engine_rules():
         eng.serve([Request(prompt=P1, max_new_tokens=0)])
     with pytest.raises(ValueError):
         eng.serve([Request(prompt=P2, rng_seed=2**35)])
-    with pytest.raises(NotImplementedError, match="int8"):
-        _engine(tcfg, model, kv_dtype="int8")
+    with pytest.raises(ValueError, match="paged"):
+        _engine(tcfg, model, paged=False, kv_dtype="int8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _engine(tcfg, model, kv_dtype="fp4")
     with pytest.raises(ValueError, match="context runs on"):
         Engine(tcfg, model, ctx=_CudaCtx())
+
+
+# -- the int8 KV pool ---------------------------------------------------------
+
+def test_int8_pool_greedy_tokens_equal_reference_and_bf16():
+    """The int8 pool's greedy tokens equal the reference's int8 engine on
+    the workload with mid-flight admission and a shared prefix, and equal
+    the port's own bf16 pool on the reference's quality-gate prompts
+    (tests/test_quant.py)."""
+    jcfg, jparams, tcfg, model = _models()
+    prompts = _workload()
+    want = [JRequest(prompt=p, max_new_tokens=7) for p in prompts]
+    JEngine(jcfg, jparams, max_len=64, batch_size=3, paged=True,
+            kv_dtype="int8").serve(want)
+    got = [Request(prompt=p, max_new_tokens=7) for p in prompts]
+    eng = _engine(tcfg, model, max_len=64, batch_size=3, kv_dtype="int8")
+    assert eng.paged and eng.kv_quant
+    eng.serve(got)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.out_tokens, a.out_tokens)
+        assert b.finish_reason == a.finish_reason == "length"
+
+    def run(kv_dtype):
+        reqs = [Request(prompt=p, max_new_tokens=8) for p in (P1, P2, P3)]
+        _engine(tcfg, model, max_len=64, batch_size=3, paged=True,
+                kv_dtype=kv_dtype).serve(reqs)
+        return [list(r.out_tokens) for r in reqs]
+
+    assert run("int8") == run("bf16")
+
+
+def test_int8_pool_sizing_equal_reference():
+    for arch in ("stablelm_1_6b", "qwen2_5_3b"):
+        tcfg, jcfg = tc.get_smoke(arch), jc.get_smoke(arch)
+        assert kv.block_words(tcfg, 16, quantized=True) == \
+            jkv.block_words(jcfg, 16, quantized=True)
+        for name in ("H100", "TPU_V5E"):
+            tt = getattr(tp, name)
+            jt = jp.HardwareTarget.from_dict(tt.to_dict())
+            assert kv.plan_pool_blocks(tcfg, 512, 4, 16, target=tt,
+                                       quantized=True) == \
+                jkv.plan_pool_blocks(jcfg, 512, 4, 16, target=jt,
+                                     quantized=True)
+    _, _, tcfg, model = _models()
+    eng = _engine(tcfg, model, max_len=64, batch_size=3, kv_dtype="int8")
+    assert eng.num_blocks == kv.plan_pool_blocks(
+        tcfg, 64, 3, eng.block_size, target=eng.target, quantized=True)
+
+
+def test_quantize_kv_row_and_insert_equal_reference():
+    """One decode step's row quantizer and the admission's quantizing
+    insert (the reference's scatter_q) give equal codes and scales."""
+    from repro.models import layers as JL
+    from repro.models import transformer as JT_
+    from repro.serving.engine import _make_paged_steps
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(2)
+    r = (rng.standard_normal((3, 2, 16)) * 4).astype(np.float32)
+    r[1, 0] = 0.0  # an all-zero row: scale 1.0
+    jq_, js = JL._quantize_kv_row(jax.numpy.asarray(r))
+    tq_, ts = TL._quantize_kv_row(torch.from_numpy(r))
+    np.testing.assert_array_equal(tq_.numpy(), np.asarray(jq_))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+    jcfg, _, tcfg, model = _models()
+    max_len, bs, blocks = 40, 16, [5, 2, 7]  # 40 tokens -> 3 blocks, padded
+    jrow = JT_.init_cache(jcfg, 1, max_len)
+    jrow = jax.tree.map(lambda a: jax.numpy.asarray(
+        rng.standard_normal(a.shape).astype(np.float32), a.dtype), jrow)
+    insert, _ = _make_paged_steps(jcfg, max_len, None, bs, quantized=True)
+    jblocks = jax.numpy.asarray(blocks, jax.numpy.int32)
+    with jax.disable_jit():  # the reference's own arithmetic (see below)
+        want = insert(JT_.init_paged_cache(jcfg, 9, bs, quantized=True),
+                      jrow, jblocks)
+    eng = _engine(tcfg, model, max_len=max_len, batch_size=1, block_size=bs,
+                  num_blocks=9, kv_dtype="int8")
+    pool = T.init_paged_cache(tcfg, 9, bs, quantized=True, device="cpu")
+    row = {u: {n: torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16) for n, a in leaves.items()}
+        for u, leaves in jrow.items()}
+    eng._paged_insert(pool, row, blocks)
+    for u, leaves in pool.items():
+        for n, t in leaves.items():
+            np.testing.assert_array_equal(t.numpy(), np.asarray(want[u][n]))
+
+    # Compiled, the reference's insert computes the scale as
+    # amax * f32(1/127): XLA rewrites the division by the constant 127. The
+    # port divides, as the reference's source says (and its eager run
+    # does); the scales then differ by at most one ulp, here with equal
+    # codes (ROADMAP queue 3, known reference faults).
+    jitted = insert(JT_.init_paged_cache(jcfg, 9, bs, quantized=True), jrow,
+                    jblocks)
+    for u, leaves in pool.items():
+        for n in ("kp", "vp"):
+            np.testing.assert_array_equal(leaves[n].numpy(),
+                                          np.asarray(jitted[u][n]))
+        for n, src in (("ks", "k"), ("vs", "v")):
+            amax = np.abs(np.asarray(jrow[u][src], np.float32)[:, 0]).max(-1)
+            amax = np.pad(amax, ((0, 0), (0, 0), (0, 3 * bs - max_len)))
+            amax = amax.reshape(amax.shape[0], -1, 3, bs).transpose(0, 2, 1, 3)
+            np.testing.assert_array_equal(
+                np.asarray(jitted[u][n])[:, blocks],
+                np.where(amax > 0, amax * np.float32(1 / 127), 1.0))
+            np.testing.assert_array_max_ulp(leaves[n].numpy(),
+                                            np.asarray(jitted[u][n]), 1)
+
+
+def test_int8_decode_dispatches_torch_by_request():
+    """The int8-pool decode runs the torch entry because the layer asks for
+    it (requested == chosen, no fallback), while prefill stays on cuda."""
+    _, _, tcfg, model = _models()
+    reqs = [Request(prompt=p, max_new_tokens=4) for p in (P1, P3)]
+    with tops.record_dispatch() as log:
+        _engine(tcfg, model, max_len=32, batch_size=2,
+                kv_dtype="int8").serve(reqs)
+    quant = [d for d in log if d.op == "attention_decode_quant"]
+    assert quant and all(d.requested == d.chosen == "torch"
+                         and not d.fell_back for d in quant)
+    assert quant[0].plan is not None and quant[0].plan.op.prec.p_F == \
+        0.25 + 1.0 / tcfg.hd
+    assert {d.chosen for d in log if d.op == "attention"} == {"cuda"}
+    assert not any(d.op == "attention_decode" for d in log)
 
 
 class _CudaCtx:
