@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Three paths. The conv path is the paper's experiment: the five ResNet-50
+Four paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -14,10 +14,16 @@ paged-decode kernels. The int8 path is the paper's mixed-precision claim:
 the same five layers quantized and run through ``ops.conv2d_q`` (int8 in,
 bf16 out), ``ops.matmul_q`` at the reference's GEMM shapes and conv5_x's
 Im2Col GEMM, and the same model served from the int8 paged KV pool
-(``Engine(kv_dtype="int8")``). Phases, each fatal on failure:
+(``Engine(kv_dtype="int8")``). The hybrid path serves Jamba-1.5 at its
+published widths (d_model 8192, 64 query heads over 8 KV heads, hd 128, d_ff
+24576, d_inner 16384, state 16, conv kernel 4, chunk 256, vocab 65536) cut
+to one pattern unit of 8 layers (7 mamba, 1 attention) with its MoE FFN
+replaced by the dense SwiGLU, through the contiguous engine, the
+hand-written causal conv1d kernel (every mamba prefill) and the flash
+kernel. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
-  2. build: all six kernels, one nvcc per source (five), started together;
+  2. build: all seven kernels, one nvcc per source (six), started together;
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and one main-path shape (TF32 off);
   4. the conv path, launch counters set to 0 just before and read just
@@ -71,7 +77,24 @@ Im2Col GEMM, and the same model served from the int8 paged KV pool
      pool's, the pool's capacity gain and the serve's times are reported,
      and the serve is traced as in phase 7; then the int8 conv kernel's
      plain time and bound per layer;
- 13. the ``kernels`` JSON line, the card's name and power limit, and the
+ 13. the conv1d kernel against its plain version (bf16 and f32): ragged B
+     and D, K in {1, 2, 4, 8}, L = 1 and L < K - 1, nD == 1 (the counter's
+     one-fetch case), threads striding over a tile, and the path's shape
+     (1, 300, 16384), also as the strided x half of the in-projection;
+ 14. the hybrid serve inside ``ops.record_dispatch()``, counters set to 0
+     just before and read just after: 8 greedy requests (prompt lengths
+     from ``numpy.default_rng(0)`` with lengths 1 and 2 admitted into used
+     slots and one of 300, two SSD chunks), 32 new tokens, 4 slots,
+     ``max_len`` 512; every request must finish "length" with 32 tokens,
+     conv1d must launch exactly 7 x 8 = 56 times, every ``conv1d_causal``
+     and ``attention`` decision must be ``cuda``; then phase 7's
+     teacher-forced and decode checks at 8 layers; the serve's times, its
+     ``torch.profiler`` trace, and one decode step's forward alone
+     (launches, device time) beside the weight-stream floor;
+ 15. the conv1d kernel's time at each prefill shape of the serve beside its
+     plain version, ``F.conv1d`` (groups = D, on a channels-first copy made
+     outside the timing) and its bound, with ``ops.explain``'s words;
+ 16. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -80,7 +103,9 @@ output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
 bf16 x bf16 products are exact in f32) and 2^-7 for bf16 outputs (one bf16
 rounding). The int8 kernels sum exactly in int32 and their plain versions
 exactly in float64, then both convert to f32, scale and cast the same way, so
-their expected error is 0; they are held to the same tolerances.
+their expected error is 0; they are held to the same tolerances. The
+conv1d kernel and its plain version add the taps in one order with f32
+roundings (no FMA contraction), so their expected error is 0 too.
 
 Teacher-forced logits: the two backends share every bf16 projection and
 differ only in the attention outputs, which may round to neighbouring bf16
@@ -89,7 +114,10 @@ attention layer and is carried through the remaining layers, so the logit
 difference grows like a random walk over the layers: the check allows
 max|cuda - torch| <= 4 * 2^-8 * sqrt(n_layers) * max(1, max|logits|) (four
 standard deviations of that walk; 0.094 of the logit scale at 36 layers)
-and prints the measured error beside it.
+and prints the measured error beside it. On the hybrid path the mamba
+layers' conv1d outputs differ between the backends in the same way (the
+oracle sums its taps in another order before the bf16 cast), one rounding
+per layer: the same allowance with n_layers = 8.
 
 Generated tokens: the engines decode from their KV caches (paged blocks,
 shared prefixes, per-row slots), so each request's prompt and generated
@@ -98,7 +126,9 @@ backend. Each greedy token was the argmax of the engine's logits, which
 differ from those of that forward only by attention roundings; so the
 token's logit there must lie within the same allowance of its row's max
 (a near-tie where the two argmaxes differ). A wrong block table, slot
-write or shared-block mapping gives the token a logit far from the max.
+write or shared-block mapping gives the token a logit far from the max, and
+so does a mamba state spliced wrongly into its slot (a conv tail shorter
+than K - 1 rows written at the start of the slot's tail).
 The check prints how many positions were the exact argmax.
 """
 
@@ -121,6 +151,7 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ARCH = "qwen2_5_3b"
+HYBRID_ARCH = "jamba_1_5_large"
 BATCH = 1000
 WARMUP, TIMED = 1, 5
 BLOCK = 8  # images compared with the plain version at each end of the batch
@@ -247,6 +278,7 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
         ms = e.device_time_total / 1e3
         kind = ("attention kernels" if "flash_kernel" in e.name
                 or "paged_decode_kernel" in e.name else
+                "conv1d kernels" if "conv1d_kernel" in e.name else
                 "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
                 else "other aten kernels")
         for table, key in ((by_name, e.name[:80]), (by_kind, kind)):
@@ -910,6 +942,249 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
     ]
 
 
+def hybrid_phases(gen: torch.Generator, record) -> dict:
+    """Phases 13-15 (module docstring): the conv1d kernel against its plain
+    version, the hybrid serve of Jamba-1.5 at published widths (one pattern
+    unit, experts off) and the conv1d kernel's times. Returns the kernel's
+    entry of the ``kernels`` line (``max_abs_err`` filled in by the
+    caller)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, conv1d_causal, conv1d_causal_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.serving import Engine, Request
+
+    dev = torch.device("cuda")
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    # -- 13. conv1d against its plain version -------------------------------
+    gen.manual_seed(SEED + 50)
+    cases = [  # (B, L, D, K, tiles)
+        (3, 50, 37, 4, None),        # ragged D (bD 16)
+        (19, 40, 45, 4, None),       # ragged B and D (bB 16)
+        (2, 64, 64, 1, None), (2, 64, 64, 2, None), (2, 64, 64, 4, None),
+        (2, 1, 64, 4, None),         # L = 1
+        (2, 2, 64, 4, None),         # L < K - 1
+        (20, 30, 16, 4, None),       # nD == 1, nB == 2
+        (3, 33, 130, 4, (2, 130)),   # nD == 1 from explicit tiles
+        (2, 17, 300, 8, (1, 256)),   # K = 8, threads stride over the tile
+        (1, 300, 16384, 4, None),    # the serve's prefill shape
+    ]
+    for dt in (torch.bfloat16, torch.float32):
+        for (B, L, D, K, tiles) in cases:
+            x = randn((B, L, D), dt)
+            w = randn((K, D), dt, K ** -0.5)
+            got = conv1d_causal(x, w, tiles=tiles)
+            torch.cuda.synchronize()
+            record("conv1d_causal", got, conv1d_causal_plain(x, w),
+                   f"{dt} (B, L, D, K) {(B, L, D, K)} tiles {tiles}")
+        # the path's operand: the x half of the in-projection, row-strided
+        xz = randn((1, 300, 2 * 16384), dt)
+        w = randn((4, 16384), dt, 0.5)
+        got = conv1d_causal(xz[..., :16384], w)
+        torch.cuda.synchronize()
+        record("conv1d_causal", got,
+               conv1d_causal_plain(xz[..., :16384].contiguous(), w),
+               f"{dt} (1, 300, 16384, 4) strided view of (1, 300, 32768)")
+    del x, w, xz, got
+    torch.cuda.empty_cache()
+
+    # -- 14. the hybrid serve -----------------------------------------------
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_experts=0, experts_per_token=0,
+                              n_layers=len(full.pattern))
+    t0 = time.perf_counter()
+    master = T.init_params(cfg, seed=SEED, device="cuda")
+    params = T.compute_params(master, cfg)
+    del master  # the engine and forwards use the bf16 copy
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    n_mamba = cfg.pattern.count("mamba")
+    print(f"hybrid: {cfg.name} at published widths (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, d_inner {cfg.d_inner}, state {cfg.ssm_state_dim}, "
+          f"conv kernel {cfg.conv_kernel}, chunk {cfg.chunk_size}, vocab "
+          f"{cfg.padded_vocab}); reduced: depth {full.n_layers} -> "
+          f"{cfg.n_layers} (one pattern unit: {n_mamba} mamba + "
+          f"{cfg.pattern.count('attn')} attention), MoE FFN ({full.n_experts} "
+          f"experts, top {full.experts_per_token}) -> dense SwiGLU at every "
+          f"position; {cfg.param_count() / 1e9:.2f} B parameters, random "
+          f"weights made on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(3, 257, size=8)
+    lens[1] = 300  # two SSD chunks: the state carried between chunks
+    lens[5], lens[6] = 1, 2  # shorter than K - 1, admitted into used slots
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    ref_ctx = ExecutionContext(target=H100, backend="torch")
+    eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx)
+    if eng.paged or eng.prefill_bucket != 1:
+        fail("hybrid engine: expected the contiguous cache and exact-length "
+             "prefill")
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    names = ("conv1d_causal", "flash_attention")
+    torch.cuda.synchronize()
+    with ops.record_dispatch() as log:
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {n: KERNELS[n].launches for n in names}
+    print(f"hybrid engine launches: {json.dumps(launched)}", flush=True)
+    if launched["conv1d_causal"] != n_mamba * len(reqs):
+        fail(f"hybrid engine: conv1d_causal launched "
+             f"{launched['conv1d_causal']} times, not {n_mamba} mamba layers "
+             f"x {len(reqs)} prefills")
+    if launched["flash_attention"] <= 0:
+        fail("hybrid engine: the flash_attention kernel was never launched")
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.out_tokens) != 32:
+            fail(f"hybrid engine: a request finished {r.finish_reason!r} "
+                 f"with {len(r.out_tokens)} tokens, not 'length' with 32")
+    decisions = {n: [d for d in log if d.op == n]
+                 for n in ("conv1d_causal", "attention")}
+    for n, ds in decisions.items():
+        if not ds or any(d.chosen != "cuda" for d in ds):
+            fail(f"hybrid engine: a {n} decision left cuda (or none made)")
+    st = eng.stats
+    ntok = sum(len(r.out_tokens) for r in reqs)
+    weight_bytes = sum(t.numel() * t.element_size() for n, t in
+                       params.state_dict().items() if n != "embed")
+    serve_row = {
+        "engine": "contiguous hybrid", "requests": len(reqs),
+        "prompt_lens": [int(n) for n in lens], "generated_tokens": ntok,
+        "wall_s": wall, "tok_per_s": ntok / wall,
+        "prefill_ms_mean": 1e3 * statistics.mean(st.prefill_s),
+        "prefill_ms_median": 1e3 * statistics.median(st.prefill_s),
+        "prefill_ms_by_prompt": [1e3 * t for t in st.prefill_s],
+        "decode_step_ms_median": 1e3 * statistics.median(st.decode_s),
+        "decode_steps": len(st.decode_s), "launches": launched,
+        "decisions": {n: len(ds) for n, ds in decisions.items()},
+        "weight_stream_gb": weight_bytes / 1e9,
+        "weight_stream_floor_ms": 1e3 * weight_bytes / PEAK_BYTES}
+    print(json.dumps(serve_row), flush=True)
+
+    # teacher-forced logits, cuda against torch, and every generated token
+    # under the cache-less torch forward (phase 7's checks at 8 layers)
+    def allowance(logits):
+        return (4 * 2.0 ** -8 * cfg.n_layers ** 0.5
+                * max(1.0, logits.abs().max().item()))
+
+    for i in (5, 1):  # the 1-token prompt and the two-chunk prompt
+        r = reqs[i]
+        seq = np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)
+        toks = torch.as_tensor(seq[None], device=dev)
+        with torch.inference_mode():
+            a, _, _ = T.forward(params, cfg, tokens=toks, ctx=ctx)
+            b, _, _ = T.forward(params, cfg, tokens=toks, ctx=ref_ctx)
+        err = (a - b).abs().max().item()
+        allowed = allowance(b)
+        print(json.dumps({
+            "hybrid_teacher_forced": i, "tokens": len(seq),
+            "max_abs_err": err, "mean_abs_err": (a - b).abs().mean().item(),
+            "allowed": allowed, "max_abs_logit": b.abs().max().item(),
+            "argmax_agreement":
+                (a.argmax(-1) == b.argmax(-1)).float().mean().item()}),
+            flush=True)
+        if not err <= allowed:
+            fail(f"hybrid teacher-forced logits of request {i}: cuda vs "
+                 f"torch error {err} above {allowed}")
+        del a, b
+    decode_check("hybrid contiguous", reqs, cfg, params, ref_ctx, allowance)
+    torch.cuda.empty_cache()
+
+    # where the time goes: the same serve traced, and one decode step's
+    # forward alone (its launches and device time)
+    trace_serve("contiguous hybrid engine, the same 8 requests",
+                Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx),
+                prompts, 1e3 * wall)
+    cache = T.init_cache(cfg, 4, 512, device="cuda")
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    depth = torch.tensor([300, 120, 40, 2], dtype=torch.int32, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            T.forward(params, cfg, tokens=tok, cache=cache,
+                      cache_index=depth, ctx=ctx, decode=True)
+
+    step_ms = median_ms(step, 2, 10)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kern) / 1e3
+    print(json.dumps({
+        "hybrid_decode_step_forward": "B 4, depths 300/120/40/2",
+        "ms": step_ms, "kernel_launches": len(kern),
+        "device_kernel_ms": dev_ms or "not measured",
+        "weight_stream_floor_ms": serve_row["weight_stream_floor_ms"]}),
+        flush=True)
+    del cache, eng, params
+    torch.cuda.empty_cache()
+
+    # -- 15. conv1d: kernel, plain version, library call, bound, words ------
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+              "by": {"bytes": 0.0, "operations": 0.0}}
+    D, K = cfg.d_inner, cfg.conv_kernel
+    gen.manual_seed(SEED + 60)
+    w = randn((K, D), torch.bfloat16, K ** -0.5)
+    wc = w.t().contiguous()[:, None, :]  # (D, 1, K) for F.conv1d
+    for L in sorted({int(n) for n in lens}):
+        xz = randn((1, L, 2 * D), torch.bfloat16)
+        x = xz[..., :D]  # the in-projection's x half, as the path passes it
+        xc = x.transpose(1, 2).contiguous()  # channels-first, made untimed
+        ms = median_ms(lambda: conv1d_causal(x, w), 3, 20)
+        plain = median_ms(lambda: conv1d_causal_plain(x, w), 2, 10)
+        lib = median_ms(lambda: F.conv1d(xc, wc, padding=K - 1,
+                                         groups=D)[..., :L], 3, 20)
+        lib_out = F.conv1d(xc, wc, padding=K - 1, groups=D)[..., :L]
+        lib_err, _ = rel_err(lib_out.transpose(1, 2),
+                             conv1d_causal_plain(x, w))
+        nbytes = (2 * L * D + K * D) * 2
+        bms, by = bound_ms(2.0 * K * L * D, nbytes, PEAK_F32_FLOPS)
+        d = ops.explain("conv1d_causal", ctx, dtype=x.dtype,
+                        spec_args=(x, w))
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bms)):
+            totals[key] += v
+        totals["by"][by] += bms
+        print(json.dumps({
+            "kernel_shape": "conv1d_causal", "B": 1, "L": L, "D": D, "K": K,
+            "dtype": "bfloat16", "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "library": "F.conv1d groups=D, channels-first "
+                                          "copy made outside the timing",
+            "library_max_abs_err_vs_plain": lib_err, "bound_ms": bms,
+            "bound_by": by, "measured_words": d.measured_words,
+            "compulsory_words": nbytes / 4,
+            "words_over_compulsory": d.measured_words / (nbytes / 4)}),
+            flush=True)
+        del xz, x, xc, lib_out
+    return {"name": "conv1d_causal", "route": "cuda",
+            "launches": launched["conv1d_causal"], "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            "bound_by": max(totals["by"], key=totals["by"].get),
+            "library_ms": totals["library_ms"], "ok": True,
+            "shapes": "sum over the hybrid serve's 8 prefill shapes (1, L, "
+                      f"{D}) x ({K}, {D}), bf16, x the strided half of the "
+                      "in-projection; library F.conv1d (groups=D)"}
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1120,8 +1395,12 @@ def main() -> None:
     # -- 9.-12. the int8 paths ----------------------------------------------
     quant_kernels = quant_phases(gen, record, serve)
     del serve
+    torch.cuda.empty_cache()
 
-    # -- 13. summary --------------------------------------------------------
+    # -- 13.-15. the hybrid mamba path ---------------------------------------
+    conv1d_kernel = hybrid_phases(gen, record)
+
+    # -- 16. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -1130,7 +1409,8 @@ def main() -> None:
             "paged_decode": (csrc + "paged_decode.cu",
                              ref + "flash_attention.py:257"),
             "conv2d_q": (csrc + "quant.cu", ref + "quant.py:75"),
-            "matmul_q": (csrc + "quant.cu", ref + "quant.py:324")}
+            "matmul_q": (csrc + "quant.cu", ref + "quant.py:324"),
+            "conv1d_causal": (csrc + "conv1d.cu", ref + "conv1d.py:22")}
     kernels = []
     for n in ("conv2d", "matmul"):
         source, replaces = meta[n]
@@ -1143,11 +1423,11 @@ def main() -> None:
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"], "ok": True,
             "shapes": "sum over the five ResNet-50 layers at batch 1000"})
-    for k in attn_kernels + quant_kernels:
+    for k in attn_kernels + quant_kernels + [conv1d_kernel]:
         source, replaces = meta[k["name"]]
         k.update(source=source, replaces=replaces,
                  max_abs_err=max_err[k["name"]])
-    kernels += attn_kernels + quant_kernels
+    kernels += attn_kernels + quant_kernels + [conv1d_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ place where a later slice's layout changes go.
 
 ``transformer_from_jax`` turns the JAX transformer's parameter tree
 (``repro.models.transformer.init_params``) into the port's
-``models.transformer.Transformer``: the tree's ``layers`` leaves are stacked
-on a leading ``repeats`` axis, and the converter unstacks them into one
-module per layer. Every leaf keeps its layout (``embed`` (V, D) and
+``models.transformer.Transformer``: the tree's ``layers`` leaves (``b0`` ..
+``b{n-1}``, one per pattern position: attention or mamba leaves, norms and
+FFN) are stacked on a leading ``repeats`` axis, and the converter unstacks
+them into one module dict per repeat. Every leaf keeps its layout (``embed`` (V, D) and
 ``head`` (D, V) included): nothing is transposed.
 
 Plan state needs no converter: ``ExecutionPlan.to_json`` / ``from_json``

@@ -6,11 +6,17 @@ A wrapper launches its kernel for a CUDA tensor, and raises if it cannot; it
 runs the plain version only for a tensor on the CPU. Consumers go through
 ``repro_torch.ops``, which attaches the measured HBM-word counters
 (``conv2d_hbm_words``, ``matmul_hbm_words``, ``im2col_hbm_words`` and the
-int8 ``conv2d_q_hbm_words``, ``matmul_q_hbm_words``) to every dispatch, and
-the attention counters (``attention_hbm_words``, ``paged_decode_hbm_words``)
-to every attention call."""
+int8 ``conv2d_q_hbm_words``, ``matmul_q_hbm_words``, and the mamba short
+conv's ``conv1d_hbm_words``) to every dispatch, and the attention counters
+(``attention_hbm_words``, ``paged_decode_hbm_words``) to every attention
+call."""
 
 from . import ref  # noqa: F401
+from .conv1d import (  # noqa: F401
+    conv1d_causal,
+    conv1d_causal_plain,
+    conv1d_hbm_words,
+)
 from .conv2d import conv2d, conv2d_hbm_words, conv2d_plain  # noqa: F401
 from .flash_attention import (  # noqa: F401
     attention_blocks,
@@ -34,6 +40,7 @@ from .quant import (  # noqa: F401
 
 # The CUDA libraries by kernel name: build state and launch counters. (The
 # submodules' names are shadowed by the functions re-exported above.)
+from .conv1d import KERNEL as _CONV1D_KERNEL  # noqa: E402
 from .conv2d import KERNEL as _CONV2D_KERNEL  # noqa: E402
 from .flash_attention import FLASH_KERNEL as _FLASH_KERNEL  # noqa: E402
 from .flash_attention import PAGED_KERNEL as _PAGED_KERNEL  # noqa: E402
@@ -43,4 +50,5 @@ from .quant import MATMUL_KERNEL as _MATMUL_Q_KERNEL  # noqa: E402
 
 KERNELS = {"conv2d": _CONV2D_KERNEL, "matmul": _MATMUL_KERNEL,
            "flash_attention": _FLASH_KERNEL, "paged_decode": _PAGED_KERNEL,
-           "conv2d_q": _CONV2D_Q_KERNEL, "matmul_q": _MATMUL_Q_KERNEL}
+           "conv2d_q": _CONV2D_Q_KERNEL, "matmul_q": _MATMUL_Q_KERNEL,
+           "conv1d_causal": _CONV1D_KERNEL}

@@ -57,3 +57,20 @@ def flash_attention_ref(
     The ``torch`` backend's attention with no key mask."""
     from repro_torch.ops.registry import torch_attention  # imports this module
     return torch_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def conv1d_causal_ref(
+    x: torch.Tensor,  # (B, L, D)
+    w: torch.Tensor,  # (K, D) depthwise taps
+    out_dtype=None,
+) -> torch.Tensor:
+    """Causal depthwise conv: out[b,l,d] = sum_k x[b, l-K+1+k, d] * w[k, d],
+    zero-padded on the left (the mamba short conv), summed in f32 over
+    k = 0..K-1."""
+    K, L = w.shape[0], x.shape[1]
+    xf = x.float()
+    pad = F.pad(xf, (0, 0, K - 1, 0))
+    out = torch.zeros_like(xf)
+    for k in range(K):
+        out = out + pad[:, k:k + L, :] * w[k].float()
+    return out.to(out_dtype or x.dtype)

@@ -4,7 +4,7 @@
 A model is a repeated *pattern unit* of blocks (e.g. ("attn",) for dense LMs,
 ("mamba",)*7 + ("attn",) for jamba's 1:7 interleave, ("mlstm", "slstm") for
 xLSTM). The port builds one module per layer and runs them in a Python loop
-(``models.transformer``); only the ``("attn",)`` pattern has ported blocks.
+(``models.transformer``); ``attn`` and ``mamba`` blocks are ported.
 """
 
 from __future__ import annotations

@@ -1,15 +1,19 @@
-"""Config-driven model assembly for the dense GQA architectures (the
-counterpart of ``repro.models.transformer`` for the ``("attn",)`` pattern).
+"""Config-driven model assembly (the counterpart of
+``repro.models.transformer``) for patterns of ``attn`` and ``mamba`` blocks:
+the dense GQA architectures (``("attn",)``) and jamba's hybrid unit (seven
+mamba blocks and one attention block).
 
 The reference stacks one pattern unit's parameters on a leading ``repeats``
-axis and ``lax.scan``s over it; the port holds one module per repeat in an
-``nn.ModuleList`` and runs them in a Python loop, so it needs no counterpart
-of ``repro.models.scan_util``. KV caches keep the reference's stacked layout
-(``{"b0": {"k": (repeats, B, KV, L, hd), ...}}``) and layer r reads and
-writes slice r of each leaf in place.
+axis and ``lax.scan``s over it; the port holds one ``{"b0": Block, ...}``
+module dict per repeat in an ``nn.ModuleList`` and runs them in a Python
+loop, so it needs no counterpart of ``repro.models.scan_util``. Caches keep
+the reference's stacked layout (``{"b0": {"k": (repeats, B, KV, L, hd),
+...}}`` for attention, ``{"b1": {"h": ..., "tail": ...}}`` for mamba) and
+layer r reads and writes slice r of each leaf in place.
 
-Block kinds: only ``attn`` (plus its SwiGLU FFN) is ported; ``mamba``,
-``mlstm``, ``slstm`` and MoE FFNs raise ``NotImplementedError``.
+Block kinds: ``attn`` and ``mamba``, each followed by a SwiGLU FFN when
+``d_ff > 0``; ``mlstm``, ``slstm`` and MoE FFNs raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn as nn
 
 from repro_torch.ops import ExecutionContext
 
+from . import ssm
 from .config import ModelConfig
 from .layers import (MLP, Attention, attention_block, dtype_of, embed,
                      lm_logits, mlp, rms_norm, truncated_normal_)
@@ -29,10 +34,10 @@ Cache = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.pattern)
-    if kinds != {"attn"}:
+    missing = set(cfg.pattern) - {"attn", "mamba"}
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: blocks {sorted(kinds - {'attn'})} are not ported to "
+            f"{cfg.name}: blocks {sorted(missing)} are not ported to "
             "repro_torch yet (ROADMAP queue 1, item 9)")
     if cfg.n_experts:
         raise NotImplementedError(
@@ -47,26 +52,34 @@ def _check_ported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
-class Block(nn.Module):
-    """One ``attn`` block: ``norm1``, ``core`` (attention), ``norm2``,
-    ``ffn`` (SwiGLU) — the reference's ``b0`` leaves."""
+def _has_ffn(cfg: ModelConfig, pos: int) -> bool:
+    return cfg.d_ff > 0 and cfg.pattern[pos] in ("attn", "mamba", "slstm")
 
-    def __init__(self, cfg: ModelConfig, device=None,
+
+class Block(nn.Module):
+    """The block at pattern position ``pos``: ``norm1``, ``core``
+    (attention or mamba), and with an FFN ``norm2``, ``ffn`` (SwiGLU) — the
+    reference's ``b{pos}`` leaves."""
+
+    def __init__(self, cfg: ModelConfig, pos: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dtype = dtype_of(cfg.param_dtype)
         self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                              device=device))
-        self.core = Attention(cfg, device, generator)
-        if cfg.d_ff > 0:
+        self.core = (Attention(cfg, device, generator)
+                     if cfg.pattern[pos] == "attn"
+                     else ssm.Mamba(cfg, device, generator))
+        if _has_ffn(cfg, pos):
             self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                                  device=device))
             self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device, generator)
 
 
 class Transformer(nn.Module):
-    """``embed`` (padded vocab, D), ``layers`` (one ``{"b0": Block}`` per
-    repeat), ``final_norm`` (D,), ``head`` (D, padded vocab)."""
+    """``embed`` (padded vocab, D), ``layers`` (one ``{"b0": Block, ...}``
+    per repeat, a block per pattern position), ``final_norm`` (D,), ``head``
+    (D, padded vocab)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -78,7 +91,8 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(
             truncated_normal_(emb, 1.0, generator).to(dtype))
         self.layers = nn.ModuleList(
-            nn.ModuleDict({"b0": Block(cfg, device, generator)})
+            nn.ModuleDict({f"b{i}": Block(cfg, i, device, generator)
+                           for i in range(len(cfg.pattern))})
             for _ in range(cfg.repeats))
         self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype,
                                                   device=device))
@@ -99,15 +113,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         return Transformer(cfg, device=device, generator=gen)
 
 
+# leaves read in their own dtype: the norm scales, and the mamba leaves that
+# the reference reads in f32 (conv_w at decode; b_dt, log_A, D_skip always)
+KEEP_DTYPE = ("norm1", "norm2", "final_norm", "conv_w", "b_dt", "log_A",
+              "D_skip")
+
+
 def compute_params(params: Transformer, cfg: ModelConfig) -> Transformer:
     """A copy whose matmul weights (projections, biases, FFN, embedding,
-    head) are already in ``cfg.compute_dtype``; norm scales keep their
-    dtype. The layers cast weights at use, so this computes the same values
-    while moving each weight once instead of casting it on every step (3.4 B
-    weights cast per decode step would be 20+ GB of extra traffic)."""
+    head) are already in ``cfg.compute_dtype``; the ``KEEP_DTYPE`` leaves
+    keep theirs. The layers cast weights at use, so this computes the same
+    values while moving each weight once instead of casting it on every step
+    (3.4 B weights cast per decode step would be 20+ GB of extra traffic)."""
     cd = dtype_of(cfg.compute_dtype)
-    norms = ("norm1", "norm2", "final_norm")
-    state = {k: (v if k.rsplit(".", 1)[-1] in norms else v.to(cd))
+    state = {k: (v if k.rsplit(".", 1)[-1] in KEEP_DTYPE else v.to(cd))
              for k, v in params.state_dict().items()}
     with torch.device("meta"):
         out = Transformer(cfg)
@@ -121,15 +140,26 @@ def compute_params(params: Transformer, cfg: ModelConfig) -> Transformer:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
-    """Stacked (repeats-leading) contiguous KV cache for decode."""
+    """Stacked (repeats-leading) contiguous cache for decode: ``k``/``v``
+    in ``dtype`` for each attention position, the f32 recurrent state
+    ``h``/``tail`` (``ssm.init_mamba_state``) for each mamba position."""
     _check_ported(cfg)
     if cfg.fused_kv_cache:
         raise NotImplementedError(
             "the fused (B, KV, L, 2, hd) KV layout is not ported")
     shape = (cfg.repeats, batch, cfg.n_kv_heads, max_len, cfg.hd)
-    return {f"b{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(len(cfg.pattern))}
+    cache: Cache = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "attn":
+            cache[f"b{i}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        else:
+            state = ssm.init_mamba_state(cfg, cfg.repeats * batch,
+                                         torch.float32, device)
+            cache[f"b{i}"] = {n: t.unflatten(0, (cfg.repeats, batch))
+                              for n, t in zip(("h", "tail"), state)}
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -187,15 +217,14 @@ def cache_footprint_words(cfg: ModelConfig, max_len: int,
                           dtype=torch.bfloat16,
                           block_size: Optional[int] = None) -> float:
     """Per-sequence decode-cache size in 32-bit words (the paper's unit),
-    from ``init_cache``'s shapes. ``block_size`` switches to block-granular
-    accounting: a paged sequence occupies whole blocks."""
-    _check_ported(cfg)
+    from ``init_cache``'s shapes (built on the meta device: nothing is
+    allocated). ``block_size`` switches to block-granular accounting: a
+    paged sequence occupies whole blocks."""
     if block_size is not None:
         max_len = -(-max_len // block_size) * block_size
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    elems = (cfg.repeats * len(cfg.pattern) * 2 * cfg.n_kv_heads * max_len
-             * cfg.hd)
-    return elems * itemsize / 4.0
+    cache = init_cache(cfg, 1, max_len, dtype=dtype, device="meta")
+    return sum(t.numel() * t.element_size() for leaves in cache.values()
+               for t in leaves.values()) / 4.0
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +250,7 @@ def hidden_forward(
     attn_mask: Optional[torch.Tensor] = None,  # (B, L) True = real token
     positions: Optional[torch.Tensor] = None,  # (L,) or (B, L)
     block_tables: Optional[torch.Tensor] = None,  # (B, w) paged tables
+    decode: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Backbone only: returns (final-norm hidden states, cache, aux).
 
@@ -234,6 +264,11 @@ def hidden_forward(
     prefill) or a (B,) tensor (each row at its own depth: continuous-batching
     decode); positions default to ``arange(L) + cache_index`` per row.
     ``attn_mask`` marks padding (False) so attention never reads pad tokens.
+    Mamba blocks run the chunked scan (``ssm.mamba_block``) over the whole
+    sequence, or with ``decode`` one recurrence step per row
+    (``ssm.mamba_decode_step``); with a cache they start from, and write
+    back, its ``h``/``tail`` state. They consume every position in order, so
+    recurrent patterns are prefilled at their exact length (no pad tokens).
     ``aux`` is the reference's auxiliary loss, zero for dense blocks."""
     _check_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
@@ -245,25 +280,43 @@ def hidden_forward(
     if positions is None:
         positions = _positions(cache_index, L, x.device)
     for r, unit in enumerate(params.layers):
-        blk = unit["b0"]
-        h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        bc = None if cache is None else cache["b0"]
-        paged = bc is not None and "kp" in bc
-        layer_cache = None
-        if bc is not None:
-            names = (("kp", "ks", "vp", "vs") if "ks" in bc
-                     else ("kp", "vp") if paged else ("k", "v"))
-            layer_cache = tuple(bc[n][r] for n in names)
-        out, _ = attention_block(blk.core, h, cfg, positions,
-                                 cache=layer_cache, cache_index=cache_index,
-                                 ctx=ctx, attn_mask=attn_mask,
-                                 block_tables=block_tables if paged else None)
-        x = x + out
-        if cfg.d_ff > 0:
-            h = rms_norm(x, blk.norm2, cfg.norm_eps)
-            x = x + mlp(blk.ffn, h, cd)
+        for i, kind in enumerate(cfg.pattern):
+            blk = unit[f"b{i}"]
+            h = rms_norm(x, blk.norm1, cfg.norm_eps)
+            bc = None if cache is None else cache[f"b{i}"]
+            if kind == "attn":
+                out = _attention(blk, h, cfg, positions, bc, r, cache_index,
+                                 ctx, attn_mask, block_tables)
+            else:
+                state = None if bc is None else (bc["h"][r], bc["tail"][r])
+                step = ssm.mamba_decode_step if decode else ssm.mamba_block
+                out, upd = step(blk.core, h, cfg, state, ctx=ctx)
+                if upd is not None:
+                    for leaf, new in zip(state, upd):
+                        leaf.copy_(new)
+            x = x + out
+            if _has_ffn(cfg, i):
+                h = rms_norm(x, blk.norm2, cfg.norm_eps)
+                x = x + mlp(blk.ffn, h, cd)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
+               ctx, attn_mask, block_tables) -> torch.Tensor:
+    """One attention block over repeat r's slice of its cache leaves
+    (contiguous ``k``/``v``, the paged pool, or the int8 pool)."""
+    paged = bc is not None and "kp" in bc
+    layer_cache = None
+    if bc is not None:
+        names = (("kp", "ks", "vp", "vs") if "ks" in bc
+                 else ("kp", "vp") if paged else ("k", "v"))
+        layer_cache = tuple(bc[n][r] for n in names)
+    out, _ = attention_block(blk.core, h, cfg, positions,
+                             cache=layer_cache, cache_index=cache_index,
+                             ctx=ctx, attn_mask=attn_mask,
+                             block_tables=block_tables if paged else None)
+    return out
 
 
 def forward(
@@ -277,11 +330,12 @@ def forward(
     attn_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
+    decode: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss)."""
     x, cache, aux = hidden_forward(
         params, cfg, tokens=tokens, embeds=embeds, cache=cache,
         cache_index=cache_index, ctx=ctx, attn_mask=attn_mask,
-        positions=positions, block_tables=block_tables)
+        positions=positions, block_tables=block_tables, decode=decode)
     logits = lm_logits(params.head, x, dtype_of(cfg.compute_dtype))
     return logits, cache, aux

@@ -1,7 +1,7 @@
 """``repro_torch.ops`` — backend-registry op dispatch (ExecutionContext ->
 Backend -> kernel), the counterpart of ``repro.ops`` for conv2d, matmul,
-attention, attention_decode and the int8 ops conv2d_q, matmul_q and
-attention_decode_quant.
+attention, attention_decode, the int8 ops conv2d_q, matmul_q and
+attention_decode_quant, and conv1d_causal.
 
     from repro_torch import ops
     from repro_torch.ops import ExecutionContext
@@ -33,6 +33,7 @@ from .dispatch import (  # noqa: F401
     attention_decode,
     attention_decode_quant,
     attention_needs,
+    conv1d_causal,
     conv2d,
     conv2d_q,
     dispatch_call,

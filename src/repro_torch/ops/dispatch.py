@@ -259,6 +259,14 @@ def conv2d(x, w, stride=(1, 1), ctx: Optional[ExecutionContext] = None,
                                   "out_dtype": out_dtype})
 
 
+def conv1d_causal(x, w, ctx: Optional[ExecutionContext] = None):
+    """Causal depthwise conv1d (the mamba short convolution): ``x`` is
+    (B, L, D), ``w`` the (K, D) taps in x's dtype; out in x's dtype."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("conv1d_causal", ctx, x, w)
+    return dispatch_call("conv1d_causal", ctx, x.dtype, (), (x, w))
+
+
 def matmul_q(a, b, scale, ctx: Optional[ExecutionContext] = None,
              out_dtype=None):
     """Quantized GEMM: ``a``/``b`` int8 (from

@@ -1,7 +1,7 @@
 """Backend registry: named backends, per-op entries, declared capabilities
 (the counterpart of ``repro.ops.registry`` for conv2d, matmul, attention,
-attention_decode and the int8 ops conv2d_q, matmul_q and
-attention_decode_quant).
+attention_decode, the int8 ops conv2d_q, matmul_q and
+attention_decode_quant, and the mamba short conv conv1d_causal).
 
 Each entry's :class:`OpCapabilities` declares its accepted dtypes and the
 optional call features (``ATTN_FLAGS``) it serves. Three backends ship:
@@ -45,6 +45,8 @@ import torch
 
 from repro_torch.core.conv_model import Precision
 from repro_torch.kernels import ref
+from repro_torch.kernels.conv1d import (conv1d_causal as _conv1d_cuda,
+                                        conv1d_hbm_words)
 from repro_torch.kernels.conv2d import (_conv_spec, conv2d as _conv2d_cuda,
                                         conv2d_hbm_words)
 from repro_torch.kernels.flash_attention import (NEG_INF, attention_blocks,
@@ -159,6 +161,10 @@ def _torch_matmul(ctx, plan, a, b, out_dtype=torch.float32):
 
 def _torch_conv2d(ctx, plan, x, w, stride=(1, 1), out_dtype=torch.float32):
     return ref.conv2d_ref(x, w, stride=stride, out_dtype=out_dtype)
+
+
+def _torch_conv1d(ctx, plan, x, w):
+    return ref.conv1d_causal_ref(x, w)
 
 
 def torch_attention(q, k, v, causal: bool = True, q_offset=0,
@@ -298,6 +304,8 @@ register_backend(Backend(
     ops={
         "matmul": OpEntry(_torch_matmul, OpCapabilities(dtypes=("*",))),
         "conv2d": OpEntry(_torch_conv2d, OpCapabilities(dtypes=("*",))),
+        "conv1d_causal": OpEntry(_torch_conv1d,
+                                 OpCapabilities(dtypes=("*",))),
         "attention": OpEntry(
             _torch_attention,
             OpCapabilities(dtypes=("*",), flags=frozenset(ATTN_FLAGS))),
@@ -386,6 +394,18 @@ def _cuda_conv2d(ctx, plan, x, w, stride=(1, 1), out_dtype=torch.float32):
                                     out_dtype=out_dtype, plan=plan),
         lambda x_, w_: ref.conv2d_ref(x_, w_, stride=stride,
                                       out_dtype=out_dtype), x, w)
+
+
+def _cuda_conv1d(ctx, plan, x, w):
+    """No LP plan: the tiles are the target's alignment (the reference's
+    closed form, ``kernels.conv1d._conv1d_geometry``)."""
+    return _with_aten_grad(
+        lambda x_, w_: _conv1d_cuda(x_, w_, target=ctx.target),
+        ref.conv1d_causal_ref, x, w)
+
+
+def _cuda_conv1d_words(ctx, plan, x, w, **kw):
+    return conv1d_hbm_words(x, w, target=ctx.target)
 
 
 def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
@@ -490,6 +510,7 @@ register_backend(Backend(
                           words_fn=_cuda_matmul_words),
         "conv2d": OpEntry(_cuda_conv2d, spec_fn=_conv2d_plan_spec,
                           words_fn=_cuda_conv2d_words),
+        "conv1d_causal": OpEntry(_cuda_conv1d, words_fn=_cuda_conv1d_words),
         "attention": OpEntry(
             _cuda_attention, OpCapabilities(flags=frozenset(ATTN_FLAGS)),
             spec_fn=_attention_plan_spec, words_fn=_cuda_attention_words),

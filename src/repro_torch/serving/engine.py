@@ -141,6 +141,11 @@ class Engine:
     the context's device; the engine keeps a copy with the matmul weights
     already in the compute dtype (``transformer.compute_params``).
 
+    Patterns with mamba blocks take the contiguous cache (their state is
+    O(1) a row: ``h`` and the conv ``tail``, spliced into the slot at
+    admission with the attention rows) and exact-length prefill
+    (``prefill_bucket`` 1): a pad token would enter the recurrent state.
+
     ``paged`` (default: on for pure-attention models) keeps K/V in the
     ``serving.kv`` block pool: admission reserves a request's whole block
     budget up front (shared prompt-prefix blocks counted once, refcounted),
@@ -553,7 +558,8 @@ class Engine:
             # fully overwritten at the next insert (contiguous) or in the
             # garbage block 0 (paged), and their samples are never recorded.
             # A decode step rewrites the same cache positions with the same
-            # values, so the numeric retry below can simply re-run it.
+            # values, so the numeric retry below can simply re-run it; a
+            # mamba state is advanced once more by it, as in the reference.
             t0 = time.perf_counter()
             steps = np.array([len(slots[s].generated) if slots[s] else 0
                               for s in range(B)], np.int32)
@@ -572,11 +578,11 @@ class Engine:
                     logits, cache, _ = T.forward(
                         self.params, self.cfg, tokens=tok_dev, cache=cache,
                         cache_index=idx_dev, ctx=self.ctx,
-                        block_tables=tables_dev[w])
+                        block_tables=tables_dev[w], decode=True)
                 else:
                     logits, cache, _ = T.forward(
                         self.params, self.cfg, tokens=tok_dev, cache=cache,
-                        cache_index=idx_dev, ctx=self.ctx)
+                        cache_index=idx_dev, ctx=self.ctx, decode=True)
                 nxt, bad = self._sample(logits[:, -1], seeds, steps, temps)
                 bad_rows = [s for s in active if bad[s]]
                 if not bad_rows:

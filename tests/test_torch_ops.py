@@ -180,8 +180,9 @@ def test_context_rules():
                     torch.zeros(1, 1, 3, 3, device="meta"), ctx=ctx)
     assert tops.backends() == ("cuda", "im2col", "torch")
     assert tops.registered_ops() == ("attention", "attention_decode",
-                                     "attention_decode_quant", "conv2d",
-                                     "conv2d_q", "matmul", "matmul_q")
+                                     "attention_decode_quant",
+                                     "conv1d_causal", "conv2d", "conv2d_q",
+                                     "matmul", "matmul_q")
 
 
 def test_backend_env_knob(monkeypatch):
