@@ -24,13 +24,22 @@ kernel. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
+     the GEMM's tensor-core variants: registers and spills from ptxas and
+     the HMMA count of their SASS (cuobjdump), fatal if a variant has no
+     HMMA or a main-path variant spills;
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
-     stride-2 and one main-path shape (TF32 off);
+     stride-2 and one main-path shape (TF32 off); each GEMM check names
+     the kernel its dtype took (bf16: tensor core, f32: fma), and the bf16
+     cases include conv1's 294-byte pitch, a k that is not a multiple of
+     the ring's span, m < 16 and an odd pitch over several spans;
   4. the conv path, launch counters set to 0 just before and read just
      after: one JSON line per layer and backend (tiles, measured words, bound
      ratio, Im2Col/tiled gap, median ms, F.conv2d ms, launches, error);
+     fatal unless every ``im2col`` GEMM was a tensor-core launch;
   5. each conv-path kernel's time beside its plain version, one library call
-     and its bound at the conv path's shapes;
+     and its bound at the conv path's shapes, with TFLOP/s and GB/s
+     (``torch.matmul``, the GEMM's library call, writes bf16: half the
+     kernel's f32 output bytes);
   6. flash attention and paged decode against their plain versions (bf16 and
      f32; GQA groups 1 and 8; hd 64 and 128; ragged lengths; int and
      per-row offsets; a pad-tail key mask with one fully masked row; paged
@@ -135,6 +144,8 @@ The check prints how many positions were the exact argmax.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -662,6 +673,53 @@ def ptxas(log: str, match: str = "") -> tuple:
         if "spill" in ln and not ln.strip().startswith("0 bytes"):
             spills += 1
     return sorted(regs), spills
+
+
+def ptxas_functions(log: str) -> dict:
+    """{mangled function: (registers per thread, spill bytes)} from nvcc's
+    -Xptxas -v report (spill bytes: the larger of stores and loads)."""
+    out, fn, spill = {}, "", 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn, spill = ln.split("'")[1], 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if fn and m:
+            spill = max(int(m.group(1)), int(m.group(2)))
+        if fn and "Used " in ln:
+            out[fn] = (int(ln.split("Used ")[1].split()[0]), spill)
+    return out
+
+
+def sass_functions(library) -> dict:
+    """{mangled function: SASS text} of a built kernel library, as the
+    toolkit's cuobjdump disassembles it."""
+    from repro_torch.kernels._build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def tc_symbol(mi: int, ni: int, linear: bool, out_f32: bool) -> str:
+    """The mangled-name part of ``matmul_tc_kernel<Tout, MI, NI, LINEAR>``."""
+    tout = "f" if out_f32 else "13__nv_bfloat16"
+    return f"matmul_tc_kernelI{tout}Li{mi}ELi{ni}ELb{int(linear)}E"
+
+
+def gemm_tiles(s) -> tuple:
+    """(m, n, k) and the H100 plan's (bm, bn, bk) of a conv layer's Im2Col
+    GEMM, bf16 in and f32 out, as ``kernels.matmul`` resolves them."""
+    from repro_torch.core.conv_model import Precision
+    from repro_torch.plan import H100, MatmulSpec, Planner
+
+    m, n, k = s.N * s.h_O * s.w_O, s.c_O, s.c_I * s.h_F * s.w_F
+    spec = MatmulSpec(m=m, n=n, k=k, prec=Precision(0.5, 0.5, 1.0))
+    return (m, n, k), tuple(Planner(H100).plan(spec).tiles)
 
 
 def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
@@ -1223,6 +1281,37 @@ def main() -> None:
                              .get(name, ""))
         print(f"build {name}: registers per thread {regs}; "
               f"spilling variants {spills}", flush=True)
+    # the GEMM's bf16 path: every tensor-core variant holds HMMA in its SASS
+    # (the product runs on the tensor cores); those the main path takes
+    # (f32 out) must not spill
+    from repro_torch.kernels.matmul import (LINEAR, LINEAR_TILES,
+                                            TC_VARIANTS)
+    from repro_torch.kernels.matmul import launch_config as mm_config
+    main_variants = {mm_config(*t, 2, mnk[2])["variant"] for mnk, t in
+                     map(gemm_tiles, resnet50_layers(BATCH).values())}
+    regs_of = ptxas_functions(KERNELS["matmul"].build_log)
+    sass = sass_functions(KERNELS["matmul"].library_path())
+    for v, (mi, ni) in enumerate(TC_VARIANTS + ((1, LINEAR_TILES),)):
+        for out_f32 in (True, False):
+            sym = tc_symbol(mi, ni, v == LINEAR, out_f32)
+            found = [f for f in regs_of if sym in f]
+            body = [t for f, t in sass.items() if sym in f]
+            if len(found) != 1 or len(body) != 1:
+                fail(f"matmul: {sym} not found once in the build "
+                     f"({len(found)} in ptxas, {len(body)} in SASS)")
+            regs, spill = regs_of[found[0]]
+            hmma = body[0].count("HMMA")
+            used = v in main_variants and out_f32
+            print(f"build matmul tensor-core variant {v} (MI {mi}, NI {ni}"
+                  f"{', LINEAR' if v == LINEAR else ''}; "
+                  f"{'f32' if out_f32 else 'bf16'} out"
+                  f"{'; main path' if used else ''}): registers {regs}, "
+                  f"spill bytes {spill}, HMMA instructions {hmma}",
+                  flush=True)
+            if hmma == 0:
+                fail(f"matmul: {sym} has no HMMA: not on the tensor cores")
+            if used and spill:
+                fail(f"matmul: main-path variant {sym} spills {spill} bytes")
 
     max_err = {name: 0.0 for name in KERNELS}
 
@@ -1259,13 +1348,25 @@ def main() -> None:
             for (m, n, k, tiles) in [(100, 300, 77, None),
                                      (130, 257, 129, None),
                                      (1, 128, 64, None),
-                                     (130, 257, 129, (32, 48, 16))]:
+                                     (130, 257, 129, (32, 48, 16)),
+                                     # conv1's 294-byte pitch and tiles
+                                     (3000, 64, 147, (128, 64, 144)),
+                                     # k = 3.25 stage spans of 64
+                                     (1000, 96, 208, None),
+                                     (5, 200, 96, None),  # m < 16
+                                     # an odd pitch over several spans
+                                     (257, 72, 1001, None)]:
                 a = randn((m, k), dt)
                 b = randn((k, n), dt, k ** -0.5)
+                tc = KERNELS["matmul"].tensor_core_launches
                 got = matmul_kernel(a, b, out_dtype=od, tiles=tiles)
                 torch.cuda.synchronize()
+                path = ("tensor core" if KERNELS["matmul"].tensor_core_launches
+                        > tc else "fma")
+                if path != ("tensor core" if dt == torch.bfloat16 else "fma"):
+                    fail(f"matmul {dt} {(m, n, k)} took the {path} kernel")
                 record("matmul", got, matmul_plain(a, b, od),
-                       f"{dt}->{od} {(m, n, k)} tiles {tiles}")
+                       f"{dt}->{od} {(m, n, k)} tiles {tiles} on {path}")
     # one main-path shape each: conv2_x, and the GEMM of conv5_x's Im2Col
     ctx_plan = ExecutionContext(target=H100, backend="cuda")
     x = randn((BATCH, 64, 58, 58), torch.bfloat16)
@@ -1293,6 +1394,7 @@ def main() -> None:
     rows = {}
     for k in KERNELS.values():
         k.launches = 0
+        k.tensor_core_launches = 0
     for i, (name, s) in enumerate(layers.items()):
         x, w = layer_inputs(gen, i, s)
         stride = (s.sh, s.sw)
@@ -1304,6 +1406,7 @@ def main() -> None:
         library = median_ms(lambda: F.conv2d(x, w, stride=stride))
         for be in backends:
             before = {n: k.launches for n, k in KERNELS.items()}
+            tc_before = KERNELS["matmul"].tensor_core_launches
             out = {}
 
             def run():
@@ -1316,6 +1419,11 @@ def main() -> None:
             kernel = "conv2d" if be == "cuda" else "matmul"
             if launched[kernel] <= 0:
                 fail(f"{name}/{be}: the {kernel} kernel was not launched")
+            tc_launched = (KERNELS["matmul"].tensor_core_launches
+                           - tc_before)
+            if tc_launched != launched["matmul"]:
+                fail(f"{name}/{be}: {launched['matmul'] - tc_launched} bf16 "
+                     "GEMMs took the FMA kernel, not the tensor cores")
             y = out.pop("y")
             if y.shape != (s.N, s.c_O, s.h_O, s.w_O):
                 fail(f"{name}/{be}: output shape {tuple(y.shape)}")
@@ -1333,6 +1441,7 @@ def main() -> None:
                    "bound_ratio": d.bound_ratio,
                    "im2col_over_tiled_words": gap, "ms": ms,
                    "library_ms": library, "launches": launched,
+                   "matmul_tensor_core_launches": tc_launched,
                    "max_abs_err": max(errs),
                    "checked_images": [[0, BLOCK - 1],
                                       [s.N - BLOCK, s.N - 1]]}
@@ -1342,7 +1451,11 @@ def main() -> None:
         del x, w
         torch.cuda.empty_cache()
     main_launches = {n: KERNELS[n].launches for n in ("conv2d", "matmul")}
-    print(f"main path launches: {json.dumps(main_launches)}", flush=True)
+    main_tc = KERNELS["matmul"].tensor_core_launches
+    print(f"main path launches: {json.dumps(main_launches)}; matmul on the "
+          f"tensor cores {main_tc}", flush=True)
+    if main_tc != main_launches["matmul"]:
+        fail("a main-path bf16 GEMM took the FMA kernel")
     for n, c in main_launches.items():
         if c <= 0:
             fail(f"the {n} kernel was never launched on the main path")
@@ -1384,7 +1497,9 @@ def main() -> None:
                               "plain_ms": plain, "library_ms": lib,
                               "bound_ms": bms, "bound_by": by,
                               "f32_fma_bound_ms": f32_ms,
-                              "gflop": flops / 1e9, "gbytes": nbytes / 1e9}),
+                              "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                              "tflop_per_s": flops / ms / 1e9,
+                              "gbytes_per_s": nbytes / ms / 1e6}),
                   flush=True)
         del x, w, a, bmat
         torch.cuda.empty_cache()
@@ -1423,6 +1538,9 @@ def main() -> None:
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"], "ok": True,
             "shapes": "sum over the five ResNet-50 layers at batch 1000"})
+    kernels[1]["tensor_core_launches"] = main_tc
+    kernels[1]["library_note"] = ("torch.matmul on the bf16 operands writes "
+                                  "bf16, half the kernel's f32 output bytes")
     for k in attn_kernels + quant_kernels + [conv1d_kernel]:
         source, replaces = meta[k["name"]]
         k.update(source=source, replaces=replaces,

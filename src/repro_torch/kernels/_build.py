@@ -42,7 +42,9 @@ class CudaKernel:
 
     ``launches`` is a plain integer that the kernel's wrapper raises by one
     at each launch and nowhere else, so a run can show that it went through
-    the kernel. ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v``
+    the kernel; ``tensor_core_launches`` counts the launches among them that
+    took a tensor-core kernel of the source (the GEMM's bf16 path), so a run
+    can show which kernel its calls took. ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v``
     report: registers, shared memory and spills per kernel) are set by the
     build."""
 
@@ -51,6 +53,7 @@ class CudaKernel:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.tensor_core_launches = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._fn = None
@@ -99,13 +102,15 @@ class CudaKernel:
                 self._fn = fn
             return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, tensor_core: bool = False) -> None:
         """Call the C entry (which launches on the given stream) and raise
-        on a non-zero ``cudaError_t``; counts the launch."""
+        on a non-zero ``cudaError_t``; counts the launch, and among the
+        launches those of a tensor-core kernel."""
         err = self.fn()(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} failed with cudaError_t {err}")
         self.launches += 1
+        self.tensor_core_launches += int(tensor_core)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

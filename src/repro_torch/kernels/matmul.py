@@ -2,14 +2,19 @@
 
 Block shapes (bm, bn, bk) come from the paper's blocking LP applied to the
 degenerate 7NL CNN (w_F = h_F = w_O = h_O = 1). On a CUDA tensor,
-:func:`matmul` launches the hand-written kernel of ``csrc/matmul.cu`` (one
+:func:`matmul` launches the hand-written kernels of ``csrc/matmul.cu`` (one
 CTA per (bm, bn) tile, k looped inside the CTA, f32 accumulator in
-registers); on a CPU tensor it runs :func:`matmul_plain`, the same function
-in plain PyTorch. There is no fallback between the two.
+registers): bf16 inputs the tensor-core kernel (``mma.sync`` m16n8k16 fed
+by ``ldmatrix`` from a ``cp.async`` ring of k-spans), f32 inputs the FMA
+kernel; the dtype picks, before the launch. On a CPU tensor it runs
+:func:`matmul_plain`, the same function in plain PyTorch. There is no
+fallback between them.
 
 ``matmul_hbm_words`` reports the HBM words one launch moves, from the same
 launch geometry: one (bm, bk) A tile and one (bk, bn) B tile per grid step
-plus the padded output stores, exactly as the reference counts them.
+plus the padded output stores, exactly as the reference counts them. The
+tensor-core kernel's ring spans tile the same padded k range
+(:func:`stage_spans`), so its words are the same.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ from repro_torch.core.conv_model import Precision, round_up
 from repro_torch.plan import ExecutionPlan, HardwareTarget, MatmulSpec
 from repro_torch.plan.planner import resolve_kernel_plan
 
-from ._build import (CudaKernel, check_cuda_operands, check_smem, dtype_code,
-                     micro_tile)
+from ._build import (ACC_PER_THREAD, MAX_THREADS, CudaKernel,
+                     check_cuda_operands, check_smem, dtype_code, micro_tile)
 from .ref import no_tf32
 
 _c = ctypes
@@ -35,10 +40,25 @@ KERNEL = CudaKernel("matmul.cu", "repro_matmul", [
     _c.c_int, _c.c_int, _c.c_int,                     # bm, bn, bk
     _c.c_longlong, _c.c_int, _c.c_int,                # nMT, nNT, nKT
     _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,      # ldo, nRG, ldA, ldB
-    _c.c_longlong, _c.c_int, _c.c_int, _c.c_void_p,   # a_bytes, threads, smem, stream
+    _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,      # a_bytes, wn, cm, cn
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int,           # ks, slots, vwa, vwb
+    _c.c_int, _c.c_int, _c.c_void_p,                  # threads, smem, stream
 ])
-# (TM, TN) micro-tiles compiled into csrc/matmul.cu, in its variant order
+# f32 inputs: the FMA kernel's (TM, TN) micro-tiles, in csrc/matmul.cu's
+# launch_fma order
 MICRO_TILES = ((8, 8), (16, 4), (4, 16), (32, 2), (64, 1))
+# bf16 inputs: the tensor-core kernel's warp blocks of (MI, NI) m16n8 tiles,
+# in launch_tc's order (the main path's 128 x 128 and 256 x 64 tiles take
+# (4, 4), its 128 x 64 tile (2, 4)); variant LINEAR gives each warp 16
+# tiles in row-major order of the covered tile, for a tile no rectangular
+# block fits within 8 warps
+TC_VARIANTS = ((4, 4), (2, 4))
+LINEAR = len(TC_VARIANTS)
+LINEAR_TILES = ACC_PER_THREAD // 4  # m16n8 tiles a warp: 4 accumulators each
+TC_SPANS = (64, 32, 16)  # a ring stage's k-span, the first that fits
+TC_SLOTS = 3  # ring depth (fewer when k has fewer spans, never below 2)
+WHOLE_ROWS_MAX = 256  # longest unaligned k that one span of whole rows takes
+SMEM_TWO_CTAS = 113 * 1024  # a ring small enough for two CTAs an SM
 
 
 def _matmul_spec(m: int, n: int, k: int, in_bits: int) -> MatmulSpec:
@@ -53,17 +73,120 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
         return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
-def launch_config(bm: int, bn: int, bk: int, itemsize: int) -> dict:
-    """The kernel's launch configuration for tiles (bm, bn, bk): micro-tile
-    variant, thread grid, shared-memory strides and bytes."""
+def _fma_config(bm: int, bn: int, bk: int, itemsize: int) -> dict:
     variant, tm, tn, n_rg, n_cg = micro_tile(bm, bn, MICRO_TILES)
     lda = bm + max(1, 4 // itemsize)  # odd word stride: conflict-free stores
     ldb = n_cg * tn
     a_bytes = round_up(bk * lda * itemsize, 16)
     smem = a_bytes + bk * ldb * itemsize
     check_smem(smem, f"matmul tiles {(bm, bn, bk)}")
-    return dict(variant=variant, n_rg=n_rg, threads=n_rg * n_cg, lda=lda,
-                ldb=ldb, a_bytes=a_bytes, smem=smem)
+    return dict(kernel="fma", variant=variant, n_rg=n_rg,
+                threads=n_rg * n_cg, lda=lda, ldb=ldb, a_bytes=a_bytes,
+                smem=smem)
+
+
+def warp_layout(bm: int, bn: int) -> dict:
+    """The tensor-core kernel's warp layout for a (bm, bn) tile: the
+    compiled variant, its (MI, NI) block of m16n8 tiles a warp, the warp
+    grid (wm x wn) and the covered tile (rows x cols, the shared-memory
+    extent; rows past bm and columns past bn are computed, never stored).
+    The rectangular variant that covers the least area wins, then the one
+    with the most warps; a tile none fits within 8 warps takes LINEAR.
+    Raises ValueError when the tile holds more than 256 x 64 accumulators."""
+    cm, cn = -(-bm // 16), -(-bn // 8)
+    best = None
+    for v, (mi, ni) in enumerate(TC_VARIANTS):
+        wm, wn = -(-cm // mi), -(-cn // ni)
+        if wm * wn * 32 > MAX_THREADS:
+            continue
+        key = (wm * mi * wn * ni, -wm * wn)
+        if best is None or key < best[0]:
+            best = (key, dict(variant=v, mi=mi, ni=ni, wm=wm, wn=wn,
+                              rows=wm * mi * 16, cols=wn * ni * 8))
+    if best is not None:
+        return best[1]
+    warps = -(-cm * cn // LINEAR_TILES)
+    if warps * 32 > MAX_THREADS:
+        raise ValueError(
+            f"a {bm} x {bn} accumulator tile does not fit one CTA's "
+            f"{MAX_THREADS} x {ACC_PER_THREAD} registers; plan for the H100 "
+            "target")
+    return dict(variant=LINEAR, mi=1, ni=LINEAR_TILES, wm=warps, wn=1,
+                rows=cm * 16, cols=cn * 8)
+
+
+def warp_tiles(layout: dict, warp: int) -> list:
+    """The (m16, n8) tile indices one warp accumulates, as
+    ``matmul_tc_kernel`` maps them (a model of the kernel for the tests)."""
+    mi, ni, wn = layout["mi"], layout["ni"], layout["wn"]
+    if layout["variant"] == LINEAR:
+        cm, cn = layout["rows"] // 16, layout["cols"] // 8
+        qs = range(warp * ni, min((warp + 1) * ni, cm * cn))
+        return [divmod(q, cn) for q in qs]
+    wm, wj = divmod(warp, wn)
+    return [(wm * mi + i, wj * ni + j) for i in range(mi) for j in range(ni)]
+
+
+def stage_spans(k: int, bk: int, ks: int) -> list:
+    """The ring's k-spans ``[(start, stop), ...]``: the padded k range
+    ``[0, round_up(k, bk))`` cut every ``ks``. The kernel runs the spans
+    that hold real k and, in each, the 16-deep slices that do."""
+    kp = round_up(k, bk)
+    return [(s, min(s + ks, kp)) for s in range(0, kp, ks)]
+
+
+def _pad_row(c: int) -> int:
+    """A shared-memory row of c bf16 (c a multiple of 8), padded to an odd
+    multiple of 16 bytes: ldmatrix's 8 rows then fall in 8 bank groups."""
+    return c + 8 if (c // 8) % 2 == 0 else c + 16
+
+
+def vector_width(*extents: int, ptrs=()) -> int:
+    """Elements a global load may move at once: the widest of 8, 4, 2, 1
+    that divides every extent (row pitch, tile width) and whose bytes
+    divide every base address. 8 takes the ``cp.async`` 16-byte path."""
+    for v in (8, 4, 2, 1):
+        if all(e % v == 0 for e in extents) and all(p % (2 * v) == 0
+                                                    for p in ptrs):
+            return v
+    return 1
+
+
+def _tc_config(bm: int, bn: int, bk: int, k: Optional[int]) -> dict:
+    lay = warp_layout(bm, bn)
+    ldb = _pad_row(lay["cols"])
+    spans = TC_SPANS
+    if k is not None and k % 8 and round_up(k, 16) <= WHOLE_ROWS_MAX:
+        # a pitch 16-byte copies cannot take: one span of whole rows, so
+        # that a tile's rows are one contiguous run (conv1's k = 147)
+        spans = (round_up(k, 16),) + spans
+    for ks in spans:
+        n_spans = TC_SLOTS if k is None else -(-k // ks)
+        slots = min(TC_SLOTS, max(2, n_spans))
+        lda = _pad_row(ks)
+        a_bytes = lay["rows"] * lda * 2
+        # one slot holds an A and a B stage; a single span needs one slot
+        smem = min(slots, n_spans) * (a_bytes + ks * ldb * 2)
+        if smem <= SMEM_TWO_CTAS:
+            break
+    check_smem(smem, f"matmul tiles {(bm, bn, bk)}")
+    return dict(kernel="tensor core", **lay, threads=lay["wm"] * lay["wn"] * 32,
+                ks=ks, slots=slots, n_spans=n_spans, lda=lda, ldb=ldb,
+                a_bytes=a_bytes, smem=smem,
+                acc_per_thread=lay["mi"] * lay["ni"] * 4)
+
+
+def launch_config(bm: int, bn: int, bk: int, itemsize: int,
+                  k: Optional[int] = None) -> dict:
+    """The kernel's launch configuration for tiles (bm, bn, bk), picked by
+    the input's item size: 2 (bf16) the tensor-core kernel (warp layout,
+    ring span, slots, spans of ``k`` holding real k; ``k=None`` sizes the
+    ring for a long k), 4 (f32) the FMA kernel (micro-tile variant and
+    thread grid). Both give shared-memory strides and bytes. Raises
+    ValueError for a tile no variant covers."""
+    if itemsize == 2:
+        return _tc_config(bm, bn, bk, k)
+    return _fma_config(bm, bn, bk, itemsize)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype,
@@ -73,15 +196,24 @@ def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype,
     n = b.shape[1]
     bm, bn, bk = tiles
     mp, np_ = round_up(m, bm), round_up(n, bn)
-    cfg = launch_config(bm, bn, bk, a.element_size())
+    cfg = launch_config(bm, bn, bk, a.element_size(), k)
     out = torch.empty((mp, np_), dtype=out_dtype, device=a.device)
+    if cfg["kernel"] == "tensor core":
+        geometry = (cfg["n_spans"], np_, 0, cfg["lda"], cfg["ldb"],
+                    cfg["a_bytes"], cfg["wn"], cfg["rows"] // 16,
+                    cfg["cols"] // 8, cfg["ks"], cfg["slots"],
+                    vector_width(k, ptrs=(a.data_ptr(),)),
+                    vector_width(n, bn, ptrs=(b.data_ptr(),)))
+    else:
+        geometry = (-(-k // bk), np_, cfg["n_rg"], cfg["lda"], cfg["ldb"],
+                    cfg["a_bytes"], 0, 0, 0, 0, 0, 0, 0)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         KERNEL.launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), dtype_code(a.dtype),
             dtype_code(out_dtype), cfg["variant"], m, n, k, bm, bn, bk,
-            mp // bm, np_ // bn, -(-k // bk), np_, cfg["n_rg"], cfg["lda"],
-            cfg["ldb"], cfg["a_bytes"], cfg["threads"], cfg["smem"], stream)
+            mp // bm, np_ // bn, *geometry, cfg["threads"], cfg["smem"],
+            stream, tensor_core=cfg["kernel"] == "tensor core")
     return out[:m, :n]
 
 

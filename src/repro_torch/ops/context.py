@@ -13,7 +13,8 @@ runs, with which tiles, at which precision, on which device":
   * ``autotune`` - must stay falsy: the measured autotuner is not ported;
   * ``device``  - where the entry points run: ``"cuda"`` (the default) or
                   ``"cpu"``. A context for ``"cuda"`` on a machine without a
-                  GPU raises at construction; nothing falls back to the CPU.
+                  GPU raises ``DeviceLost`` at construction; nothing falls
+                  back to the CPU.
                   On ``"cpu"`` every kernel wrapper runs its plain version.
 
 Plans are resolved through ``repro_torch.plan.resolve_plan``, backed by the
@@ -30,6 +31,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.plan import H100, HardwareTarget
+from repro_torch.resilience.errors import DeviceLost
 
 BACKEND_ENV = "REPRO_TORCH_BACKEND"
 BACKEND_NAMES = ("torch", "cuda", "im2col")
@@ -77,7 +79,7 @@ class ExecutionContext:
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{self.device!r}")
         if kind == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceLost(
                 "ExecutionContext(device='cuda') but no CUDA device is "
                 "available; pass device='cpu' to run the plain versions")
         if self.autotune:

@@ -26,6 +26,8 @@ from repro_torch.kernels.im2col import (conv2d_im2col, im2col_hbm_words,
 from repro_torch.kernels.matmul import matmul as tmatmul
 from repro_torch.kernels.matmul import matmul_hbm_words
 from repro_torch.kernels.matmul import launch_config as mm_launch_config
+from repro_torch.kernels.matmul import (LINEAR, TC_VARIANTS, stage_spans,
+                                        vector_width, warp_layout, warp_tiles)
 
 # the submodules: the package re-exports functions of the same names
 jconv = importlib.import_module("repro.kernels.conv2d")
@@ -191,6 +193,121 @@ def test_launch_configs_fit_the_card():
         launch_config((64, 8, 512, 7, 7), 3, 3, 9, 9, 2)
 
 
+# -- the tensor-core GEMM's geometry (bf16 inputs) ---------------------------
+
+def _gemm_tiles(m, n, k):
+    return tuple(tp.Planner(tp.H100).plan(
+        tp.MatmulSpec(m, n, k, tp.ops.Precision(.5, .5, 1.))).tiles)
+
+
+# (m, n, k, tiles): the five Im2Col GEMMs at batch 1000 and chip_smoke.py's
+# phase-3 GEMMs (None: the planner's tiles)
+TC_GEMMS = {
+    "conv1": (12544000, 64, 147, None),
+    "conv2_x": (3136000, 64, 576, None),
+    "conv3_x": (784000, 128, 1152, None),
+    "conv4_x": (196000, 256, 2304, None),
+    "conv5_x": (49000, 512, 4608, None),
+    "ragged_77": (100, 300, 77, None),
+    "ragged_129": (130, 257, 129, None),
+    "m1": (1, 128, 64, None),
+    "explicit_32x48": (130, 257, 129, (32, 48, 16)),
+    "conv1_pitch": (3000, 64, 147, (128, 64, 144)),
+    "k_not_span_multiple": (1000, 96, 208, None),
+    "m_below_16": (5, 200, 96, None),
+    "odd_pitch_spans": (257, 72, 1001, None),
+}
+# tiles only LINEAR covers, or that need a ragged covered tile
+ODD_TILES = [(48, 336), (1024, 16), (16, 1024), (1, 8), (8, 128), (16, 16),
+             (96, 128), (80, 200)]
+
+
+def _tc_case(name):
+    m, n, k, tiles = TC_GEMMS[name]
+    return m, n, k, tiles or _gemm_tiles(m, n, k)
+
+
+@pytest.mark.parametrize("name", list(TC_GEMMS))
+def test_tensor_core_launch_config(name):
+    """bf16 tiles of the main path and of phase 3 take a tensor-core
+    variant within a CTA's threads, accumulators and shared memory."""
+    m, n, k, (bm, bn, bk) = _tc_case(name)
+    cfg = mm_launch_config(bm, bn, bk, 2, k)
+    assert cfg["kernel"] == "tensor core"
+    assert cfg["variant"] in range(len(TC_VARIANTS) + 1)
+    assert cfg["threads"] <= 256 and cfg["threads"] % 32 == 0
+    assert cfg["acc_per_thread"] <= 64
+    assert cfg["smem"] <= 232448
+    assert 2 <= cfg["slots"] <= 3 and cfg["ks"] % 16 == 0
+    assert cfg["rows"] >= bm and cfg["cols"] >= bn
+    # rows padded to an odd multiple of 16 bytes: ldmatrix conflict-free
+    assert (cfg["lda"] * 2 // 16) % 2 == 1 and (cfg["ldb"] * 2 // 16) % 2 == 1
+    if name.startswith("conv"):  # main-path tiles fit two CTAs an SM
+        assert cfg["variant"] != LINEAR and cfg["smem"] <= 113 * 1024
+    if k % 8 and k <= 256:  # an unaligned pitch: one span of whole rows
+        assert cfg["n_spans"] == 1 and cfg["ks"] == -(-k // 16) * 16
+    assert mm_launch_config(bm, bn, bk, 4, k)["kernel"] == "fma"
+
+
+@pytest.mark.parametrize("tile", [_tc_case(n)[3][:2] for n in TC_GEMMS]
+                         + ODD_TILES, ids=str)
+def test_tensor_core_warp_layout_covers_the_tile_once(tile):
+    """The warps' m16n8 tiles, as the kernel maps them, cover every
+    element of the (bm, bn) tile exactly once, and stay inside the
+    shared-memory extent the ring holds."""
+    bm, bn = tile
+    lay = warp_layout(bm, bn)
+    count = np.zeros((lay["rows"], lay["cols"]), np.int64)
+    warps = lay["wm"] * lay["wn"]
+    for w in range(warps):
+        owned = warp_tiles(lay, w)
+        assert len(owned) <= lay["mi"] * lay["ni"] <= 16
+        for mt, nt in owned:
+            assert (mt + 1) * 16 <= lay["rows"] and (nt + 1) * 8 <= lay["cols"]
+            count[mt * 16:(mt + 1) * 16, nt * 8:(nt + 1) * 8] += 1
+    assert (count[:bm, :bn] == 1).all()
+    assert warps * 32 <= 256
+
+
+@pytest.mark.parametrize("name", list(TC_GEMMS) + ["k8", "k20"])
+def test_tensor_core_stage_spans_tile_padded_k(name):
+    """The ring's k-spans are multiples of 16 and tile [0, round_up(k, bk))
+    exactly, so the words issued stay matmul_hbm_words'; the kernel runs
+    the spans holding real k."""
+    if name == "k8":
+        m, n, k, (bm, bn, bk) = 40, 32, 8, (16, 32, 8)
+    elif name == "k20":
+        m, n, k, (bm, bn, bk) = 40, 32, 20, (16, 32, 16)
+    else:
+        m, n, k, (bm, bn, bk) = _tc_case(name)
+    cfg = mm_launch_config(bm, bn, bk, 2, k)
+    spans = stage_spans(k, bk, cfg["ks"])
+    kp = -(-k // bk) * bk
+    assert spans[0][0] == 0 and spans[-1][1] == kp
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all((e - s) % 16 == 0 for s, e in spans[:-1])
+    assert kp % 16 or (spans[-1][1] - spans[-1][0]) % 16 == 0
+    assert cfg["n_spans"] == sum(s < k for s, _ in spans)
+
+
+@pytest.mark.parametrize("tile", [(256, 128), (128, 256), (512, 64),
+                                  (16, 2048)], ids=str)
+def test_tensor_core_refuses_a_tile_no_variant_covers(tile):
+    """More than 256 x 64 accumulators: ValueError, never the FMA kernel."""
+    with pytest.raises(ValueError, match="accumulator tile"):
+        mm_launch_config(*tile, 16, 2, 4608)
+
+
+def test_vector_width_follows_pitch_and_alignment():
+    """The global load width: 16-byte cp.async only where the pitch and
+    base allow it (conv1's 147-element rows take 2-byte loads)."""
+    assert vector_width(576, ptrs=(256,)) == 8
+    assert vector_width(147, ptrs=(256,)) == 1
+    assert vector_width(300, 128, ptrs=(0,)) == 4
+    assert vector_width(576, ptrs=(258,)) == 1
+    assert vector_width(576, ptrs=(260,)) == 2
+
+
 def test_cuda_tensor_never_takes_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises; it is
     never served by the plain version."""
@@ -222,6 +339,17 @@ def test_kernels_match_plain_on_the_card():
     b = torch.randn(129, 257, device="cuda")
     torch.testing.assert_close(tmatmul(a, b), matmul_plain(a, b),
                                rtol=1e-4, atol=1e-4)
+    # bf16 in: the tensor-core kernel, f32 out (bf16 products are exact in
+    # f32; the sums differ in order only)
+    tc = KERNELS["matmul"].tensor_core_launches
+    for m, n, k, tiles in [(3000, 64, 147, (128, 64, 144)),
+                           (130, 257, 129, None), (100, 300, 77, None),
+                           (1000, 96, 208, None), (5, 200, 96, None)]:
+        a = torch.randn(m, k, device="cuda").bfloat16()
+        b = (torch.randn(k, n, device="cuda") * k ** -0.5).bfloat16()
+        torch.testing.assert_close(tmatmul(a, b, tiles=tiles),
+                                   matmul_plain(a, b), rtol=1e-4, atol=1e-4)
+    assert KERNELS["matmul"].tensor_core_launches == tc + 5
 
 
 def test_oracles_keep_the_callers_tf32_setting():

@@ -19,6 +19,7 @@ from repro import ops as jops
 from repro.core.conv_model import resnet50_layers
 from repro_torch import ops as tops
 from repro_torch.convert import params_from_jax
+from repro_torch.resilience.errors import DeviceLost
 
 LAYERS = resnet50_layers(1000)
 BACKENDS = {"torch": "xla", "cuda": "pallas", "im2col": "im2col"}
@@ -160,8 +161,9 @@ def test_torch_backend_is_f_conv2d():
 def test_default_context_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
+    with pytest.raises(RuntimeError, match="no CUDA device") as raised:
         tops.ExecutionContext()
+    assert type(raised.value) is DeviceLost
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.conv2d(torch.zeros(1, 1, 3, 3), torch.zeros(1, 1, 3, 3))
 
