@@ -24,22 +24,28 @@ kernel. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
-     the GEMM's tensor-core variants: registers and spills from ptxas and
-     the HMMA count of their SASS (cuobjdump), fatal if a variant has no
-     HMMA or a main-path variant spills;
+     the tensor-core variants of the GEMM and of the direct conv: registers
+     and spills from ptxas and the HMMA count of their SASS (cuobjdump),
+     fatal if a variant has no HMMA or a main-path variant spills;
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
-     stride-2 and one main-path shape (TF32 off); each GEMM check names
-     the kernel its dtype took (bf16: tensor core, f32: fma), and the bf16
-     cases include conv1's 294-byte pitch, a k that is not a multiple of
-     the ring's span, m < 16 and an odd pitch over several spans;
+     stride-2 and main-path shapes (TF32 off); each check names the kernel
+     its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
+     include conv1's 294-byte pitch, a k that is not a multiple of the
+     ring's span, m < 16 and an odd pitch over several spans; the conv
+     cases c_I = 40 over stages of 16 (the last ragged), a 392-row tile,
+     conv5_x's and conv1's tiles, and bf16 inputs 2, 4 and 8 bytes off a
+     16-byte boundary; conv1, conv2_x and conv5_x at full batch (first and
+     last 8 images);
   4. the conv path, launch counters set to 0 just before and read just
      after: one JSON line per layer and backend (tiles, measured words, bound
-     ratio, Im2Col/tiled gap, median ms, F.conv2d ms, launches, error);
-     fatal unless every ``im2col`` GEMM was a tensor-core launch;
+     ratio, Im2Col/tiled gap, median ms, F.conv2d ms, launches, tensor-core
+     launches, error); fatal unless every ``cuda`` conv launch and every
+     ``im2col`` GEMM was a tensor-core launch;
   5. each conv-path kernel's time beside its plain version, one library call
-     and its bound at the conv path's shapes, with TFLOP/s and GB/s
-     (``torch.matmul``, the GEMM's library call, writes bf16: half the
-     kernel's f32 output bytes);
+     and its bound at the conv path's shapes, with TFLOP/s and GB/s, and for
+     the conv its plan-word floor (the words the plan's tiles issue, at the
+     HBM rate) (``F.conv2d`` and ``torch.matmul``, the library calls, write
+     bf16: half the kernels' f32 output bytes);
   6. flash attention and paged decode against their plain versions (bf16 and
      f32; GQA groups 1 and 8; hd 64 and 128; ragged lengths; int and
      per-row offsets; a pad-tail key mask with one fully masked row; paged
@@ -168,6 +174,8 @@ WARMUP, TIMED = 1, 5
 BLOCK = 8  # images compared with the plain version at each end of the batch
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 SEED = 0
+CONV_LIBRARY_NOTE = ("F.conv2d on the bf16 operands writes bf16, half the "
+                     "kernel's f32 output bytes")
 
 
 def fail(msg: str) -> None:
@@ -705,10 +713,60 @@ def sass_functions(library) -> dict:
     return funcs
 
 
-def tc_symbol(mi: int, ni: int, linear: bool, out_f32: bool) -> str:
-    """The mangled-name part of ``matmul_tc_kernel<Tout, MI, NI, LINEAR>``."""
+def tc_symbol(kernel: str, mi: int, ni: int, out_f32: bool,
+              linear=None) -> str:
+    """The mangled-name part of ``<kernel><Tout, MI, NI>`` (the conv's), or
+    of ``<kernel><Tout, MI, NI, LINEAR>`` where ``linear`` is a bool (the
+    GEMM's)."""
     tout = "f" if out_f32 else "13__nv_bfloat16"
-    return f"matmul_tc_kernelI{tout}Li{mi}ELi{ni}ELb{int(linear)}E"
+    tail = "E" if linear is None else f"Lb{int(linear)}E"
+    return f"{kernel}I{tout}Li{mi}ELi{ni}E{tail}"
+
+
+def tc_variants(name: str, kernel: str, variants, main_variants, linear=None):
+    """Phase 2 for one source's tensor-core kernel: each compiled variant's
+    registers and spill bytes (ptxas) and HMMA count (its SASS); fatal if a
+    variant has no HMMA or a variant the main path takes (f32 out) spills.
+    ``linear`` is the GEMM's LINEAR variant index (None for the conv)."""
+    from repro_torch.kernels import KERNELS
+
+    regs_of = ptxas_functions(KERNELS[name].build_log)
+    sass = sass_functions(KERNELS[name].library_path())
+    for v, (mi, ni) in enumerate(variants):
+        for out_f32 in (True, False):
+            sym = tc_symbol(kernel, mi, ni, out_f32,
+                            None if linear is None else v == linear)
+            found = [f for f in regs_of if sym in f]
+            body = [t for f, t in sass.items() if sym in f]
+            if len(found) != 1 or len(body) != 1:
+                fail(f"{name}: {sym} not found once in the build "
+                     f"({len(found)} in ptxas, {len(body)} in SASS)")
+            regs, spill = regs_of[found[0]]
+            hmma = body[0].count("HMMA")
+            used = v in main_variants and out_f32
+            print(f"build {name} tensor-core variant {v} (MI {mi}, NI {ni}"
+                  f"{', LINEAR' if v == linear else ''}; "
+                  f"{'f32' if out_f32 else 'bf16'} out"
+                  f"{'; main path' if used else ''}): registers {regs}, "
+                  f"spill bytes {spill}, HMMA instructions {hmma}",
+                  flush=True)
+            if hmma == 0:
+                fail(f"{name}: {sym} has no HMMA: not on the tensor cores")
+            if used and spill:
+                fail(f"{name}: main-path variant {sym} spills {spill} bytes")
+
+
+def conv_tiles(s) -> tuple:
+    """The H100 plan's (bN, b_cI, b_cO, b_hO, b_wO) tiles of a conv layer,
+    bf16 in and f32 out, and their halo window (h_in, w_in)."""
+    from repro_torch.core.conv_model import Precision
+    from repro_torch.plan import H100, ConvSpec, Planner
+
+    spec = ConvSpec(N=s.N, c_I=s.c_I, c_O=s.c_O, w_O=s.w_O, h_O=s.h_O,
+                    w_F=s.w_F, h_F=s.h_F, sw=s.sw, sh=s.sh,
+                    prec=Precision(0.5, 0.5, 1.0))
+    t = tuple(Planner(H100).plan(spec).tiles)
+    return t, ((t[3] - 1) * s.sh + s.h_F, (t[4] - 1) * s.sw + s.w_F)
 
 
 def gemm_tiles(s) -> tuple:
@@ -1281,37 +1339,25 @@ def main() -> None:
                              .get(name, ""))
         print(f"build {name}: registers per thread {regs}; "
               f"spilling variants {spills}", flush=True)
-    # the GEMM's bf16 path: every tensor-core variant holds HMMA in its SASS
-    # (the product runs on the tensor cores); those the main path takes
-    # (f32 out) must not spill
+    # the bf16 paths of the GEMM and the direct conv: every tensor-core
+    # variant holds HMMA in its SASS (the product runs on the tensor cores);
+    # those the main path takes (f32 out) must not spill
+    from repro_torch.kernels.conv2d import TC_VARIANTS as CONV_VARIANTS
+    from repro_torch.kernels.conv2d import launch_config as conv_config
     from repro_torch.kernels.matmul import (LINEAR, LINEAR_TILES,
                                             TC_VARIANTS)
     from repro_torch.kernels.matmul import launch_config as mm_config
+    layers = resnet50_layers(BATCH)
     main_variants = {mm_config(*t, 2, mnk[2])["variant"] for mnk, t in
-                     map(gemm_tiles, resnet50_layers(BATCH).values())}
-    regs_of = ptxas_functions(KERNELS["matmul"].build_log)
-    sass = sass_functions(KERNELS["matmul"].library_path())
-    for v, (mi, ni) in enumerate(TC_VARIANTS + ((1, LINEAR_TILES),)):
-        for out_f32 in (True, False):
-            sym = tc_symbol(mi, ni, v == LINEAR, out_f32)
-            found = [f for f in regs_of if sym in f]
-            body = [t for f, t in sass.items() if sym in f]
-            if len(found) != 1 or len(body) != 1:
-                fail(f"matmul: {sym} not found once in the build "
-                     f"({len(found)} in ptxas, {len(body)} in SASS)")
-            regs, spill = regs_of[found[0]]
-            hmma = body[0].count("HMMA")
-            used = v in main_variants and out_f32
-            print(f"build matmul tensor-core variant {v} (MI {mi}, NI {ni}"
-                  f"{', LINEAR' if v == LINEAR else ''}; "
-                  f"{'f32' if out_f32 else 'bf16'} out"
-                  f"{'; main path' if used else ''}): registers {regs}, "
-                  f"spill bytes {spill}, HMMA instructions {hmma}",
-                  flush=True)
-            if hmma == 0:
-                fail(f"matmul: {sym} has no HMMA: not on the tensor cores")
-            if used and spill:
-                fail(f"matmul: main-path variant {sym} spills {spill} bytes")
+                     map(gemm_tiles, layers.values())}
+    tc_variants("matmul", "matmul_tc_kernel",
+                TC_VARIANTS + ((1, LINEAR_TILES),), main_variants, LINEAR)
+    main_variants = set()
+    for s in layers.values():
+        t, (h_in, w_in) = conv_tiles(s)
+        main_variants.add(conv_config(t, s.h_F, s.w_F, h_in, w_in, 2,
+                                      s.c_I)["variant"])
+    tc_variants("conv2d", "conv2d_tc_kernel", CONV_VARIANTS, main_variants)
 
     max_err = {name: 0.0 for name in KERNELS}
 
@@ -1333,18 +1379,32 @@ def main() -> None:
         (3, 5, 7, 11, 13, 3, 5, 1, 2, None),              # ragged c_I, c_O
         (4, 3, 32, 20, 20, 7, 7, 2, 2, None),             # c_I = 3, 7x7/2
         (2, 6, 8, 16, 16, 1, 1, 2, 2, (1, 6, 8, 3, 5)),   # h_F = 1
+        # c_I = 40 over stages of 16 (the last ragged): whole planes
+        # (16-byte copies), and rows of a 4-byte pitch with ragged h/w tiles
+        (3, 40, 48, 12, 12, 3, 3, 1, 1, (2, 16, 32, 10, 10)),
+        (3, 40, 48, 16, 16, 3, 3, 1, 1, (2, 16, 32, 6, 6)),
+        (2, 32, 40, 30, 30, 3, 3, 1, 1, (1, 16, 32, 28, 14)),  # 392 rows
+        (6, 40, 70, 9, 9, 3, 3, 1, 1, (5, 32, 64, 7, 7)),      # conv5_x's
+        (4, 3, 64, 229, 229, 7, 7, 2, 2, (2, 3, 32, 16, 16)),  # conv1's
     ]
     for dt in (torch.float32, torch.bfloat16):
+        kind = "tensor core" if dt == torch.bfloat16 else "fma"
         for od in (torch.float32, torch.bfloat16):
             for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in conv_cases:
                 x = randn((N, cI, H, W), dt)
                 w = randn((cO, cI, hF, wF), dt, (cI * hF * wF) ** -0.5)
+                tc = KERNELS["conv2d"].tensor_core_launches
                 got = conv2d_kernel(x, w, (sh, sw), out_dtype=od,
                                     tiles=tiles)
                 torch.cuda.synchronize()
+                path = ("tensor core" if KERNELS["conv2d"].tensor_core_launches
+                        > tc else "fma")
+                if path != kind:
+                    fail(f"conv2d {dt} {(N, cI, cO, H, W)} took the {path} "
+                         "kernel")
                 record("conv2d", got, conv2d_plain(x, w, (sh, sw), od),
                        f"{dt}->{od} {(N, cI, cO, H, W, hF, wF, sh, sw)} "
-                       f"tiles {tiles}")
+                       f"tiles {tiles} on {path}")
             for (m, n, k, tiles) in [(100, 300, 77, None),
                                      (130, 257, 129, None),
                                      (1, 128, 64, None),
@@ -1367,15 +1427,32 @@ def main() -> None:
                     fail(f"matmul {dt} {(m, n, k)} took the {path} kernel")
                 record("matmul", got, matmul_plain(a, b, od),
                        f"{dt}->{od} {(m, n, k)} tiles {tiles} on {path}")
-    # one main-path shape each: conv2_x, and the GEMM of conv5_x's Im2Col
+    # bf16 inputs whose base is 2, 4 or 8 bytes past a 16-byte boundary:
+    # the wrapper realigns them with one copy for the tensor-core kernel's
+    # 16-byte window copies
+    for off in (1, 2, 4):
+        for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in conv_cases[-4:]:
+            n = N * cI * H * W
+            x = randn((n + 8,), torch.bfloat16)[off:off + n].view(N, cI, H, W)
+            w = randn((cO, cI, hF, wF), torch.bfloat16, (cI * hF * wF) ** -0.5)
+            got = conv2d_kernel(x, w, (sh, sw), tiles=tiles)
+            torch.cuda.synchronize()
+            record("conv2d", got, conv2d_plain(x, w, (sh, sw)),
+                   f"bf16 at +{2 * off} bytes {(N, cI, cO, H, W)} tiles "
+                   f"{tiles}")
+    # main-path shapes: conv1, conv2_x and conv5_x at full batch, and the
+    # GEMM of conv5_x's Im2Col
     ctx_plan = ExecutionContext(target=H100, backend="cuda")
-    x = randn((BATCH, 64, 58, 58), torch.bfloat16)
-    w = randn((64, 64, 3, 3), torch.bfloat16, 576 ** -0.5)
-    got = conv2d_kernel(x, w, ctx=ctx_plan)
-    torch.cuda.synchronize()
-    for sl in (slice(0, BLOCK), slice(BATCH - BLOCK, BATCH)):
-        record("conv2d", got[sl], conv2d_plain(x[sl], w),
-               f"conv2_x images {sl.start}..{sl.stop - 1}")
+    for name in ("conv1", "conv2_x", "conv5_x"):
+        s = layers[name]
+        x, w = layer_inputs(gen, list(layers).index(name), s)
+        got = conv2d_kernel(x, w, (s.sh, s.sw), ctx=ctx_plan)
+        torch.cuda.synchronize()
+        for sl in (slice(0, BLOCK), slice(BATCH - BLOCK, BATCH)):
+            record("conv2d", got[sl], conv2d_plain(x[sl], w, (s.sh, s.sw)),
+                   f"{name} images {sl.start}..{sl.stop - 1}")
+        del x, w, got
+    torch.cuda.empty_cache()
     a = randn((BATCH * 49, 4608), torch.bfloat16)
     b = randn((4608, 512), torch.bfloat16, 4608 ** -0.5)
     got = matmul_kernel(a, b, ctx=ctx_plan)
@@ -1383,11 +1460,10 @@ def main() -> None:
     for sl in (slice(0, 4096), slice(BATCH * 49 - 4096, BATCH * 49)):
         record("matmul", got[sl], matmul_plain(a[sl], b),
                f"conv5_x GEMM rows {sl.start}..{sl.stop - 1}")
-    del x, w, a, b, got
+    del a, b, got
     torch.cuda.empty_cache()
 
     # -- 4. the main path ---------------------------------------------------
-    layers = resnet50_layers(BATCH)
     backends = ("cuda", "im2col")
     ctxs = {be: ExecutionContext(target=H100, backend=be) for be in backends}
 
@@ -1406,7 +1482,8 @@ def main() -> None:
         library = median_ms(lambda: F.conv2d(x, w, stride=stride))
         for be in backends:
             before = {n: k.launches for n, k in KERNELS.items()}
-            tc_before = KERNELS["matmul"].tensor_core_launches
+            tc_before = {n: KERNELS[n].tensor_core_launches
+                         for n in ("conv2d", "matmul")}
             out = {}
 
             def run():
@@ -1419,11 +1496,12 @@ def main() -> None:
             kernel = "conv2d" if be == "cuda" else "matmul"
             if launched[kernel] <= 0:
                 fail(f"{name}/{be}: the {kernel} kernel was not launched")
-            tc_launched = (KERNELS["matmul"].tensor_core_launches
-                           - tc_before)
-            if tc_launched != launched["matmul"]:
-                fail(f"{name}/{be}: {launched['matmul'] - tc_launched} bf16 "
-                     "GEMMs took the FMA kernel, not the tensor cores")
+            tc_launched = {n: KERNELS[n].tensor_core_launches - c
+                           for n, c in tc_before.items()}
+            for n, c in tc_launched.items():
+                if c != launched[n]:
+                    fail(f"{name}/{be}: {launched[n] - c} bf16 {n} launches "
+                         "took the FMA kernel, not the tensor cores")
             y = out.pop("y")
             if y.shape != (s.N, s.c_O, s.h_O, s.w_O):
                 fail(f"{name}/{be}: output shape {tuple(y.shape)}")
@@ -1441,7 +1519,7 @@ def main() -> None:
                    "bound_ratio": d.bound_ratio,
                    "im2col_over_tiled_words": gap, "ms": ms,
                    "library_ms": library, "launches": launched,
-                   "matmul_tensor_core_launches": tc_launched,
+                   "tensor_core_launches": tc_launched,
                    "max_abs_err": max(errs),
                    "checked_images": [[0, BLOCK - 1],
                                       [s.N - BLOCK, s.N - 1]]}
@@ -1451,11 +1529,13 @@ def main() -> None:
         del x, w
         torch.cuda.empty_cache()
     main_launches = {n: KERNELS[n].launches for n in ("conv2d", "matmul")}
-    main_tc = KERNELS["matmul"].tensor_core_launches
-    print(f"main path launches: {json.dumps(main_launches)}; matmul on the "
-          f"tensor cores {main_tc}", flush=True)
-    if main_tc != main_launches["matmul"]:
-        fail("a main-path bf16 GEMM took the FMA kernel")
+    main_tc = {n: KERNELS[n].tensor_core_launches for n in main_launches}
+    print(f"main path launches: {json.dumps(main_launches)}; on the tensor "
+          f"cores {json.dumps(main_tc)}", flush=True)
+    for n, c in main_tc.items():
+        if c != main_launches[n]:
+            fail(f"{c} of {main_launches[n]} main-path {n} launches took the "
+                 "tensor cores")
     for n, c in main_launches.items():
         if c <= 0:
             fail(f"the {n} kernel was never launched on the main path")
@@ -1493,14 +1573,20 @@ def main() -> None:
             t["library_ms"] += lib
             t["bound_ms"] += bms
             t["by"][by] += bms
-            print(json.dumps({"kernel_layer": kname, "layer": name, "ms": ms,
-                              "plain_ms": plain, "library_ms": lib,
-                              "bound_ms": bms, "bound_by": by,
-                              "f32_fma_bound_ms": f32_ms,
-                              "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-                              "tflop_per_s": flops / ms / 1e9,
-                              "gbytes_per_s": nbytes / ms / 1e6}),
-                  flush=True)
+            line = {"kernel_layer": kname, "layer": name, "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                    "bound_by": by, "f32_fma_bound_ms": f32_ms,
+                    "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                    "tflop_per_s": flops / ms / 1e9,
+                    "gbytes_per_s": nbytes / ms / 1e6}
+            if kname == "conv2d":
+                # the words the plan's tiles make the kernel issue (windows
+                # and filters re-read, no credit for the L2), at the HBM rate
+                floor = (rows[(name, "cuda")]["measured_words"] * 4
+                         / PEAK_BYTES * 1e3)
+                line.update(plan_word_floor_ms=floor,
+                            library_note=CONV_LIBRARY_NOTE)
+            print(json.dumps(line), flush=True)
         del x, w, a, bmat
         torch.cuda.empty_cache()
 
@@ -1538,7 +1624,9 @@ def main() -> None:
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"], "ok": True,
             "shapes": "sum over the five ResNet-50 layers at batch 1000"})
-    kernels[1]["tensor_core_launches"] = main_tc
+    for k in kernels:
+        k["tensor_core_launches"] = main_tc[k["name"]]
+    kernels[0]["library_note"] = CONV_LIBRARY_NOTE
     kernels[1]["library_note"] = ("torch.matmul on the bf16 operands writes "
                                   "bf16, half the kernel's f32 output bytes")
     for k in attn_kernels + quant_kernels + [conv1d_kernel]:

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, keyed by a hash of the source and
-the flags, under ``kernels/_build/`` (listed in ``.gitignore``), and loaded
-with ``ctypes``. Nothing here runs at import: the package imports on a
-machine without ``nvcc`` or a GPU, where only the plain versions run.
+shared library with a plain C interface, keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, under ``kernels/_build/``
+(listed in ``.gitignore``), and loaded with ``ctypes``. Nothing here runs
+at import: the package imports on a machine without ``nvcc`` or a GPU,
+where only the plain versions run.
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ class CudaKernel:
     ``launches`` is a plain integer that the kernel's wrapper raises by one
     at each launch and nowhere else, so a run can show that it went through
     the kernel; ``tensor_core_launches`` counts the launches among them that
-    took a tensor-core kernel of the source (the GEMM's bf16 path), so a run
-    can show which kernel its calls took. ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v``
-    report: registers, shared memory and spills per kernel) are set by the
-    build."""
+    took a tensor-core kernel of the source (the bf16 paths of the GEMM and
+    of the direct conv), so a run can show which kernel its calls took.
+    ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v`` report:
+    registers, shared memory and spills per kernel) are set by the build."""
 
     def __init__(self, source: str, entry: str, argtypes: Sequence):
         self.source = source
@@ -60,7 +61,9 @@ class CudaKernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        src = (CSRC / self.source).read_bytes()
+        # the source and the headers it may include (csrc/*.cuh)
+        src = (CSRC / self.source).read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{Path(self.source).stem}-{key[:16]}.so"
 

@@ -11,10 +11,17 @@ Layout: NCHW input, OIHW filter, VALID padding, arbitrary stride — the exact
 [i*bh, (i+1)*bh) reads the overlapping input window starting at row
 i*bh*sh of (bh - 1)*sh + h_F rows, and likewise for columns.
 
-On a CUDA tensor, :func:`conv2d` launches the hand-written kernel of
+On a CUDA tensor, :func:`conv2d` launches the hand-written kernels of
 ``csrc/conv2d.cu`` (one CTA per output tile, the c_I loop inside the CTA,
-accumulator in registers); on a CPU tensor it runs :func:`conv2d_plain`, the
-same function in plain PyTorch. There is no fallback between the two.
+accumulator in registers): bf16 inputs the tensor-core kernel (an implicit
+GEMM, ``mma.sync`` m16n8k16, its A fragments gathered from the window in
+shared memory through :func:`gather_table` and :func:`row_offsets`, the
+window laid out by :func:`window_layout` so that 16-byte ``cp.async`` runs
+fill it whatever the input's pitch, a two-slot ring over c_I; an input
+whose base is not 16-byte aligned, a slice, is realigned by one copy
+first), f32 inputs the FMA kernel; the dtype picks, before the launch. On a
+CPU tensor it runs :func:`conv2d_plain`, the same function in plain
+PyTorch. There is no fallback between them.
 
 ``conv2d_hbm_words`` reports the HBM words one launch moves, from the same
 launch geometry (:func:`_launch_geometry`) the kernel uses: one input halo
@@ -35,23 +42,40 @@ from repro_torch.plan.planner import resolve_kernel_plan
 
 from ._build import (CudaKernel, check_cuda_operands, check_smem, dtype_code,
                      micro_tile)
+from .matmul import SMEM_TWO_CTAS, _pad_row, vector_width, warp_layout
 from .ref import no_tf32
 
 _c = ctypes
 KERNEL = CudaKernel("conv2d.cu", "repro_conv2d", [
-    _c.c_void_p, _c.c_void_p, _c.c_void_p,                  # x, w, out
-    _c.c_int, _c.c_int, _c.c_int,                           # dtypes, variant
-    _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,            # N, c_I, H, W
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,       # c_O, h_F, w_F, sh, sw
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,       # tiles
-    _c.c_int, _c.c_int,                                     # h_in, w_in
-    _c.c_int, _c.c_int, _c.c_int,                           # cOp, hOp, wOp
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,       # grid
-    _c.c_int, _c.c_int, _c.c_longlong,                      # nPG, ldW, x_bytes
-    _c.c_int, _c.c_int, _c.c_void_p,                        # threads, smem, stream
+    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # x, w, koff, out
+    _c.c_int, _c.c_int, _c.c_int,                        # dtypes, variant
+    _c.POINTER(_c.c_longlong), _c.c_int,                 # geometry, its length
+    _c.c_int, _c.c_int, _c.c_void_p,                     # threads, smem, stream
 ])
-# (CO_T, P_T) micro-tiles compiled into csrc/conv2d.cu, in its variant order
+# The launch geometry the C entry takes, in csrc/conv2d.cu's ConvParams
+# order. b_cI and nCI are the channels a stage and the stages: the plan's
+# (b_cI, c_I blocks) for the FMA kernel, a ring stage's for the tensor-core
+# kernel; the fields after x_bytes are the tensor-core kernel's (0 for the
+# FMA one).
+GEOMETRY = ("N", "c_I", "H", "W", "c_O", "h_F", "w_F", "sh", "sw",
+            "bN", "b_cI", "b_cO", "bh", "bw", "h_in", "w_in",
+            "cOp", "hOp", "wOp", "nN", "nCO", "nH", "nW", "nCI",
+            "n_pg", "ldw", "x_bytes",
+            "n16", "ldb", "slots", "wn", "planes", "koff_bytes",
+            "slot_bytes", "run", "vwb", "b_run", "vst", "ldS",
+            "rows_bytes", "d_row", "d_ch", "d_img", "zero")
+# f32 inputs: the FMA kernel's (CO_T, P_T) micro-tiles, in csrc/conv2d.cu's
+# launch_fma order
 MICRO_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (1, 64))
+# bf16 inputs: the tensor-core kernel's warp blocks of (MI, NI) m16n8 tiles
+# (rows: output pixels, columns: output channels), in launch_tc's order. The
+# main path takes (4, 4) for its 32-channel tiles (conv1, conv3_x, conv4_x)
+# and (2, 8) for its 64-channel ones (conv2_x, conv5_x). A tile neither
+# covers raises ValueError.
+TC_VARIANTS = ((4, 4), (2, 8))
+# Elements a window copy of the tensor-core kernel moves: 16 bytes of bf16,
+# aligned in the input (csrc/conv2d.cu's G).
+WINDOW_RUN = 8
 
 
 def _conv_spec(N: int, c_I: int, c_O: int, h_O: int, w_O: int, h_F: int,
@@ -121,11 +145,8 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
     return acc.permute(0, 3, 1, 2).to(out_dtype)
 
 
-def launch_config(tiles: Tuple[int, int, int, int, int], h_F: int, w_F: int,
-                  h_in: int, w_in: int, itemsize: int) -> dict:
-    """The kernel's launch configuration for conv tiles: micro-tile variant,
-    thread grid, shared-memory layout and bytes (one input window + one
-    filter block; a single stage)."""
+def _fma_config(tiles, h_F: int, w_F: int, h_in: int, w_in: int,
+                itemsize: int) -> dict:
     bN, b_cI, b_cO, bh, bw = tiles
     variant, co_t, _, n_cg, n_pg = micro_tile(b_cO, bN * bh * bw,
                                               MICRO_TILES)
@@ -133,8 +154,140 @@ def launch_config(tiles: Tuple[int, int, int, int, int], h_F: int, w_F: int,
     x_bytes = round_up(bN * b_cI * h_in * w_in * itemsize, 16)
     smem = x_bytes + b_cI * h_F * w_F * ldw * itemsize
     check_smem(smem, f"conv2d tiles {tiles}")
-    return dict(variant=variant, n_pg=n_pg, threads=n_cg * n_pg, ldw=ldw,
-                x_bytes=x_bytes, smem=smem)
+    return dict(kernel="fma", variant=variant, n_pg=n_pg,
+                threads=n_cg * n_pg, ldw=ldw, x_bytes=x_bytes, smem=smem)
+
+
+def window_layout(tiles, cs: int, zc: bool, h_in: int, w_in: int, c_I: int,
+                  H: int, W: int) -> dict:
+    """The window's shared-memory layout for a ring stage of ``cs``
+    channels (+ a zero plane where ``zc``): pitches (elements) of a row
+    ``d_row``, a channel plane ``d_ch`` and an image ``d_img``, the gather
+    offset ``zero`` of the zero plane, and the elements ``x_elems`` of a
+    slot's window. The copies move runs of ``WINDOW_RUN`` elements aligned
+    in the input: each window row as the aligned runs that cover it. So the
+    pitches are congruent to the input's modulo the run (an aligned run
+    lands on an aligned slot), and each leaves a run of slack, so two rows'
+    covers never share a run. A whole-plane window (h_in = H, w_in = W) is
+    one run an image, its planes contiguous. A step's window origin lies
+    ``WINDOW_RUN + (its input offset mod WINDOW_RUN)`` elements into the
+    slot."""
+    g = WINDOW_RUN
+
+    def up(v: int, like: int) -> int:  # the least u >= v with u = like mod g
+        return v + (like - v) % g
+
+    if h_in == H and w_in == W:
+        d_row, d_ch = w_in, h_in * w_in
+    else:
+        d_row = up(w_in + g - 1, W)
+        d_ch = up((h_in - 1) * d_row + w_in + g - 1, H * W)
+    d_img = up((cs + zc) * d_ch + 7 * g, c_I * H * W)
+    return dict(d_row=d_row, d_ch=d_ch, d_img=d_img, zero=cs * d_ch + 4 * g,
+                x_elems=2 * g + tiles[0] * d_img)
+
+
+def _tc_config(tiles, h_F: int, w_F: int, h_in: int, w_in: int,
+               c_I: Optional[int], hw: Optional[Tuple[int, int]]) -> dict:
+    bN, b_cI, b_cO, bh, bw = tiles
+    lay = warp_layout(bN * bh * bw, b_cO, TC_VARIANTS, linear=False)
+    taps = h_F * w_F
+    H, W = hw or (h_in, w_in)
+    cs = b_cI if c_I is None else min(b_cI, c_I)
+    while True:
+        ks = cs * taps
+        n16 = -(-ks // 16)
+        zc = ks % 16 != 0  # a zero plane for the padded k
+        n_st = 2 if c_I is None else -(-c_I // cs)
+        slots = min(2, n_st)
+        ldb = _pad_row(n16 * 16)
+        win = window_layout(tiles, cs, zc, h_in, w_in, c_I or cs, H, W)
+        x_bytes = round_up(win["x_elems"] * 2, 16)
+        slot_bytes = x_bytes + lay["cols"] * ldb * 2
+        koff_bytes = n16 * 16 * 4
+        rows_bytes = round_up(bN * cs * h_in * 8, 16)  # the row table
+        smem = koff_bytes + rows_bytes + slots * slot_bytes
+        # halve the stage until two CTAs share an SM (conv5_x: 16 of 32)
+        if smem <= SMEM_TWO_CTAS or cs % 2:
+            break
+        cs //= 2
+    # the epilogue stages the tile through shared memory for 4-pixel stores
+    # where output rows of the tile are whole groups of 4 (conv1, conv2_x)
+    vst = 4 if bw % 4 == 0 else 0
+    lds = lay["rows"] + 4  # 4 mod 16 words: conflict-free fragment writes
+    if vst:
+        smem = max(smem, b_cO * lds * 4)
+    check_smem(smem, f"conv2d tiles {tiles}")
+    if win["x_elems"] >= 1 << 16:  # the kernel's 16-bit row offsets
+        raise ValueError(f"conv2d tiles {tiles}: a window of "
+                         f"{win['x_elems']} elements exceeds 16-bit offsets")
+    return dict(kernel="tensor core", **lay, threads=lay["wm"] * lay["wn"] * 32,
+                cs=cs, n_st=n_st, ks=ks, n16=n16, planes=cs + zc, ldb=ldb,
+                slots=slots, **win, x_bytes=x_bytes, slot_bytes=slot_bytes,
+                koff_bytes=koff_bytes, rows_bytes=rows_bytes, vst=vst,
+                lds=lds, smem=smem, acc_per_thread=lay["mi"] * lay["ni"] * 4)
+
+
+def launch_config(tiles: Tuple[int, int, int, int, int], h_F: int, w_F: int,
+                  h_in: int, w_in: int, itemsize: int,
+                  c_I: Optional[int] = None,
+                  hw: Optional[Tuple[int, int]] = None) -> dict:
+    """The kernel's launch configuration for conv tiles, picked by the
+    input's item size: 2 (bf16) the tensor-core kernel (warp layout, a ring
+    stage's channels ``cs`` and its k (``ks``, ``n16`` slices of 16), the
+    stages ``n_st`` over ``c_I`` and the slots, the window's layout for an
+    input of ``hw`` = (H, W) (:func:`window_layout`); ``c_I=None`` sizes
+    the ring for many stages, ``hw=None`` takes whole-plane windows), 4
+    (f32) the FMA kernel
+    (micro-tile variant and thread grid, one stage a plan c_I block). Both
+    give shared-memory strides and bytes. Raises ValueError for a tile no
+    variant covers."""
+    if itemsize == 2:
+        return _tc_config(tiles, h_F, w_F, h_in, w_in, c_I, hw)
+    return _fma_config(tiles, h_F, w_F, h_in, w_in, itemsize)
+
+
+def gather_table(cs: int, h_F: int, w_F: int, d_row: int, d_ch: int,
+                 zero: int) -> list:
+    """koff: the shared-memory offset, in elements from a pixel's window
+    origin, of each k = (c * h_F + hf) * w_F + wf of a ring stage of ``cs``
+    channels (OIHW order, as the filter rows lie; ``d_row``, ``d_ch`` the
+    window's row and plane pitches), K padded to 16 with k that point at
+    ``zero``, the zeroed plane of each image. The same table serves every
+    CTA and stage of a launch."""
+    ks = cs * h_F * w_F
+    koff = [c * d_ch + hf * d_row + wf for c in range(cs)
+            for hf in range(h_F) for wf in range(w_F)]
+    return koff + [zero] * (-ks % 16)
+
+
+def row_offsets(rows: int, tiles, stride, d_img: int, d_row: int) -> list:
+    """moff: the window origin of each of a tile's first ``rows`` GEMM rows
+    in shared memory, as the tensor-core kernel computes it: row m = (n, ho,
+    wo), n-major, is n * d_img + ho * sh * d_row + wo * sw (``d_img``,
+    ``d_row`` the window's image and row pitches). Rows past the tile's bN
+    * bh * bw pixels read offset 0 (computed, never stored). A[m, k] =
+    window[moff[m] + koff[k]]."""
+    bN, _, _, bh, bw = tiles
+    sh, sw = stride
+    out = []
+    for m in range(rows):
+        n, rem = divmod(m, bh * bw)
+        ho, wo = divmod(rem, bw)
+        out.append(n * d_img + ho * sh * d_row + wo * sw
+                   if m < bN * bh * bw else 0)
+    return out
+
+
+_KOFF = {}  # gather tables on the device, by (table key, device)
+
+
+def _gather_table_on(device, *key) -> torch.Tensor:
+    k = (*key, str(device))
+    if k not in _KOFF:
+        _KOFF[k] = torch.tensor(gather_table(*key), dtype=torch.int32,
+                                device=device)
+    return _KOFF[k]
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, stride, out_dtype,
@@ -148,16 +301,48 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stride, out_dtype,
     bN, b_cI, b_cO, bh, bw = t
     (Np, _, cOp, hOp, wOp, _, _, h_in, w_in,
      grid) = _launch_geometry(N, c_I, c_O, H, W, h_F, w_F, sh, sw, t)
-    cfg = launch_config(t, h_F, w_F, h_in, w_in, x.element_size())
+    cfg = launch_config(t, h_F, w_F, h_in, w_in, x.element_size(), c_I,
+                        (H, W))
     out = torch.empty((Np, cOp, hOp, wOp), dtype=out_dtype, device=x.device)
+    g = dict.fromkeys(GEOMETRY, 0)
+    g.update(N=N, c_I=c_I, H=H, W=W, c_O=c_O, h_F=h_F, w_F=w_F, sh=sh, sw=sw,
+             bN=bN, b_cI=b_cI, b_cO=b_cO, bh=bh, bw=bw, h_in=h_in, w_in=w_in,
+             cOp=cOp, hOp=hOp, wOp=wOp, nN=grid[0], nCO=grid[1], nH=grid[2],
+             nW=grid[3], nCI=grid[4], x_bytes=cfg["x_bytes"])
+    koff = None
+    tensor_core = cfg["kernel"] == "tensor core"
+    if tensor_core:
+        if x.data_ptr() % 16:
+            # the window copies move 16-byte runs aligned in x: realign an
+            # input whose base is not (a slice), with one copy
+            x = x.clone()
+        if bN * c_I * H * W >= 2 ** 31:  # the row table's offsets are int32
+            raise ValueError(f"conv2d tiles {t}: {bN} images of {c_I} x {H} "
+                             f"x {W} exceed 32-bit window offsets")
+        cs, taps = cfg["cs"], h_F * w_F
+        koff = _gather_table_on(x.device, cs, h_F, w_F, cfg["d_row"],
+                                cfg["d_ch"], cfg["zero"])
+        g.update(b_cI=cs, nCI=cfg["n_st"], n16=cfg["n16"], ldb=cfg["ldb"],
+                 slots=cfg["slots"], wn=cfg["wn"], planes=cfg["planes"],
+                 koff_bytes=cfg["koff_bytes"], slot_bytes=cfg["slot_bytes"],
+                 # a window of whole planes is one run an image (conv4_x,
+                 # conv5_x), else one run a row
+                 run=int(h_in == H and w_in == W),
+                 vwb=vector_width(c_I * taps, cs * taps, ptrs=(w.data_ptr(),)),
+                 b_run=int(cs == c_I), vst=cfg["vst"], ldS=cfg["lds"],
+                 rows_bytes=cfg["rows_bytes"], d_row=cfg["d_row"],
+                 d_ch=cfg["d_ch"], d_img=cfg["d_img"], zero=cfg["zero"])
+    else:
+        g.update(n_pg=cfg["n_pg"], ldw=cfg["ldw"])
+    geometry = (ctypes.c_longlong * len(GEOMETRY))(*(g[k] for k in GEOMETRY))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         KERNEL.launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), dtype_code(x.dtype),
-            dtype_code(out_dtype), cfg["variant"], N, c_I, H, W, c_O, h_F,
-            w_F, sh, sw, bN, b_cI, b_cO, bh, bw, h_in, w_in, cOp, hOp, wOp,
-            *grid, cfg["n_pg"], cfg["ldw"], cfg["x_bytes"], cfg["threads"],
-            cfg["smem"], stream)
+            x.data_ptr(), w.data_ptr(),
+            None if koff is None else koff.data_ptr(), out.data_ptr(),
+            dtype_code(x.dtype), dtype_code(out_dtype), cfg["variant"],
+            geometry, len(GEOMETRY), cfg["threads"], cfg["smem"], stream,
+            tensor_core=tensor_core)
     return out[:N, :c_O, :h_O, :w_O]
 
 

@@ -1,0 +1,227 @@
+// Device helpers shared by the tensor-core kernels of csrc/matmul.cu and
+// csrc/conv2d.cu: cp.async 16-byte copies into shared memory, ldmatrix, the
+// mma.sync m16n8k16 bf16 product, and the tile copies that feed a
+// shared-memory ring. Included once by each source (the build hashes the
+// headers of csrc/ with the source).
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r0)[2], uint32_t (&r1)[2],
+                                          const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0[0]), "=r"(r0[1]), "=r"(r1[0]), "=r"(r1[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int VW> struct Vec;  // VW bf16 elements as one aligned load
+template <> struct Vec<1> { typedef unsigned short T; };
+template <> struct Vec<8> { typedef uint4 T; };
+template <> struct Vec<2> { typedef unsigned int T; };
+template <> struct Vec<4> { typedef uint2 T; };
+
+// A thread's share of a tile copy with C / VW chunks a row: when the threads
+// divide evenly over a row's chunks (every tile of the main path), the
+// thread keeps chunk column c and steps over rows r0, r0 + rs, ...; rs == 0
+// means a per-chunk division. Planned once a kernel: the shapes of every
+// span's copies are the same.
+struct CopyPlan { int c, r0, rs; };
+
+__device__ __forceinline__ CopyPlan copy_plan(int cpr, int tid, int nthr) {
+  if (nthr % cpr) return CopyPlan{0, 0, 0};
+  return CopyPlan{tid % cpr, tid / cpr, nthr / cpr};
+}
+
+// Copy rows [0, R) x columns [0, C) of a row-major global tile (row pitch
+// lds) into shared memory (row pitch ldd), VW elements at a time; entries at
+// or past (rv, cv) are zero-filled, never read. VW == 8: cp.async 16-byte
+// copies (the caller commits and waits); else loads into registers, ELEMS
+// elements in flight a thread, then stores.
+template <int VW, int ELEMS>
+__device__ __forceinline__ void copy_tile(bf16* dst, int ldd,
+                                          const bf16* __restrict__ src,
+                                          long long lds, int R, int rv, int C,
+                                          int cv, CopyPlan pl, int tid,
+                                          int nthr) {
+  typedef typename Vec<VW>::T V;
+  constexpr int BATCH = ELEMS / VW > 0 ? ELEMS / VW : 1;
+  if (pl.rs) {
+    const int c = pl.c * VW, rs = pl.rs;
+    const bool cok = c < cv;
+    if constexpr (VW == 8) {
+      for (int r = pl.r0; r < R; r += rs) {
+        const bool ok = cok && r < rv;
+        cp_async16(dst + r * ldd + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int r0 = pl.r0; r0 < R; r0 += BATCH * rs) {
+        V v[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int r = r0 + u * rs;
+          v[u] = V();
+          if (cok && r < rv) v[u] = *reinterpret_cast<const V*>(src + r * lds + c);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int r = r0 + u * rs;
+          if (r < R) *reinterpret_cast<V*>(dst + r * ldd + c) = v[u];
+        }
+      }
+    }
+    return;
+  }
+  const int cpr = C / VW, total = R * cpr;
+  if constexpr (VW == 8) {
+    for (int i = tid; i < total; i += nthr) {
+      const int r = i / cpr, c = (i - r * cpr) * 8;
+      const bool ok = r < rv && c < cv;
+      cp_async16(dst + r * ldd + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i0 = tid; i0 < total; i0 += BATCH * nthr) {
+      V v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * nthr;
+        const int r = i / cpr, c = (i - r * cpr) * VW;
+        v[u] = V();
+        if (i < total && r < rv && c < cv)
+          v[u] = *reinterpret_cast<const V*>(src + r * lds + c);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * nthr;
+        const int r = i / cpr, c = (i - r * cpr) * VW;
+        if (i < total) *reinterpret_cast<V*>(dst + r * ldd + c) = v[u];
+      }
+    }
+  }
+}
+
+template <int ELEMS>
+__device__ __forceinline__ void copy_any(int vw, bf16* dst, int ldd,
+                                         const bf16* src, long long lds, int R,
+                                         int rv, int C, int cv, CopyPlan pl,
+                                         int tid, int nthr) {
+  switch (vw) {
+    case 8: copy_tile<8, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
+    case 4: copy_tile<4, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
+    case 2: copy_tile<2, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
+    default: copy_tile<1, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
+  }
+}
+
+// A (rv, k) block of whole rows is one contiguous run of rv * k elements.
+// When it starts on 16 bytes (conv1: 128 rows of 147 bf16 = 37,632 bytes),
+// a thread loads 16-byte chunks of the run, CHUNKS in flight, and scatters
+// their elements into the padded rows; columns [k, kc) and rows [rv, R) are
+// zero-filled. Returns false (nothing done) when the run is not aligned.
+template <int CHUNKS>
+__device__ __forceinline__ bool copy_rows_run(bf16* dst, int ldd,
+                                              const bf16* __restrict__ src,
+                                              int k, int R, int rv, int kc,
+                                              int tid, int nthr) {
+  if (reinterpret_cast<uintptr_t>(src) & 15) return false;
+  const int total = rv * k, nchunk = (total + 7) / 8;
+  for (int j0 = tid; j0 < nchunk; j0 += CHUNKS * nthr) {
+    uint4 v[CHUNKS];
+#pragma unroll
+    for (int u = 0; u < CHUNKS; ++u) {
+      const int j = j0 + u * nthr;
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (j * 8 + 8 <= total) {
+        v[u] = *reinterpret_cast<const uint4*>(src + j * 8);
+      } else if (j < nchunk) {  // the run's ragged end: element by element
+        uint32_t w[4] = {0, 0, 0, 0};
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (j * 8 + i < total) w[i >> 1] |= uint32_t(h[j * 8 + i]) << (16 * (i & 1));
+        v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CHUNKS; ++u) {
+      const int j = j0 + u * nthr;
+      if (j >= nchunk) break;
+      int r = j * 8 / k, c = j * 8 - r * k;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t w = i < 2 ? v[u].x : i < 4 ? v[u].y : i < 6 ? v[u].z : v[u].w;
+        if (r < rv)
+          reinterpret_cast<unsigned short*>(dst)[r * ldd + c] =
+              (unsigned short)(w >> (16 * (i & 1)));
+        if (++c == k) { c = 0; ++r; }
+      }
+    }
+  }
+  const int pad = kc - k;  // zero columns [k, kc) of rows [0, rv), rows [rv, R)
+  for (int i = tid; i < rv * pad; i += nthr)
+    dst[(i / pad) * ldd + k + i % pad] = bf16();
+  for (int i = tid; i < (R - rv) * kc; i += nthr)
+    dst[(rv + i / kc) * ldd + i % kc] = bf16();
+  return true;
+}
+
+template <typename Tout> struct Pair;
+template <> struct Pair<float> {
+  typedef float2 T;
+  static __device__ __forceinline__ T make(float x, float y) { return make_float2(x, y); }
+};
+template <> struct Pair<__nv_bfloat16> {
+  typedef __nv_bfloat162 T;
+  static __device__ __forceinline__ T make(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+};
+
+}  // namespace

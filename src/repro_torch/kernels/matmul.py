@@ -85,28 +85,32 @@ def _fma_config(bm: int, bn: int, bk: int, itemsize: int) -> dict:
                 smem=smem)
 
 
-def warp_layout(bm: int, bn: int) -> dict:
-    """The tensor-core kernel's warp layout for a (bm, bn) tile: the
-    compiled variant, its (MI, NI) block of m16n8 tiles a warp, the warp
-    grid (wm x wn) and the covered tile (rows x cols, the shared-memory
-    extent; rows past bm and columns past bn are computed, never stored).
-    The rectangular variant that covers the least area wins, then the one
-    with the most warps; a tile none fits within 8 warps takes LINEAR.
-    Raises ValueError when the tile holds more than 256 x 64 accumulators."""
+def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
+                linear: bool = True) -> dict:
+    """A tensor-core kernel's warp layout for a (bm, bn) tile: the
+    compiled variant (an index into ``variants``, the (MI, NI) blocks of
+    m16n8 tiles a warp that the kernel compiles), its block, the warp grid
+    (wm x wn) and the covered tile (rows x cols, the shared-memory extent;
+    rows past bm and columns past bn are computed, never stored). The
+    rectangular variant that covers the least area wins, then the one with
+    the most warps, then the widest block (fewer A fragments a product); a
+    tile none fits within 8 warps takes LINEAR where ``linear`` (the GEMM).
+    Raises ValueError when the tile holds more than 256 x 64 accumulators,
+    or no variant covers it and ``linear`` is false."""
     cm, cn = -(-bm // 16), -(-bn // 8)
     best = None
-    for v, (mi, ni) in enumerate(TC_VARIANTS):
+    for v, (mi, ni) in enumerate(variants):
         wm, wn = -(-cm // mi), -(-cn // ni)
         if wm * wn * 32 > MAX_THREADS:
             continue
-        key = (wm * mi * wn * ni, -wm * wn)
+        key = (wm * mi * wn * ni, -wm * wn, -ni)
         if best is None or key < best[0]:
             best = (key, dict(variant=v, mi=mi, ni=ni, wm=wm, wn=wn,
                               rows=wm * mi * 16, cols=wn * ni * 8))
     if best is not None:
         return best[1]
     warps = -(-cm * cn // LINEAR_TILES)
-    if warps * 32 > MAX_THREADS:
+    if not linear or warps * 32 > MAX_THREADS:
         raise ValueError(
             f"a {bm} x {bn} accumulator tile does not fit one CTA's "
             f"{MAX_THREADS} x {ACC_PER_THREAD} registers; plan for the H100 "

@@ -20,7 +20,9 @@ import repro_torch.plan as tp
 from repro import ops as jops
 from repro_torch.kernels import KERNELS, conv2d_plain, matmul_plain, ref
 from repro_torch.kernels.conv2d import conv2d as tconv2d
-from repro_torch.kernels.conv2d import conv2d_hbm_words, launch_config
+from repro_torch.kernels.conv2d import (WINDOW_RUN, _launch_geometry,
+                                        conv2d_hbm_words, gather_table,
+                                        launch_config, row_offsets)
 from repro_torch.kernels.im2col import (conv2d_im2col, im2col_hbm_words,
                                         im2col_patches)
 from repro_torch.kernels.matmul import matmul as tmatmul
@@ -298,6 +300,252 @@ def test_tensor_core_refuses_a_tile_no_variant_covers(tile):
         mm_launch_config(*tile, 16, 2, 4608)
 
 
+# -- the tensor-core conv's geometry and gather (bf16 inputs) ----------------
+
+def _conv_plan(s):
+    """The H100 plan's tiles and window of a ResNet-50 layer (bf16 in)."""
+    spec = tp.ConvSpec(N=s.N, c_I=s.c_I, c_O=s.c_O, w_O=s.w_O, h_O=s.h_O,
+                       w_F=s.w_F, h_F=s.h_F, sw=s.sw, sh=s.sh,
+                       prec=tp.ops.Precision(0.5, 0.5, 1.0))
+    bN, b_cI, b_cO, bh, bw = tp.Planner(tp.H100).plan(spec).tiles
+    return ((bN, b_cI, b_cO, bh, bw), (bh - 1) * s.sh + s.h_F,
+            (bw - 1) * s.sw + s.w_F)
+
+
+H100_CONV_TILES = {  # the H100 plans of the five layers (PERF.md §4)
+    "conv1": (2, 3, 32, 16, 16), "conv2_x": (4, 16, 64, 8, 8),
+    "conv3_x": (1, 16, 32, 28, 14), "conv4_x": (2, 16, 32, 14, 14),
+    "conv5_x": (5, 32, 64, 7, 7)}
+
+
+@pytest.mark.parametrize("layer", sorted(H100_CONV_TILES))
+def test_tensor_core_conv_launch_config(layer):
+    """The five H100 conv plans take the tensor-core kernel in bf16: warps
+    over the whole accumulator tile, at most 64 accumulators a thread, a
+    ring that fits two CTAs an SM, two slots wherever c_I takes more than
+    one stage; f32 inputs keep the FMA kernel."""
+    from repro.core.conv_model import resnet50_layers
+
+    s = resnet50_layers(1000)[layer]
+    tiles, h_in, w_in = _conv_plan(s)
+    assert tiles == H100_CONV_TILES[layer]
+    bN, b_cI, b_cO, bh, bw = tiles
+    H, W = (s.h_O - 1) * s.sh + s.h_F, (s.w_O - 1) * s.sw + s.w_F
+    cfg = launch_config(tiles, s.h_F, s.w_F, h_in, w_in, 2, s.c_I, (H, W))
+    assert cfg["kernel"] == "tensor core"
+    assert cfg["variant"] == (0 if b_cO == 32 else 1)  # (4, 4) / (2, 8)
+    assert cfg["threads"] == cfg["wm"] * cfg["wn"] * 32 <= 256
+    assert cfg["acc_per_thread"] == 64
+    assert cfg["rows"] >= bN * bh * bw and cfg["cols"] >= b_cO
+    assert cfg["smem"] <= 113 * 1024 and cfg["smem"] <= 232448
+    assert cfg["n_st"] == -(-s.c_I // cfg["cs"]) and b_cI % cfg["cs"] == 0
+    assert cfg["slots"] == (2 if cfg["n_st"] > 1 else 1)
+    assert cfg["n16"] * 16 >= cfg["ks"] == cfg["cs"] * s.h_F * s.w_F
+    # filter rows padded to an odd multiple of 16 bytes: ldmatrix
+    # conflict-free
+    assert (cfg["ldb"] * 2 // 16) % 2 == 1 and cfg["ldb"] >= cfg["n16"] * 16
+    # the epilogue stages 4-pixel stores where b_wO is a multiple of 4
+    assert cfg["vst"] == (4 if bw % 4 == 0 else 0)
+    if cfg["vst"]:
+        assert cfg["smem"] >= b_cO * cfg["lds"] * 4 and cfg["lds"] % 16 == 4
+    if layer == "conv1":  # taps folded into K: 147 -> 10 slices, one stage
+        assert (cfg["ks"], cfg["n16"], cfg["n_st"]) == (147, 10, 1)
+        assert cfg["planes"] == 4  # the zero plane for the padded k
+    else:
+        assert cfg["planes"] == cfg["cs"] and cfg["n_st"] > 1
+    fma = launch_config(tiles, s.h_F, s.w_F, h_in, w_in, 4, s.c_I)
+    assert fma["kernel"] == "fma" and fma["threads"] <= 256
+
+
+@pytest.mark.parametrize("tile", [(1, 16, 1, 112, 112), (1, 8, 8, 64, 32),
+                                  (1, 16, 16, 32, 32), (1, 16, 1024, 4, 4),
+                                  (64, 8, 512, 7, 7)],
+                         ids=str)
+def test_tensor_core_conv_refuses_a_tile_no_variant_covers(tile):
+    """A bf16 tile no compiled warp block covers within 8 warps raises
+    ValueError (never the FMA kernel); f32 takes the FMA kernel where its
+    micro-tiles fit."""
+    with pytest.raises(ValueError, match="accumulator tile"):
+        launch_config(tile, 3, 3, 9, 9, 2)
+    if tile[2] < 512:
+        assert launch_config(tile, 3, 3, 9, 9, 4)["kernel"] == "fma"
+
+
+def _emulate_tc_conv(x, w, stride, tiles):
+    """The tensor-core kernel's arithmetic in plain PyTorch (f32): for each
+    output tile and ring stage, the window staged as the kernel stages it
+    (NCHW at window_layout's pitches from an unaligned origin, zero past the
+    input, the zero plane zeroed, every other slot element NaN, which no
+    product may read), the filter block as [co][k] rows zero-padded to 16
+    k, A gathered through the wrapper's gather_table and the kernel's
+    row_offsets, one GEMM per stage into the tile's accumulator."""
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    h_O, w_O = (H - h_F) // sh + 1, (W - w_F) // sw + 1
+    bN, b_cI, b_cO, bh, bw = tiles
+    (Np, _, cOp, hOp, wOp, Hp, Wp, h_in, w_in,
+     grid) = _launch_geometry(N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles)
+    g = WINDOW_RUN
+    cfg = launch_config(tiles, h_F, w_F, h_in, w_in, 2, c_I, (H, W))
+    cs, n16 = cfg["cs"], cfg["n16"]
+    d_row, d_ch, d_img = cfg["d_row"], cfg["d_ch"], cfg["d_img"]
+    koff = torch.tensor(gather_table(cs, h_F, w_F, d_row, d_ch, cfg["zero"]))
+    moff = torch.tensor(row_offsets(cfg["rows"], tiles, stride, d_img,
+                                    d_row))
+    origin = g + g - 1  # the latest a step's window starts in its slot
+    assert len(koff) == n16 * 16
+    xp = torch.zeros(Np, cfg["n_st"] * cs, Hp, Wp)
+    xp[:N, :c_I, :H, :W] = x.float()
+    wk = torch.zeros(cOp, cfg["n_st"] * cs, h_F * w_F)
+    wk[:c_O, :c_I] = w.float().reshape(c_O, c_I, -1)
+    out = torch.zeros(Np, cOp, hOp, wOp)
+    M = bN * bh * bw
+    for n0 in range(0, Np, bN):
+        for co0 in range(0, cOp, b_cO):
+            for r0 in range(0, hOp, bh):
+                for c0 in range(0, wOp, bw):
+                    acc = torch.zeros(cfg["rows"], cfg["cols"])
+                    for ci0 in range(0, cfg["n_st"] * cs, cs):
+                        slot = torch.full((cfg["x_elems"],), float("nan"))
+                        if cfg["planes"] > cs:  # as the kernel zeroes it
+                            for n in range(bN):
+                                z = n * d_img + cfg["zero"] + g
+                                slot[z:z + d_ch + g] = 0
+                        slot[origin:].as_strided(
+                            (bN, cs, h_in, w_in), (d_img, d_ch, d_row, 1))[
+                            :] = xp[n0:n0 + bN, ci0:ci0 + cs,
+                                    r0 * sh:r0 * sh + h_in,
+                                    c0 * sw:c0 * sw + w_in]
+                        b = torch.zeros(cfg["cols"], n16 * 16)
+                        b[:b_cO, :cfg["ks"]] = wk[co0:co0 + b_cO,
+                                                  ci0:ci0 + cs].reshape(
+                                                      b_cO, -1)
+                        a = slot[origin:][moff[:, None] + koff[None, :]]
+                        assert not a[:, cfg["ks"]:].any()  # the zero plane
+                        assert not a.isnan().any()  # no slack is gathered
+                        with ref.no_tf32():
+                            acc += a @ b.t()
+                    out[n0:n0 + bN, co0:co0 + b_cO, r0:r0 + bh,
+                        c0:c0 + bw] = acc[:M, :b_cO].reshape(
+                            bN, bh, bw, b_cO).permute(0, 3, 1, 2)
+    return out[:N, :c_O, :h_O, :w_O]
+
+
+# (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles): each H100 tile shape at a
+# small N, H and W that keeps ragged edges and several c_I stages
+TC_CONV_CASES = {
+    "conv1_tile": (3, 3, 40, 41, 41, 7, 7, 2, 2, H100_CONV_TILES["conv1"]),
+    "conv2_x_tile": (5, 40, 72, 12, 12, 3, 3, 1, 1,
+                     H100_CONV_TILES["conv2_x"]),
+    "conv3_x_tile": (2, 20, 40, 30, 30, 3, 3, 1, 1,
+                     H100_CONV_TILES["conv3_x"]),
+    "conv4_x_tile": (3, 40, 36, 16, 16, 3, 3, 1, 1,
+                     H100_CONV_TILES["conv4_x"]),
+    "conv5_x_tile": (6, 40, 70, 9, 9, 3, 3, 1, 1,
+                     H100_CONV_TILES["conv5_x"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES) + sorted(TC_CONV_CASES))
+def test_tensor_core_conv_gather_matches_reference(case):
+    """The tensor-core kernel's gather tables, emulated in plain PyTorch
+    (gather, then one product per tile and ring stage), equal conv2d_plain
+    within 1e-4 and the Pallas kernel in interpret mode within _tol, on
+    the same numpy inputs in bf16."""
+    N, cI, cO, H, W, hF, wF, sh, sw, tiles = {**CONV_CASES,
+                                              **TC_CONV_CASES}[case]
+    (jx, tx), (jw, tw) = _inputs(3, (N, cI, H, W), (cO, cI, hF, wF), "bf16")
+    h_O, w_O = (H - hF) // sh + 1, (W - wF) // sw + 1
+    if tiles is None:
+        tiles = tp.Planner(tp.H100).plan(tp.ConvSpec(
+            N=N, c_I=cI, c_O=cO, w_O=w_O, h_O=h_O, w_F=wF, h_F=hF, sw=sw,
+            sh=sh, prec=tp.ops.Precision(0.5, 0.5, 1.0))).tiles
+    tiles = tuple(tiles)
+    if len(tiles) == 5:
+        tiles = (*tiles[:3], min(tiles[3], h_O), min(tiles[4], w_O))
+    got = _emulate_tc_conv(tx, tw, (sh, sw), tiles)
+    np.testing.assert_allclose(got.numpy(),
+                               conv2d_plain(tx, tw, (sh, sw)).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = jconv.conv2d(jx, jw, stride=(sh, sw), tiles=tiles)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("bf16"))
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES) + sorted(TC_CONV_CASES))
+def test_window_covers_stay_in_their_row(case):
+    """The window copies move each row as the 8-element runs of the input
+    that cover it, into a slot whose origin is 8 + (the step's input offset
+    mod 8): for every offset, each run lands aligned inside the slot and
+    touches no element of another row and none of the zero plane."""
+    N, cI, cO, H, W, hF, wF, sh, sw, tiles = {**CONV_CASES,
+                                              **TC_CONV_CASES}[case]
+    h_O, w_O = (H - hF) // sh + 1, (W - wF) // sw + 1
+    if tiles is None:
+        tiles = tp.Planner(tp.H100).plan(tp.ConvSpec(
+            N=N, c_I=cI, c_O=cO, w_O=w_O, h_O=h_O, w_F=wF, h_F=hF, sw=sw,
+            sh=sh, prec=tp.ops.Precision(0.5, 0.5, 1.0))).tiles
+    tiles = tuple(tiles)
+    if len(tiles) == 3:
+        tiles = (*tiles, h_O, w_O)
+    tiles = (*tiles[:3], min(tiles[3], h_O), min(tiles[4], w_O))
+    bN, _, _, bh, bw = tiles
+    h_in, w_in = (bh - 1) * sh + hF, (bw - 1) * sw + wF
+    g = WINDOW_RUN
+    cfg = launch_config(tiles, hF, wF, h_in, w_in, 2, cI, (H, W))
+    cs, d_row, d_ch, d_img = cfg["cs"], cfg["d_row"], cfg["d_ch"], cfg["d_img"]
+    run = h_in == H and w_in == W
+    rows = [(n, 0, 0) for n in range(bN)] if run else [
+        (n, c, r) for n in range(bN) for c in range(cs) for r in range(h_in)]
+    length = cs * H * W if run else w_in
+    for g0m in range(g):
+        origin = g + g0m
+        owner = np.full(cfg["x_elems"], -1)
+        if cfg["planes"] > cs:
+            for n in range(bN):
+                z = n * d_img + cfg["zero"] + g
+                owner[z:z + d_ch + g] = -2  # the zero plane
+        for q, (n, c, r) in enumerate(rows):
+            d = origin + n * d_img + c * d_ch + r * d_row
+            assert (owner[d:d + length] == -1).all()
+            owner[d:d + length] = q
+        for q, (n, c, r) in enumerate(rows):
+            rel = n * cI * H * W + c * H * W + r * W
+            d = origin + n * d_img + c * d_ch + r * d_row
+            a = (g0m + rel) % g
+            assert (d - a) % g == 0  # an aligned run of x lands aligned
+            for start in range(-a, length, g):
+                run_ = owner[d + start:d + start + g]
+                assert d + start >= 0 and d + start + g <= cfg["x_elems"]
+                assert np.isin(run_, (-1, q)).all()
+
+
+def test_gather_tables_index_the_staged_window():
+    """koff follows OIHW k over a stage's channels at the window's pitches
+    and sends the padded k to the zero plane; moff is n-major over (n, ho,
+    wo) with the stride, 0 past the tile's pixels. conv1's pitches are
+    congruent to its 229-wide input modulo 8 elements, with a run of slack
+    a row."""
+    assert gather_table(1, 1, 1, 5, 20, 44) == [0] + [44] * 15
+    cfg = launch_config((2, 3, 32, 16, 16), 7, 7, 37, 37, 2, 3, (229, 229))
+    d_row, d_ch, d_img = cfg["d_row"], cfg["d_ch"], cfg["d_img"]
+    assert d_row >= 37 + 7 and (d_row - 229) % 8 == 0
+    assert d_ch >= 36 * d_row + 37 + 7 and (d_ch - 229 ** 2) % 8 == 0
+    assert d_img >= 4 * d_ch + 56 and (d_img - 3 * 229 ** 2) % 8 == 0
+    koff = gather_table(3, 7, 7, d_row, d_ch, cfg["zero"])
+    assert len(koff) == 160 and koff[:3] == [0, 1, 2] and koff[7] == d_row
+    assert koff[49] == d_ch and koff[146] == 2 * d_ch + 6 * d_row + 6
+    assert koff[147:] == [3 * d_ch + 32] * 13 == [cfg["zero"]] * 13
+    moff = row_offsets(520, (2, 3, 32, 16, 16), (2, 2), d_img, d_row)
+    assert moff[:2] == [0, 2] and moff[16] == 2 * d_row
+    assert moff[256] == d_img and moff[512:] == [0] * 8
+    # whole-plane windows keep contiguous planes: one run an image
+    cfg = launch_config((5, 32, 64, 7, 7), 3, 3, 9, 9, 2, 512, (9, 9))
+    assert (cfg["d_row"], cfg["d_ch"]) == (9, 81)
+
+
 def test_vector_width_follows_pitch_and_alignment():
     """The global load width: 16-byte cp.async only where the pitch and
     base allow it (conv1's 147-element rows take 2-byte loads)."""
@@ -329,12 +577,18 @@ def test_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for case, (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in CONV_CASES.items():
-        (_, tx), (_, tw) = _inputs(0, (N, cI, H, W), (cO, cI, hF, wF), "bf16")
-        tx, tw = tx.cuda(), tw.cuda()
-        got = tconv2d(tx, tw, (sh, sw), tiles=tiles)
-        torch.testing.assert_close(got, conv2d_plain(tx, tw, (sh, sw)),
-                                   rtol=1e-4, atol=1e-4)
+    # bf16 in: the tensor-core conv, one counted launch a case; f32 in: the
+    # FMA kernel
+    conv_tc = KERNELS["conv2d"].tensor_core_launches
+    cases = {**CONV_CASES, **TC_CONV_CASES}
+    for case, (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in cases.items():
+        for dt in ("bf16", "f32"):
+            (_, tx), (_, tw) = _inputs(0, (N, cI, H, W), (cO, cI, hF, wF), dt)
+            tx, tw = tx.cuda(), tw.cuda()
+            got = tconv2d(tx, tw, (sh, sw), tiles=tiles)
+            torch.testing.assert_close(got, conv2d_plain(tx, tw, (sh, sw)),
+                                       rtol=1e-4, atol=1e-4)
+    assert KERNELS["conv2d"].tensor_core_launches == conv_tc + len(cases)
     a = torch.randn(130, 129, device="cuda")
     b = torch.randn(129, 257, device="cuda")
     torch.testing.assert_close(tmatmul(a, b), matmul_plain(a, b),
