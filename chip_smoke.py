@@ -24,9 +24,11 @@ kernel. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
-     the tensor-core variants of the GEMM and of the direct conv: registers
-     and spills from ptxas and the HMMA count of their SASS (cuobjdump),
-     fatal if a variant has no HMMA or a main-path variant spills;
+     the tensor-core variants of the GEMM, of the direct conv and of flash
+     attention (every (hd, block, C) instance of ``flash_tc_kernel``):
+     registers and spills from ptxas and the HMMA count of their SASS
+     (cuobjdump), fatal if a variant has no HMMA or a main-path variant
+     spills (flash: hd 128 at block 64);
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and main-path shapes (TF32 off); each check names the kernel
      its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
@@ -48,13 +50,17 @@ kernel. Phases, each fatal on failure:
      bf16: half the kernels' f32 output bytes);
   6. flash attention and paged decode against their plain versions (bf16 and
      f32; GQA groups 1 and 8; hd 64 and 128; ragged lengths; int and
-     per-row offsets; a pad-tail key mask with one fully masked row; paged
-     tables with padding and a dead row on block 0);
+     per-row offsets; a pad-tail key mask with one fully masked row; then
+     every compiled (hd, block) instance in bf16 at runtime tiles bq 8, 24,
+     40 and 128, so that every warp grid R x C runs; paged tables with
+     padding and a dead row on block 0); each flash check names the kernel
+     it took (bf16: tensor core, f32: fma) and fails on the other;
   7. the serving path inside ``ops.record_dispatch()``: the paged engine
      and the contiguous engine on the same 8 greedy requests, then a
      cache-less forward of one prompt, the counters set to 0 just before
      and read just after each of the three runs (the paged engine must
-     launch both kernels, the other two runs the flash kernel); every
+     launch both kernels, the other two runs the flash kernel; every flash
+     launch must be a tensor-core launch); every
      request must finish "length" with 32 tokens, both engines must give
      each request the same first token, and no attention decision may
      leave ``cuda``; then
@@ -67,7 +73,11 @@ kernel. Phases, each fatal on failure:
      decode step (the profiler's cost on the host);
   8. each attention kernel's time beside its plain version, its library call
      and its bound at the serving shapes, and ``ops.explain``'s words and
-     bound ratio for one prefill and one decode call;
+     bound ratio for one prefill and one decode call; for flash attention
+     and SDPA also a per-launch time (CUDA events around 50 back-to-back
+     calls, divided by 50) and the device time of a call's kernels
+     (``torch.profiler``), and the prefill's TFLOP/s on the compulsory
+     work;
   9. the int8 kernels against their plain versions: phase 3's six conv cases
      (ragged tiles, stride 2, h_F = 1, c_I = 3) and five GEMMs with ragged
      m/n/k, quantized with ``quantize_conv_operands`` /
@@ -87,8 +97,9 @@ kernel. Phases, each fatal on failure:
      kv_dtype="int8")``, counters to 0 before and read after; every request
      must finish "length" with 32 tokens, its first token must equal the
      bf16 paged engine's, every ``attention`` decision must be ``cuda`` and
-     every ``attention_decode_quant`` decision ``torch`` by request, and
-     phase 7's decode check must pass; the share of tokens equal to the bf16
+     every ``attention_decode_quant`` decision ``torch`` by request, every
+     flash launch a tensor-core launch, and phase 7's decode check must
+     pass; the share of tokens equal to the bf16
      pool's, the pool's capacity gain and the serve's times are reported,
      and the serve is traced as in phase 7; then the int8 conv kernel's
      plain time and bound per layer;
@@ -101,8 +112,9 @@ kernel. Phases, each fatal on failure:
      from ``numpy.default_rng(0)`` with lengths 1 and 2 admitted into used
      slots and one of 300, two SSD chunks), 32 new tokens, 4 slots,
      ``max_len`` 512; every request must finish "length" with 32 tokens,
-     conv1d must launch exactly 7 x 8 = 56 times, every ``conv1d_causal``
-     and ``attention`` decision must be ``cuda``; then phase 7's
+     conv1d must launch exactly 7 x 8 = 56 times, every flash launch must
+     be a tensor-core launch, every ``conv1d_causal`` and ``attention``
+     decision must be ``cuda``; then phase 7's
      teacher-forced and decode checks at 8 layers; the serve's times, its
      ``torch.profiler`` trace, and one decode step's forward alone
      (launches, device time) beside the weight-stream floor;
@@ -217,6 +229,65 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return err, tol * max(1.0, want.abs().max().item())
 
 
+def zero_counts() -> None:
+    """Every kernel's launch counters to 0 (just before a counted run)."""
+    from repro_torch.kernels import KERNELS
+
+    for k in KERNELS.values():
+        k.launches = 0
+        k.tensor_core_launches = 0
+
+
+def flash_on_tensor_cores(run: str) -> int:
+    """The flash kernel's tensor-core launches since ``zero_counts``; fatal
+    unless they are all its launches (every bf16 serving run)."""
+    from repro_torch.kernels import KERNELS
+
+    k = KERNELS["flash_attention"]
+    print(f"{run}: flash_attention on the tensor cores "
+          f"{k.tensor_core_launches} of {k.launches}", flush=True)
+    if k.tensor_core_launches != k.launches:
+        fail(f"{run}: {k.launches - k.tensor_core_launches} flash launches "
+             "took the FMA kernel, not the tensor cores")
+    return k.tensor_core_launches
+
+
+def per_launch_ms(fn, n: int = 50, warmup: int = 3) -> float:
+    """CUDA events around ``n`` back-to-back calls, divided by ``n``."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms_per_call(fn, match: str = "", n: int = 20):
+    """Device time a call's kernels take (``torch.profiler`` over ``n``
+    calls, divided by ``n``): (the kernels whose name holds ``match``, all
+    of the call's kernels); "not measured" where the profiler saw none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    mine = every = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            every += e.device_time_total
+            mine += e.device_time_total if match in e.name else 0.0
+    if not every:
+        return "not measured", "not measured"
+    return mine / 1e3 / n, every / 1e3 / n
+
+
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -296,6 +367,7 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
             continue
         ms = e.device_time_total / 1e3
         kind = ("attention kernels" if "flash_kernel" in e.name
+                or "flash_tc_kernel" in e.name
                 or "paged_decode_kernel" in e.name else
                 "conv1d kernels" if "conv1d_kernel" in e.name else
                 "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
@@ -336,6 +408,9 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                                      flash_attention_plain,
                                      paged_decode_attention,
                                      paged_decode_plain)
+    from repro_torch.kernels.flash_attention import FLASH_INSTANCES
+    from repro_torch.kernels.flash_attention import \
+        launch_config as flash_config
     from repro_torch.models import transformer as T
     from repro_torch.ops import ExecutionContext
     from repro_torch.plan import H100
@@ -351,6 +426,23 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                              dtype=torch.int32)
 
     # -- 6. attention kernels against their plain versions ------------------
+    fk = KERNELS["flash_attention"]
+
+    def flash_check(what, q, k, v, off, q_seq_len, mask, block=None):
+        """One flash call against its plain version, naming the kernel it
+        took (bf16: tensor core, f32: fma); fatal on the other."""
+        tc = fk.tensor_core_launches
+        got = flash_attention(q, k, v, q_offset=off, q_seq_len=q_seq_len,
+                              key_mask=mask, block_q=block, block_k=block)
+        torch.cuda.synchronize()
+        path = "tensor core" if fk.tensor_core_launches > tc else "fma"
+        if path != ("tensor core" if q.dtype == torch.bfloat16 else "fma"):
+            fail(f"flash_attention {what}: a {q.dtype} call took the {path} "
+                 "kernel")
+        fold = q_seq_len if q_seq_len and q_seq_len < q.shape[1] else None
+        want = flash_attention_plain(q, k, v, True, off, fold, None, mask)
+        record("flash_attention", got, want, f"{what} on {path}")
+
     gen.manual_seed(SEED + 10)
     B = 2
     for dt in (torch.bfloat16, torch.float32):
@@ -370,15 +462,30 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                                 ("int", top, None),
                                 ("rows", randint(0, top + 1, (rows,)), None),
                                 ("mask", 0, km)):
-                            got = flash_attention(q, k, v, q_offset=off,
-                                                  q_seq_len=Lq, key_mask=mask)
-                            torch.cuda.synchronize()
-                            want = flash_attention_plain(
-                                q, k, v, True, off,
-                                Lq if g > 1 else None, None, mask)
-                            record("flash_attention", got, want,
-                                   f"{dt} g={g} hd={hd} Lq={Lq} Lk={Lk} "
-                                   f"{kind}")
+                            flash_check(f"{dt} g={g} hd={hd} Lq={Lq} Lk={Lk} "
+                                        f"{kind}", q, k, v, off, Lq, mask)
+    # every compiled (hd, block) instance of the bf16 kernel at runtime
+    # tiles bq 8, 24, 40 and 128 (every warp grid R x C it compiles),
+    # folded GQA groups, per-row offsets, a pad-tail mask with a fully
+    # masked row, one resident key tile (Lk 37 at block 64 and 128) and
+    # several
+    for hd, blk in sorted(FLASH_INSTANCES):
+        for g, Lq in ((1, 8), (8, 3), (1, 40), (8, 16)):
+            for Lk in (37, 300):
+                rows = B * 2
+                q = randn((rows, g * Lq, hd), torch.bfloat16)
+                k = randn((rows, Lk, hd), torch.bfloat16)
+                v = randn((rows, Lk, hd), torch.bfloat16)
+                km = torch.ones((B, Lk), dtype=torch.bool, device=dev)
+                km[0, Lk - 5:] = False
+                km[1, :] = False
+                offs = randint(0, Lk, (rows,))
+                for kind, mask in (("rows", None), ("rows+mask", km)):
+                    r, c = flash_config(g * Lq, Lk, hd, blk, torch.bfloat16)[
+                        "warp_grid"]
+                    flash_check(f"bf16 hd={hd} block={blk} (R {r}, C {c}) "
+                                f"g={g} Lq={Lq} Lk={Lk} {kind}", q, k, v,
+                                offs, Lq, mask, blk)
     Bp, KVp, gp, hdp, bsp, wp = 4, 2, 8, 128, 16, 32
     nb = 1 + Bp * wp
     for dt in (torch.bfloat16, torch.float32):
@@ -422,14 +529,13 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
         prompts[i][:32] = shared
     ctx = ExecutionContext(target=H100, backend="cuda")
     attn_names = ("flash_attention", "paged_decode")
-    serve_launches = dict.fromkeys(attn_names, 0)
+    serve_launches = dict.fromkeys(attn_names + ("flash_tensor_core",), 0)
 
     def counted(run: str, must_launch, fn):
         """Counters to 0 just before ``fn``, read just after; fail unless
-        every kernel of ``must_launch`` ran. Returns ``fn()`` and the
-        run's launches."""
-        for k in KERNELS.values():
-            k.launches = 0
+        every kernel of ``must_launch`` ran and every flash launch took the
+        tensor-core kernel. Returns ``fn()`` and the run's launches."""
+        zero_counts()
         out = fn()
         torch.cuda.synchronize()
         launched = {n: KERNELS[n].launches for n in attn_names}
@@ -439,6 +545,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
         for n in must_launch:
             if launched[n] <= 0:
                 fail(f"{run}: the {n} kernel was never launched")
+        serve_launches["flash_tensor_core"] += flash_on_tensor_cores(run)
         return out, launched
 
     engines = {"paged": (dict(paged=True), attn_names),
@@ -564,6 +671,21 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     sdpa_mask = allowed[None, None]
     flash_lib = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask, enable_gqa=True), 2, 10)
+    # beside the per-call medians (host work of the wrapper included): a
+    # per-launch time over 50 back-to-back calls, and the device time of
+    # the calls' kernels from torch.profiler
+    def prefill():
+        return flash_attention(qf, kf, vf, q_offset=off0, q_seq_len=Lq,
+                               key_mask=km)
+
+    def prefill_lib():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                              enable_gqa=True)
+
+    flash_launch = per_launch_ms(prefill)
+    flash_lib_launch = per_launch_ms(prefill_lib)
+    flash_dev, flash_dev_all = device_ms_per_call(prefill, "flash_tc_kernel")
+    _, flash_lib_dev = device_ms_per_call(prefill_lib)
     pairs = float(allowed.sum().item()) * H  # (query, key) pairs the data needs
     flash_flops = 4.0 * pairs * hd
     needed_keys = float(allowed.any(0).sum().item())  # keys any query sees
@@ -577,8 +699,18 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     print(json.dumps({"kernel_shape": "flash_attention", "phase": "prefill",
                       "B": 1, "H": H, "KV": KV, "Lq": Lq, "Lk": Lk, "hd": hd,
                       "ms": flash_ms, "plain_ms": flash_plain,
-                      "library_ms": flash_lib, "bound_ms": flash_bound,
+                      "library_ms": flash_lib, "ms_per_launch": flash_launch,
+                      "library_ms_per_launch": flash_lib_launch,
+                      "device_ms_per_launch": flash_dev,
+                      "device_ms_per_call_all_kernels": flash_dev_all,
+                      "library_device_ms_per_call": flash_lib_dev,
+                      "bound_ms": flash_bound,
                       "bound_by": flash_by, "gflop_needed": flash_flops / 1e9,
+                      "tflop_per_s_per_launch": flash_flops / flash_launch
+                      / 1e9,
+                      "tflop_per_s_device": (
+                          flash_flops / flash_dev / 1e9
+                          if isinstance(flash_dev, float) else flash_dev),
                       "measured_words": dec_prefill.measured_words,
                       "lower_bound_words": dec_prefill.lower_bound,
                       "bound_ratio": dec_prefill.bound_ratio}), flush=True)
@@ -597,6 +729,19 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     dec_lib = median_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=(kpos[None, :] <= depth[:, None])[:, None, None],
         enable_gqa=True), 2, 20)
+    dec_mask = (kpos[None, :] <= depth[:, None])[:, None, None]
+
+    def decode():
+        return flash_attention(dq, dk, dv, q_offset=rows_off, q_seq_len=1)
+
+    def decode_lib():  # the mask made once, outside the timing
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dec_mask,
+                                              enable_gqa=True)
+
+    dec_launch = per_launch_ms(decode)
+    dec_lib_launch = per_launch_ms(decode_lib)
+    dec_dev, dec_dev_all = device_ms_per_call(decode, "flash_tc_kernel")
+    _, dec_lib_dev = device_ms_per_call(decode_lib)
     dec_needed = float((depth + 1).sum().item()) * H
     dec_bound, dec_by = bound_ms(4.0 * dec_needed * hd,
                                  (2 * qd.numel() + 2 * float(
@@ -605,7 +750,11 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     print(json.dumps({"kernel_shape": "flash_attention",
                       "phase": "contiguous decode", "B": 4, "Lq": 1,
                       "Lk": Lk, "ms": dec_ms, "plain_ms": dec_plain,
-                      "library_ms": dec_lib,
+                      "library_ms": dec_lib, "ms_per_launch": dec_launch,
+                      "library_ms_per_launch": dec_lib_launch,
+                      "device_ms_per_launch": dec_dev,
+                      "device_ms_per_call_all_kernels": dec_dev_all,
+                      "library_device_ms_per_call": dec_lib_dev,
                       "bound_ms": dec_bound, "bound_by": dec_by}), flush=True)
     # paged decode: the serving pool's block size, the deepest row's width
     w = -(-(int(lens.max()) + 32) // 16)
@@ -653,9 +802,13 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     return [
         {"name": "flash_attention", "route": "cuda",
          "also_replaces": "src/repro/kernels/flash_attention.py:96",
-         "launches": serve_launches["flash_attention"], "ms": flash_ms,
-         "plain_ms": flash_plain, "bound_ms": flash_bound,
-         "bound_by": flash_by, "library_ms": flash_lib, "ok": True,
+         "launches": serve_launches["flash_attention"],
+         "tensor_core_launches": serve_launches["flash_tensor_core"],
+         "ms": flash_ms, "plain_ms": flash_plain, "bound_ms": flash_bound,
+         "bound_by": flash_by, "library_ms": flash_lib,
+         "ms_per_launch": flash_launch,
+         "library_ms_per_launch": flash_lib_launch,
+         "device_ms_per_launch": flash_dev, "ok": True,
          "shapes": f"{cfg.name} prefill: B 1, H {H}/{KV}, Lq {Lq}, Lk {Lk}, "
                    f"hd {hd}, bf16, causal + key mask"},
         {"name": "paged_decode", "route": "cuda",
@@ -713,47 +866,66 @@ def sass_functions(library) -> dict:
     return funcs
 
 
-def tc_symbol(kernel: str, mi: int, ni: int, out_f32: bool,
-              linear=None) -> str:
-    """The mangled-name part of ``<kernel><Tout, MI, NI>`` (the conv's), or
-    of ``<kernel><Tout, MI, NI, LINEAR>`` where ``linear`` is a bool (the
-    GEMM's)."""
-    tout = "f" if out_f32 else "13__nv_bfloat16"
-    tail = "E" if linear is None else f"Lb{int(linear)}E"
-    return f"{kernel}I{tout}Li{mi}ELi{ni}E{tail}"
+def template_symbol(kernel: str, *args) -> str:
+    """The mangled-name part of ``kernel<args...>``: an int argument as
+    ``Li<n>E``, a bool as ``Lb<n>E``, the output types ``"float"`` and
+    ``"bf16"`` as ``f`` and ``13__nv_bfloat16``."""
+    parts = []
+    for a in args:
+        if isinstance(a, bool):
+            parts.append(f"Lb{int(a)}E")
+        elif isinstance(a, int):
+            parts.append(f"Li{a}E")
+        else:
+            parts.append({"float": "f", "bf16": "13__nv_bfloat16"}[a])
+    return f"{kernel}I{''.join(parts)}E"
 
 
-def tc_variants(name: str, kernel: str, variants, main_variants, linear=None):
-    """Phase 2 for one source's tensor-core kernel: each compiled variant's
-    registers and spill bytes (ptxas) and HMMA count (its SASS); fatal if a
-    variant has no HMMA or a variant the main path takes (f32 out) spills.
-    ``linear`` is the GEMM's LINEAR variant index (None for the conv)."""
+def tc_variants(name: str, kernel: str, variants, main) -> None:
+    """Phase 2 for one source's tensor-core kernel: for each ``(label,
+    template arguments)`` of ``variants``, the instance's registers and
+    spill bytes (ptxas) and HMMA count (its SASS); fatal if an instance has
+    no HMMA or an instance whose label is in ``main`` (the main path's)
+    spills."""
     from repro_torch.kernels import KERNELS
 
     regs_of = ptxas_functions(KERNELS[name].build_log)
     sass = sass_functions(KERNELS[name].library_path())
+    for label, args in variants:
+        sym = template_symbol(kernel, *args)
+        found = [f for f in regs_of if sym in f]
+        body = [t for f, t in sass.items() if sym in f]
+        if len(found) != 1 or len(body) != 1:
+            fail(f"{name}: {sym} not found once in the build "
+                 f"({len(found)} in ptxas, {len(body)} in SASS)")
+        regs, spill = regs_of[found[0]]
+        hmma = body[0].count("HMMA")
+        used = label in main
+        print(f"build {name} tensor-core variant {label}"
+              f"{'; main path' if used else ''}: registers {regs}, "
+              f"spill bytes {spill}, HMMA instructions {hmma}", flush=True)
+        if hmma == 0:
+            fail(f"{name}: {sym} has no HMMA: not on the tensor cores")
+        if used and spill:
+            fail(f"{name}: main-path variant {sym} spills {spill} bytes")
+
+
+def gemm_like_variants(variants, main_variants, linear=None):
+    """``tc_variants``' (label, arguments) for the GEMM's and the conv's
+    ``<Tout, MI, NI[, LINEAR]>`` instances, both output types, and the
+    labels of those the main path takes (f32 out)."""
+    out, main = [], set()
     for v, (mi, ni) in enumerate(variants):
-        for out_f32 in (True, False):
-            sym = tc_symbol(kernel, mi, ni, out_f32,
-                            None if linear is None else v == linear)
-            found = [f for f in regs_of if sym in f]
-            body = [t for f, t in sass.items() if sym in f]
-            if len(found) != 1 or len(body) != 1:
-                fail(f"{name}: {sym} not found once in the build "
-                     f"({len(found)} in ptxas, {len(body)} in SASS)")
-            regs, spill = regs_of[found[0]]
-            hmma = body[0].count("HMMA")
-            used = v in main_variants and out_f32
-            print(f"build {name} tensor-core variant {v} (MI {mi}, NI {ni}"
-                  f"{', LINEAR' if v == linear else ''}; "
-                  f"{'f32' if out_f32 else 'bf16'} out"
-                  f"{'; main path' if used else ''}): registers {regs}, "
-                  f"spill bytes {spill}, HMMA instructions {hmma}",
-                  flush=True)
-            if hmma == 0:
-                fail(f"{name}: {sym} has no HMMA: not on the tensor cores")
-            if used and spill:
-                fail(f"{name}: main-path variant {sym} spills {spill} bytes")
+        for tout in ("float", "bf16"):
+            label = (f"{v} (MI {mi}, NI {ni}"
+                     f"{', LINEAR' if v == linear else ''}; "
+                     f"{'f32' if tout == 'float' else 'bf16'} out)")
+            args = (tout, mi, ni) + (() if linear is None
+                                     else (v == linear,))
+            out.append((label, args))
+            if v in main_variants and tout == "float":
+                main.add(label)
+    return out, main
 
 
 def conv_tiles(s) -> tuple:
@@ -801,10 +973,6 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
 
     dev = torch.device("cuda")
     ctx = ExecutionContext(target=H100, backend="cuda")
-
-    def zero_counts():
-        for k in KERNELS.values():
-            k.launches = 0
 
     # -- 9. int8 kernels against their plain versions -----------------------
     gen.manual_seed(SEED + 30)
@@ -961,6 +1129,7 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
     print(f"int8 KV engine launches: {json.dumps(launched)}", flush=True)
     if launched["flash_attention"] <= 0:
         fail("int8 KV engine: the flash_attention kernel was never launched")
+    flash_on_tensor_cores("int8 KV engine")
     for r in reqs:
         if r.finish_reason != "length" or len(r.out_tokens) != 32:
             fail(f"int8 KV engine: a request finished {r.finish_reason!r} "
@@ -1152,14 +1321,14 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
     names = ("conv1d_causal", "flash_attention")
     torch.cuda.synchronize()
     with ops.record_dispatch() as log:
-        for k in KERNELS.values():
-            k.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {n: KERNELS[n].launches for n in names}
     print(f"hybrid engine launches: {json.dumps(launched)}", flush=True)
+    flash_on_tensor_cores("hybrid engine")
     if launched["conv1d_causal"] != n_mamba * len(reqs):
         fail(f"hybrid engine: conv1d_causal launched "
              f"{launched['conv1d_causal']} times, not {n_mamba} mamba layers "
@@ -1346,18 +1515,28 @@ def main() -> None:
     from repro_torch.kernels.conv2d import launch_config as conv_config
     from repro_torch.kernels.matmul import (LINEAR, LINEAR_TILES,
                                             TC_VARIANTS)
+    from repro_torch.kernels.flash_attention import flash_tc_instances
     from repro_torch.kernels.matmul import launch_config as mm_config
     layers = resnet50_layers(BATCH)
     main_variants = {mm_config(*t, 2, mnk[2])["variant"] for mnk, t in
                      map(gemm_tiles, layers.values())}
-    tc_variants("matmul", "matmul_tc_kernel",
-                TC_VARIANTS + ((1, LINEAR_TILES),), main_variants, LINEAR)
+    tc_variants("matmul", "matmul_tc_kernel", *gemm_like_variants(
+        TC_VARIANTS + ((1, LINEAR_TILES),), main_variants, LINEAR))
     main_variants = set()
     for s in layers.values():
         t, (h_in, w_in) = conv_tiles(s)
         main_variants.add(conv_config(t, s.h_F, s.w_F, h_in, w_in, 2,
                                       s.c_I)["variant"])
-    tc_variants("conv2d", "conv2d_tc_kernel", CONV_VARIANTS, main_variants)
+    tc_variants("conv2d", "conv2d_tc_kernel",
+                *gemm_like_variants(CONV_VARIANTS, main_variants))
+    # flash attention's bf16 kernel: every (hd, block, C) instance; the
+    # main path takes hd 128 at block 64 (C 1 at prefill, 4 at decode, 2 at
+    # the hybrid's short prefills)
+    flash_variants = [(f"(hd {hd}, block {b}, C {c})", (hd, b, c))
+                      for hd, b, c in flash_tc_instances()]
+    tc_variants("flash_attention", "flash_tc_kernel", flash_variants,
+                {label for label, (hd, b, _) in flash_variants
+                 if (hd, b) == (128, 64)})
 
     max_err = {name: 0.0 for name in KERNELS}
 

@@ -9,14 +9,52 @@
 // takes the optional (B, Lk) key mask of padded prefill, which the TPU
 // kernel declined (the reference serves that call with XLA).
 //
-// What bounds it on an H100: at prefill shapes, the FMA pipe. This first
-// version computes both GEMMs (S = Q K^T and O += P V) with plain f32 FMAs
-// (67 TFLOP/s peak), not the tensor cores (989 TFLOP/s bf16), every operand
-// from shared memory. At decode shapes (Lq = 1) it is bound by the K/V
-// stream from HBM, and a few CTAs in flight leave most of that bandwidth
-// idle.
+// Two kernels, chosen by the input dtype before the launch (never after a
+// failure):
 //
-// Design:
+// flash_tc_kernel, bf16 in and out: tensor cores.
+//  What bounds it on an H100: at prefill shapes the products (S = Q K^T and
+//  O += P V, every key tile of every q tile, no causal block skipping); at
+//  decode shapes (Lq = 1, g query heads folded into 8 rows) the K/V stream
+//  from HBM, with one CTA per (batch row, kv head) in flight. So the design
+//  puts both products on the tensor cores and overlaps each tile's loads
+//  with the previous tile's products:
+//  * mma.sync m16n8k16 bf16 x bf16 -> f32. Q's A fragments come once a q
+//    tile by ldmatrix.x4 and stay in registers; K's B fragments by
+//    ldmatrix (non-transposed) from the row-major (key, d) tile; V's by
+//    ldmatrix.trans. P never goes through shared memory: the C layout of
+//    two adjacent m16n8 S tiles is the m16k16 A layout of P V, so P is
+//    rounded to bf16 in registers (l sums the f32 probabilities).
+//  * W warps (4 for blocks 32 and 64, 8 for 128) as an R x C grid: R row
+//    slabs of 16 folded query rows (the smallest power of two with 16 R >=
+//    the runtime bq) by C key slabs of BLOCK / C columns of every key
+//    tile. Prefill (bq 64): R 4, C 1, each warp 16 rows x 64 keys. Decode
+//    (bq 8): R 1, C 4, every warp on the 8 live rows, 16 of every 64 keys.
+//    C > 1 ends with one merge through shared memory: the C warps of a row
+//    slab combine (m, l, O) as m* = max m_j, O = sum e^(m_j - m*) O_j /
+//    sum e^(m_j - m*) l_j. A slab of 8 keys (block 32, C 4) fills the upper
+//    half of P's k16 fragment with zeros.
+//  * Q, K and V tiles go to shared memory by 16-byte cp.async, zero-filled
+//    past the ragged edges (no padded copies in HBM), rows padded to HD + 8
+//    elements (an odd multiple of 16 bytes: ldmatrix's eight row addresses
+//    hit eight distinct bank groups). K and V run through a two-slot ring:
+//    tile t + 1 is issued after iteration t's cp.async.wait_group(0) and
+//    __syncthreads, before its products; one commit group a tile.
+//  * Masks and the online softmax stay in registers: lane (g, t) of a warp
+//    holds rows g and g + 8 of its slab; the row max reduces over the quad
+//    (shfl_xor 1, 2), the row sum once at the end. Logits are scaled by
+//    log2(e) / sqrt(hd) and exponentiated with exp2.
+//  * The output is staged as bf16 in the Q tile's rows of the slab and
+//    stored as 16-byte rows.
+//
+// flash_kernel, f32 in and out: the first version, on the FMA pipe (67
+//  TFLOP/s): bf16 MMAs would change f32 numerics. 256 threads as a 16 x 16
+//  grid: thread (ty, tx) computes S at rows ty + 16 i and keys tx + 16 j and
+//  owns O at rows ty + 16 i and head dims tx + 16 j in registers; tiles in
+//  shared memory as f32 with row pitch hd + 1; online softmax one warp a
+//  row.
+//
+// Both:
 //  * One CTA per (folded row b * Hkv + kv, q tile of bq folded query rows).
 //    Row j of the folded query axis is query j % q_seq_len of its group, so
 //    its absolute position is (j % q_seq_len) + q_offset[row] (q_seq_len = 0:
@@ -27,28 +65,25 @@
 //    charges. When the keys fit one tile (n_k == 1) the CTA walks every q
 //    tile of its row with that tile resident: the reference's index map
 //    fetches it once per row then, and so does this kernel.
-//  * The Q tile and each K/V tile are converted to f32 in dynamic shared
-//    memory (row pitch hd + 1: conflict-free column reads), zero-filled past
-//    the ragged edges instead of padded copies in HBM.
-//  * 256 threads as a 16 x 16 grid: thread (ty, tx) computes S at rows
-//    ty + 16 i and keys tx + 16 j, and owns O at rows ty + 16 i and head
-//    dims tx + 16 j in registers (at most 64 f32 accumulators a thread).
 //  * Masks: keys past Lk (the tile's ragged edge) get exactly zero weight;
 //    keys at or past kv_lens[row], causally future keys and keys the key
 //    mask rejects get the reference's finite NEG_INF = -1e30. A row whose
 //    keys are all rejected therefore averages V over its Lk keys: neither
-//    zeros nor NaN.
-//  * Online softmax in f32, one warp per row: running max m, sum l, and the
-//    rescale factor of the accumulator; the store divides by l (l == 0 -> 1).
+//    zeros nor NaN. The store divides by l (l == 0 -> 1).
+//  * The launch attributes (dynamic shared memory, carveout) are set once
+//    per instance and device, not on every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the FMA kernel's
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct FAParams {
   int Lq, Lk;           // folded query rows, keys (per folded row)
@@ -60,13 +95,25 @@ struct FAParams {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// Set the dynamic shared memory (and the carveout) of one kernel instance
+// once per device.
+template <typename K>
+cudaError_t configure_once(K kern, int smem, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return e;
 }
+
+// ---------------------------------------------------------------------------
+// The FMA kernel (f32 in).
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -84,10 +131,10 @@ constexpr int smem_floats() {
   return 2 * BLOCK * (HD + 1) + BLOCK * HD + BLOCK * (BLOCK + 1) + 3 * BLOCK;
 }
 
-template <typename T, int HD, int BLOCK>
+template <int HD, int BLOCK>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out,
              const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
              const uint8_t* __restrict__ key_mask, FAParams p) {
   constexpr int QS = HD + 1;     // q/k row pitch in shared memory
@@ -111,16 +158,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = kv_lens[row];
   const uint8_t* km =
       key_mask ? key_mask + (row / p.rows_per_batch) * (long long)p.Lk : nullptr;
-  const T* qr = q + row * p.Lq * (long long)HD;
-  const T* kr = k + row * p.Lk * (long long)HD;
-  const T* vr = v + row * p.Lk * (long long)HD;
-  T* orow = out + row * p.Lq * (long long)HD;
+  const float* qr = q + row * p.Lq * (long long)HD;
+  const float* kr = k + row * p.Lk * (long long)HD;
+  const float* vr = v + row * p.Lk * (long long)HD;
+  float* orow = out + row * p.Lq * (long long)HD;
 
   for (int qt = blockIdx.y; qt < p.n_q; qt += gridDim.y) {
     const int q0 = qt * p.bq;
     for (int e = tid; e < BLOCK * HD; e += THREADS) {
       const int r = e / HD, d = e % HD, qi = q0 + r;
-      sq[r * QS + d] = (r < p.bq && qi < p.Lq) ? to_f(qr[(long long)qi * HD + d]) : 0.f;
+      sq[r * QS + d] = (r < p.bq && qi < p.Lq) ? qr[(long long)qi * HD + d] : 0.f;
     }
     for (int r = tid; r < BLOCK; r += THREADS) {
       sm[r] = NEG_INF;
@@ -144,8 +191,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = tid; e < BLOCK * HD; e += THREADS) {
           const int r = e / HD, d = e % HD, kj = k0 + r;
           const bool ok = r < p.bk && kj < p.Lk;
-          sk[r * QS + d] = ok ? to_f(kr[(long long)kj * HD + d]) : 0.f;
-          sv[r * HD + d] = ok ? to_f(vr[(long long)kj * HD + d]) : 0.f;
+          sk[r * QS + d] = ok ? kr[(long long)kj * HD + d] : 0.f;
+          sv[r * HD + d] = ok ? vr[(long long)kj * HD + d] : 0.f;
         }
       }
       __syncthreads();
@@ -237,56 +284,362 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = 1.f / l;
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        orow[(long long)qi * HD + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+        orow[(long long)qi * HD + tx + 16 * j] = acc[i][j] * inv;
     }
     __syncthreads();
   }
 }
 
-template <typename T, int HD, int BLOCK>
-cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
-                     const void* offs, const void* lens, const void* km,
-                     long long rows, const FAParams& p, cudaStream_t s) {
-  auto kern = flash_kernel<T, HD, BLOCK>;
-  const int smem = smem_floats<HD, BLOCK>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16 in).
+// ---------------------------------------------------------------------------
+
+template <int BLOCK>
+__host__ __device__ constexpr int tc_warps() { return BLOCK == 128 ? 8 : 4; }
+
+// Dynamic shared memory: the Q tile, two ring slots of K and V (rows of
+// HD + 8 bf16), and, for C > 1, the (m, l, O) that key slabs 1 .. C - 1 of
+// each row slab hand to key slab 0 (kernels/flash_attention.py,
+// launch_config, computes the same).
+template <int HD, int BLOCK, int C>
+constexpr int tc_smem_bytes() {
+  constexpr int R = tc_warps<BLOCK>() / C;
+  return 5 * BLOCK * (HD + 8) * 2 + (C - 1) * R * 32 * (4 + HD / 2) * 4;
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int HD, int BLOCK, int C>
+__global__ void __launch_bounds__(32 * tc_warps<BLOCK>(), 2)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
+                const uint8_t* __restrict__ key_mask, FAParams p) {
+  constexpr int W = tc_warps<BLOCK>(), R = W / C;  // row slabs x key slabs
+  constexpr int NTHR = 32 * W;
+  constexpr int P = HD + 8;            // shared-memory row pitch (elements)
+  constexpr int NW = BLOCK / C;        // keys of a warp's slab
+  constexpr int NT = NW / 8;           // its n8 tiles of S
+  constexpr int KC = (NW + 15) / 16;   // its k16 chunks of P V
+  constexpr int DK = HD / 16;          // k16 steps of Q K^T
+  constexpr int DT = HD / 8;           // n8 tiles of O
+  constexpr int SLOT = 2 * BLOCK * P;  // one ring slot: K, then V
+  constexpr int PART = 4 + 4 * DT;     // floats a lane hands over to merge
+  static_assert(R >= 1 && R * C == W && NW >= 8, "warp grid");
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* const sq = reinterpret_cast<bf16*>(smem_tc);
+  bf16* const ring = sq + BLOCK * P;
+  float* const merge = reinterpret_cast<float*>(ring + 2 * SLOT);
+
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slab = warp / C, kslab = warp % C;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = q_offset[row], len = kv_lens[row];
+  const uint8_t* km =
+      key_mask ? key_mask + (row / p.rows_per_batch) * (long long)p.Lk : nullptr;
+  const bf16* qr = q + row * p.Lq * (long long)HD;
+  const bf16* kr = k + row * p.Lk * (long long)HD;
+  const bf16* vr = v + row * p.Lk * (long long)HD;
+  bf16* orow = out + row * p.Lq * (long long)HD;
+  const CopyPlan pl = copy_plan(HD / 8, tid, NTHR);
+  const float sl2 = p.scale * LOG2E;
+  const int c0 = kslab * NW;  // the warp's first key column of a tile
+
+  // issue the copies of K/V tile kt into ring slot kt % 2, zero past Lk
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * p.bk, kv = min(p.bk, p.Lk - k0);
+    bf16* dst = ring + (kt & 1) * SLOT;
+    copy_tile<8, 8>(dst, P, kr + (long long)k0 * HD, HD, BLOCK, kv, HD, HD, pl,
+                    tid, NTHR);
+    copy_tile<8, 8>(dst + BLOCK * P, P, vr + (long long)k0 * HD, HD, BLOCK, kv,
+                    HD, HD, pl, tid, NTHR);
+  };
+
+  for (int qt = blockIdx.y; qt < p.n_q; qt += gridDim.y) {
+    const int q0 = qt * p.bq;
+    __syncthreads();  // the previous q tile's output staging is read
+    copy_tile<8, 8>(sq, P, qr + (long long)q0 * HD, HD, 16 * R,
+                    min(p.bq, p.Lq - q0), HD, HD, pl, tid, NTHR);
+    if (!p.kv_resident || qt == (int)blockIdx.y) load_kv(0);
+    cp_async_commit();
+
+    float o[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    int qpos[2];  // absolute positions of rows g and g + 8 of the slab
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + slab * 16 + g + 8 * h;
+      qpos[h] = (p.q_seq_len > 0 ? qi % p.q_seq_len : qi) + off;
+    }
+    uint32_t qf[DK][4];
+
+    for (int kt = 0; kt < p.n_k; ++kt) {
+      cp_async_wait<0>();  // tile kt (and at kt = 0 the Q tile) has landed ...
+      __syncthreads();     // ... for every thread; slot (kt + 1) % 2 is free
+      if (!p.kv_resident && kt + 1 < p.n_k) load_kv(kt + 1);
+      cp_async_commit();
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk)
+          ldsm_x4(qf[kk], sq + (slab * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+      }
+      const int k0 = kt * p.bk;
+      const int kv = min(p.bk, p.Lk - k0);  // key columns of this tile
+      if (c0 >= kv) continue;               // no key in the slab: zero weight
+      const bf16* sk = ring + (kt & 1) * SLOT;
+      const bf16* sv = sk + BLOCK * P;
+
+      // S = Q K^T over the warp's key slab (n8 tiles past the keys skipped)
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        if constexpr (NT == 1) {
+          uint32_t b[2];
+          ldsm_x2(b, sk + (c0 + (lane & 7)) * P + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[0], qf[kk], b);
+        } else {
+#pragma unroll
+          for (int jp = 0; jp < NT / 2; ++jp) {
+            if (c0 + jp * 16 >= kv) break;
+            uint32_t b[4];
+            ldsm_x4(b, sk + (c0 + jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+            const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+            mma_bf16(s[2 * jp], qf[kk], b0);
+            mma_bf16(s[2 * jp + 1], qf[kk], b1);
+          }
+        }
+      }
+
+      // masks, then the online softmax (log2 domain)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + j * 8 + 2 * t + e, kpos = k0 + c;
+          const bool in_range = c < kv;
+          const bool key_ok = in_range && kpos < len && (km == nullptr || km[kpos]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x = -INFINITY;  // past the keys: zero weight
+            if (in_range)
+              x = (key_ok && (!p.causal || kpos <= qpos[h])) ? s[j][2 * h + e] * sl2
+                                                            : NEG_INF;
+            s[j][2 * h + e] = x;
+            mx[h] = fmaxf(mx[h], x);
+          }
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = exp2f(s[j][e] - m[e >> 1]);
+          s[j][e] = pr;
+          l[e >> 1] += pr;
+        }
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+      // O += P V: P from the S registers as bf16 A fragments
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        if (c0 + kc * 16 >= kv) break;
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        if constexpr (NT > 1) {
+          a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+          a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+        } else {  // an 8-key slab: the upper half of k is zero
+          a[2] = a[3] = 0u;
+        }
+        const int kr_ = c0 + kc * 16 + (NT > 1 ? (lane & 15) : (lane & 7));
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          uint32_t b0[2], b1[2];
+          ldsm_x4_t(b0, b1, sv + kr_ * P + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * dp], a, b0);
+          mma_bf16(o[2 * dp + 1], a, b1);
+        }
+      }
+    }
+
+    // the row sums over the quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    if constexpr (C > 1) {
+      // key slabs 1 .. C - 1 of each row slab hand (m, l, O) to key slab 0
+      float* part = merge + (slab * (C - 1)) * PART * 32 + lane;
+      if (kslab > 0) {
+        float* dst = part + (kslab - 1) * PART * 32;
+        dst[0] = m[0];
+        dst[32] = m[1];
+        dst[64] = l[0];
+        dst[96] = l[1];
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[(4 + 4 * j + e) * 32] = o[j][e];
+      }
+      __syncthreads();
+      if (kslab == 0) {
+        float ms[2] = {m[0], m[1]};
+#pragma unroll
+        for (int c = 1; c < C; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            ms[h] = fmaxf(ms[h], part[((c - 1) * PART + h) * 32]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float w0 = exp2f(m[h] - ms[h]);
+          l[h] *= w0;
+#pragma unroll
+          for (int j = 0; j < DT; ++j) {
+            o[j][2 * h] *= w0;
+            o[j][2 * h + 1] *= w0;
+          }
+        }
+#pragma unroll
+        for (int c = 1; c < C; ++c) {
+          const float* src = part + (c - 1) * PART * 32;
+          float w[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            w[h] = exp2f(src[h * 32] - ms[h]);
+            l[h] += w[h] * src[(2 + h) * 32];
+          }
+#pragma unroll
+          for (int j = 0; j < DT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[j][e] += w[e >> 1] * src[(4 + 4 * j + e) * 32];
+        }
+      }
+    }
+    if (kslab == 0) {
+      // stage the slab's bf16 rows in its Q rows, then 16-byte stores
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) inv[h] = 1.f / (l[h] == 0.f ? 1.f : l[h]);
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(sq + (slab * 16 + g + 8 * h) * P + j * 8 + 2 * t) =
+              pack_bf16(o[j][2 * h] * inv[h], o[j][2 * h + 1] * inv[h]);
+      __syncwarp();
+      constexpr int CPR = HD / 8;  // 16-byte chunks a row
+      for (int i = lane; i < 16 * CPR; i += 32) {
+        const int r = slab * 16 + i / CPR, c = (i % CPR) * 8, qi = q0 + r;
+        if (r < p.bq && qi < p.Lq)
+          *reinterpret_cast<uint4*>(orow + (long long)qi * HD + c) =
+              *reinterpret_cast<const uint4*>(sq + r * P + c);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (the trailing groups are empty)
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  const int *offs, *lens;
+  const uint8_t* km;
+  long long rows;
+  FAParams p;
+  cudaStream_t s;
+};
+
+template <typename T, typename K>
+cudaError_t launch(K kern, int threads, int smem, unsigned& done, const Args& a) {
+  cudaError_t e = configure_once(kern, smem, done);
   if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)rows, p.kv_resident ? 1u : (unsigned)p.n_q);
-  kern<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<const int*>(offs), static_cast<const int*>(lens),
-      static_cast<const uint8_t*>(km), p);
+  dim3 grid((unsigned)a.rows, a.p.kv_resident ? 1u : (unsigned)a.p.n_q);
+  kern<<<grid, threads, smem, a.s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.offs, a.lens, a.km,
+      a.p);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_b(int block, const void* q, const void* k, const void* v,
-                     void* out, const void* offs, const void* lens,
-                     const void* km, long long rows, const FAParams& p,
-                     cudaStream_t s) {
-  switch (block) {  // the instances repro_torch.kernels.flash_attention names
-    case 32: return launch_t<T, HD, 32>(q, k, v, out, offs, lens, km, rows, p, s);
-    case 64: return launch_t<T, HD, 64>(q, k, v, out, offs, lens, km, rows, p, s);
-    case 128:
-      if constexpr (HD <= 32)
-        return launch_t<T, HD, 128>(q, k, v, out, offs, lens, km, rows, p, s);
+template <int HD, int BLOCK>
+cudaError_t launch_fma(const Args& a) {
+  static unsigned done = 0;
+  return launch<float>(flash_kernel<HD, BLOCK>, THREADS,
+                       smem_floats<HD, BLOCK>() * (int)sizeof(float), done, a);
+}
+
+template <int HD, int BLOCK, int C>
+cudaError_t launch_tc_c(const Args& a) {
+  static unsigned done = 0;
+  return launch<bf16>(flash_tc_kernel<HD, BLOCK, C>, 32 * tc_warps<BLOCK>(),
+                      tc_smem_bytes<HD, BLOCK, C>(), done, a);
+}
+
+// R: the smallest power of two with 16 R >= bq (R <= W since bq <= BLOCK);
+// C = W / R key slabs. A block of 32 never has R = 4 (C = 1).
+template <int HD, int BLOCK>
+cudaError_t launch_tc(const Args& a) {
+  constexpr int W = tc_warps<BLOCK>();
+  int r = 1;
+  while (16 * r < a.p.bq) r *= 2;
+  switch (W / r) {
+    case 1:
+      if constexpr (BLOCK >= 16 * W) return launch_tc_c<HD, BLOCK, 1>(a);
+      return cudaErrorInvalidValue;
+    case 2: return launch_tc_c<HD, BLOCK, 2>(a);
+    case 4: return launch_tc_c<HD, BLOCK, 4>(a);
+    case 8:
+      if constexpr (W == 8) return launch_tc_c<HD, BLOCK, 8>(a);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, int block, const void* q, const void* k,
-                      const void* v, void* out, const void* offs,
-                      const void* lens, const void* km, long long rows,
-                      const FAParams& p, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_b<T, 16>(block, q, k, v, out, offs, lens, km, rows, p, s);
-    case 32: return launch_b<T, 32>(block, q, k, v, out, offs, lens, km, rows, p, s);
-    case 64: return launch_b<T, 64>(block, q, k, v, out, offs, lens, km, rows, p, s);
-    case 128: return launch_b<T, 128>(block, q, k, v, out, offs, lens, km, rows, p, s);
+template <int HD>
+cudaError_t launch_b(int dtype, int block, const Args& a) {
+  // the instances repro_torch.kernels.flash_attention names (FLASH_INSTANCES)
+  switch (block) {
+    case 32: return dtype ? launch_tc<HD, 32>(a) : launch_fma<HD, 32>(a);
+    case 64: return dtype ? launch_tc<HD, 64>(a) : launch_fma<HD, 64>(a);
+    case 128:
+      if constexpr (HD <= 32) return dtype ? launch_tc<HD, 128>(a) : launch_fma<HD, 128>(a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -294,7 +647,8 @@ cudaError_t launch_hd(int hd, int block, const void* q, const void* k,
 }  // namespace
 
 // q (rows, Lq, hd), k/v (rows, Lk, hd), out like q, all one dtype (0 =
-// float32, 1 = bfloat16), contiguous; q_offset and kv_lens int32 (rows,);
+// float32: the FMA kernel, 1 = bfloat16: the tensor-core kernel, every
+// pointer on 16 bytes), contiguous; q_offset and kv_lens int32 (rows,);
 // key_mask bool (rows / rows_per_batch, Lk) or null. ``block`` selects the
 // compiled tile (the plan's), bq/bk <= block the clamped runtime tiles.
 // Returns the launch's cudaError_t.
@@ -305,9 +659,22 @@ extern "C" int repro_flash_attention(
     int bk, int q_seq_len, int rows_per_batch, int causal, float scale,
     void* stream) {
   if (rows <= 0 || rows > 0x7fffffffLL || bq <= 0 || bk <= 0 || bq > block ||
-      bk > block)
+      bk > block || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidConfiguration;
-  FAParams p;
+  if (dtype == 1 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = out;
+  a.offs = static_cast<const int*>(q_offset);
+  a.lens = static_cast<const int*>(kv_lens);
+  a.km = static_cast<const uint8_t*>(key_mask);
+  a.rows = rows;
+  a.s = static_cast<cudaStream_t>(stream);
+  FAParams& p = a.p;
   p.Lq = Lq;
   p.Lk = Lk;
   p.bq = bq;
@@ -320,14 +687,11 @@ extern "C" int repro_flash_attention(
   p.kv_resident = p.n_k == 1;
   p.scale = scale;
   if (p.n_q > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch_hd<float>(hd, block, q, k, v, out, q_offset, kv_lens, key_mask, rows, p, s);
-  else if (dtype == 1)
-    e = launch_hd<__nv_bfloat16>(hd, block, q, k, v, out, q_offset, kv_lens, key_mask,
-                                 rows, p, s);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  switch (hd) {
+    case 16: return (int)launch_b<16>(dtype, block, a);
+    case 32: return (int)launch_b<32>(dtype, block, a);
+    case 64: return (int)launch_b<64>(dtype, block, a);
+    case 128: return (int)launch_b<128>(dtype, block, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -8,12 +8,19 @@ GQA is handled by folding the g query heads of one KV head into the query
 axis, so K/V stream at their un-repeated size.
 
 On CUDA tensors, :func:`flash_attention` launches ``csrc/flash_attention.cu``
-(the reference's ``_flash_kernel`` and ``_flash_kernel_dyn`` in one kernel:
+(the reference's ``_flash_kernel`` and ``_flash_kernel_dyn`` in one source:
 offsets and lengths are int32 device arrays, static ones constant arrays)
 and :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (the
-reference's ``_paged_decode_kernel``). On CPU tensors each runs its plain
-PyTorch version (:func:`flash_attention_plain`, :func:`paged_decode_plain`).
-There is no fallback between the two.
+reference's ``_paged_decode_kernel``). The flash source has two kernels,
+chosen by the input dtype (:func:`launch_config`): bf16 takes
+``flash_tc_kernel`` (both products on the tensor cores with ``mma.sync``, a
+two-slot ``cp.async`` K/V ring, an R x C warp grid that splits the keys of
+a tile over C warps at decode shapes); f32 takes the FMA ``flash_kernel``.
+On CPU tensors each wrapper runs its plain PyTorch version
+(:func:`flash_attention_plain`, :func:`paged_decode_plain`). There is no
+fallback between the two. :func:`flash_attention_tc_emulate` models the
+tensor-core kernel's arithmetic (bf16 P, split keys, merge) for the CPU
+tests; nothing on the main path calls it.
 
 Masking follows the reference's finite ``NEG_INF = -1e30``: a query row whose
 keys are all masked averages V over its keys, giving neither zeros nor NaN.
@@ -35,10 +42,11 @@ from repro_torch.core.conv_model import round_up
 from repro_torch.core.tiling import attention_block_size
 from repro_torch.plan import H100, HardwareTarget
 
-from ._build import CudaKernel, check_cuda_operands, dtype_code
+from ._build import CudaKernel, check_cuda_operands, check_smem, dtype_code
 from .ref import no_tf32
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634  # the kernel's logits are scaled to base 2
 
 _c = ctypes
 FLASH_KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention", [
@@ -138,15 +146,178 @@ def flash_attention_plain(
         return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+FMA_THREADS = 256  # csrc/flash_attention.cu, flash_kernel's THREADS
+RING_SLOTS = 2  # K/V ring slots of flash_tc_kernel
+
+
+def tc_warps(block: int) -> int:
+    """Warps of a ``flash_tc_kernel`` CTA (``tc_warps`` in the source)."""
+    return 8 if block == 128 else 4
+
+
+def warp_grid(bq: int, block: int) -> Tuple[int, int]:
+    """(R, C): R row slabs of 16 folded query rows, the smallest power of
+    two with 16 R >= ``bq``, by C = W / R key slabs of ``block / C`` keys."""
+    w = tc_warps(block)
+    r = 1
+    while 16 * r < bq:
+        r *= 2
+    if r > w:
+        raise ValueError(f"bq={bq} exceeds the block of {block}")
+    return r, w // r
+
+
+def flash_tc_instances() -> list:
+    """The (hd, block, C) instances of ``flash_tc_kernel`` compiled into
+    the source: every C that some runtime bq (a multiple of 8 up to the
+    block) takes at each instance of ``FLASH_INSTANCES``."""
+    return sorted({(hd, b, warp_grid(bq, b)[1])
+                   for hd, b in FLASH_INSTANCES
+                   for bq in range(8, b + 1, 8)})
+
+
+def launch_config(Lq: int, Lk: int, hd: int, block: int, dtype,
+                  rows: int = 1) -> dict:
+    """The launch of ``csrc/flash_attention.cu`` for ``rows`` folded rows of
+    ``Lq`` queries and ``Lk`` keys at the compiled (hd, block) instance:
+    ``kernel`` (``"tensor core"`` for bf16, ``"fma"`` for f32), ``warps``,
+    ``threads``, ``grid`` (rows, q tiles; 1 when the keys fit one tile and
+    the CTA walks its q tiles with them resident), the runtime tiles ``bq``
+    and ``bk`` (clamped as the reference clamps them), ``n_q``, ``n_k``,
+    ``kv_resident``, and ``smem`` (dynamic shared-memory bytes, as the
+    source computes them). The tensor-core kernel adds ``warp_grid`` (R, C),
+    ``key_slab`` (keys a warp takes of each tile), ``slots`` (the K/V
+    ring's) and ``pitch`` (shared-memory row, elements). Raises ValueError
+    for an instance that is not compiled, TypeError for another dtype."""
+    if (hd, block) not in FLASH_INSTANCES:
+        raise ValueError(
+            f"flash_attention: no compiled kernel for hd={hd}, block={block} "
+            f"(compiled: {sorted(FLASH_INSTANCES)}); plan for the H100 target")
+    bq = min(block, round_up(Lq, 8))
+    bk = min(block, round_up(Lk, 8))
+    n_q, n_k = -(-Lq // bq), -(-Lk // bk)
+    resident = n_k == 1
+    cfg = dict(bq=bq, bk=bk, n_q=n_q, n_k=n_k, kv_resident=resident,
+               grid=(rows, 1 if resident else n_q))
+    if dtype == torch.float32:
+        smem = 4 * (2 * block * (hd + 1) + block * hd + block * (block + 1)
+                    + 3 * block)
+        return dict(cfg, kernel="fma", warps=FMA_THREADS // 32,
+                    threads=FMA_THREADS, smem=smem)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    w = tc_warps(block)
+    r, c = warp_grid(bq, block)
+    pitch = hd + 8  # an odd multiple of 16 bytes: conflict-free ldmatrix
+    merge = (c - 1) * r * 32 * (4 + hd // 2) * 4  # (m, l, O) of key slabs 1..
+    smem = (1 + 2 * RING_SLOTS) * block * pitch * 2 + merge
+    check_smem(smem, f"flash_attention hd={hd} block={block}")
+    return dict(cfg, kernel="tensor core", warps=w, threads=32 * w,
+                warp_grid=(r, c), key_slab=block // c, slots=RING_SLOTS,
+                pitch=pitch, smem=smem)
+
+
+def flash_attention_tc_emulate(
+    q: torch.Tensor,  # (BH, Lq, Dh) bf16
+    k: torch.Tensor,  # (BH, Lk, Dh) bf16
+    v: torch.Tensor,  # (BH, Lk, Dh) bf16
+    causal: bool = True,
+    q_offset: Union[int, torch.Tensor] = 0,
+    q_seq_len: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    block: Optional[int] = None,
+) -> torch.Tensor:
+    """``flash_tc_kernel``'s arithmetic in plain PyTorch, for the CPU tests
+    only: the same q tiles, key tiles and C key slabs of each tile (the R
+    row slabs compute independently, so they go together), each slab an
+    online softmax in the log2 domain with f32 logits of the bf16 operands,
+    P rounded to bf16 before P V, l summed from the f32 probabilities, and
+    the C partials merged as the kernel merges them. ``block`` defaults to
+    the H100 plan's."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bfloat16, not {q.dtype}")
+    BH, Lq, Dh = q.shape
+    Lk = k.shape[1]
+    if q_seq_len is not None and q_seq_len >= Lq:
+        q_seq_len = None
+    if block is None:
+        block = attention_blocks(Dh, H100, kv_word=k.element_size() / 4.0)[0]
+    cfg = launch_config(Lq, Lk, Dh, block, q.dtype, rows=BH)
+    bq, bk, nw = cfg["bq"], cfg["bk"], cfg["key_slab"]
+    n_slabs = cfg["warp_grid"][1]
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    offs = _row_ints(q_offset, BH, dev)
+    lens = _row_ints(Lk if kv_lens is None else kv_lens, BH, dev)
+    km = None
+    if key_mask is not None:
+        km = key_mask.to(torch.bool).repeat_interleave(
+            _rows_of(key_mask, BH), dim=0)
+    sl2 = torch.tensor((1.0 / Dh ** 0.5) * LOG2E, dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((BH, Lq, Dh), dtype=torch.float32, device=dev)
+    for qt in range(cfg["n_q"]):
+        q0 = qt * bq
+        nr = min(bq, Lq - q0)
+        qi = torch.arange(q0, q0 + nr, device=dev)
+        qpos = ((qi % q_seq_len if q_seq_len else qi)[None]
+                + offs[:, None])  # (BH, nr)
+        m = torch.full((n_slabs, BH, nr), NEG_INF, device=dev)
+        lsum = torch.zeros((n_slabs, BH, nr), device=dev)
+        o = torch.zeros((n_slabs, BH, nr, Dh), device=dev)
+        for kt in range(cfg["n_k"]):
+            k0 = kt * bk
+            kv = min(bk, Lk - k0)
+            for j in range(n_slabs):
+                c0 = j * nw
+                if c0 >= kv:
+                    continue  # keys past Lk: zero weight
+                kpos = torch.arange(k0 + c0, k0 + min(c0 + nw, kv), device=dev)
+                with no_tf32():
+                    s = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + nr],
+                                     kf[:, kpos]) * sl2
+                keep = kpos[None, None, :] < lens[:, None, None]
+                if causal:
+                    keep = keep & (kpos[None, None, :] <= qpos[:, :, None])
+                if km is not None:
+                    keep = keep & km[:, kpos][:, None, :]
+                s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+                mx = torch.maximum(m[j], s.amax(-1))
+                alpha = torch.exp2(m[j] - mx)
+                p = torch.exp2(s - mx[..., None])
+                lsum[j] = alpha * lsum[j] + p.sum(-1)
+                with no_tf32():
+                    pv = torch.einsum("bqk,bkd->bqd",
+                                      p.to(torch.bfloat16).float(),
+                                      vf[:, kpos])
+                o[j] = alpha[..., None] * o[j] + pv
+                m[j] = mx
+        ms = m.amax(0)
+        wgt = torch.exp2(m - ms)
+        den = (wgt * lsum).sum(0)
+        den = torch.where(den == 0, torch.ones_like(den), den)
+        out[:, q0:q0 + nr] = (wgt[..., None] * o).sum(0) / den[..., None]
+    return out.to(q.dtype)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or one copy of it when its base is not on 16 bytes (the
+    tensor-core kernel's cp.async copies and 16-byte stores)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
-                  block: int, bq: int, bk: int) -> torch.Tensor:
+                  block: int) -> torch.Tensor:
     check_cuda_operands("flash_attention", q, k, v)
     BH, Lq, Dh = q.shape
     Lk = k.shape[1]
-    if (Dh, block) not in FLASH_INSTANCES:
-        raise ValueError(
-            f"flash_attention: no compiled kernel for hd={Dh}, block={block} "
-            f"(compiled: {sorted(FLASH_INSTANCES)}); plan for the H100 target")
+    cfg = launch_config(Lq, Lk, Dh, block, q.dtype, rows=BH)
+    tc = cfg["kernel"] == "tensor core"
+    if tc:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bq, bk = cfg["bq"], cfg["bk"]
     dev = q.device
     offs = _row_ints(q_offset, BH, dev)
     lens = _row_ints(Lk if kv_lens is None else kv_lens, BH, dev)
@@ -166,7 +337,7 @@ def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
             None if key_mask is None else key_mask.data_ptr(),
             dtype_code(q.dtype), Dh, block, BH, Lq, Lk, bq, bk,
             q_seq_len or 0, per_batch, int(bool(causal)), 1.0 / Dh ** 0.5,
-            stream)
+            stream, tensor_core=tc)
     return out
 
 
@@ -210,10 +381,8 @@ def flash_attention(
     if block_q != block_k:
         raise ValueError(f"flash_attention compiles square tiles, got "
                          f"block_q={block_q}, block_k={block_k}")
-    bq = min(block_q, round_up(Lq, 8))
-    bk = min(block_k, round_up(Lk, 8))
     return _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens,
-                         key_mask, block_q, bq, bk)
+                         key_mask, block_q)
 
 
 # ---------------------------------------------------------------------------

@@ -400,7 +400,9 @@ def test_flash_gradient_recomputes_through_aten():
 @pytest.mark.cuda
 def test_attention_kernels_match_plain_on_the_card():
     """The two hand-written kernels against their plain versions (runs only
-    where there is a GPU and nvcc; chip_smoke.py runs the full set)."""
+    where there is a GPU and nvcc; chip_smoke.py runs the full set). The
+    main-path flash shapes are held to chip_smoke.py's bf16 tolerance,
+    2^-7 x max(1, max|plain|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     ((_, tq), (_, tk), (_, tv)), off, Lq = _flash_inputs("g2_ragged_blocks",
@@ -409,6 +411,28 @@ def test_attention_kernels_match_plain_on_the_card():
     got = flash_attention(tq, tk, tv, q_offset=off, q_seq_len=Lq)
     torch.testing.assert_close(got.float(), flash_attention_plain(
         tq, tk, tv, True, off, Lq).float(), rtol=2e-2, atol=2e-2)
+    # the main path's shapes (Qwen2.5-3B, hd 128, 8 query heads a kv head):
+    # a prefill of 176 queries with a pad-tail key mask, and a decode step
+    # of 4 rows at their own depths, both on the tensor-core kernel
+    rng = np.random.default_rng(11)
+    for rows, Lq, Lk, offs, masked in (
+            (2, 176, 512, np.zeros(2, np.int32), True),
+            (8, 1, 512, np.repeat([230, 120, 60, 17], 2).astype(np.int32),
+             False)):
+        q, k, v = (torch.from_numpy(_randn(rng, rows, n, 128)).to(
+            torch.bfloat16).cuda() for n in (8 * Lq, Lk, Lk))
+        off = torch.from_numpy(offs).cuda()
+        km = None
+        if masked:
+            km = torch.ones((1, Lk), dtype=torch.bool, device="cuda")
+            km[0, 170:Lq] = False
+        tc = KERNELS["flash_attention"].tensor_core_launches
+        got = flash_attention(q, k, v, q_offset=off, q_seq_len=Lq,
+                              key_mask=km)
+        assert KERNELS["flash_attention"].tensor_core_launches == tc + 1
+        want = flash_attention_plain(q, k, v, True, off, Lq, None, km)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * max(1.0, want.float().abs().max().item())
     ((_, q), (_, kp), (_, vp)), tables, lengths = _paged_inputs("bf16")
     args = (q.cuda(), kp.cuda(), vp.cuda(), torch.from_numpy(tables).cuda(),
             torch.from_numpy(lengths).cuda())
