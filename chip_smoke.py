@@ -25,10 +25,13 @@ kernel. Phases, each fatal on failure:
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
      the tensor-core variants of the GEMM, of the direct conv and of flash
-     attention (every (hd, block, C) instance of ``flash_tc_kernel``):
-     registers and spills from ptxas and the HMMA count of their SASS
-     (cuobjdump), fatal if a variant has no HMMA or a main-path variant
-     spills (flash: hd 128 at block 64);
+     attention (every (hd, block, C) instance of ``flash_tc_kernel``), and
+     of the int8 GEMM (``matmul_q_tc_kernel``): registers and spills from
+     ptxas and the count of tensor-core instructions in their SASS
+     (cuobjdump; HMMA for the bf16 kernels, IMMA for the int8 GEMM), fatal
+     if a variant has none or a main-path variant spills (flash: hd 128 at
+     block 64; matmul_q: the variant of the (128, 256) and (256, 128)
+     plans, bf16 out);
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and main-path shapes (TF32 off); each check names the kernel
      its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
@@ -75,13 +78,21 @@ kernel. Phases, each fatal on failure:
      and its bound at the serving shapes, and ``ops.explain``'s words and
      bound ratio for one prefill and one decode call; for flash attention
      and SDPA also a per-launch time (CUDA events around 50 back-to-back
-     calls, divided by 50) and the device time of a call's kernels
-     (``torch.profiler``), and the prefill's TFLOP/s on the compulsory
-     work;
+     calls, divided by 50) and the device time of a call (a CUDA graph of
+     20 calls, replayed: no host work between them), and the prefill's
+     TFLOP/s on the compulsory work;
   9. the int8 kernels against their plain versions: phase 3's six conv cases
-     (ragged tiles, stride 2, h_F = 1, c_I = 3) and five GEMMs with ragged
-     m/n/k, quantized with ``quantize_conv_operands`` /
-     ``quantize_matmul_operands``, f32 and bf16 out;
+     (ragged tiles, stride 2, h_F = 1, c_I = 3) and the GEMMs: five with
+     ragged m/n/k, the main path's (128, 256) and (256, 128) tiles at a
+     small m with k ragged against the ring's span (and once with an odd
+     pitch), a bm = 1 tile over three row tiles, a tile only the LINEAR
+     warp layout covers, two row slices of A (one 16-byte aligned, one at
+     an odd offset), and the narrow plans of GEMMs with m or n of 16 or
+     less, which the kernel cuts into CTA shares (m in {1, 4, 8, 16} x n in
+     {2048, 4096} at k = 4096, and (m, k, n) = (2048, 64, 16) and
+     (2048, 4096, 16)), quantized with ``quantize_conv_operands`` /
+     ``quantize_matmul_operands``, f32 and bf16 out; each GEMM check names
+     the kernel it took (``on tensor core``) and fails on another;
  10. the int8 conv path, the counter set to 0 just before and read just
      after: phase 4's bf16 inputs quantized on the card, through
      ``ops.conv2d_q`` on ``cuda``; one JSON line per layer (tiles, measured
@@ -90,9 +101,14 @@ kernel. Phases, each fatal on failure:
      launches, error on the first and last images);
  11. the int8 GEMMs, counter to 0 before and read after: (m, k, n) =
      (512, 384, 256) and (2048, 2048, 2048) (the reference's
-     scripts/verify.py) and conv5_x's Im2Col GEMM (49000, 4608, 512); words,
-     bound ratio, ms, plain ms, ``torch._int_mm`` + scale as library time,
-     error on the first and last rows;
+     scripts/verify.py) and conv5_x's Im2Col GEMM (49000, 4608, 512); fatal
+     unless every launch (18) was a tensor-core launch; words, bound ratio,
+     ms, plain ms, ``torch._int_mm`` + scale as library time, TOP/s and
+     GB/s on the compulsory work, error on the first and last rows; then,
+     after the counts are read, the time a launch takes back to back (50
+     calls) and the device time of a call (a replayed CUDA graph, as in
+     phase 8), for the kernel and for ``torch._int_mm`` + scale, as the
+     per-call time of the small GEMMs is mostly host work;
  12. the int8 KV serve: phase 7's 8 requests through ``Engine(paged=True,
      kv_dtype="int8")``, counters to 0 before and read after; every request
      must finish "length" with 32 tokens, its first token must equal the
@@ -186,6 +202,11 @@ WARMUP, TIMED = 1, 5
 BLOCK = 8  # images compared with the plain version at each end of the batch
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 SEED = 0
+# phase 11's int8 GEMMs, (m, k, n): the reference's scripts/verify.py and
+# conv5_x's Im2Col GEMM at batch 1000
+INT8_GEMMS = {"512x384x256": (512, 384, 256),
+              "2048x2048x2048": (2048, 2048, 2048),
+              "conv5_x Im2Col 49000x4608x512": (BATCH * 49, 4608, 512)}
 CONV_LIBRARY_NOTE = ("F.conv2d on the bf16 operands writes bf16, half the "
                      "kernel's f32 output bytes")
 
@@ -266,26 +287,37 @@ def per_launch_ms(fn, n: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms_per_call(fn, match: str = "", n: int = 20):
-    """Device time a call's kernels take (``torch.profiler`` over ``n``
-    calls, divided by ``n``): (the kernels whose name holds ``match``, all
-    of the call's kernels); "not measured" where the profiler saw none."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
+def graph_ms_per_call(fn, n: int = 20, replays: int = 5):
+    """Device time of one call with the host out of the way: ``n`` calls
+    captured in a CUDA graph, replayed ``replays`` times between two CUDA
+    events, divided by ``n * replays``; "not measured" where the calls
+    cannot be captured. (``torch.profiler`` traces of such short calls
+    have come back with kernels missing.)"""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
         torch.cuda.synchronize()
-    mine = every = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            every += e.device_time_total
-            mine += e.device_time_total if match in e.name else 0.0
-    if not every:
-        return "not measured", "not measured"
-    return mine / 1e3 / n, every / 1e3 / n
+    except RuntimeError as exc:
+        print(f"graph capture failed: {exc}", flush=True)
+        return "not measured"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (n * replays)
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
@@ -672,8 +704,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     flash_lib = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask, enable_gqa=True), 2, 10)
     # beside the per-call medians (host work of the wrapper included): a
-    # per-launch time over 50 back-to-back calls, and the device time of
-    # the calls' kernels from torch.profiler
+    # per-launch time over 50 back-to-back calls, and the device time of a
+    # call from a replayed CUDA graph
     def prefill():
         return flash_attention(qf, kf, vf, q_offset=off0, q_seq_len=Lq,
                                key_mask=km)
@@ -684,8 +716,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
 
     flash_launch = per_launch_ms(prefill)
     flash_lib_launch = per_launch_ms(prefill_lib)
-    flash_dev, flash_dev_all = device_ms_per_call(prefill, "flash_tc_kernel")
-    _, flash_lib_dev = device_ms_per_call(prefill_lib)
+    flash_dev = graph_ms_per_call(prefill)
+    flash_lib_dev = graph_ms_per_call(prefill_lib)
     pairs = float(allowed.sum().item()) * H  # (query, key) pairs the data needs
     flash_flops = 4.0 * pairs * hd
     needed_keys = float(allowed.any(0).sum().item())  # keys any query sees
@@ -701,8 +733,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                       "ms": flash_ms, "plain_ms": flash_plain,
                       "library_ms": flash_lib, "ms_per_launch": flash_launch,
                       "library_ms_per_launch": flash_lib_launch,
-                      "device_ms_per_launch": flash_dev,
-                      "device_ms_per_call_all_kernels": flash_dev_all,
+                      "device_ms_per_call": flash_dev,
                       "library_device_ms_per_call": flash_lib_dev,
                       "bound_ms": flash_bound,
                       "bound_by": flash_by, "gflop_needed": flash_flops / 1e9,
@@ -740,8 +771,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
 
     dec_launch = per_launch_ms(decode)
     dec_lib_launch = per_launch_ms(decode_lib)
-    dec_dev, dec_dev_all = device_ms_per_call(decode, "flash_tc_kernel")
-    _, dec_lib_dev = device_ms_per_call(decode_lib)
+    dec_dev = graph_ms_per_call(decode)
+    dec_lib_dev = graph_ms_per_call(decode_lib)
     dec_needed = float((depth + 1).sum().item()) * H
     dec_bound, dec_by = bound_ms(4.0 * dec_needed * hd,
                                  (2 * qd.numel() + 2 * float(
@@ -752,8 +783,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                       "Lk": Lk, "ms": dec_ms, "plain_ms": dec_plain,
                       "library_ms": dec_lib, "ms_per_launch": dec_launch,
                       "library_ms_per_launch": dec_lib_launch,
-                      "device_ms_per_launch": dec_dev,
-                      "device_ms_per_call_all_kernels": dec_dev_all,
+                      "device_ms_per_call": dec_dev,
                       "library_device_ms_per_call": dec_lib_dev,
                       "bound_ms": dec_bound, "bound_by": dec_by}), flush=True)
     # paged decode: the serving pool's block size, the deepest row's width
@@ -808,7 +838,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
          "bound_by": flash_by, "library_ms": flash_lib,
          "ms_per_launch": flash_launch,
          "library_ms_per_launch": flash_lib_launch,
-         "device_ms_per_launch": flash_dev, "ok": True,
+         "device_ms_per_call": flash_dev, "ok": True,
          "shapes": f"{cfg.name} prefill: B 1, H {H}/{KV}, Lq {Lq}, Lk {Lk}, "
                    f"hd {hd}, bf16, causal + key mask"},
         {"name": "paged_decode", "route": "cuda",
@@ -881,12 +911,13 @@ def template_symbol(kernel: str, *args) -> str:
     return f"{kernel}I{''.join(parts)}E"
 
 
-def tc_variants(name: str, kernel: str, variants, main) -> None:
+def tc_variants(name: str, kernel: str, variants, main,
+                opcode: str = "HMMA") -> None:
     """Phase 2 for one source's tensor-core kernel: for each ``(label,
     template arguments)`` of ``variants``, the instance's registers and
-    spill bytes (ptxas) and HMMA count (its SASS); fatal if an instance has
-    no HMMA or an instance whose label is in ``main`` (the main path's)
-    spills."""
+    spill bytes (ptxas) and its count of ``opcode`` (HMMA: bf16 products,
+    IMMA: int8) in its SASS; fatal if an instance has none or an instance
+    whose label is in ``main`` (the main path's) spills."""
     from repro_torch.kernels import KERNELS
 
     regs_of = ptxas_functions(KERNELS[name].build_log)
@@ -899,21 +930,23 @@ def tc_variants(name: str, kernel: str, variants, main) -> None:
             fail(f"{name}: {sym} not found once in the build "
                  f"({len(found)} in ptxas, {len(body)} in SASS)")
         regs, spill = regs_of[found[0]]
-        hmma = body[0].count("HMMA")
+        mma = body[0].count(opcode)
         used = label in main
         print(f"build {name} tensor-core variant {label}"
               f"{'; main path' if used else ''}: registers {regs}, "
-              f"spill bytes {spill}, HMMA instructions {hmma}", flush=True)
-        if hmma == 0:
-            fail(f"{name}: {sym} has no HMMA: not on the tensor cores")
+              f"spill bytes {spill}, {opcode} instructions {mma}", flush=True)
+        if mma == 0:
+            fail(f"{name}: {sym} has no {opcode}: not on the tensor cores")
         if used and spill:
             fail(f"{name}: main-path variant {sym} spills {spill} bytes")
 
 
-def gemm_like_variants(variants, main_variants, linear=None):
-    """``tc_variants``' (label, arguments) for the GEMM's and the conv's
+def gemm_like_variants(variants, main_variants, linear=None,
+                       main_out="float"):
+    """``tc_variants``' (label, arguments) for the GEMMs' and the conv's
     ``<Tout, MI, NI[, LINEAR]>`` instances, both output types, and the
-    labels of those the main path takes (f32 out)."""
+    labels of those the main path takes (``main_out``: f32 for the bf16
+    conv path, bf16 for the int8 GEMMs)."""
     out, main = [], set()
     for v, (mi, ni) in enumerate(variants):
         for tout in ("float", "bf16"):
@@ -923,7 +956,7 @@ def gemm_like_variants(variants, main_variants, linear=None):
             args = (tout, mi, ni) + (() if linear is None
                                      else (v == linear,))
             out.append((label, args))
-            if v in main_variants and tout == "float":
+            if v in main_variants and tout == main_out:
                 main.add(label)
     return out, main
 
@@ -950,6 +983,16 @@ def gemm_tiles(s) -> tuple:
     m, n, k = s.N * s.h_O * s.w_O, s.c_O, s.c_I * s.h_F * s.w_F
     spec = MatmulSpec(m=m, n=n, k=k, prec=Precision(0.5, 0.5, 1.0))
     return (m, n, k), tuple(Planner(H100).plan(spec).tiles)
+
+
+def int8_gemm_tiles(m: int, k: int, n: int) -> tuple:
+    """The H100 plan's (bm, bn, bk) of an int8 GEMM, bf16 out, as
+    ``ops.matmul_q`` resolves them."""
+    from repro_torch.core.conv_model import Precision
+    from repro_torch.plan import H100, MatmulSpec, Planner
+
+    spec = MatmulSpec(m=m, n=n, k=k, prec=Precision(0.25, 0.25, 0.5))
+    return tuple(Planner(H100).plan(spec).tiles)
 
 
 def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
@@ -994,17 +1037,41 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
             record("conv2d_q", got, conv2d_q_plain(xq, wq, sc, (sh, sw), od),
                    f"->{od} {(N, cI, cO, H, W, hF, wF, sh, sw)} "
                    f"tiles {tiles}")
-        for (m, k, n, tiles) in [(100, 77, 300, None), (130, 129, 257, None),
-                                 (1, 64, 128, None),
-                                 (130, 129, 257, (32, 48, 16)),
-                                 (40, 30, 20, (16, 8, 6))]:
+        for (m, k, n, tiles, rows) in [
+                (100, 77, 300, None, None), (130, 129, 257, None, None),
+                (1, 64, 128, None, None),
+                (130, 129, 257, (32, 48, 16), None),
+                (40, 30, 20, (16, 8, 6), None),
+                # the main path's tiles at a small m, k ragged against the
+                # ring's 128-deep span (4592 = 35 x 128 + 112), ragged n
+                (64, 4592, 512, (128, 256, 16), None),
+                (48, 2000, 384, (256, 128, 16), None),
+                (33, 1001, 300, (128, 256, 16), None),  # an odd pitch
+                (3, 4608, 512, (1, 256, 16), None),  # bm = 1, 3 row tiles
+                (1040, 50, 40, (1024, 32, 16), None),  # LINEAR only
+                # row slices of A: 16-byte aligned, and at an odd offset
+                (100, 4608, 512, (128, 256, 16), slice(5, 45)),
+                (50, 77, 300, None, slice(3, 40)),
+                # narrow plans (decode rows against a wide weight, and the
+                # transpose), cut into CTA shares
+                *[(m, 4096, n, None, None) for m in (1, 4, 8, 16)
+                  for n in (2048, 4096)],
+                (2048, 64, 16, None, None), (2048, 4096, 16, None, None)]:
             a = torch.randn((m, k), generator=gen, device=dev)
             b = torch.randn((k, n), generator=gen, device=dev)
             aq, bq, sc = quantize_matmul_operands(a, b)
+            what = f"->{od} (m, k, n) {(m, k, n)} tiles {tiles}"
+            if rows is not None:
+                aq = aq[rows]
+                what += f" rows {rows.start}..{rows.stop - 1}"
+            tc = KERNELS["matmul_q"].tensor_core_launches
             got = matmul_q(aq, bq, sc, out_dtype=od, tiles=tiles)
             torch.cuda.synchronize()
+            if KERNELS["matmul_q"].tensor_core_launches != tc + 1:
+                fail(f"matmul_q {(m, k, n)} tiles {tiles} did not launch the "
+                     "tensor-core kernel")
             record("matmul_q", got, matmul_q_plain(aq, bq, sc, od),
-                   f"->{od} (m, k, n) {(m, k, n)} tiles {tiles}")
+                   what + " on tensor core")
 
     # -- 10. the int8 conv path ---------------------------------------------
     layers = resnet50_layers(BATCH)
@@ -1062,12 +1129,9 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         fail("the conv2d_q kernel was never launched on the int8 conv path")
 
     # -- 11. the int8 GEMMs -------------------------------------------------
-    gemms = {"512x384x256": (512, 384, 256),
-             "2048x2048x2048": (2048, 2048, 2048),
-             "conv5_x Im2Col 49000x4608x512": (BATCH * 49, 4608, 512)}
-    mm_rows = {}
+    mm_rows, kept = {}, {}
     zero_counts()
-    for label, (m, k, n) in gemms.items():
+    for label, (m, k, n) in INT8_GEMMS.items():
         gen.manual_seed(SEED + 40 + m % 97)
         a = torch.randn((m, k), generator=gen, device=dev)
         b = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
@@ -1096,21 +1160,49 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         ops_ = 2.0 * m * n * k
         nbytes = m * k + k * n + 2 * m * n + 4 * n
         bms, by = bound_ms(ops_, nbytes, PEAK_INT8_OPS)
-        row = {"matmul_q": label, "m": m, "k": k, "n": n,
-               "tiles": list(d.plan.tiles), "measured_words": d.measured_words,
-               "mixed_precision_bound": d.lower_bound,
-               "bound_ratio": d.bound_ratio, "ms": ms, "plain_ms": plain,
-               "library_ms": library, "library": "torch._int_mm + scale",
-               "bound_ms": bms, "bound_by": by, "max_abs_err": max(errs),
-               "checked_rows": [[0, rows_ - 1], [m - rows_, m - 1]]}
-        mm_rows[label] = row
-        print(json.dumps(row), flush=True)
-        del aq, bq, sc, y
+        mm_rows[label] = {
+            "matmul_q": label, "m": m, "k": k, "n": n,
+            "tiles": list(d.plan.tiles), "measured_words": d.measured_words,
+            "mixed_precision_bound": d.lower_bound,
+            "bound_ratio": d.bound_ratio, "ms": ms, "plain_ms": plain,
+            "library_ms": library, "library": "torch._int_mm + scale",
+            "bound_ms": bms, "bound_by": by,
+            "tops_per_s": ops_ / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
+            "max_abs_err": max(errs),
+            "checked_rows": [[0, rows_ - 1], [m - rows_, m - 1]]}
+        kept[label] = (aq, bq, sc)
+        del y
         torch.cuda.empty_cache()
     mm_launches = KERNELS["matmul_q"].launches
-    print(f"int8 GEMM path launches: matmul_q {mm_launches}", flush=True)
+    mm_tc = KERNELS["matmul_q"].tensor_core_launches
+    print(f"int8 GEMM path launches: matmul_q {mm_launches}, on the tensor "
+          f"cores {mm_tc} of {mm_launches}", flush=True)
     if mm_launches <= 0:
         fail("the matmul_q kernel was never launched on the int8 GEMM path")
+    if mm_tc != mm_launches:
+        fail(f"{mm_launches - mm_tc} matmul_q launches were not tensor-core "
+             "launches")
+    # per-launch (50 back-to-back calls) and device time of a call's
+    # kernels, after the counts are read (these calls launch the kernel too)
+    for label, (aq, bq, sc) in kept.items():
+        row = mm_rows[label]
+
+        def kernel():
+            return ops.matmul_q(aq, bq, sc, ctx=ctx)
+
+        def library():
+            return (torch._int_mm(aq, bq).float() * sc).to(torch.bfloat16)
+
+        row.update(ms_per_launch=per_launch_ms(kernel),
+                   library_ms_per_launch=per_launch_ms(library),
+                   device_ms=graph_ms_per_call(kernel),
+                   library_device_ms=graph_ms_per_call(library))
+        if isinstance(row["device_ms"], float):
+            row["device_tops_per_s"] = 2.0 * row["m"] * row["n"] * row[
+                "k"] / row["device_ms"] / 1e9
+        print(json.dumps(row), flush=True)
+    del kept
+    torch.cuda.empty_cache()
 
     # -- 12. int8 KV serving ------------------------------------------------
     cfg, params = serve["cfg"], serve["params"]
@@ -1217,13 +1309,14 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
          "shapes": "sum over the five ResNet-50 layers at batch 1000, int8 "
                    "in, bf16 out"},
         {"name": "matmul_q", "route": "cuda",
-         "launches": mm_launches, "ms": mm["ms"], "plain_ms": mm["plain_ms"],
+         "launches": mm_launches, "tensor_core_launches": mm_tc,
+         "ms": mm["ms"], "plain_ms": mm["plain_ms"],
          "bound_ms": mm["bound_ms"],
          "bound_by": max(("bytes", "operations"), key=lambda b: sum(
              r["bound_ms"] for r in mm_rows.values() if r["bound_by"] == b)),
          "library_ms": mm["library_ms"], "ok": True,
-         "shapes": "sum over (m, k, n) = " + ", ".join(gemms) + ", int8 in, "
-                   "bf16 out; library torch._int_mm + scale"},
+         "shapes": "sum over (m, k, n) = " + ", ".join(INT8_GEMMS)
+                   + ", int8 in, bf16 out; library torch._int_mm + scale"},
     ]
 
 
@@ -1504,7 +1597,7 @@ def main() -> None:
     for name, k in KERNELS.items():
         # the int8 entries share quant.cu's build: report each one's kernels
         regs, spills = ptxas(k.build_log, {"conv2d_q": "conv2d_q_kernel",
-                                           "matmul_q": "matmul_q_kernel"}
+                                           "matmul_q": "matmul_q_tc_kernel"}
                              .get(name, ""))
         print(f"build {name}: registers per thread {regs}; "
               f"spilling variants {spills}", flush=True)
@@ -1537,6 +1630,17 @@ def main() -> None:
     tc_variants("flash_attention", "flash_tc_kernel", flash_variants,
                 {label for label, (hd, b, _) in flash_variants
                  if (hd, b) == (128, 64)})
+    # the int8 GEMM: IMMA (mma.sync s8) in every instance; the variant of
+    # phase 11's plans, (128, 256) and (256, 128), with bf16 out must not
+    # spill
+    from repro_torch.kernels.quant import LINEAR as MMQ_LINEAR
+    from repro_torch.kernels.quant import TC_VARIANTS as MMQ_VARIANTS
+    from repro_torch.kernels.quant import matmul_launch_config
+    main_variants = {matmul_launch_config(*int8_gemm_tiles(m, k, n), k)
+                     ["variant"] for m, k, n in INT8_GEMMS.values()}
+    tc_variants("matmul_q", "matmul_q_tc_kernel", *gemm_like_variants(
+        MMQ_VARIANTS + ((1, LINEAR_TILES),), main_variants, MMQ_LINEAR,
+        main_out="bf16"), opcode="IMMA")
 
     max_err = {name: 0.0 for name in KERNELS}
 

@@ -44,8 +44,9 @@ class CudaKernel:
     ``launches`` is a plain integer that the kernel's wrapper raises by one
     at each launch and nowhere else, so a run can show that it went through
     the kernel; ``tensor_core_launches`` counts the launches among them that
-    took a tensor-core kernel of the source (the bf16 paths of the GEMM and
-    of the direct conv), so a run can show which kernel its calls took.
+    took a tensor-core kernel of the source (the bf16 paths of the GEMM, the
+    direct conv and flash attention, and every int8 GEMM), so a run can
+    show which kernel its calls took.
     ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v`` report:
     registers, shared memory and spills per kernel) are set by the build."""
 

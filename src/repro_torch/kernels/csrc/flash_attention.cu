@@ -95,22 +95,6 @@ struct FAParams {
   float scale;
 };
 
-// Set the dynamic shared memory (and the carveout) of one kernel instance
-// once per device.
-template <typename K>
-cudaError_t configure_once(K kern, int smem, unsigned& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
-  return e;
-}
-
 // ---------------------------------------------------------------------------
 // The FMA kernel (f32 in).
 // ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-// Device helpers shared by the tensor-core kernels of csrc/matmul.cu and
-// csrc/conv2d.cu: cp.async 16-byte copies into shared memory, ldmatrix, the
-// mma.sync m16n8k16 bf16 product, and the tile copies that feed a
-// shared-memory ring. Included once by each source (the build hashes the
+// Device helpers shared by the tensor-core kernels of csrc/matmul.cu,
+// csrc/conv2d.cu, csrc/flash_attention.cu and csrc/quant.cu: cp.async
+// 16-byte copies into shared memory, ldmatrix (bf16 tiles, and int8 tiles
+// read as b16 pairs), the mma.sync m16n8k16 bf16 and m16n8k32 s8 products,
+// the tile copies that feed a shared-memory ring, and a kernel's launch
+// attributes set once. Included once by each source (the build hashes the
 // headers of csrc/ with the source).
 #pragma once
 #include <cuda_bf16.h>
@@ -62,11 +64,37 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int VW> struct Vec;  // VW bf16 elements as one aligned load
-template <> struct Vec<1> { typedef unsigned short T; };
-template <> struct Vec<8> { typedef uint4 T; };
-template <> struct Vec<2> { typedef unsigned int T; };
-template <> struct Vec<4> { typedef uint2 T; };
+// int8 tiles: ldmatrix reads 8 rows of 16 bytes as b16 pairs, and lane l
+// receives bytes 4 (l % 4) .. 4 (l % 4) + 3 of row l / 4: the m16n8k32 s8
+// fragment layout, A (row) from rows of m, B (col) from rows of n. So both
+// operands sit in shared memory with k contiguous.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const int8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const int8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+// D += A B over k32: int8 x int8 -> int32, exact (the IMMA pipe)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int VB> struct Bytes;  // VB bytes as one aligned load
+template <> struct Bytes<1> { typedef uint8_t T; };
+template <> struct Bytes<2> { typedef unsigned short T; };
+template <> struct Bytes<4> { typedef unsigned int T; };
+template <> struct Bytes<8> { typedef uint2 T; };
+template <> struct Bytes<16> { typedef uint4 T; };
 
 // A thread's share of a tile copy with C / VW chunks a row: when the threads
 // divide evenly over a row's chunks (every tile of the main path), the
@@ -80,23 +108,25 @@ __device__ __forceinline__ CopyPlan copy_plan(int cpr, int tid, int nthr) {
   return CopyPlan{tid % cpr, tid / cpr, nthr / cpr};
 }
 
-// Copy rows [0, R) x columns [0, C) of a row-major global tile (row pitch
-// lds) into shared memory (row pitch ldd), VW elements at a time; entries at
-// or past (rv, cv) are zero-filled, never read. VW == 8: cp.async 16-byte
-// copies (the caller commits and waits); else loads into registers, ELEMS
-// elements in flight a thread, then stores.
-template <int VW, int ELEMS>
-__device__ __forceinline__ void copy_tile(bf16* dst, int ldd,
-                                          const bf16* __restrict__ src,
+// Copy rows [0, R) x columns [0, C) of a row-major global tile of T (bf16
+// or int8; row pitch lds) into shared memory (row pitch ldd), VW elements at
+// a time; entries at or past (rv, cv) are zero-filled, never read. VW
+// elements of 16 bytes: cp.async 16-byte copies (the caller commits and
+// waits); else loads into registers, ELEMS elements in flight a thread,
+// then stores.
+template <int VW, int ELEMS, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int ldd,
+                                          const T* __restrict__ src,
                                           long long lds, int R, int rv, int C,
                                           int cv, CopyPlan pl, int tid,
                                           int nthr) {
-  typedef typename Vec<VW>::T V;
+  typedef typename Bytes<VW * (int)sizeof(T)>::T V;
+  constexpr bool ASYNC = VW * sizeof(T) == 16;
   constexpr int BATCH = ELEMS / VW > 0 ? ELEMS / VW : 1;
   if (pl.rs) {
     const int c = pl.c * VW, rs = pl.rs;
     const bool cok = c < cv;
-    if constexpr (VW == 8) {
+    if constexpr (ASYNC) {
       for (int r = pl.r0; r < R; r += rs) {
         const bool ok = cok && r < rv;
         cp_async16(dst + r * ldd + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
@@ -120,9 +150,9 @@ __device__ __forceinline__ void copy_tile(bf16* dst, int ldd,
     return;
   }
   const int cpr = C / VW, total = R * cpr;
-  if constexpr (VW == 8) {
+  if constexpr (ASYNC) {
     for (int i = tid; i < total; i += nthr) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
+      const int r = i / cpr, c = (i - r * cpr) * VW;
       const bool ok = r < rv && c < cv;
       cp_async16(dst + r * ldd + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
     }
@@ -147,11 +177,18 @@ __device__ __forceinline__ void copy_tile(bf16* dst, int ldd,
   }
 }
 
-template <int ELEMS>
-__device__ __forceinline__ void copy_any(int vw, bf16* dst, int ldd,
-                                         const bf16* src, long long lds, int R,
-                                         int rv, int C, int cv, CopyPlan pl,
-                                         int tid, int nthr) {
+// copy_tile with the run-time width vw (elements: 16 for int8 and 8 for
+// bf16 are the 16-byte copies)
+template <int ELEMS, typename T>
+__device__ __forceinline__ void copy_any(int vw, T* dst, int ldd, const T* src,
+                                         long long lds, int R, int rv, int C,
+                                         int cv, CopyPlan pl, int tid, int nthr) {
+  if constexpr (sizeof(T) == 1) {
+    if (vw == 16) {
+      copy_tile<16, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr);
+      return;
+    }
+  }
   switch (vw) {
     case 8: copy_tile<8, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
     case 4: copy_tile<4, ELEMS>(dst, ldd, src, lds, R, rv, C, cv, pl, tid, nthr); break;
@@ -210,6 +247,22 @@ __device__ __forceinline__ bool copy_rows_run(bf16* dst, int ldd,
   for (int i = tid; i < (R - rv) * kc; i += nthr)
     dst[(rv + i / kc) * ldd + i % kc] = bf16();
   return true;
+}
+
+// Set the dynamic shared memory (and the carveout) of one kernel instance
+// once per device.
+template <typename K>
+cudaError_t configure_once(K kern, int smem, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return e;
 }
 
 template <typename Tout> struct Pair;

@@ -86,44 +86,48 @@ def _fma_config(bm: int, bn: int, bk: int, itemsize: int) -> dict:
 
 
 def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
-                linear: bool = True) -> dict:
+                linear: bool = True, max_threads: int = MAX_THREADS) -> dict:
     """A tensor-core kernel's warp layout for a (bm, bn) tile: the
     compiled variant (an index into ``variants``, the (MI, NI) blocks of
-    m16n8 tiles a warp that the kernel compiles), its block, the warp grid
-    (wm x wn) and the covered tile (rows x cols, the shared-memory extent;
-    rows past bm and columns past bn are computed, never stored). The
-    rectangular variant that covers the least area wins, then the one with
-    the most warps, then the widest block (fewer A fragments a product); a
-    tile none fits within 8 warps takes LINEAR where ``linear`` (the GEMM).
-    Raises ValueError when the tile holds more than 256 x 64 accumulators,
-    or no variant covers it and ``linear`` is false."""
+    m16n8 tiles a warp that the kernel compiles; ``len(variants)`` is
+    LINEAR), its block, the warp grid (wm x wn) and the covered tile (rows
+    x cols, the shared-memory extent; rows past bm and columns past bn are
+    computed, never stored). The rectangular variant that covers the least
+    area wins, then the one with the most warps, then the widest block
+    (fewer A fragments a product); a tile none fits within ``max_threads``
+    (the bf16 kernels' 8 warps, the int8 GEMM's 16) takes LINEAR where
+    ``linear`` (the GEMMs). Raises ValueError when the tile holds more than
+    ``max_threads`` x 64 accumulators, or no variant covers it and
+    ``linear`` is false."""
     cm, cn = -(-bm // 16), -(-bn // 8)
     best = None
     for v, (mi, ni) in enumerate(variants):
         wm, wn = -(-cm // mi), -(-cn // ni)
-        if wm * wn * 32 > MAX_THREADS:
+        if wm * wn * 32 > max_threads:
             continue
         key = (wm * mi * wn * ni, -wm * wn, -ni)
         if best is None or key < best[0]:
             best = (key, dict(variant=v, mi=mi, ni=ni, wm=wm, wn=wn,
-                              rows=wm * mi * 16, cols=wn * ni * 8))
+                              rows=wm * mi * 16, cols=wn * ni * 8,
+                              linear=False))
     if best is not None:
         return best[1]
     warps = -(-cm * cn // LINEAR_TILES)
-    if not linear or warps * 32 > MAX_THREADS:
+    if not linear or warps * 32 > max_threads:
         raise ValueError(
             f"a {bm} x {bn} accumulator tile does not fit one CTA's "
-            f"{MAX_THREADS} x {ACC_PER_THREAD} registers; plan for the H100 "
+            f"{max_threads} x {ACC_PER_THREAD} registers; plan for the H100 "
             "target")
-    return dict(variant=LINEAR, mi=1, ni=LINEAR_TILES, wm=warps, wn=1,
-                rows=cm * 16, cols=cn * 8)
+    return dict(variant=len(variants), mi=1, ni=LINEAR_TILES, wm=warps,
+                wn=1, rows=cm * 16, cols=cn * 8, linear=True)
 
 
 def warp_tiles(layout: dict, warp: int) -> list:
-    """The (m16, n8) tile indices one warp accumulates, as
-    ``matmul_tc_kernel`` maps them (a model of the kernel for the tests)."""
+    """The (m16, n8) tile indices one warp accumulates, as the tensor-core
+    GEMMs (``matmul_tc_kernel``, ``matmul_q_tc_kernel``) map them (a model
+    of the kernels for the tests)."""
     mi, ni, wn = layout["mi"], layout["ni"], layout["wn"]
-    if layout["variant"] == LINEAR:
+    if layout["linear"]:
         cm, cn = layout["rows"] // 16, layout["cols"] // 8
         qs = range(warp * ni, min((warp + 1) * ni, cm * cn))
         return [divmod(q, cn) for q in qs]
@@ -145,15 +149,16 @@ def _pad_row(c: int) -> int:
     return c + 8 if (c // 8) % 2 == 0 else c + 16
 
 
-def vector_width(*extents: int, ptrs=()) -> int:
-    """Elements a global load may move at once: the widest of 8, 4, 2, 1
-    that divides every extent (row pitch, tile width) and whose bytes
-    divide every base address. 8 takes the ``cp.async`` 16-byte path."""
-    for v in (8, 4, 2, 1):
-        if all(e % v == 0 for e in extents) and all(p % (2 * v) == 0
-                                                    for p in ptrs):
-            return v
-    return 1
+def vector_width(*extents: int, ptrs=(), itemsize: int = 2) -> int:
+    """Elements a global load may move at once: the widest of at most 16
+    bytes (8 bf16, 16 int8), then halves down to 1, that divides every
+    extent (row pitch, tile width) and whose bytes divide every base
+    address. 16 bytes take the ``cp.async`` path."""
+    v = 16 // itemsize
+    while v > 1 and not (all(e % v == 0 for e in extents)
+                         and all(p % (itemsize * v) == 0 for p in ptrs)):
+        v //= 2
+    return v
 
 
 def _tc_config(bm: int, bn: int, bk: int, k: Optional[int]) -> dict:

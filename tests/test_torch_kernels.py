@@ -554,6 +554,11 @@ def test_vector_width_follows_pitch_and_alignment():
     assert vector_width(300, 128, ptrs=(0,)) == 4
     assert vector_width(576, ptrs=(258,)) == 1
     assert vector_width(576, ptrs=(260,)) == 2
+    # int8 (matmul_q): up to 16 elements, the base aligned in bytes
+    assert vector_width(4608, ptrs=(23040,), itemsize=1) == 16
+    assert vector_width(300, 256, ptrs=(0,), itemsize=1) == 4
+    assert vector_width(77, ptrs=(0,), itemsize=1) == 1
+    assert vector_width(4608, ptrs=(231,), itemsize=1) == 1
 
 
 def test_cuda_tensor_never_takes_the_plain_version():

@@ -350,8 +350,9 @@ def test_explain_conv2d_q_and_matmul_q_equal():
 def test_int8_launch_configs_fit_the_card():
     """Every int8 H100 plan of the main path launches: its accumulator tile
     (up to 32,768 int32 values) is held by at most 512 threads x 64
-    registers and its stage fits a block's shared memory; a plan for the
-    TPU's VMEM is refused, not run."""
+    registers (conv2d_q: micro-tiles; matmul_q: 16 warps of m16n8 tiles on
+    the tensor cores) and its stages fit a block's shared memory; a plan for
+    the TPU's VMEM is refused, not run."""
     seen = set()
     for name, _, top in _int8_specs():
         tiles = tp.Planner(tp.H100).plan(top).tiles
@@ -367,8 +368,10 @@ def test_int8_launch_configs_fit_the_card():
             bm, bn, bk = tiles
             cfg = matmul_launch_config(bm, bn, bk)
             rows, cols = bm, bn
-            held = (-(-rows // cfg["n_rg"])
-                    * -(-cols // (cfg["threads"] // cfg["n_rg"])))
+            held = cfg["acc_per_thread"]
+            assert cfg["kernel"] == "tensor core", name
+            assert cfg["rows"] >= bm and cfg["cols"] >= bn, name
+            assert cfg["ks"] % 32 == 0 and cfg["ks"] >= bk, name
         assert cfg["threads"] <= 512 and cfg["smem"] <= 232448, name
         assert held <= 64 and cfg["threads"] * 64 >= rows * cols, name
         seen.add(rows * cols)
@@ -401,7 +404,13 @@ def test_int8_kernels_on_the_card():
     g = torch.Generator(device="cuda").manual_seed(0)
     for (m, k, n), tiles in (((130, 129, 257), None),
                              ((130, 129, 257), (32, 48, 16)),
-                             ((512, 384, 256), None)):
+                             ((512, 384, 256), None),
+                             # a main-path tile, k ragged against its span
+                             ((64, 4592, 512), (128, 256, 16)),
+                             ((3, 300, 256), (1, 256, 16)),  # bm = 1
+                             # narrow plans, cut into CTA shares
+                             ((1, 4096, 4096), None), ((16, 4096, 2048), None),
+                             ((2048, 4096, 16), None)):
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
         b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
@@ -413,3 +422,5 @@ def test_int8_kernels_on_the_card():
             torch.testing.assert_close(got, matmul_q_plain(a, b, s, to),
                                        rtol=0, atol=0)
     assert KERNELS["conv2d_q"].launches > 0 < KERNELS["matmul_q"].launches
+    mm = KERNELS["matmul_q"]  # every int8 GEMM runs on the tensor cores
+    assert mm.tensor_core_launches == mm.launches
