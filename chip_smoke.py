@@ -119,10 +119,15 @@ kernel. Phases, each fatal on failure:
      pool's, the pool's capacity gain and the serve's times are reported,
      and the serve is traced as in phase 7; then the int8 conv kernel's
      plain time and bound per layer;
- 13. the conv1d kernel against its plain version (bf16 and f32): ragged B
-     and D, K in {1, 2, 4, 8}, L = 1 and L < K - 1, nD == 1 (the counter's
-     one-fetch case), threads striding over a tile, and the path's shape
-     (1, 300, 16384), also as the strided x half of the in-projection;
+ 13. the conv1d kernel against its plain version (bf16 and f32), each
+     check naming the copy its launch took (16-byte ``cp.async.cg``, 8- or
+     4-byte ``cp.async.ca``, or 2-byte loads), the CTA's channel span and
+     the grid: ragged B and D, K in {1, 2, 4, 8}, L = 1, L < K - 1, L at
+     one ring chunk and one row past it, L = 1000 (more chunks than ring
+     slots), nD == 1 (the counter's one-fetch case), plan tiles split over
+     CTAs, the path's shape (1, 300, 16384) at K = 4 and 8, also as the
+     strided x half of the in-projection, and strided views 1, 2 and 4
+     elements past an aligned base (the narrower copies); expected error 0;
  14. the hybrid serve inside ``ops.record_dispatch()``, counters set to 0
      just before and read just after: 8 greedy requests (prompt lengths
      from ``numpy.default_rng(0)`` with lengths 1 and 2 admitted into used
@@ -134,9 +139,13 @@ kernel. Phases, each fatal on failure:
      teacher-forced and decode checks at 8 layers; the serve's times, its
      ``torch.profiler`` trace, and one decode step's forward alone
      (launches, device time) beside the weight-stream floor;
- 15. the conv1d kernel's time at each prefill shape of the serve beside its
-     plain version, ``F.conv1d`` (groups = D, on a channels-first copy made
-     outside the timing) and its bound, with ``ops.explain``'s words;
+ 15. the conv1d kernel at each prefill shape of the serve, and
+     ``F.conv1d`` (groups = D, on a channels-first copy made outside the
+     timing), each timed as a call (CUDA events around one call, host work
+     included), a launch (50 back-to-back calls) and on the device (a
+     replayed CUDA graph of 20 calls), with the device time's share of the
+     bound, the plain version's time and ``ops.explain``'s words; fatal
+     unless the kernel's error is 0; then one line of sums;
  16. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -1320,6 +1329,70 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
     ]
 
 
+def hybrid_prompts(vocab: int):
+    """Phase 14's prompt lengths and prompts: 8 lengths from
+    ``numpy.default_rng(0)``, one of 300 (two SSD chunks: the state carried
+    between chunks) and two shorter than K - 1 (admitted into used slots)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(3, 257, size=8)
+    lens[1] = 300
+    lens[5], lens[6] = 1, 2
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+    return lens, prompts
+
+
+def conv1d_shape_times(gen: torch.Generator, L: int, w: torch.Tensor,
+                       plain: bool = True):
+    """Phase 15 at one prefill shape: the conv1d kernel's wrapper and
+    ``F.conv1d`` (groups = D, on a channels-first copy made outside the
+    timing) on the hybrid serve's operand, the strided x half of a seeded
+    (1, L, 2 D) bf16 in-projection; each timed as a call (CUDA events
+    around one call, host work included), a launch (50 back-to-back
+    calls) and on the device (a replayed CUDA graph of 20 calls), with the
+    bound and the device time's share of it. Returns the JSON row and the
+    operand."""
+    from repro_torch.kernels import conv1d_causal, conv1d_causal_plain
+
+    K, D = w.shape
+    xz = torch.randn((1, L, 2 * D), generator=gen, device=w.device
+                     ).to(w.dtype)
+    x = xz[..., :D]  # the in-projection's x half, as the path passes it
+    xc = x.transpose(1, 2).contiguous()  # channels-first, made untimed
+    wc = w.t().contiguous()[:, None, :]  # (D, 1, K) for F.conv1d
+
+    def kernel():
+        return conv1d_causal(x, w)
+
+    def library():
+        return F.conv1d(xc, wc, padding=K - 1, groups=D)[..., :L]
+
+    want = conv1d_causal_plain(x, w)
+    err, _ = rel_err(kernel(), want)
+    lib_err, _ = rel_err(library().transpose(1, 2), want)
+    nbytes = (2 * L * D + K * D) * x.element_size()
+    bms, by = bound_ms(2.0 * K * L * D, nbytes, PEAK_F32_FLOPS)
+    row = {"kernel_shape": "conv1d_causal", "B": 1, "L": L, "D": D, "K": K,
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "ms": median_ms(kernel, 3, 20), "ms_per_launch": per_launch_ms(kernel),
+           "device_ms": graph_ms_per_call(kernel)}
+    if plain:
+        row["plain_ms"] = median_ms(lambda: conv1d_causal_plain(x, w), 2, 10)
+    row.update(library_ms=median_ms(library, 3, 20),
+               library_ms_per_launch=per_launch_ms(library),
+               library_device_ms=graph_ms_per_call(library),
+               library="F.conv1d groups=D, channels-first copy made outside "
+                       "the timing",
+               max_abs_err_vs_plain=err, library_max_abs_err_vs_plain=lib_err,
+               bound_ms=bms, bound_by=by, compulsory_words=nbytes / 4)
+    for key in ("device_ms", "library_device_ms"):
+        if isinstance(row[key], float):
+            row[key.replace("ms", "bound_share")] = bms / row[key]
+    return row, x
+
+
 def hybrid_phases(gen: torch.Generator, record) -> dict:
     """Phases 13-15 (module docstring): the conv1d kernel against its plain
     version, the hybrid serve of Jamba-1.5 at published widths (one pattern
@@ -1333,6 +1406,9 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
     from repro_torch import ops
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, conv1d_causal, conv1d_causal_plain
+    from repro_torch.kernels.conv1d import CHUNK as CONV1D_CHUNK
+    from repro_torch.kernels.conv1d import _conv1d_geometry, operand_width
+    from repro_torch.kernels.conv1d import launch_config as conv1d_config
     from repro_torch.models import transformer as T
     from repro_torch.ops import ExecutionContext
     from repro_torch.plan import H100
@@ -1352,28 +1428,43 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
         (2, 64, 64, 1, None), (2, 64, 64, 2, None), (2, 64, 64, 4, None),
         (2, 1, 64, 4, None),         # L = 1
         (2, 2, 64, 4, None),         # L < K - 1
+        (2, CONV1D_CHUNK, 64, 4, None),      # L = one ring chunk
+        (2, CONV1D_CHUNK + 1, 64, 4, None),  # L = one chunk and a row
+        (1, 1000, 256, 4, None),     # more chunks than ring slots
+        (3, 1000, 40, 8, None),      # the same over ragged D, K = 8
         (20, 30, 16, 4, None),       # nD == 1, nB == 2
-        (3, 33, 130, 4, (2, 130)),   # nD == 1 from explicit tiles
-        (2, 17, 300, 8, (1, 256)),   # K = 8, threads stride over the tile
+        (3, 33, 130, 4, (2, 130)),   # nD == 1 from explicit tiles, split
+        (2, 17, 300, 8, (1, 256)),   # K = 8, a tile split over CTAs
         (1, 300, 16384, 4, None),    # the serve's prefill shape
+        (1, 300, 16384, 8, None),    # K = 8 at the serve's width
     ]
+
+    def check(x, w, tiles, what):
+        bB, bD, _, _, grid = _conv1d_geometry(x, w, tiles, None)
+        c = conv1d_config(w.shape[0], bB, bD, grid, x.element_size(),
+                          operand_width(x))
+        got = conv1d_causal(x, w, tiles=tiles)
+        torch.cuda.synchronize()
+        record("conv1d_causal", got, conv1d_causal_plain(x, w),
+               f"{x.dtype} {what}: copies {c['copy']} {c['copy_bytes']} B, "
+               f"span {c['span']} x {c['parts']} parts, grid {c['grid']}")
+
     for dt in (torch.bfloat16, torch.float32):
         for (B, L, D, K, tiles) in cases:
-            x = randn((B, L, D), dt)
-            w = randn((K, D), dt, K ** -0.5)
-            got = conv1d_causal(x, w, tiles=tiles)
-            torch.cuda.synchronize()
-            record("conv1d_causal", got, conv1d_causal_plain(x, w),
-                   f"{dt} (B, L, D, K) {(B, L, D, K)} tiles {tiles}")
+            check(randn((B, L, D), dt), randn((K, D), dt, K ** -0.5), tiles,
+                  f"(B, L, D, K) {(B, L, D, K)} tiles {tiles}")
         # the path's operand: the x half of the in-projection, row-strided
         xz = randn((1, 300, 2 * 16384), dt)
-        w = randn((4, 16384), dt, 0.5)
-        got = conv1d_causal(xz[..., :16384], w)
-        torch.cuda.synchronize()
-        record("conv1d_causal", got,
-               conv1d_causal_plain(xz[..., :16384].contiguous(), w),
-               f"{dt} (1, 300, 16384, 4) strided view of (1, 300, 32768)")
-    del x, w, xz, got
+        check(xz[..., :16384], randn((4, 16384), dt, 0.5), None,
+              "(1, 300, 16384, 4) strided view of (1, 300, 32768)")
+        # strided views 1, 2 and 4 elements past an aligned base: narrower
+        # copies (bf16: 2-byte loads, 4- and 8-byte cp.async)
+        xz = randn((2, 100, 2 * 64 + 8), dt)
+        w = randn((4, 64), dt, 0.5)
+        for off in (1, 2, 4):
+            check(xz[..., off:off + 64], w, None,
+                  f"(2, 100, 64, 4) view at element {off} of (2, 100, 136)")
+    del xz, w
     torch.cuda.empty_cache()
 
     # -- 14. the hybrid serve -----------------------------------------------
@@ -1398,12 +1489,7 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
           f"position; {cfg.param_count() / 1e9:.2f} B parameters, random "
           f"weights made on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(3, 257, size=8)
-    lens[1] = 300  # two SSD chunks: the state carried between chunks
-    lens[5], lens[6] = 1, 2  # shorter than K - 1, admitted into used slots
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lens]
+    lens, prompts = hybrid_prompts(cfg.vocab_size)
     ctx = ExecutionContext(target=H100, backend="cuda")
     ref_ctx = ExecutionContext(target=H100, backend="torch")
     eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx)
@@ -1517,50 +1603,42 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
     torch.cuda.empty_cache()
 
     # -- 15. conv1d: kernel, plain version, library call, bound, words ------
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "by": {"bytes": 0.0, "operations": 0.0}}
+    sums = dict.fromkeys(("ms", "ms_per_launch", "device_ms", "plain_ms",
+                          "library_ms", "library_ms_per_launch",
+                          "library_device_ms", "bound_ms"), 0.0)
+    by_sum = {"bytes": 0.0, "operations": 0.0}
     D, K = cfg.d_inner, cfg.conv_kernel
     gen.manual_seed(SEED + 60)
     w = randn((K, D), torch.bfloat16, K ** -0.5)
-    wc = w.t().contiguous()[:, None, :]  # (D, 1, K) for F.conv1d
     for L in sorted({int(n) for n in lens}):
-        xz = randn((1, L, 2 * D), torch.bfloat16)
-        x = xz[..., :D]  # the in-projection's x half, as the path passes it
-        xc = x.transpose(1, 2).contiguous()  # channels-first, made untimed
-        ms = median_ms(lambda: conv1d_causal(x, w), 3, 20)
-        plain = median_ms(lambda: conv1d_causal_plain(x, w), 2, 10)
-        lib = median_ms(lambda: F.conv1d(xc, wc, padding=K - 1,
-                                         groups=D)[..., :L], 3, 20)
-        lib_out = F.conv1d(xc, wc, padding=K - 1, groups=D)[..., :L]
-        lib_err, _ = rel_err(lib_out.transpose(1, 2),
-                             conv1d_causal_plain(x, w))
-        nbytes = (2 * L * D + K * D) * 2
-        bms, by = bound_ms(2.0 * K * L * D, nbytes, PEAK_F32_FLOPS)
-        d = ops.explain("conv1d_causal", ctx, dtype=x.dtype,
-                        spec_args=(x, w))
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bms)):
-            totals[key] += v
-        totals["by"][by] += bms
-        print(json.dumps({
-            "kernel_shape": "conv1d_causal", "B": 1, "L": L, "D": D, "K": K,
-            "dtype": "bfloat16", "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "library": "F.conv1d groups=D, channels-first "
-                                          "copy made outside the timing",
-            "library_max_abs_err_vs_plain": lib_err, "bound_ms": bms,
-            "bound_by": by, "measured_words": d.measured_words,
-            "compulsory_words": nbytes / 4,
-            "words_over_compulsory": d.measured_words / (nbytes / 4)}),
-            flush=True)
-        del xz, x, xc, lib_out
+        row, x = conv1d_shape_times(gen, L, w)
+        if row["max_abs_err_vs_plain"] != 0.0:
+            fail(f"conv1d_causal at L {L}: error {row['max_abs_err_vs_plain']}"
+                 " against its plain version, not 0")
+        d = ops.explain("conv1d_causal", ctx, dtype=x.dtype, spec_args=(x, w))
+        row.update(measured_words=d.measured_words,
+                   words_over_compulsory=d.measured_words
+                   / row["compulsory_words"])
+        for key in sums:
+            both = isinstance(row[key], float) and isinstance(sums[key], float)
+            sums[key] = sums[key] + row[key] if both else "not measured"
+        by_sum[row["bound_by"]] += row["bound_ms"]
+        print(json.dumps(row), flush=True)
+        del x
+    for key in ("device_ms", "library_device_ms"):
+        if isinstance(sums[key], float):
+            sums[key.replace("ms", "bound_share")] = (sums["bound_ms"]
+                                                      / sums[key])
+    print(json.dumps({"kernel_shapes_sum": "conv1d_causal", **sums}),
+          flush=True)
     return {"name": "conv1d_causal", "route": "cuda",
-            "launches": launched["conv1d_causal"], "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
-            "bound_by": max(totals["by"], key=totals["by"].get),
-            "library_ms": totals["library_ms"], "ok": True,
+            "launches": launched["conv1d_causal"], **sums,
+            "bound_by": max(by_sum, key=by_sum.get), "ok": True,
             "shapes": "sum over the hybrid serve's 8 prefill shapes (1, L, "
                       f"{D}) x ({K}, {D}), bf16, x the strided half of the "
-                      "in-projection; library F.conv1d (groups=D)"}
+                      "in-projection; ms a call, ms_per_launch 50 back to "
+                      "back, device_ms a replayed CUDA graph; library "
+                      "F.conv1d (groups=D)"}
 
 
 def main() -> None:

@@ -6,10 +6,13 @@ LP degenerates to choosing (b_B, b_D) tiles from the target's alignment; the
 sequence axis streams whole per tile (K <= 8).
 
 On a CUDA tensor, :func:`conv1d_causal` launches the hand-written kernel of
-``csrc/conv1d.cu`` (one CTA per (b_B, b_D) tile, one thread per (b, d)
-walking the sequence with the last K-1 inputs in registers); on a CPU tensor
-it runs :func:`conv1d_causal_plain`, the same function in plain PyTorch,
-summed in the same order. There is no fallback between the two.
+``csrc/conv1d.cu``: one CTA covers one plan batch tile and a group of plan
+channel tiles (128 bytes of a time row; a wider tile is split over CTAs),
+and walks time in chunks of ``CHUNK`` rows through a ``cp.async`` ring of
+``STAGES`` slots in shared memory (:func:`launch_config` gives the
+geometry, :func:`conv1d_ring_emulate` replays it on the CPU). On a CPU
+tensor it runs :func:`conv1d_causal_plain`, the same function in plain
+PyTorch, summed in the same order. There is no fallback between the two.
 
 ``conv1d_hbm_words`` is the reference's counter, unchanged: the words one
 launch moves, from the launch geometry both share (``_conv1d_geometry``).
@@ -18,6 +21,7 @@ launch moves, from the launch geometry both share (``_conv1d_geometry``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,13 +35,16 @@ from ._build import MAX_THREADS, CudaKernel, check_smem, dtype_code
 _c = ctypes
 KERNEL = CudaKernel("conv1d.cu", "repro_conv1d_causal", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # x, w, out
-    _c.c_int, _c.c_int,                                  # dtype, K
+    _c.c_int, _c.c_int, _c.c_int,                        # dtype, K, vec
     _c.c_int, _c.c_int, _c.c_int,                        # B, L, D
     _c.c_longlong, _c.c_longlong,                        # x batch/time strides
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # bB, bD, nB, nD
-    _c.c_int, _c.c_int, _c.c_void_p,                     # threads, smem, stream
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # bB, gw, span, parts, cols
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,  # grid, threads, smem, stream
 ])
 MAX_TAPS = 8  # K instances compiled into csrc/conv1d.cu
+CHUNK = 32  # time rows of a ring stage (csrc/conv1d.cu, CHUNK)
+STAGES = 8  # ring slots, STAGES - 2 chunks in flight (csrc/conv1d.cu)
+SPAN_BYTES = 128  # the bytes of a time row one CTA covers
 
 
 def _conv1d_geometry(x, w, tiles: Optional[Tuple[int, int]],
@@ -89,15 +96,126 @@ def conv1d_causal_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def launch_config(K: int, bB: int, bD: int) -> dict:
-    """Threads and shared-memory bytes of one CTA for a (bB, bD) tile:
-    one thread per (b, d) up to ``MAX_THREADS`` (threads stride beyond
-    it), the (K, bD) f32 filter block staged in shared memory."""
+def operand_width(x: torch.Tensor) -> int:
+    """Elements one copy of ``x`` may move: the widest of 16, 8 or 4 bytes
+    (or one bf16) that divides D, the batch and time strides the walk steps
+    by, and the base address."""
+    B, L, D = x.shape
+    isz = x.element_size()
+    steps = [D] + [x.stride(0)] * (B > 1) + [x.stride(1)] * (L > 1)
+    return max(1, math.gcd(16, x.data_ptr(), *(s * isz for s in steps))
+               // isz)
+
+
+def launch_config(K: int, bB: int, bD: int, grid: Tuple[int, int],
+                  itemsize: int, vec: Optional[int] = None) -> dict:
+    """One launch's geometry for the plan's (bB, bD) tiles and (nB, nD)
+    grid, with copies of at most ``vec`` elements (default 16 bytes; see
+    :func:`operand_width`).
+
+    A CTA covers ``span`` channels: G whole plan channel tiles (as many as
+    fit ``SPAN_BYTES`` of a row), or, for a wider tile, one of ``parts``
+    equal parts of it. ``vec`` is cut to the widest power of two that
+    divides the group's width. Threads: ``cols`` = span / vec vectors a row
+    times ``rows`` rows a pass. Shared memory: the ring (STAGES x CHUNK x
+    span elements) and the (K, span) f32 filter block."""
     if not 1 <= K <= MAX_TAPS:
         raise ValueError(f"conv1d_causal takes 1..{MAX_TAPS} taps, got {K}")
-    smem = K * bD * 4
-    check_smem(smem, f"conv1d_causal filter block (K {K}, bD {bD})")
-    return dict(threads=min(bB * bD, MAX_THREADS), smem=smem)
+    nB, nD = grid
+    if nB > 65535:
+        raise ValueError(f"conv1d_causal: {nB} batch tiles exceed the grid's "
+                         "65,535; raise the batch tile")
+    vec = vec or 16 // itemsize
+    width = SPAN_BYTES // itemsize
+    if bD <= width:  # G whole tiles a CTA
+        groups = min(nD, width // bD)
+        gw = span = groups * bD
+        vec = math.gcd(gw, vec)
+        parts = 1
+    else:  # a tile split over CTAs
+        groups, gw = 1, bD
+        vec = math.gcd(bD, vec)
+        least_parts = -(-bD // width)
+        span = round_up(-(-bD // least_parts), vec)
+        parts = -(-bD // span)
+    cols = span // vec
+    rows = min(CHUNK, MAX_THREADS // cols)
+    stage = CHUNK * span * itemsize
+    smem = round_up(STAGES * stage, 16) + K * span * 4
+    check_smem(smem, f"conv1d_causal ring (span {span}, K {K})")
+    nbytes = vec * itemsize
+    return dict(
+        K=K, bB=bB, bD=bD, groups=groups, parts=parts, group_width=gw,
+        span=span, vec=vec, copy_bytes=nbytes,
+        copy=("cp.async.cg" if nbytes == 16 else
+              "cp.async.ca" if nbytes >= 4 else "ld/st"),
+        cols=cols, rows=rows, threads=rows * cols, chunk=CHUNK,
+        stages=STAGES, stage_bytes=stage, smem=smem,
+        grid=(-(-nD // groups) * parts, nB))
+
+
+def conv1d_ring_emulate(x: torch.Tensor, w: torch.Tensor, cfg: dict):
+    """The kernel's walk, replayed on CPU tensors: per CTA of ``cfg``'s
+    grid, the filter block, the chunks issued into ring slots (prologue,
+    then chunk i + STAGES - 2 into chunk i - 2's slot before chunk i's sum),
+    the K - 1 rows before a chunk read from the previous chunk's slot, zero
+    rows before t = 0, ragged B, D and L masked; slots start as NaN, so an
+    output that reads a row no copy brought is NaN. Every copy and store is
+    checked against its width's alignment. Returns ``(y, words)``: y as the
+    kernel writes it, and the 32-bit words its copies and stores issue."""
+    B, L, D = x.shape
+    K = w.shape[0]
+    isz = x.element_size()
+    T, S, vec = cfg["chunk"], cfg["stages"], cfg["vec"]
+    span, gw, parts, bB = cfg["span"], cfg["group_width"], cfg["parts"], \
+        cfg["bB"]
+    sxb, sxt = x.stride(0), x.stride(1)
+    align = vec * isz
+    y = torch.full((B, L, D), float("nan"), dtype=x.dtype)
+    words = 0.0
+    nch = -(-L // T)
+    for by in range(cfg["grid"][1]):
+        for bx in range(cfg["grid"][0]):
+            grp, part = divmod(bx, parts)
+            c0 = grp * gw + part * span
+            cw = min(c0 + span, grp * gw + gw, D) - c0
+            if cw <= 0:
+                continue
+            assert c0 % vec == 0 and cw % vec == 0
+            b0 = by * bB
+            items = min(bB, B - b0) * nch
+            wk = w[:, c0:c0 + cw].float()
+            words += K * cw * w.element_size() / 4
+            ring = torch.full((S, T, span), float("nan"))
+
+            def issue(it):
+                b, t0 = b0 + it // nch, (it % nch) * T
+                rows = min(T, L - t0)
+                for r in range(rows):  # one row of vectors a time step
+                    off = b * sxb + (t0 + r) * sxt + c0
+                    assert (x.data_ptr() + off * isz) % align == 0
+                ring[it % S, :rows, :cw] = x[b, t0:t0 + rows, c0:c0 + cw]
+                return rows * cw * isz / 4
+
+            for s in range(min(S - 2, items)):
+                words += issue(s)
+            for it in range(items):
+                if it + S - 2 < items:
+                    words += issue(it + S - 2)
+                b, ch = b0 + it // nch, it % nch
+                t0 = ch * T
+                rows = min(T, L - t0)
+                before = (ring[(it - 1) % S, T - (K - 1):] if ch > 0
+                          else torch.zeros((K - 1, span)))
+                win = torch.cat([before, ring[it % S]])[:, :cw]
+                acc = win[K - 1:K - 1 + rows] * wk[K - 1]
+                for k in range(K - 1):
+                    acc = acc + win[k:k + rows] * wk[k]
+                assert (((b * L + t0) * D + c0) * isz) % align == 0
+                assert (D * isz) % align == 0
+                y[b, t0:t0 + rows, c0:c0 + cw] = acc.to(x.dtype)
+                words += rows * cw * isz / 4
+    return y, words
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, bB: int, bD: int,
@@ -113,20 +231,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bB: int, bD: int,
                          "contiguous")
     B, L, D = x.shape
     K = w.shape[0]
-    nB, nD = grid
-    if nB > 65535:
-        raise ValueError(f"conv1d_causal: {nB} batch tiles exceed the grid's "
-                         "65,535; raise the batch tile")
-    cfg = launch_config(K, bB, bD)
+    cfg = launch_config(K, bB, bD, grid, x.element_size(), operand_width(x))
     out = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     if L == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         KERNEL.launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      dtype_code(x.dtype), K, B, L, D, x.stride(0),
-                      x.stride(1), bB, bD, nB, nD, cfg["threads"],
-                      cfg["smem"], stream)
+                      dtype_code(x.dtype), K, cfg["vec"], B, L, D,
+                      x.stride(0), x.stride(1), bB, cfg["group_width"],
+                      cfg["span"], cfg["parts"], cfg["cols"], *cfg["grid"],
+                      cfg["threads"], cfg["smem"], stream)
     return out
 
 

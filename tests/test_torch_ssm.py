@@ -40,6 +40,7 @@ from repro_torch import ops as tops
 from repro_torch.convert import params_from_jax, transformer_from_jax
 from repro_torch.kernels import (KERNELS, conv1d_causal, conv1d_causal_plain,
                                  conv1d_hbm_words, ref)
+from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.kernels.conv1d import launch_config
 from repro_torch.models import config as tconfig
 from repro_torch.models import ssm
@@ -135,11 +136,21 @@ def test_conv1d_cuda_tensor_never_takes_the_plain_version():
         conv1d_causal(meta(1, 8, 32), meta(4, 32))
     assert {n: k.launches for n, k in KERNELS.items()} == before
     with pytest.raises(ValueError, match="taps"):
-        launch_config(9, 16, 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        launch_config(8, 1, 8192)
-    assert launch_config(4, 1, 16) == {"threads": 16, "smem": 256}
-    assert launch_config(4, 16, 128)["threads"] == 256
+        launch_config(9, 16, 16, (1, 1), 2)
+    with pytest.raises(ValueError, match="65,535"):
+        launch_config(4, 1, 16, (65536, 1), 2)
+    # a tile wider than a CTA's 128 bytes of a row is split over CTAs, so
+    # its ring fits shared memory
+    wide = launch_config(8, 1, 8192, (1, 1), 4)
+    assert wide["parts"] == 256 and wide["span"] == 32
+    assert wide["smem"] <= MAX_SMEM_BYTES
+    # the serve's plan, (1, 16) tiles over D = 16384: 4 tiles a CTA
+    serve = launch_config(4, 1, 16, (1, 1024), 2)
+    assert {k: serve[k] for k in ("span", "vec", "copy", "threads", "smem",
+                                  "grid")} == {
+        "span": 64, "vec": 8, "copy": "cp.async.cg", "threads": 256,
+        "smem": 8 * 32 * 64 * 2 + 4 * 64 * 4, "grid": (256, 1)}
+    assert launch_config(4, 16, 128, (1, 1), 4)["threads"] == 256
 
 
 # -- the word counter and the dispatch ---------------------------------------
@@ -523,16 +534,27 @@ def test_solo_and_batched_tokens_equal():
 @pytest.mark.cuda
 def test_conv1d_kernel_on_the_card():
     """The kernel against its plain version on the card (runs only where
-    there is a GPU; chip_smoke.py checks the main-path shapes)."""
+    there is a GPU; chip_smoke.py checks the main-path shapes): the CPU
+    cases, L at one ring chunk and one row past it, more chunks than ring
+    slots, K = 8 at a wide D, and row-strided views at an aligned base and
+    1, 2 and 4 elements past it (the narrower copies)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     before = KERNELS["conv1d_causal"].launches
-    for case in CONV_CASES:
-        for dt in sorted(DTYPES):
-            _, (tx, tw) = _conv_inputs(*case, dt)
-            tx, tw = tx.cuda(), tw.cuda()
+    cases = CONV_CASES + [(2, 32, 64, 4), (2, 33, 64, 4), (1, 1000, 256, 4),
+                          (1, 300, 4096, 8)]
+    n = 0
+    for dt in sorted(DTYPES):
+        operands = [tuple(t.cuda() for t in _conv_inputs(*case, dt)[1])
+                    for case in cases]
+        (_, (xz, w)) = _conv_inputs(2, 100, 2 * 64 + 8, 4, dt)
+        xz, w = xz.cuda(), w[:, :64].contiguous().cuda()
+        operands += [(xz[..., off:off + 64], w) for off in (0, 1, 2, 4)]
+        for tx, tw in operands:
             got = conv1d_causal(tx, tw)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, conv1d_causal_plain(tx, tw),
                                        rtol=0, atol=0)
-    assert KERNELS["conv1d_causal"].launches - before == 2 * len(CONV_CASES)
+            n += 1
+    assert KERNELS["conv1d_causal"].launches - before == n == \
+        2 * (len(cases) + 4)
