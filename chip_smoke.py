@@ -25,13 +25,14 @@ kernel. Phases, each fatal on failure:
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
      the tensor-core variants of the GEMM, of the direct conv and of flash
-     attention (every (hd, block, C) instance of ``flash_tc_kernel``), and
-     of the int8 GEMM (``matmul_q_tc_kernel``): registers and spills from
-     ptxas and the count of tensor-core instructions in their SASS
-     (cuobjdump; HMMA for the bf16 kernels, IMMA for the int8 GEMM), fatal
-     if a variant has none or a main-path variant spills (flash: hd 128 at
-     block 64; matmul_q: the variant of the (128, 256) and (256, 128)
-     plans, bf16 out);
+     attention (every (hd, block, C) instance of ``flash_tc_kernel``), of
+     the int8 GEMM (``matmul_q_tc_kernel``) and of the int8 conv
+     (``conv2d_q_tc_kernel``): registers and spills from ptxas and the count
+     of tensor-core instructions in their SASS (cuobjdump; HMMA for the bf16
+     kernels, IMMA for the int8 ones), fatal if a variant has none or a
+     main-path variant spills (flash: hd 128 at block 64; matmul_q: the
+     variant of the (128, 256) and (256, 128) plans, bf16 out; conv2d_q: the
+     (2, 8) variant of the five layers' plans, bf16 out);
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and main-path shapes (TF32 off); each check names the kernel
      its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
@@ -76,13 +77,19 @@ kernel. Phases, each fatal on failure:
      decode step (the profiler's cost on the host);
   8. each attention kernel's time beside its plain version, its library call
      and its bound at the serving shapes, and ``ops.explain``'s words and
-     bound ratio for one prefill and one decode call; for flash attention
-     and SDPA also a per-launch time (CUDA events around 50 back-to-back
-     calls, divided by 50) and the device time of a call (a CUDA graph of
-     20 calls, replayed: no host work between them), and the prefill's
-     TFLOP/s on the compulsory work;
+     bound ratio for one prefill and one decode call; for flash attention,
+     SDPA and paged decode also a per-launch time (CUDA events around 50
+     back-to-back calls, divided by 50) and the device time of a call (a
+     CUDA graph of 20 calls, replayed: no host work between them), and the
+     prefill's TFLOP/s on the compulsory work;
   9. the int8 kernels against their plain versions: phase 3's six conv cases
-     (ragged tiles, stride 2, h_F = 1, c_I = 3) and the GEMMs: five with
+     (ragged tiles, stride 2, h_F = 1, c_I = 3), each main-path int8 tile at
+     a small N, H and W with ragged edges (conv1's one stage and zero plane;
+     c_I = 37 over ring stages of 32; three stages; whole-plane windows),
+     stride 2 over two stages, a tile only the LINEAR warp layout covers,
+     and int8 inputs 1, 4 and 8 bytes past a 16-byte boundary, each conv
+     check naming the kernel it took (``on tensor core``), fatal on
+     another; and the GEMMs: five with
      ragged m/n/k, the main path's (128, 256) and (256, 128) tiles at a
      small m with k ragged against the ring's span (and once with an odd
      pitch), a bm = 1 tile over three row tiles, a tile only the LINEAR
@@ -98,7 +105,8 @@ kernel. Phases, each fatal on failure:
      ``ops.conv2d_q`` on ``cuda``; one JSON line per layer (tiles, measured
      words, mixed-precision bound and ratio, the ratio to the bf16 conv's
      words, which must be <= 0.55 as the reference gates it, median ms,
-     launches, error on the first and last images);
+     launches, error on the first and last images); fatal unless every
+     launch (30) was a tensor-core launch;
  11. the int8 GEMMs, counter to 0 before and read after: (m, k, n) =
      (512, 384, 256) and (2048, 2048, 2048) (the reference's
      scripts/verify.py) and conv5_x's Im2Col GEMM (49000, 4608, 512); fatal
@@ -117,8 +125,11 @@ kernel. Phases, each fatal on failure:
      flash launch a tensor-core launch, and phase 7's decode check must
      pass; the share of tokens equal to the bf16
      pool's, the pool's capacity gain and the serve's times are reported,
-     and the serve is traced as in phase 7; then the int8 conv kernel's
-     plain time and bound per layer;
+     and the serve is traced as in phase 7; then, per int8 conv layer, a
+     call (phase 10's), a launch (50 back-to-back calls) and the device time
+     (a replayed CUDA graph, as in phase 8) beside the plain version's time
+     and the bound, with TOP/s, GB/s and the share of the bound on the
+     device time, and their sums;
  13. the conv1d kernel against its plain version (bf16 and f32), each
      check naming the copy its launch took (16-byte ``cp.async.cg``, 8- or
      4-byte ``cp.async.ca``, or 2-byte loads), the CTA's channel span and
@@ -349,6 +360,32 @@ def layer_inputs(gen: torch.Generator, i: int, s):
     return x, w
 
 
+def int8_conv_times(xq, wq, sc, s, ctx) -> dict:
+    """Row 6's times of one int8 conv layer through ``ops.conv2d_q``: a
+    launch (50 back-to-back calls) and the device time of a call (a
+    replayed CUDA graph), beside the bound (int8 operations at the int8
+    tensor rate, or the compulsory bytes: x and w read once, the bf16
+    output written once, the scale once) and, on the device time, TOP/s,
+    GB/s and the share of the bound."""
+    from repro_torch import ops
+
+    stride = (s.sh, s.sw)
+
+    def kernel():
+        return ops.conv2d_q(xq, wq, sc, stride, ctx=ctx)
+
+    nbytes = xq.numel() + wq.numel() + 2 * s.output_size + 4 * s.c_O
+    bms, by = bound_ms(2.0 * s.G, nbytes, PEAK_INT8_OPS)
+    row = {"ms_per_launch": per_launch_ms(kernel),
+           "device_ms": graph_ms_per_call(kernel), "bound_ms": bms,
+           "bound_by": by, "gop": 2.0 * s.G / 1e9, "gbytes": nbytes / 1e9}
+    dev = row["device_ms"]
+    if isinstance(dev, float):
+        row.update(tops_per_s=2.0 * s.G / dev / 1e9,
+                   gbytes_per_s=nbytes / dev / 1e6, share_of_bound=bms / dev)
+    return row
+
+
 def decode_check(name: str, reqs, cfg, params, ref_ctx, allowance) -> dict:
     """Every generated token of one engine's requests against the
     cache-less ``torch`` forward: the token's logit there must lie within
@@ -432,6 +469,45 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
                         for k, (n, t) in sorted(by_name.items(),
                                                 key=lambda kv: -kv[1][1])
                         [:10]]}), flush=True)
+
+
+def serving_prompt_lens() -> tuple:
+    """The serve's 8 prompt lengths (phases 7 and 8) and the generator that
+    goes on to draw the prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return rng, rng.integers(17, 201, size=8)
+
+
+def paged_decode_operands(gen: torch.Generator, cfg, lens) -> tuple:
+    """Phase 8's paged-decode call: 4 rows of a bf16 pool of 16-position
+    blocks, at depths from the serve's prompt lengths ``lens``, their blocks
+    drawn at random from the pool (block 0 unused). Returns (q, k pool, v
+    pool, block tables, lengths, depths, table width)."""
+    dev = torch.device("cuda")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    w = -(-(int(lens.max()) + 32) // 16)
+    depths = [int(lens.max()) + 31, int(lens[1]) + 16, int(lens[2]) + 8, 40]
+    nb = 1 + 4 * w
+    kp = randn((nb, KV, 16, hd))
+    vp = randn((nb, KV, 16, hd))
+    qp = randn((4, H, 1, hd))
+    tables = torch.zeros((4, w), dtype=torch.int32, device=dev)
+    perm = 1 + torch.randperm(nb - 1, generator=gen, device=dev)
+    used = 0
+    for r, d in enumerate(depths):
+        n = -(-(d + 1) // 16)
+        tables[r, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    lengths = torch.tensor([d + 1 for d in depths], dtype=torch.int32,
+                           device=dev)
+    return qp, kp, vp, tables, lengths, depths, w
 
 
 def serving_phases(gen: torch.Generator, record) -> tuple:
@@ -560,8 +636,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
           f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
           f"{cfg.hd}, vocab {cfg.padded_vocab}); random weights made on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(17, 201, size=8)
+    rng, lens = serving_prompt_lens()
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in lens]
     shared = rng.integers(0, cfg.vocab_size, size=32).astype(np.int32)
@@ -796,25 +871,18 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                       "library_device_ms_per_call": dec_lib_dev,
                       "bound_ms": dec_bound, "bound_by": dec_by}), flush=True)
     # paged decode: the serving pool's block size, the deepest row's width
-    w = -(-(int(lens.max()) + 32) // 16)
-    depths = [int(lens.max()) + 31, int(lens[1]) + 16, int(lens[2]) + 8, 40]
-    nb = 1 + 4 * w
-    kp = randn((nb, KV, 16, hd), torch.bfloat16)
-    vp = randn((nb, KV, 16, hd), torch.bfloat16)
-    qp = randn((4, H, 1, hd), torch.bfloat16)
-    tables = torch.zeros((4, w), dtype=torch.int32, device=dev)
-    perm = 1 + torch.randperm(nb - 1, generator=gen, device=dev)
-    used = 0
-    for r, d in enumerate(depths):
-        n = -(-(d + 1) // 16)
-        tables[r, :n] = perm[used:used + n].to(torch.int32)
-        used += n
-    lengths = torch.tensor([d + 1 for d in depths], dtype=torch.int32,
-                           device=dev)
+    qp, kp, vp, tables, lengths, depths, w = paged_decode_operands(gen, cfg,
+                                                                   lens)
     paged_ms = median_ms(lambda: paged_decode_attention(qp, kp, vp, tables,
                                                         lengths), 2, 20)
     paged_plain = median_ms(lambda: paged_decode_plain(qp, kp, vp, tables,
                                                        lengths), 1, 5)
+
+    def paged():
+        return paged_decode_attention(qp, kp, vp, tables, lengths)
+
+    paged_launch = per_launch_ms(paged)
+    paged_dev = graph_ms_per_call(paged)
     live = float(sum(d + 1 for d in depths))
     used_entries = sum(-(-(d + 1) // 16) for d in depths)  # table reads needed
     paged_bytes = ((2 * qp.numel() + 2 * live * KV * hd) * 2
@@ -827,6 +895,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                       "B": 4, "KV": KV, "g": g, "hd": hd, "block_size": 16,
                       "w": w, "lengths": [d + 1 for d in depths],
                       "ms": paged_ms, "plain_ms": paged_plain,
+                      "ms_per_launch": paged_launch,
+                      "device_ms_per_call": paged_dev,
                       "library_ms": None,
                       "library_note": "no single PyTorch call reads a paged "
                                       "pool",
@@ -852,6 +922,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                    f"hd {hd}, bf16, causal + key mask"},
         {"name": "paged_decode", "route": "cuda",
          "launches": serve_launches["paged_decode"], "ms": paged_ms,
+         "ms_per_launch": paged_launch, "device_ms_per_call": paged_dev,
          "plain_ms": paged_plain, "bound_ms": paged_bound,
          "bound_by": paged_by, "library_ms": None, "ok": True,
          "shapes": f"{cfg.name} decode: B 4, KV {KV}, g {g}, hd {hd}, "
@@ -970,15 +1041,17 @@ def gemm_like_variants(variants, main_variants, linear=None,
     return out, main
 
 
-def conv_tiles(s) -> tuple:
+def conv_tiles(s, prec=(0.5, 0.5, 1.0)) -> tuple:
     """The H100 plan's (bN, b_cI, b_cO, b_hO, b_wO) tiles of a conv layer,
-    bf16 in and f32 out, and their halo window (h_in, w_in)."""
+    bf16 in and f32 out (``prec``, words an element of x, w and the output:
+    (0.25, 0.25, 0.5) for the int8 path), and their halo window (h_in,
+    w_in)."""
     from repro_torch.core.conv_model import Precision
     from repro_torch.plan import H100, ConvSpec, Planner
 
     spec = ConvSpec(N=s.N, c_I=s.c_I, c_O=s.c_O, w_O=s.w_O, h_O=s.h_O,
                     w_F=s.w_F, h_F=s.h_F, sw=s.sw, sh=s.sh,
-                    prec=Precision(0.5, 0.5, 1.0))
+                    prec=Precision(*prec))
     t = tuple(Planner(H100).plan(spec).tiles)
     return t, ((t[3] - 1) * s.sh + s.h_F, (t[4] - 1) * s.sw + s.w_F)
 
@@ -1036,16 +1109,52 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         (4, 3, 32, 20, 20, 7, 7, 2, 2, None),
         (2, 6, 8, 16, 16, 1, 1, 2, 2, (1, 6, 8, 3, 5)),
     ]
+    # the tensor-core conv's edge cases (tests/test_torch_quant.py,
+    # TC_CONV_CASES): each main-path tile at a small N, H and W with ragged
+    # edges (conv1's one stage and zero plane, its filter as one run; c_I =
+    # 37 over stages of 32 and 333-byte filter rows; 16-byte filter copies;
+    # three stages; whole-plane windows), stride 2 over two stages, and a
+    # tile only the LINEAR warp layout covers
+    tc_cases = [
+        (3, 3, 70, 41, 41, 7, 7, 2, 2, (2, 3, 64, 16, 16)),
+        (2, 37, 72, 12, 62, 3, 3, 1, 1, (1, 16, 64, 8, 56)),
+        (6, 48, 70, 20, 20, 3, 3, 1, 1, (5, 16, 64, 14, 7)),
+        (6, 72, 64, 16, 16, 3, 3, 1, 1, (5, 16, 64, 14, 7)),
+        (11, 40, 70, 9, 9, 3, 3, 1, 1, (10, 16, 64, 7, 7)),
+        (2, 36, 40, 23, 23, 3, 3, 2, 2, (1, 16, 32, 5, 6)),
+        (2, 8, 32, 40, 40, 3, 3, 1, 1, (1, 8, 32, 32, 32)),
+    ]
+
+    def conv_q_check(xq, wq, sc, stride, od, tiles, what):
+        tc = KERNELS["conv2d_q"].tensor_core_launches
+        got = conv2d_q(xq, wq, sc, stride, out_dtype=od, tiles=tiles)
+        torch.cuda.synchronize()
+        if KERNELS["conv2d_q"].tensor_core_launches != tc + 1:
+            fail(f"conv2d_q {what} did not launch the tensor-core kernel")
+        record("conv2d_q", got, conv2d_q_plain(xq, wq, sc, stride, od),
+               what + " on tensor core")
+
     for od in (torch.float32, torch.bfloat16):
-        for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in conv_cases:
+        for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in conv_cases + tc_cases:
             x = torch.randn((N, cI, H, W), generator=gen, device=dev)
             w = torch.randn((cO, cI, hF, wF), generator=gen, device=dev)
             xq, wq, sc = quantize_conv_operands(x, w)
-            got = conv2d_q(xq, wq, sc, (sh, sw), out_dtype=od, tiles=tiles)
-            torch.cuda.synchronize()
-            record("conv2d_q", got, conv2d_q_plain(xq, wq, sc, (sh, sw), od),
-                   f"->{od} {(N, cI, cO, H, W, hF, wF, sh, sw)} "
-                   f"tiles {tiles}")
+            conv_q_check(xq, wq, sc, (sh, sw), od, tiles,
+                         f"->{od} {(N, cI, cO, H, W, hF, wF, sh, sw)} "
+                         f"tiles {tiles}")
+    # int8 inputs 1, 4 and 8 bytes past a 16-byte boundary: the wrapper
+    # realigns them with one copy for the 16-byte window copies
+    for off in (1, 4, 8):
+        for (N, cI, cO, H, W, hF, wF, sh, sw, tiles) in (tc_cases[0],
+                                                          tc_cases[4]):
+            n = N * cI * H * W
+            x = torch.randn((n + 16,), generator=gen, device=dev)
+            w = torch.randn((cO, cI, hF, wF), generator=gen, device=dev)
+            xq, wq, sc = quantize_conv_operands(x, w)
+            xq = xq[off:off + n].view(N, cI, H, W)
+            conv_q_check(xq, wq, sc, (sh, sw), torch.bfloat16, tiles,
+                         f"int8 at +{off} bytes {(N, cI, cO, H, W)} tiles "
+                         f"{tiles}")
         for (m, k, n, tiles, rows) in [
                 (100, 77, 300, None, None), (130, 129, 257, None, None),
                 (1, 64, 128, None, None),
@@ -1133,9 +1242,14 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         del xq, wq, sc, y
         torch.cuda.empty_cache()
     conv_launches = KERNELS["conv2d_q"].launches
-    print(f"int8 conv path launches: conv2d_q {conv_launches}", flush=True)
+    conv_tc = KERNELS["conv2d_q"].tensor_core_launches
+    print(f"int8 conv path launches: conv2d_q {conv_launches}, on the tensor "
+          f"cores {conv_tc} of {conv_launches}", flush=True)
     if conv_launches <= 0:
         fail("the conv2d_q kernel was never launched on the int8 conv path")
+    if conv_tc != conv_launches:
+        fail(f"{conv_launches - conv_tc} conv2d_q launches were not "
+             "tensor-core launches")
 
     # -- 11. the int8 GEMMs -------------------------------------------------
     mm_rows, kept = {}, {}
@@ -1282,8 +1396,10 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
                        kv_dtype="int8"),
                 serve["prompts"], 1e3 * wall)
 
-    # -- rows 6-7 of the kernel table: plain, library call, bound -----------
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    # -- rows 6-7 of the kernel table: plain, launch, device, bound ---------
+    # (after phase 10's counts are read: these calls launch the kernel too)
+    sums = ("ms", "ms_per_launch", "device_ms", "plain_ms", "bound_ms")
+    totals = {**dict.fromkeys(sums, 0.0),
               "by": {"bytes": 0.0, "operations": 0.0}}
     for i, (name, s) in enumerate(layers.items()):
         x, w = layer_inputs(gen, i, s)
@@ -1291,25 +1407,27 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         del x, w
         torch.cuda.empty_cache()
         stride = (s.sh, s.sw)
-        plain = median_ms(lambda: conv2d_q_plain(xq, wq, sc, stride), 0, 1)
-        nbytes = xq.numel() + wq.numel() + 2 * s.output_size + 4 * s.c_O
-        bms, by = bound_ms(2.0 * s.G, nbytes, PEAK_INT8_OPS)
-        totals["ms"] += conv_rows[name]["ms"]
-        totals["plain_ms"] += plain
-        totals["bound_ms"] += bms
-        totals["by"][by] += bms
-        print(json.dumps({"kernel_layer": "conv2d_q", "layer": name,
-                          "ms": conv_rows[name]["ms"], "plain_ms": plain,
-                          "library_ms": None, "bound_ms": bms,
-                          "bound_by": by, "gop": 2.0 * s.G / 1e9,
-                          "gbytes": nbytes / 1e9}), flush=True)
+        row = {"kernel_layer": "conv2d_q", "layer": name,
+               "ms": conv_rows[name]["ms"],
+               **int8_conv_times(xq, wq, sc, s, ctx),
+               "plain_ms": median_ms(
+                   lambda: conv2d_q_plain(xq, wq, sc, stride), 0, 1),
+               "library_ms": None}
+        for key in sums:
+            both = isinstance(row[key], float) and isinstance(totals[key],
+                                                              float)
+            totals[key] = totals[key] + row[key] if both else "not measured"
+        totals["by"][row["bound_by"]] += row["bound_ms"]
+        print(json.dumps(row), flush=True)
         del xq, wq, sc
         torch.cuda.empty_cache()
     mm = {key: sum(r[key] for r in mm_rows.values())
           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return [
         {"name": "conv2d_q", "route": "cuda",
-         "launches": conv_launches, "ms": totals["ms"],
+         "launches": conv_launches, "tensor_core_launches": conv_tc,
+         "ms": totals["ms"], "ms_per_launch": totals["ms_per_launch"],
+         "device_ms_per_call": totals["device_ms"],
          "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
          "bound_by": max(totals["by"], key=totals["by"].get),
          "library_ms": None,
@@ -1674,7 +1792,7 @@ def main() -> None:
     print(f"build: {json.dumps(secs)} seconds (parallel nvcc)", flush=True)
     for name, k in KERNELS.items():
         # the int8 entries share quant.cu's build: report each one's kernels
-        regs, spills = ptxas(k.build_log, {"conv2d_q": "conv2d_q_kernel",
+        regs, spills = ptxas(k.build_log, {"conv2d_q": "conv2d_q_tc_kernel",
                                            "matmul_q": "matmul_q_tc_kernel"}
                              .get(name, ""))
         print(f"build {name}: registers per thread {regs}; "
@@ -1717,6 +1835,18 @@ def main() -> None:
     main_variants = {matmul_launch_config(*int8_gemm_tiles(m, k, n), k)
                      ["variant"] for m, k, n in INT8_GEMMS.values()}
     tc_variants("matmul_q", "matmul_q_tc_kernel", *gemm_like_variants(
+        MMQ_VARIANTS + ((1, LINEAR_TILES),), main_variants, MMQ_LINEAR,
+        main_out="bf16"), opcode="IMMA")
+    # the int8 conv: IMMA in every instance; the variant of phase 10's plans
+    # with bf16 out must not spill
+    from repro_torch.kernels.quant import conv_launch_config
+    main_variants = set()
+    for s in layers.values():
+        t, (h_in, w_in) = conv_tiles(s, (0.25, 0.25, 0.5))
+        hw = ((s.h_O - 1) * s.sh + s.h_F, (s.w_O - 1) * s.sw + s.w_F)
+        main_variants.add(conv_launch_config(t, s.h_F, s.w_F, h_in, w_in,
+                                             s.c_I, hw)["variant"])
+    tc_variants("conv2d_q", "conv2d_q_tc_kernel", *gemm_like_variants(
         MMQ_VARIANTS + ((1, LINEAR_TILES),), main_variants, MMQ_LINEAR,
         main_out="bf16"), opcode="IMMA")
 

@@ -145,21 +145,20 @@ ACC_PER_THREAD = 64  # accumulators a thread holds in registers
 MAX_SMEM_BYTES = 232448  # opt-in dynamic shared memory of one H100 block
 
 
-def micro_tile(rows: int, cols: int, variants: Sequence,
-               max_threads: int = MAX_THREADS) -> tuple:
-    """Pick the kernel's compiled micro-tile for a (rows x cols) accumulator
-    tile: the first ``(tr, tc)`` of ``variants`` (each tr * tc =
-    ACC_PER_THREAD) whose thread grid ceil(rows/tr) x ceil(cols/tc) fits
-    ``max_threads``. Returns ``(variant, tr, tc, row_groups, col_groups)``;
+def micro_tile(rows: int, cols: int, variants: Sequence) -> tuple:
+    """Pick the FMA kernels' compiled micro-tile for a (rows x cols)
+    accumulator tile: the first ``(tr, tc)`` of ``variants`` (each tr * tc
+    = ACC_PER_THREAD) whose thread grid ceil(rows/tr) x ceil(cols/tc) fits
+    MAX_THREADS. Returns ``(variant, tr, tc, row_groups, col_groups)``;
     raises ValueError when the tile holds more accumulators than a CTA's
     registers (a plan made for another target than the H100)."""
     for v, (tr, tc) in enumerate(variants):
         gr, gc = -(-rows // tr), -(-cols // tc)
-        if gr * gc <= max_threads:
+        if gr * gc <= MAX_THREADS:
             return v, tr, tc, gr, gc
     raise ValueError(
         f"a {rows} x {cols} accumulator tile does not fit one CTA's "
-        f"{max_threads} x {ACC_PER_THREAD} registers; plan for the H100 "
+        f"{MAX_THREADS} x {ACC_PER_THREAD} registers; plan for the H100 "
         "target")
 
 

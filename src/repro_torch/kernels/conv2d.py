@@ -159,20 +159,23 @@ def _fma_config(tiles, h_F: int, w_F: int, h_in: int, w_in: int,
 
 
 def window_layout(tiles, cs: int, zc: bool, h_in: int, w_in: int, c_I: int,
-                  H: int, W: int) -> dict:
+                  H: int, W: int, run: int = WINDOW_RUN,
+                  ch_pad: int = 0) -> dict:
     """The window's shared-memory layout for a ring stage of ``cs``
     channels (+ a zero plane where ``zc``): pitches (elements) of a row
     ``d_row``, a channel plane ``d_ch`` and an image ``d_img``, the gather
     offset ``zero`` of the zero plane, and the elements ``x_elems`` of a
-    slot's window. The copies move runs of ``WINDOW_RUN`` elements aligned
-    in the input: each window row as the aligned runs that cover it. So the
-    pitches are congruent to the input's modulo the run (an aligned run
-    lands on an aligned slot), and each leaves a run of slack, so two rows'
-    covers never share a run. A whole-plane window (h_in = H, w_in = W) is
-    one run an image, its planes contiguous. A step's window origin lies
-    ``WINDOW_RUN + (its input offset mod WINDOW_RUN)`` elements into the
-    slot."""
-    g = WINDOW_RUN
+    slot's window. The copies move runs of ``run`` elements (16 bytes:
+    ``WINDOW_RUN`` of bf16, 16 of int8) aligned in the input: each window
+    row as the aligned runs that cover it. So the pitches are congruent to
+    the input's modulo the run (an aligned run lands on an aligned slot),
+    and each leaves a run of slack, so two rows' covers never share a run.
+    A whole-plane window (h_in = H, w_in = W) is one run an image, its
+    planes contiguous; else ``ch_pad`` (a multiple of the run) more
+    elements of slack part two channel planes, which moves the planes'
+    banks. A step's window origin lies ``run + (its input offset mod
+    run)`` elements into the slot."""
+    g = run
 
     def up(v: int, like: int) -> int:  # the least u >= v with u = like mod g
         return v + (like - v) % g
@@ -181,7 +184,7 @@ def window_layout(tiles, cs: int, zc: bool, h_in: int, w_in: int, c_I: int,
         d_row, d_ch = w_in, h_in * w_in
     else:
         d_row = up(w_in + g - 1, W)
-        d_ch = up((h_in - 1) * d_row + w_in + g - 1, H * W)
+        d_ch = up((h_in - 1) * d_row + w_in + g - 1 + ch_pad, H * W)
     d_img = up((cs + zc) * d_ch + 7 * g, c_I * H * W)
     return dict(d_row=d_row, d_ch=d_ch, d_img=d_img, zero=cs * d_ch + 4 * g,
                 x_elems=2 * g + tiles[0] * d_img)
@@ -248,17 +251,18 @@ def launch_config(tiles: Tuple[int, int, int, int, int], h_F: int, w_F: int,
 
 
 def gather_table(cs: int, h_F: int, w_F: int, d_row: int, d_ch: int,
-                 zero: int) -> list:
+                 zero: int, k_step: int = 16) -> list:
     """koff: the shared-memory offset, in elements from a pixel's window
     origin, of each k = (c * h_F + hf) * w_F + wf of a ring stage of ``cs``
     channels (OIHW order, as the filter rows lie; ``d_row``, ``d_ch`` the
-    window's row and plane pitches), K padded to 16 with k that point at
-    ``zero``, the zeroed plane of each image. The same table serves every
-    CTA and stage of a launch."""
+    window's row and plane pitches), K padded to the MMA's depth ``k_step``
+    (16 for bf16, 32 for int8) with k that point at ``zero``, the zeroed
+    plane of each image. The same table serves every CTA and stage of a
+    launch."""
     ks = cs * h_F * w_F
     koff = [c * d_ch + hf * d_row + wf for c in range(cs)
             for hf in range(h_F) for wf in range(w_F)]
-    return koff + [zero] * (-ks % 16)
+    return koff + [zero] * (-ks % k_step)
 
 
 def row_offsets(rows: int, tiles, stride, d_img: int, d_row: int) -> list:

@@ -83,21 +83,6 @@
 
 namespace {
 
-// x / d for 0 <= x < 2^31 by a multiply-high, an add and a shift (d >= 1;
-// fast_div computes m and s on the host)
-struct FastDiv {
-  uint32_t m, s;
-  __device__ __forceinline__ int operator()(int x) const {
-    return (int)((__umulhi((uint32_t)x, m) + (uint32_t)x) >> s);
-  }
-};
-
-FastDiv fast_div(int d) {
-  uint32_t s = 0;
-  while ((1ull << s) < (unsigned long long)d) ++s;
-  return FastDiv{(uint32_t)(((1ull << 32) * ((1ull << s) - d)) / d + 1), s};
-}
-
 struct ConvParams {
   long long N;
   int c_I, H, W, c_O, h_F, w_F, sh, sw;
@@ -273,100 +258,6 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 // bf16 in: the tensor-core kernel.
 // ---------------------------------------------------------------------------
-
-// The window copy's view: images x ch channels x rows, each row copied as
-// the 16-byte-aligned runs that cover it (a whole-plane window: one row an
-// image, its ch * H * W elements). Row q of the view is entry q of a table
-// each CTA builds once in shared memory: x = its source offset from a
-// step's window origin in x, y = its destination offset from the origin in
-// a slot (low 18 bits) and its channel (high bits; ROW_DEAD for a row past
-// N or H, which is zero-filled). The slot's pitches are congruent to the
-// input's modulo G, so an aligned run lands on an aligned run.
-constexpr int ROW_DEAD = 0x1fff;
-
-__device__ __forceinline__ void window_rows(int2* rowt, const ConvParams& p,
-                                            int nv, int rv, int tid, int nthr) {
-  const int ch = p.run ? 1 : p.b_cI, rows = p.run ? 1 : p.h_in;
-  const int s_ch = p.H * p.W;
-  for (int q = tid; q < p.bN * ch * rows; q += nthr) {
-    const int t = p.f_rows(q), r = q - t * rows;
-    const int n = p.f_ch(t), c = t - n * ch;
-    const int live = n < nv && r < rv ? c : ROW_DEAD;
-    rowt[q] = make_int2(n * p.c_I * s_ch + c * s_ch + r * p.W,
-                        (live << 18) | (n * p.d_img + c * p.d_ch + r * p.d_row));
-  }
-}
-
-// Copy one c_I step's window into shared memory with 16-byte cp.async (the
-// caller commits and waits): run j of row q's cover goes from src (the
-// step's window origin in x, g0m = its element offset mod G) to dst (the
-// window origin in the slot); elements at or past vend in a row, rows of
-// channels at or past cv and dead rows are zero-filled, through a partial
-// (src-size) copy; runs wholly past the row are not issued.
-__device__ __forceinline__ void copy_window(bf16* dst, const bf16* __restrict__ src,
-                                            const bf16* __restrict__ x, int g0m,
-                                            const int2* rowt, const ConvParams& p,
-                                            int cv, int vend, int tid, int nthr) {
-  const int len = p.run ? p.b_cI * p.H * p.W : p.w_in;
-  const int gpr = (len + 2 * G - 2) / G;
-  const int total = p.bN * (p.run ? 1 : p.b_cI * p.h_in) * gpr;
-  // elements of run i to copy (-1: no run), its offsets from the origins
-  auto where = [&](int i, int& s, int& d) {
-    const int q = p.f_gpr(i);
-    const int2 e = rowt[q];
-    const int start = (i - q * gpr) * G - ((g0m + e.x) & (G - 1));
-    s = e.x + start;
-    d = (e.y & 0x3ffff) + start;
-    if (start >= len) return -1;
-    return (e.y >> 18) < cv ? max(0, min(G, vend - start)) : 0;
-  };
-  for (int i = tid; i < total; i += nthr) {
-    int s, d;
-    const int n = where(i, s, d);
-    if (n >= 0) cp_async16(dst + d, n ? src + s : x, 2 * n);
-  }
-}
-
-// Four consecutive output pixels of one channel, stored at once.
-template <typename Tout> struct Quad;
-template <> struct Quad<float> {
-  static __device__ __forceinline__ void store(float* o, float4 q) {
-    *reinterpret_cast<float4*>(o) = q;
-  }
-};
-template <> struct Quad<bf16> {
-  static __device__ __forceinline__ void store(bf16* o, float4 q) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(q.x, q.y);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(q.z, q.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&a);
-    u.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(o) = u;
-  }
-};
-
-// The output tile of CTA b: its first image, first output channel and its
-// row and column blocks (c_O tiles fastest).
-struct Tile {
-  long long n0;
-  int co0, hb, wb;
-};
-
-__device__ __forceinline__ Tile tile_of(const ConvParams& p, unsigned b) {
-  long long t = b;
-  const int co_t = (int)(t % p.nCO); t /= p.nCO;
-  const int wb = (int)(t % p.nW); t /= p.nW;
-  const int hb = (int)(t % p.nH); t /= p.nH;
-  return Tile{t * p.bN, co_t * p.b_cO, hb, wb};
-}
-
-// blockIdx.x, read afresh: the epilogue re-derives its tile rather than
-// hold it in registers across the c_I loop
-__device__ __forceinline__ unsigned ctaid() {
-  unsigned b;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
-  return b;
-}
 
 // MI x NI m16n8 tiles a warp; the warps form a (blockDim / 32 / wn) x wn
 // grid over the covered tile.

@@ -30,14 +30,56 @@
 // conv2_x, less on the other layers of the H100 plans. All global offsets
 // are 64-bit; tile-local ones are 32-bit.
 //
-// conv2d_q_kernel: the first version, on the CUDA cores. Each thread owns a
-// micro-tile of the accumulator (a template argument the wrapper picks) and
-// multiplies with __dp4a (four int8 products summed into an int32 an
-// instruction) from shared-memory words of four int8 values along c_I,
-// packed from byte loads masked to the array and the tile (zero-filled
-// beyond), so the bytes issued are the windows and blocks that
-// conv2d_q_hbm_words counts. One stage. Bound on an H100 by the integer
-// pipe and shared-memory reads, far above the card's memory bound.
+// conv2d_q_tc_kernel: the int8 tensor cores, an implicit GEMM on the halo
+// window as csrc/conv2d.cu's conv2d_tc_kernel runs it in bf16. What bounds
+// it on an H100: each ResNet-50 layer at batch 1000 moves 0.03-0.53 ms of
+// compulsory bytes (x and w read once, the bf16 output written once; conv1
+// and conv2_x are bound by them) against 0.12 ms of products at 1,979
+// TOP/s (conv3_x-conv5_x); the plan's words, windows and filters re-read,
+// take 0.19-0.61 ms at 3.35 TB/s. mma.sync issue, and the shared-memory
+// gather that feeds it, bind first. What the design does:
+//  * Rows m are the tile's output pixels (n, ho, wo), columns its output
+//    channels, k = (c * h_F + hf) * w_F + wf over a ring stage's channels
+//    in OIHW order. So the filter block stays [co][k] as it lies in HBM,
+//    which is the k-major ("col") B operand of mma.sync s8: B fragments
+//    come by ldmatrix.x4 from rows padded to an odd multiple of 16 bytes,
+//    with no transpose. A[m, k] = window[moff[m] + koff[k]]: koff, the same
+//    for every CTA and stage, is built by the wrapper (kernels/conv2d.py,
+//    gather_table, K padded to 32) and staged once a CTA; moff (row_offsets)
+//    is computed once a thread for the rows it owns, 32 bits each (a window
+//    slot holds up to 83 KB). The m16n8k32 A fragment holds 4 consecutive k
+//    of one row a register: 4 byte loads at moff + koff[k .. k + 3], packed
+//    by __byte_perm. Products: mma.sync m16n8k32 s8 x s8 -> s32, exact. K
+//    pads to 32 with k that point at a zeroed plane of each image (conv1:
+//    147 -> 160, 5 k32 slices).
+//  * 16 warps of (2, 8) m16n8 tiles (a 32 x 64 warp tile, 64 int32
+//    accumulators a thread) cover the main path's 448-512 x 64 tiles (14 or
+//    16 warps); LINEAR (16 m16n8 tiles a warp, row-major over the covered
+//    tile) takes a tile that no (2, 8) grid of 16 warps covers. Every
+//    instance uses 128 registers a thread without spills (ptxas, nvcc
+//    12.9): the copies re-derive the CTA's tile from blockIdx.x, since
+//    holding its pointers across the c_I loop spilled 12 bytes.
+//  * A two-slot cp.async ring over c_I: one commit group a stage,
+//    cp.async.wait_group before a stage is read and a __syncthreads before
+//    its slot is refilled. A stage holds two plan c_I blocks where shared
+//    memory allows (32 channels of 3 x 3 taps: 288 k, 9 k32 slices, no
+//    padding); the words issued do not depend on it. Window rows move as
+//    the 16-byte runs of x that cover them, into a slot whose row, plane
+//    and image pitches are congruent to x's modulo 16 bytes, with a run of
+//    slack each (window_layout with run 16), so an aligned run of x lands
+//    aligned whatever the row pitch (conv1's 229-byte rows); the wrapper
+//    adds slack between channel planes where its bank model of the byte
+//    gather finds fewer conflicts (kernels/quant.py, gather_conflicts;
+//    conv3_x and conv4_x: 16 bytes, from 2-way on almost every load to
+//    1.02 and 1.35 words a bank). Filter rows
+//    take 16-byte copies where their pitch allows; conv1's 147-byte rows go
+//    as the block's one aligned run, loaded 16 bytes at a time.
+//  * The epilogue stages the tile through shared memory as [channel][pixel]
+//    f32, float(acc) * scale[co] (the CTA's slice of the scale, staged
+//    once), then stores runs of pixels of one channel: 4 at once where the
+//    tile's output rows are whole groups of 4 (conv1, conv2_x), else one a
+//    thread, consecutive threads on consecutive pixels. No two-byte value
+//    goes to HBM one channel plane from its neighbour's.
 //
 // matmul_q_tc_kernel: the int8 tensor cores. At the reference's GEMMs and
 // conv5_x's Im2Col GEMM (49000 x 4608 x 512) the work is bound by
@@ -102,180 +144,360 @@
 
 namespace {
 
-__device__ __forceinline__ int pack4(int word, int q, int8_t v) {
-  return word | ((int)(uint8_t)v << (8 * q));
-}
-
 // ---------------------------------------------------------------------------
-// conv2d_q
+// conv2d_q: the int8 tensor cores
 // ---------------------------------------------------------------------------
 
 struct ConvQParams {
   long long N;
   int c_I, H, W, c_O, h_F, w_F, sh, sw;
-  int bN, b_cI, b_cO, bh, bw, h_in, w_in;
-  int cI4;                    // channel quads per c_I block: ceil(b_cI / 4)
-  int cOp, hOp, wOp;          // padded output extents (Np is implied)
-  int nCO, nH, nW, nCI;       // tile counts
-  int nPG, ldW;               // pixel groups per CTA, filter row stride (words)
-  int x_bytes, w_bytes;       // shared-memory offsets of the filter, scale
+  int bN, b_cI, b_cO, bh, bw, h_in, w_in;  // b_cI: channels a ring stage
+  int cOp, hOp, wOp;                       // padded output extents
+  int nN, nCO, nH, nW, nCI;                // tile counts; nCI: ring stages
+  // k32 slices a stage, filter row pitch (bytes), ring slots, warps along n,
+  // n8 tiles and rows of the covered tile, a zero plane (K padded), shared
+  // memory offsets of the gather table, the row table and the ring, bytes of
+  // a slot's window and of a slot, whole-plane runs, bytes a filter copy
+  // moves at once, the filter block as one run, pixels an epilogue store and
+  // the staged tile's pixel pitch, the window's row, plane and image pitches
+  // and the gather offset of its zero plane (kernels/conv2d.py,
+  // window_layout)
+  int n32, ldB, slots, wn, cn, rows, zc, off_koff, off_rows, off_ring,
+      x_bytes, slot_bytes, run, vwb, b_run, vst, ldS, d_row, d_ch, d_img,
+      zero;
+  FastDiv f_gpr, f_rows, f_ch, f_bw, f_bhw, f_mv;  // set by the host
 };
 
-template <typename Tout, int CO_T, int P_T>
-__global__ void __launch_bounds__(512, 1)
-conv2d_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, Tout* __restrict__ out,
-                const ConvQParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* xs = reinterpret_cast<int*>(smem);                  // [n][c4][h_in][w_in]
-  int* ws = reinterpret_cast<int*>(smem + p.x_bytes);      // [c4][tap][ldW]
-  float* sc = reinterpret_cast<float*>(smem + p.x_bytes + p.w_bytes);
+// The C entry's geometry array, in ConvQParams order (kernels/quant.py,
+// CONV_GEOMETRY).
+constexpr int N_CONV_GEOMETRY = 45;
 
-  long long t = blockIdx.x;
-  const int co_t = (int)(t % p.nCO); t /= p.nCO;
-  const int wb = (int)(t % p.nW); t /= p.nW;
-  const int hb = (int)(t % p.nH); t /= p.nH;
-  const long long n0 = t * p.bN;
-  const int co0 = co_t * p.b_cO;
-  const int row0 = hb * p.bh * p.sh, col0 = wb * p.bw * p.sw;
+// Elements (bytes) a window copy moves: 16, aligned in x (the wrapper's
+// CONV_RUN).
+constexpr int GQ = 16;
 
-  const int P = p.bN * p.bh * p.bw;           // output pixels per tile
-  const int win = p.h_in * p.w_in;
-  const int xwin = p.cI4 * win;               // one image's window, in words
-  const int x_words = p.bN * xwin;
-  const int taps = p.h_F * p.w_F;
-  const int w_words = p.b_cO * p.cI4 * taps;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int cg = tid / p.nPG, pg = tid % p.nPG;
+ConvQParams unpack_conv(const long long* g) {
+  ConvQParams p{};
+  int i = 0;
+  p.N = g[i++];
+  int* f[] = {&p.c_I, &p.H, &p.W, &p.c_O, &p.h_F, &p.w_F, &p.sh, &p.sw,
+              &p.bN, &p.b_cI, &p.b_cO, &p.bh, &p.bw, &p.h_in, &p.w_in,
+              &p.cOp, &p.hOp, &p.wOp, &p.nN, &p.nCO, &p.nH, &p.nW, &p.nCI,
+              &p.n32, &p.ldB, &p.slots, &p.wn, &p.cn, &p.rows, &p.zc,
+              &p.off_koff, &p.off_rows, &p.off_ring, &p.x_bytes,
+              &p.slot_bytes, &p.run, &p.vwb, &p.b_run, &p.vst, &p.ldS,
+              &p.d_row, &p.d_ch, &p.d_img, &p.zero};
+  for (int* v : f) *v = (int)g[i++];
+  // the window copy's view: images x channels x rows x runs a row's cover
+  // (a whole-plane window: images x 1 x 1 x runs)
+  p.f_gpr = fast_div(((p.run ? p.b_cI * p.H * p.W : p.w_in) + 2 * GQ - 2) / GQ);
+  p.f_rows = fast_div(p.run ? 1 : p.h_in);
+  p.f_ch = fast_div(p.run ? 1 : p.b_cI);
+  p.f_bw = fast_div(p.bw);
+  p.f_bhw = fast_div(p.bh * p.bw);
+  p.f_mv = fast_div(p.vst > 0 ? p.bN * p.bh * p.bw / p.vst : 1);
+  return p;
+}
 
-  int xoff[P_T];
+// The window offset of GEMM row r = (n, ho, wo) of the tile, n-major
+// (kernels/conv2d.py, row_offsets); rows past the tile's M pixels read 0
+// (computed, never stored).
+__device__ __forceinline__ int row_off(const ConvQParams& p, int r, int M) {
+  if (r >= M) return 0;
+  const int n = p.f_bhw(r), rem = r - n * p.bh * p.bw;
+  const int ho = p.f_bw(rem), wo = rem - ho * p.bw;
+  return n * p.d_img + ho * p.sh * p.d_row + wo * p.sw;
+}
+
+// The m16n8k32 A register of one row: bytes r[k.x], r[k.y], r[k.z], r[k.w]
+// (4 consecutive k, the lowest in the low byte).
+__device__ __forceinline__ uint32_t gather4(const int8_t* r, int4 k) {
+  const uint32_t lo = __byte_perm((uint8_t)r[k.x], (uint8_t)r[k.y], 0x0040);
+  const uint32_t hi = __byte_perm((uint8_t)r[k.z], (uint8_t)r[k.w], 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+// A block of rv whole rows of k bytes that is one contiguous run of x (a
+// stage of all c_I channels: conv1's 64 rows of 147 taps, 9,408 bytes):
+// 16-byte loads of the run, two in flight a thread, each chunk's bytes
+// scattered into the rows of pitch ldd. Returns false (nothing done) when
+// the run does not start on 16 bytes.
+__device__ __forceinline__ bool copy_run_s8(int8_t* dst, int ldd,
+                                            const int8_t* __restrict__ src,
+                                            int k, int rv, int tid, int nthr) {
+  if (reinterpret_cast<uintptr_t>(src) & 15) return false;
+  const int total = rv * k, nchunk = (total + 15) / 16;
+  for (int j0 = tid; j0 < nchunk; j0 += 2 * nthr) {
+    uint4 v[2];
 #pragma unroll
-  for (int k = 0; k < P_T; ++k) {
-    const int pp = pg + k * p.nPG;
-    xoff[k] = 0;
-    if (pp < P) {
-      const int wo = pp % p.bw, r = pp / p.bw;
-      const int ho = r % p.bh, n = r / p.bh;
-      xoff[k] = n * xwin + ho * p.sh * p.w_in + wo * p.sw;
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * nthr;
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (j * 16 + 16 <= total) {
+        v[u] = *reinterpret_cast<const uint4*>(src + j * 16);
+      } else if (j < nchunk) {  // the run's ragged end: byte by byte
+        uint32_t wd[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (j * 16 + i < total)
+            wd[i >> 2] |= uint32_t((uint8_t)src[j * 16 + i]) << (8 * (i & 3));
+        v[u] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * nthr;
+      if (j >= nchunk) break;
+      int r = j * 16 / k, c = j * 16 - r * k;
+      const uint32_t wd[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (r < rv) dst[r * ldd + c] = (int8_t)(wd[i >> 2] >> (8 * (i & 3)));
+        if (++c == k) { c = 0; ++r; }
+      }
     }
   }
-  int acc[CO_T][P_T];
-#pragma unroll
-  for (int j = 0; j < CO_T; ++j)
-#pragma unroll
-    for (int k = 0; k < P_T; ++k) acc[j][k] = 0;
+  return true;
+}
 
-  // Filter columns [b_cO, ldW) are never loaded: zero them once.
-  for (int i = tid; i < p.cI4 * taps * p.ldW; i += nthr)
-    if (i % p.ldW >= p.b_cO) ws[i] = 0;
+// MI x NI m16n8 tiles a warp, the warps a (blockDim / 32 / wn) x wn grid
+// over the covered tile (LINEAR: MI = 1, NI = 16 tiles in row-major order
+// of the covered tile's (rows / 16) x cn grid).
+template <typename Tout, int MI, int NI, bool LINEAR>
+__global__ void __launch_bounds__(512, 1)
+conv2d_q_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const int* __restrict__ koff_g,
+                   const float* __restrict__ scale, Tout* __restrict__ out,
+                   const ConvQParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the scale slice, the gather table, the window's row table, then slot
+  // i: the window (NCHW at window_layout's pitches), then the filter
+  // [cols][ldB]; the epilogue's staged tile follows the scale slice
+  float* const sc = reinterpret_cast<float*>(smem);
+  int* const koff = reinterpret_cast<int*>(smem + p.off_koff);
+  int2* const rowt = reinterpret_cast<int2*>(smem + p.off_rows);
+  unsigned char* const ring = smem + p.off_ring;
 
-  for (int cb = 0; cb < p.nCI; ++cb) {
-    const int ci0 = cb * p.b_cI;
-    __syncthreads();  // every thread is done reading the previous step
-    for (int i = tid; i < x_words; i += nthr) {
-      const int col = i % p.w_in;
-      int r = i / p.w_in;
-      const int row = r % p.h_in; r /= p.h_in;
-      const int c4 = r % p.cI4, n = r / p.cI4;
-      const long long gn = n0 + n;
-      const int gr = row0 + row, gcol = col0 + col;
-      int word = 0;
-      if (gn < p.N && gr < p.H && gcol < p.W) {
+  const Tile tile = tile_of(p, blockIdx.x);
+  const long long n0 = tile.n0;
+  const int co0 = tile.co0;
+  const int row0 = tile.hb * p.bh * p.sh, col0 = tile.wb * p.bw * p.sw;
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / p.wn, wn = warp % p.wn;
+  const int cols = p.cn * 8;
+  [[maybe_unused]] const int tiles = (p.rows >> 4) * p.cn;  // LINEAR's
+  const int M = p.bN * p.bh * p.bw;
+  const int taps = p.h_F * p.w_F, ks = p.b_cI * taps, kc = p.n32 * 32;
+  const int HW = p.H * p.W;
+  // stage s's window origin in x lies s * b_cI channels past stage 0's,
+  // and in a slot GQ + (its input offset mod GQ) bytes in: congruent, so
+  // aligned runs of the input land aligned
+  const long long x0 = (n0 * p.c_I) * (long long)HW + (long long)row0 * p.W + col0;
+  const int x0m = (int)(x0 & (GQ - 1));
+  auto step_mod = [&](int s) { return (x0m + s * p.b_cI * HW) & (GQ - 1); };
+  const int rvb = min(p.b_cO, p.c_O - co0);  // filter rows (channels) in c_O
+
+  // Once: the scale slice (0 past c_O), the gather table, the row table;
+  // each slot's zero planes (the padded k read them, from either origin) and
+  // its filter entries no copy writes (k in [ks, kc), rows past c_O), which
+  // ldmatrix reads.
+  for (int i = tid; i < p.b_cO; i += nthr) sc[i] = i < rvb ? scale[co0 + i] : 0.f;
+  for (int i = tid; i < kc; i += nthr) koff[i] = koff_g[i];
+  const int nv = (int)min((long long)p.bN, p.N - n0);
+  window_rows(rowt, p, nv, p.run ? 1 : p.H - row0, tid, nthr);
+  for (int sl = 0; sl < p.slots; ++sl) {
+    int8_t* xs = reinterpret_cast<int8_t*>(ring + sl * p.slot_bytes);
+    int8_t* bs = xs + p.x_bytes;
+    if (p.zc)
+      for (int n = 0; n < p.bN; ++n)
+        for (int i = tid; i < p.d_ch + GQ; i += nthr) xs[n * p.d_img + p.zero + GQ + i] = 0;
+    const int pad = kc - ks;
+    for (int i = tid; i < rvb * pad; i += nthr) bs[(i / pad) * p.ldB + ks + i % pad] = 0;
+    for (int i = tid; i < (cols - rvb) * kc; i += nthr)
+      bs[(rvb + i / kc) * p.ldB + i % kc] = 0;
+  }
+
+  // Window offsets of the rows this thread owns in each m16 tile: rows g
+  // and g + 8 (LINEAR: computed per tile in the loop)
+  int moff[MI][2];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = 4 * c4 + q, gc = ci0 + c;
-          if (c < p.b_cI && gc < p.c_I)
-            word = pack4(word, q,
-                         x[((gn * p.c_I + gc) * p.H + gr) * (long long)p.W + gcol]);
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      moff[i][h] = LINEAR ? 0 : row_off(p, (wm * MI + i) * 16 + (lane >> 2) + 8 * h, M);
+
+  // issue the copies of c_I stage s into slot s % 2: the window, zero past
+  // N, c_I, H and W, and the filter block's rows in c_O, zero past c_I (the
+  // tile re-derived from blockIdx.x rather than held in registers across
+  // the loop)
+  auto load = [&](int s) {
+    const Tile t = tile_of(p, ctaid());
+    const int ci0 = s * p.b_cI, c0 = t.wb * p.bw * p.sw;
+    const long long xo = (t.n0 * p.c_I + ci0) * (long long)HW +
+                         (long long)t.hb * p.bh * p.sh * p.W + c0;
+    const int g0m = (int)(xo & (GQ - 1));
+    int8_t* xd = reinterpret_cast<int8_t*>(ring + (s % 2) * p.slot_bytes) + GQ + g0m;
+    int8_t* bd = reinterpret_cast<int8_t*>(ring + (s % 2) * p.slot_bytes + p.x_bytes);
+    const int cv = p.run ? 1 : min(p.c_I - ci0, p.b_cI);
+    const int vend = p.run ? (p.c_I - ci0) * HW : min(p.w_in, p.W - c0);
+    copy_window(xd, x + xo, x, g0m, rowt, p, cv, vend, tid, nthr);
+    // the filter block: rv rows of ks taps (pitch c_I * taps in w), zero
+    // past c_I; 16-byte copies where rows allow (vwb 16), else the block as
+    // one aligned run (conv1), else loads of vwb bytes through registers
+    const int rv = min(p.b_cO, p.c_O - t.co0);
+    const int8_t* wsrc = w + ((long long)t.co0 * p.c_I + ci0) * taps;
+    const long long lw = (long long)p.c_I * taps;
+    const int kv = min(ks, (p.c_I - ci0) * taps);
+    if (p.vwb == 16 || !p.b_run || !copy_run_s8(bd, p.ldB, wsrc, ks, rv, tid, nthr))
+      copy_any<4>(p.vwb, bd, p.ldB, wsrc, lw, rv, rv, ks, kv,
+                  copy_plan(ks / p.vwb, tid, nthr), tid, nthr);
+  };
+
+  __syncthreads();  // the tables are written
+  load(0);
+  cp_async_commit();
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int s = 0; s < p.nCI; ++s) {
+    cp_async_wait<0>();  // stage s has landed, for this thread's copies ...
+    __syncthreads();     // ... and every thread's; stage s - 1's slot is free
+    if (s + 1 < p.nCI) load(s + 1);
+    cp_async_commit();
+
+    const unsigned char* sb = ring + (s % 2) * p.slot_bytes;
+    const int8_t* xs = reinterpret_cast<const int8_t*>(sb) + GQ + step_mod(s);
+    const int8_t* bs = reinterpret_cast<const int8_t*>(sb + p.x_bytes);
+    // slices holding real k (a ragged last stage's channels past c_I are 0)
+    const int n32 = min(p.n32, ((p.c_I - s * p.b_cI) * taps + 31) >> 5);
+    for (int kk = 0; kk < n32; ++kk) {
+      // this lane's k: 4 (lane % 4) .. + 3 and 16 more (the A registers'
+      // columns), their window offsets from the gather table
+      const int k0 = kk * 32 + 4 * (lane & 3);
+      const int4 ka = *reinterpret_cast<const int4*>(koff + k0);
+      const int4 kb = *reinterpret_cast<const int4*>(koff + k0 + 16);
+      const int8_t* const bk = bs + kk * 32 + ((lane >> 3) & 1) * 16;
+      if constexpr (LINEAR) {
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int q = warp * NI + j;
+          if (q >= tiles) break;
+          const int mt = q / p.cn, nt = q - mt * p.cn;
+          const int8_t* r0 = xs + row_off(p, mt * 16 + (lane >> 2), M);
+          const int8_t* r1 = xs + row_off(p, mt * 16 + (lane >> 2) + 8, M);
+          const uint32_t a[4] = {gather4(r0, ka), gather4(r1, ka),
+                                 gather4(r0, kb), gather4(r1, kb)};
+          uint32_t b[2];
+          ldsm_x2(b, bk + (nt * 8 + (lane & 7)) * p.ldB);
+          mma_s8(acc[0][j], a, b);
         }
-      }
-      xs[i] = word;
-    }
-    for (int i = tid; i < w_words; i += nthr) {  // global order: co, c, tap
-      const int tap = i % taps;
-      const int r = i / taps;
-      const int c4 = r % p.cI4, co = r / p.cI4;
-      const int gco = co0 + co;
-      int word = 0;
-      if (gco < p.c_O) {
+      } else {
+        uint32_t a[MI][4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = 4 * c4 + q, gc = ci0 + c;
-          if (c < p.b_cI && gc < p.c_I)
-            word = pack4(word, q, w[((long long)gco * p.c_I + gc) * taps + tap]);
+        for (int i = 0; i < MI; ++i) {
+          const int8_t* r0 = xs + moff[i][0];
+          const int8_t* r1 = xs + moff[i][1];
+          a[i][0] = gather4(r0, ka);
+          a[i][1] = gather4(r1, ka);
+          a[i][2] = gather4(r0, kb);
+          a[i][3] = gather4(r1, kb);
         }
-      }
-      ws[(c4 * taps + tap) * p.ldW + co] = word;
-    }
-    __syncthreads();
-
-    for (int c4 = 0; c4 < p.cI4; ++c4) {
-      for (int hf = 0; hf < p.h_F; ++hf) {
-        for (int wf = 0; wf < p.w_F; ++wf) {
-          const int* xr = xs + c4 * win + hf * p.w_in + wf;
-          const int* wr = ws + (c4 * taps + hf * p.w_F + wf) * p.ldW + cg * CO_T;
-          int wv[CO_T];
 #pragma unroll
-          for (int j = 0; j < CO_T; ++j) wv[j] = wr[j];
+        for (int j = 0; j < NI; j += 2) {
+          uint32_t r[4];
+          ldsm_x4(r, bk + ((wn * NI + j) * 8 + (lane & 7) + ((lane >> 4) << 3)) * p.ldB);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
-          for (int k = 0; k < P_T; ++k) {
-            const int xv = xr[xoff[k]];
-#pragma unroll
-            for (int j = 0; j < CO_T; ++j) acc[j][k] = __dp4a(wv[j], xv, acc[j][k]);
+          for (int i = 0; i < MI; ++i) {
+            mma_s8(acc[i][j], a[i], b0);
+            mma_s8(acc[i][j + 1], a[i], b1);
           }
         }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the CTA (the last group is empty)
 
-  // The CTA's slice of the folded scale (0 past c_O: padded channels).
-  for (int i = tid; i < p.b_cO; i += nthr)
-    sc[i] = (co0 + i < p.c_O) ? scale[co0 + i] : 0.f;
-  __syncthreads();
-
+  // the tile through shared memory as [channel][pixel] f32, float(acc)
+  // times the channel's scale (ldS = 4 mod 16 words: the fragments' 32
+  // lanes write 32 banks); fragment (i, j) holds rows g, g + 8 (pixels)
+  // and columns 2t, 2t + 1 (channels) of its m16n8 tile (g = lane / 4, t =
+  // lane % 4)
+  __syncthreads();  // every warp is done with the ring
+  float* const st = reinterpret_cast<float*>(smem + p.off_koff);
+  auto stage = [&](int mt, int nt, const int (&c)[4]) {
 #pragma unroll
-  for (int k = 0; k < P_T; ++k) {
-    const int pp = pg + k * p.nPG;
-    if (pp >= P) continue;
-    const int wo = pp % p.bw, r = pp / p.bw;
-    const int ho = r % p.bh, n = r / p.bh;
-    const long long plane = (long long)p.hOp * p.wOp;
-    const long long pix = (long long)(hb * p.bh + ho) * p.wOp + wb * p.bw + wo;
-#pragma unroll
-    for (int j = 0; j < CO_T; ++j) {
-      const int co = cg * CO_T + j;
-      if (co < p.b_cO)
-        out[((n0 + n) * p.cOp + co0 + co) * plane + pix] =
-            from_f<Tout>((float)acc[j][k] * sc[co]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + (lane >> 2) + 8 * h, ch = nt * 8 + 2 * (lane & 3);
+      if (ch < p.b_cO) st[ch * p.ldS + r] = (float)c[2 * h] * sc[ch];
+      if (ch + 1 < p.b_cO) st[(ch + 1) * p.ldS + r] = (float)c[2 * h + 1] * sc[ch + 1];
     }
+  };
+  if constexpr (LINEAR) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int q = warp * NI + j;
+      if (q >= tiles) break;
+      stage(q / p.cn, q % p.cn, acc[0][j]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j) stage(wm * MI + i, wn * NI + j, acc[i][j]);
+  }
+  __syncthreads();
+  // vst consecutive pixels of one channel a store (vst 4: b_wO and the
+  // output pitches are multiples of 4), consecutive threads on consecutive
+  // pixels
+  const Tile te = tile_of(p, ctaid());
+  const long long plane = (long long)p.hOp * p.wOp;
+  const int mv = M / p.vst;
+  for (int v = tid; v < p.b_cO * mv; v += nthr) {
+    const int c = p.f_mv(v), r = p.vst * (v - c * mv);
+    const int n = p.f_bhw(r), rem = r - n * p.bh * p.bw;
+    const int ho = p.f_bw(rem), wo = rem - ho * p.bw;
+    Tout* o = out + ((te.n0 + n) * p.cOp + te.co0 + c) * plane +
+              (long long)(te.hb * p.bh + ho) * p.wOp + te.wb * p.bw + wo;
+    if (p.vst == 4)
+      Quad<Tout>::store(o, *reinterpret_cast<const float4*>(st + c * p.ldS + r));
+    else
+      *o = from_f<Tout>(st[c * p.ldS + r]);
   }
 }
 
-template <typename Tout, int CO_T, int P_T>
-cudaError_t conv_launch_t(const void* x, const void* w, const void* scale,
-                          void* out, const ConvQParams& p, long long blocks,
-                          int threads, int smem, cudaStream_t s) {
-  auto kern = conv2d_q_kernel<Tout, CO_T, P_T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename Tout, int MI, int NI, bool LINEAR>
+cudaError_t conv_launch_t(const void* x, const void* w, const void* koff,
+                          const void* scale, void* out, const ConvQParams& p,
+                          long long blocks, int threads, int smem,
+                          cudaStream_t s) {
+  static unsigned done = 0;
+  auto kern = conv2d_q_tc_kernel<Tout, MI, NI, LINEAR>;
+  // the attribute is the most any launch asks: set once, not per launch
+  cudaError_t e = configure_once(kern, 232448, done);
   if (e != cudaSuccess) return e;
   kern<<<(unsigned)blocks, threads, smem, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<Tout*>(out), p);
+      static_cast<const int*>(koff), static_cast<const float*>(scale),
+      static_cast<Tout*>(out), p);
   return cudaGetLastError();
 }
 
 template <typename Tout>
 cudaError_t conv_launch_v(int variant, const void* x, const void* w,
-                          const void* scale, void* out, const ConvQParams& p,
-                          long long blocks, int threads, int smem,
-                          cudaStream_t s) {
-  switch (variant) {  // micro-tile CO_T x P_T, as repro_torch.kernels.quant
-    case 0: return conv_launch_t<Tout, 8, 8>(x, w, scale, out, p, blocks, threads, smem, s);
-    case 1: return conv_launch_t<Tout, 4, 16>(x, w, scale, out, p, blocks, threads, smem, s);
-    case 2: return conv_launch_t<Tout, 16, 4>(x, w, scale, out, p, blocks, threads, smem, s);
-    case 3: return conv_launch_t<Tout, 2, 32>(x, w, scale, out, p, blocks, threads, smem, s);
-    case 4: return conv_launch_t<Tout, 1, 64>(x, w, scale, out, p, blocks, threads, smem, s);
+                          const void* koff, const void* scale, void* out,
+                          const ConvQParams& p, long long blocks, int threads,
+                          int smem, cudaStream_t s) {
+  switch (variant) {  // (MI, NI), as TC_VARIANTS in repro_torch.kernels.quant
+    case 0: return conv_launch_t<Tout, 2, 8, false>(x, w, koff, scale, out, p, blocks, threads, smem, s);
+    case 1: return conv_launch_t<Tout, 1, 16, true>(x, w, koff, scale, out, p, blocks, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -549,24 +771,26 @@ cudaError_t mm_launch_v(int variant, const void* a, const void* b,
 
 }  // namespace
 
-// out_dtype codes: 0 = float32, 1 = bfloat16. Return the launch's cudaError_t.
-extern "C" int repro_conv2d_q(
-    const void* x, const void* w, const void* scale, void* out, int out_dtype,
-    int variant, long long N, int c_I, int H, int W, int c_O, int h_F, int w_F,
-    int sh, int sw, int bN, int b_cI, int b_cO, int bh, int bw, int h_in,
-    int w_in, int cOp, int hOp, int wOp, int nN, int nCO, int nH, int nW,
-    int nCI, int nPG, int ldW, int x_bytes, int w_bytes, int threads, int smem,
-    void* stream) {
-  ConvQParams p{N, c_I, H, W, c_O, h_F, w_F, sh, sw, bN, b_cI, b_cO, bh, bw,
-                h_in, w_in, (b_cI + 3) / 4, cOp, hOp, wOp, nCO, nH, nW, nCI,
-                nPG, ldW, x_bytes, w_bytes};
-  const long long blocks = (long long)nN * nCO * nH * nW;
+// out_dtype codes: 0 = float32, 1 = bfloat16. g holds the launch geometry
+// in ConvQParams order; variant indexes TC_VARIANTS (the last: LINEAR);
+// koff is the gather table on the device; x must start on 16 bytes.
+// Returns the launch's cudaError_t.
+extern "C" int repro_conv2d_q(const void* x, const void* w, const void* koff,
+                              const void* scale, void* out, int out_dtype,
+                              int variant, const long long* g, int n_g,
+                              int threads, int smem, void* stream) {
+  if (n_g != N_CONV_GEOMETRY) return (int)cudaErrorInvalidValue;
+  const ConvQParams p = unpack_conv(g);
+  const long long blocks = (long long)p.nN * p.nCO * p.nH * p.nW;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (p.slots < 1 || p.slots > 2 || p.n32 < 1 || !koff || p.vwb < 1 || (16 % p.vwb) ||
+      (p.vst != 1 && p.vst != 4) || reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
-    return (int)conv_launch_v<float>(variant, x, w, scale, out, p, blocks, threads, smem, s);
+    return (int)conv_launch_v<float>(variant, x, w, koff, scale, out, p, blocks, threads, smem, s);
   if (out_dtype == 1)
-    return (int)conv_launch_v<__nv_bfloat16>(variant, x, w, scale, out, p, blocks, threads, smem, s);
+    return (int)conv_launch_v<__nv_bfloat16>(variant, x, w, koff, scale, out, p, blocks, threads, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,12 +18,16 @@ launch, as the reference does.
 
 On a CUDA tensor, :func:`conv2d_q` / :func:`matmul_q` launch the hand-written
 kernels of ``csrc/quant.cu`` (int32 accumulators in registers, up to 512
-threads a CTA): the conv multiplies with ``__dp4a`` on the CUDA cores, the
-GEMM on the int8 tensor cores (``mma.sync`` m16n8k32 s8 fed by ``ldmatrix``
-from a ``cp.async`` ring, B transposed k-major in shared memory; see
-:func:`matmul_launch_config` and :func:`matmul_q_tc_emulate`, its model).
-On a CPU tensor they run :func:`conv2d_q_plain` / :func:`matmul_q_plain`,
-the same functions in plain PyTorch. There is no fallback between the two.
+threads a CTA), both on the int8 tensor cores (``mma.sync`` m16n8k32 s8):
+the conv as an implicit GEMM, A gathered from the halo window in shared
+memory through ``conv2d``'s ``gather_table`` and ``row_offsets``, B by
+``ldmatrix`` from the OIHW filter rows, a two-slot ``cp.async`` ring over
+c_I (see :func:`conv_launch_config` and :func:`conv2d_q_tc_emulate`, its
+model); the GEMM fed by ``ldmatrix`` from a ``cp.async`` ring, B transposed
+k-major in shared memory (see :func:`matmul_launch_config` and
+:func:`matmul_q_tc_emulate`). On a CPU tensor they run
+:func:`conv2d_q_plain` / :func:`matmul_q_plain`, the same functions in plain
+PyTorch. There is no fallback between the two.
 
 Output storage defaults to bf16 (half a word): int8-in/bf16-out is the policy
 ``repro_torch.quant.INT8_SPEC`` names, and it is what moves measured conv
@@ -33,6 +37,7 @@ words well below the bf16-in/f32-out baseline on the ResNet-50 shapes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -44,22 +49,17 @@ from repro_torch.plan import ConvSpec, ExecutionPlan, HardwareTarget, MatmulSpec
 from repro_torch.plan.planner import resolve_kernel_plan
 
 from ._build import (ACC_PER_THREAD, MAX_SMEM_BYTES, MAX_THREADS_Q,
-                     CudaKernel, check_cuda_operands, check_smem, dtype_code,
-                     micro_tile)
-from .conv2d import _launch_geometry, _normalize_tiles
+                     CudaKernel, check_cuda_operands, check_smem, dtype_code)
+from .conv2d import (_gather_table_on, _launch_geometry, _normalize_tiles,
+                     gather_table, row_offsets, window_layout)
 from .matmul import vector_width, warp_layout, warp_tiles
 
 _c = ctypes
 CONV_KERNEL = CudaKernel("quant.cu", "repro_conv2d_q", [
-    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # x, w, scale, out
+    _c.c_void_p, _c.c_void_p, _c.c_void_p,              # x, w, koff
+    _c.c_void_p, _c.c_void_p,                           # scale, out
     _c.c_int, _c.c_int,                                  # out dtype, variant
-    _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,         # N, c_I, H, W
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # c_O, h_F, w_F, sh, sw
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # tiles
-    _c.c_int, _c.c_int,                                  # h_in, w_in
-    _c.c_int, _c.c_int, _c.c_int,                        # cOp, hOp, wOp
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # grid
-    _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # nPG, ldW, x/w bytes
+    _c.POINTER(_c.c_longlong), _c.c_int,                 # geometry, its length
     _c.c_int, _c.c_int, _c.c_void_p,                     # threads, smem, stream
 ])
 MATMUL_KERNEL = CudaKernel("quant.cu", "repro_matmul_q", [
@@ -73,15 +73,25 @@ MATMUL_KERNEL = CudaKernel("quant.cu", "repro_matmul_q", [
 GEOMETRY = ("m", "n", "k", "bm", "bn", "cbm", "cbn", "sm", "sn", "nMT", "nNT",
             "n_spans", "ldo", "wn", "cn", "rows", "bt", "ks", "lda", "ldbs",
             "ldbt", "vwa", "vwb", "off_bs", "off_bt", "off_sc")
-# conv2d_q's (CO_T, P_T) micro-tiles, in csrc/quant.cu's conv_launch_v order
-CONV_MICRO_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (1, 64))
-# matmul_q's warp blocks of (MI, NI) m16n8 tiles, in mm_launch_v's order:
-# (2, 8) is a 32 x 64 warp tile (64 int32 accumulators a thread), a 4 x 4
-# grid of 16 warps on the (128, 256) plan and 8 x 2 on (256, 128); variant
-# LINEAR gives each warp 16 tiles in row-major order of the covered tile,
-# for a tile (1024 x 32) that no (2, 8) grid of 16 warps covers
+# The launch geometry conv2d_q's C entry takes, in csrc/quant.cu's
+# ConvQParams order (b_cI and nCI: a ring stage's channels and the stages).
+CONV_GEOMETRY = ("N", "c_I", "H", "W", "c_O", "h_F", "w_F", "sh", "sw",
+                 "bN", "b_cI", "b_cO", "bh", "bw", "h_in", "w_in",
+                 "cOp", "hOp", "wOp", "nN", "nCO", "nH", "nW", "nCI",
+                 "n32", "ldb", "slots", "wn", "cn", "rows", "zc",
+                 "off_koff", "off_rows", "off_ring", "x_bytes", "slot_bytes",
+                 "run", "vwb", "b_run", "vst", "lds", "d_row", "d_ch",
+                 "d_img", "zero")
+# Both int8 kernels' warp blocks of (MI, NI) m16n8 tiles, in csrc/quant.cu's
+# mm_launch_v / conv_launch_v order: (2, 8) is a 32 x 64 warp tile (64 int32
+# accumulators a thread): matmul_q's (128, 256) plan as a 4 x 4 grid of 16
+# warps and (256, 128) as 8 x 2, conv2d_q's 448-512 x 64 tiles as 14-16 x 1;
+# variant LINEAR gives each warp 16 tiles in row-major order of the covered
+# tile, for a tile (1024 x 32) that no (2, 8) grid of 16 warps covers
 TC_VARIANTS = ((2, 8),)
 LINEAR = len(TC_VARIANTS)
+CONV_RUN = 16  # int8 elements a window copy moves: 16 bytes aligned in x
+CONV_K = 32  # the k of an s8 MMA: a ring stage's K pads to it
 TC_SPANS = (128, 64, 32)  # a ring stage's k-span: the first that fits
 RING = (3, 2, 2)  # stages of A, of B and of B^T
 PAD = 16  # bytes past a stage row: pitches an odd multiple of 16 bytes
@@ -154,23 +164,109 @@ def conv2d_q_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out.permute(0, 3, 1, 2).to(out_dtype)
 
 
+@functools.lru_cache(maxsize=None)  # read-only: a launch copies what it sends
 def conv_launch_config(tiles: Tuple[int, int, int, int, int], h_F: int,
-                       w_F: int, h_in: int, w_in: int) -> dict:
-    """The conv kernel's launch configuration for int8 tiles: micro-tile
-    variant, thread grid (up to 512 threads x 64 int32 accumulators), and
-    the shared-memory layout (input window and filter block as words of
-    four channels, then the tile's scale slice)."""
+                       w_F: int, h_in: int, w_in: int,
+                       c_I: Optional[int] = None,
+                       hw: Optional[Tuple[int, int]] = None) -> dict:
+    """``conv2d_q_tc_kernel``'s launch configuration for int8 tiles: the warp
+    layout of the (bN * bh * bw) x b_cO accumulator tile (up to 16 warps of
+    64 int32 accumulators; LINEAR where no (2, 8) grid covers it), a ring
+    stage's channels ``cs`` (two plan c_I blocks, halved until the ring
+    fits a block's shared memory) and its k (``ks``, ``n32`` slices of 32,
+    a zero plane ``zc`` for the padded k), the stages ``n_st`` over ``c_I``
+    and the slots, the window's layout for an input of ``hw`` = (H, W)
+    (``conv2d.window_layout`` with 16-byte int8 runs, and the slack
+    ``ch_pad`` between channel planes that gives the A gather the fewest
+    bank conflicts, :func:`gather_conflicts`, within shared memory), the
+    shared-memory offsets (the scale slice, the gather table, the row
+    table, the ring; the epilogue's staged tile, ``lds`` floats a channel,
+    follows the scale slice), the pixels an epilogue store moves (``vst``)
+    and the threads. ``c_I=None`` sizes the ring for many stages,
+    ``hw=None`` takes whole-plane windows. Raises ValueError for a tile of
+    more accumulators than 16 warps hold (a plan for another target)."""
     bN, b_cI, b_cO, bh, bw = tiles
-    variant, co_t, _, n_cg, n_pg = micro_tile(
-        b_cO, bN * bh * bw, CONV_MICRO_TILES, MAX_THREADS_Q)
-    ci4 = -(-b_cI // 4)
-    ldw = n_cg * co_t + 1  # odd word stride: conflict-free stores
-    x_bytes = round_up(bN * ci4 * h_in * w_in * 4, 16)
-    w_bytes = ci4 * h_F * w_F * ldw * 4
-    smem = x_bytes + w_bytes + b_cO * 4
-    check_smem(smem, f"conv2d_q tiles {tiles}")
-    return dict(variant=variant, n_pg=n_pg, threads=n_cg * n_pg, ldw=ldw,
-                x_bytes=x_bytes, w_bytes=w_bytes, smem=smem)
+    lay = warp_layout(bN * bh * bw, b_cO, TC_VARIANTS,
+                      max_threads=MAX_THREADS_Q)
+    taps = h_F * w_F
+    H, W = hw or (h_in, w_in)
+    whole = h_in == H and w_in == W  # a whole-plane window: one run an image
+    cs = 2 * b_cI if c_I is None else min(2 * b_cI, c_I)
+    sc_bytes = round_up(4 * b_cO, 16)
+    lds = lay["rows"] + 4  # 4 mod 16 words: conflict-free fragment writes
+
+    def layout(cs: int, ch_pad: int) -> dict:
+        ks = cs * taps
+        n32 = -(-ks // CONV_K)
+        zc = ks % CONV_K != 0  # a zero plane for the padded k
+        n_st = 2 if c_I is None else -(-c_I // cs)
+        win = window_layout(tiles, cs, zc, h_in, w_in, c_I or cs, H, W,
+                            run=CONV_RUN, ch_pad=ch_pad)
+        ldb = n32 * CONV_K + PAD  # an odd multiple of 16 bytes
+        x_bytes = round_up(win["x_elems"], 16)
+        slot_bytes = x_bytes + lay["cols"] * ldb
+        koff_bytes = n32 * CONV_K * 4
+        rows_bytes = round_up(8 * bN * (1 if whole else cs * h_in), 16)
+        off_ring = sc_bytes + koff_bytes + rows_bytes
+        slots = min(2, n_st)
+        smem = max(off_ring + slots * slot_bytes, sc_bytes + b_cO * lds * 4)
+        return dict(kernel="tensor core", **lay,
+                    threads=lay["wm"] * lay["wn"] * 32, cs=cs, n_st=n_st,
+                    ks=ks, n32=n32, zc=int(zc), ldb=ldb, slots=slots, **win,
+                    ch_pad=ch_pad, x_bytes=x_bytes, slot_bytes=slot_bytes,
+                    off_koff=sc_bytes, off_rows=sc_bytes + koff_bytes,
+                    off_ring=off_ring, vst=4 if bw % 4 == 0 else 1, lds=lds,
+                    smem=smem, acc_per_thread=lay["mi"] * lay["ni"] * 4)
+
+    cfg = layout(cs, 0)
+    while cfg["smem"] > MAX_SMEM_BYTES and cs > 1:
+        cs = -(-cs // 2)
+        cfg = layout(cs, 0)
+    check_smem(cfg["smem"], f"conv2d_q tiles {tiles}")
+    if not whole:
+        # 16 more bytes between channel planes move their banks: the pad
+        # (of 8, the bank pattern's period) whose gather conflicts least,
+        # the smallest of equals, within shared memory; the stride is
+        # (window - filter) / (tile - 1) (any where the tile is 1 wide)
+        stride = tuple((n - f) // (b - 1) if b > 1 else 1
+                       for n, f, b in ((h_in, h_F, bh), (w_in, w_F, bw)))
+        fits = [c for c in (layout(cs, pad)
+                            for pad in range(0, 8 * CONV_RUN, CONV_RUN))
+                if c["smem"] <= MAX_SMEM_BYTES]
+        cfg = min(fits, key=lambda c: gather_conflicts(c, tiles, stride,
+                                                       h_F, w_F))
+    return cfg
+
+
+def gather_conflicts(cfg: dict, tiles, stride, h_F: int, w_F: int) -> float:
+    """The mean bank-conflict degree of ``conv2d_q_tc_kernel``'s A gather
+    under launch configuration ``cfg``: for each byte load of a warp (lane
+    (g, t) = (lane / 4, lane % 4) of an m16 tile reads row g, + 8 in A
+    registers 1 and 3, at k = 32 kk + 4 t, + 16 in registers 2 and 3, +
+    the byte), the most distinct 32-bit words one bank serves (1:
+    conflict-free), averaged over the tile's m16 tiles, the k32 slices and
+    the window origin's offset mod 4 (a whole word's shift moves every
+    bank alike)."""
+    koff = np.array(gather_table(cfg["cs"], h_F, w_F, cfg["d_row"],
+                                 cfg["d_ch"], cfg["zero"], CONV_K))
+    moff = np.array(row_offsets(cfg["rows"], tiles, stride, cfg["d_img"],
+                                cfg["d_row"]))
+    lane, e = np.arange(32), np.arange(4)[:, None]
+    rows = (16 * np.arange(cfg["rows"] // 16)[:, None, None]
+            + (lane >> 2) + 8 * (e & 1))                    # (m16, e, lane)
+    ks = (32 * np.arange(cfg["n32"])[:, None, None, None]
+          + (4 * (lane & 3) + 16 * (e >> 1))[:, None, :]
+          + np.arange(4)[:, None])                         # (kk, e, b, lane)
+    addr = (np.arange(4)[:, None, None, None, None, None]
+            + moff[rows][None, :, None, :, None, :]
+            + koff[ks][None, None])
+    words = np.sort((addr // 4).reshape(-1, 32), axis=1)
+    new = np.ones(words.shape, bool)  # a word's first lane
+    new[:, 1:] = words[:, 1:] != words[:, :-1]
+    load = np.arange(len(words))[:, None].repeat(32, axis=1)
+    per_bank = np.bincount((32 * load + words % 32)[new],
+                           minlength=words.size).reshape(-1, 32)
+    return float(per_bank.max(1).mean())
 
 
 def _conv_launch(x, w, scale, stride, out_dtype,
@@ -182,20 +278,130 @@ def _conv_launch(x, w, scale, stride, out_dtype,
     sh, sw = stride
     h_O = (H - h_F) // sh + 1
     w_O = (W - w_F) // sw + 1
-    bN, b_cI, b_cO, bh, bw = t
+    bN, _, b_cO, bh, bw = t
     (Np, _, cOp, hOp, wOp, _, _, h_in, w_in,
      grid) = _launch_geometry(N, c_I, c_O, H, W, h_F, w_F, sh, sw, t)
-    cfg = conv_launch_config(t, h_F, w_F, h_in, w_in)
+    cfg = conv_launch_config(t, h_F, w_F, h_in, w_in, c_I, (H, W))
+    if bN * c_I * H * W >= 2 ** 31:  # the row table's offsets are int32
+        raise ValueError(f"conv2d_q tiles {t}: {bN} images of {c_I} x {H} "
+                         f"x {W} exceed 32-bit window offsets")
+    if x.data_ptr() % 16:
+        # the window copies move 16-byte runs aligned in x: realign an input
+        # whose base is not (a slice), with one copy
+        x = x.clone()
+    cs, taps = cfg["cs"], h_F * w_F
+    koff = _gather_table_on(x.device, cs, h_F, w_F, cfg["d_row"],
+                            cfg["d_ch"], cfg["zero"], CONV_K)
     out = torch.empty((Np, cOp, hOp, wOp), dtype=out_dtype, device=x.device)
+    g = dict(cfg, N=N, c_I=c_I, H=H, W=W, c_O=c_O, h_F=h_F, w_F=w_F, sh=sh,
+             sw=sw, bN=bN, b_cI=cs, b_cO=b_cO, bh=bh, bw=bw, h_in=h_in,
+             w_in=w_in, cOp=cOp, hOp=hOp, wOp=wOp, nN=grid[0], nCO=grid[1],
+             nH=grid[2], nW=grid[3], nCI=cfg["n_st"], cn=cfg["cols"] // 8,
+             run=int(h_in == H and w_in == W),
+             vwb=vector_width(c_I * taps, cs * taps, ptrs=(w.data_ptr(),),
+                              itemsize=1),
+             b_run=int(cs == c_I))
+    geometry = (ctypes.c_longlong * len(CONV_GEOMETRY))(
+        *(g[k] for k in CONV_GEOMETRY))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         CONV_KERNEL.launch(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            dtype_code(out_dtype), cfg["variant"], N, c_I, H, W, c_O, h_F,
-            w_F, sh, sw, bN, b_cI, b_cO, bh, bw, h_in, w_in, cOp, hOp, wOp,
-            *grid, cfg["n_pg"], cfg["ldw"], cfg["x_bytes"], cfg["w_bytes"],
-            cfg["threads"], cfg["smem"], stream)
+            x.data_ptr(), w.data_ptr(), koff.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), dtype_code(out_dtype), cfg["variant"], geometry,
+            len(CONV_GEOMETRY), cfg["threads"], cfg["smem"], stream,
+            tensor_core=True)
     return out[:N, :c_O, :h_O, :w_O]
+
+
+def conv2d_q_tc_emulate(x: torch.Tensor, w: torch.Tensor,
+                        scale: torch.Tensor, stride=(1, 1),
+                        tiles: Optional[Sequence[int]] = None,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """A plain model of ``conv2d_q_tc_kernel``'s walk on the CPU, in integer
+    arithmetic (for the tests; nothing on the main path calls it): per
+    output tile and ring stage of ``cs`` channels, the window staged as the
+    kernel stages it (NCHW at :func:`conv_launch_config`'s int8 pitches,
+    from the unaligned origin ``16 + (the stage's input offset mod 16)``,
+    zero past the input, the zero plane zeroed, every other slot byte a
+    sentinel that no product may read), the filter block as [co][k] rows
+    zero-padded to 32 k, A gathered through the wrapper's gather table and
+    the kernel's row offsets, the k32 slices that hold real k multiplied
+    into the m16n8 tiles each warp owns; then the epilogue: int32 -> f32,
+    times the f32 scale, cast to ``out_dtype``."""
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    h_O, w_O = (H - h_F) // sh + 1, (W - w_F) // sw + 1
+    if tiles is None:
+        tiles = resolve_kernel_plan(
+            _conv_spec_q(N, c_I, c_O, h_O, w_O, h_F, w_F, sh, sw, x.dtype,
+                         w.dtype, out_dtype))
+    tiles = _normalize_tiles(tiles, h_O, w_O)
+    bN, _, b_cO, bh, bw = tiles
+    (Np, _, cOp, hOp, wOp, Hp, Wp, h_in, w_in,
+     _) = _launch_geometry(N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles)
+    cfg = conv_launch_config(tiles, h_F, w_F, h_in, w_in, c_I, (H, W))
+    g, cs, ks, n32 = CONV_RUN, cfg["cs"], cfg["ks"], cfg["n32"]
+    d_row, d_ch, d_img = cfg["d_row"], cfg["d_ch"], cfg["d_img"]
+    koff = np.array(gather_table(cs, h_F, w_F, d_row, d_ch, cfg["zero"],
+                                 CONV_K))
+    moff = np.array(row_offsets(cfg["rows"], tiles, stride, d_img, d_row))
+    assert len(koff) == n32 * CONV_K
+    owned = [t for wp in range(cfg["wm"] * cfg["wn"])
+             for t in warp_tiles(cfg, wp)]
+    sentinel = 1 << 20  # no int8 value: a product that reads it shows
+    xp = np.zeros((Np, cfg["n_st"] * cs, Hp, Wp), np.int64)
+    xp[:N, :c_I, :H, :W] = x.numpy()
+    wk = np.zeros((cOp, cfg["n_st"] * cs, h_F * w_F), np.int64)
+    wk[:c_O, :c_I] = w.numpy().reshape(c_O, c_I, -1)
+    sc = np.zeros(cOp, np.float32)
+    sc[:c_O] = scale.float().numpy().reshape(-1)
+    out = np.zeros((Np, cOp, hOp, wOp), np.float32)
+    M = bN * bh * bw
+    for n0 in range(0, Np, bN):
+        for co0 in range(0, cOp, b_cO):
+            for r0 in range(0, hOp, bh):
+                for c0 in range(0, wOp, bw):
+                    x0 = (n0 * c_I * H + r0 * sh) * W + c0 * sw  # in x
+                    acc = np.zeros((cfg["rows"], cfg["cols"]), np.int64)
+                    for ci0 in range(0, cfg["n_st"] * cs, cs):
+                        slot = np.full(cfg["x_elems"], sentinel, np.int64)
+                        if cfg["zc"]:  # as the kernel zeroes it, per image
+                            for n in range(bN):
+                                z = n * d_img + cfg["zero"] + g
+                                slot[z:z + d_ch + g] = 0
+                        origin = g + (x0 + ci0 * H * W) % g
+                        np.lib.stride_tricks.as_strided(
+                            slot[origin:], (bN, cs, h_in, w_in),
+                            [8 * v for v in (d_img, d_ch, d_row, 1)],
+                            writeable=True)[:] = xp[
+                                n0:n0 + bN, ci0:ci0 + cs,
+                                r0 * sh:r0 * sh + h_in,
+                                c0 * sw:c0 * sw + w_in]
+                        b = np.zeros((cfg["cols"], n32 * CONV_K), np.int64)
+                        b[:b_cO, :ks] = wk[co0:co0 + b_cO,
+                                           ci0:ci0 + cs].reshape(b_cO, -1)
+                        a = slot[origin:][moff[:, None] + koff[None, :]]
+                        assert (np.abs(a) < 128).all()  # no slack is read
+                        assert not a[:, ks:].any()  # the zero plane
+                        # the k32 slices that hold real k (a ragged last
+                        # stage's), int8 products summed in float64: exact
+                        kc = min(n32, -(-(c_I - ci0) * h_F * w_F
+                                        // CONV_K)) * CONV_K
+                        prod = (a[:, :kc].astype(np.float64)
+                                @ b[:, :kc].astype(np.float64).T
+                                ).astype(np.int64)
+                        for mt, nt in owned:
+                            blk = (slice(16 * mt, 16 * mt + 16),
+                                   slice(8 * nt, 8 * nt + 8))
+                            acc[blk] += prod[blk]
+                    assert np.abs(acc).max(initial=0) < 2 ** 31  # int32
+                    y = acc[:M, :b_cO].astype(np.float32) * sc[co0:co0
+                                                               + b_cO]
+                    out[n0:n0 + bN, co0:co0 + b_cO, r0:r0 + bh,
+                        c0:c0 + bw] = y.reshape(bN, bh, bw,
+                                                b_cO).transpose(0, 3, 1, 2)
+    return torch.from_numpy(out).to(out_dtype)[:N, :c_O, :h_O, :w_O]
 
 
 def conv2d_q(

@@ -123,6 +123,23 @@ CONV_CASES = {  # (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles)
     "tiles_spatial_s2": (2, 4, 8, 25, 25, 3, 3, 2, 2, (1, 4, 8, 5, 7)),
     "tiles_spatial_s21": (2, 4, 8, 25, 25, 3, 3, 2, 1, (1, 4, 8, 23, 4)),
 }
+# the tensor-core conv's edge cases: each H100 int8 tile of the main path
+# (PERF.md §4) at a small N, H and W that keeps ragged N, c_O, h and w
+# edges (conv1: one stage of 147 k and the zero plane, the filter block as
+# one run; conv2_x: 37 channels over stages of 32, the last ragged and not a
+# multiple of 4, rows of a 62-byte pitch, filter rows of 333 bytes; conv3_x:
+# 16-byte filter copies; conv4_x: three stages, the ring's slot 0
+# refilled; conv5_x: whole-plane windows), stride 2 over two stages, and a
+# tile that only the LINEAR warp layout covers
+TC_CONV_CASES = {
+    "conv1_tile": (3, 3, 70, 41, 41, 7, 7, 2, 2, (2, 3, 64, 16, 16)),
+    "conv2_x_tile": (2, 37, 72, 12, 62, 3, 3, 1, 1, (1, 16, 64, 8, 56)),
+    "conv3_x_tile": (6, 48, 70, 20, 20, 3, 3, 1, 1, (5, 16, 64, 14, 7)),
+    "conv4_x_tile": (6, 72, 64, 16, 16, 3, 3, 1, 1, (5, 16, 64, 14, 7)),
+    "conv5_x_tile": (11, 40, 70, 9, 9, 3, 3, 1, 1, (10, 16, 64, 7, 7)),
+    "stride2_stages": (2, 36, 40, 23, 23, 3, 3, 2, 2, (1, 16, 32, 5, 6)),
+    "linear_tile": (2, 8, 32, 40, 40, 3, 3, 1, 1, (1, 8, 32, 32, 32)),
+}
 
 
 def _conv_operands(seed, xs, ws):
@@ -350,9 +367,9 @@ def test_explain_conv2d_q_and_matmul_q_equal():
 def test_int8_launch_configs_fit_the_card():
     """Every int8 H100 plan of the main path launches: its accumulator tile
     (up to 32,768 int32 values) is held by at most 512 threads x 64
-    registers (conv2d_q: micro-tiles; matmul_q: 16 warps of m16n8 tiles on
-    the tensor cores) and its stages fit a block's shared memory; a plan for
-    the TPU's VMEM is refused, not run."""
+    registers (both kernels: 16 warps of m16n8 tiles on the tensor cores)
+    and its stages fit a block's shared memory; a plan for the TPU's VMEM
+    is refused, not run."""
     seen = set()
     for name, _, top in _int8_specs():
         tiles = tp.Planner(tp.H100).plan(top).tiles
@@ -360,18 +377,20 @@ def test_int8_launch_configs_fit_the_card():
             bN, b_cI, b_cO, bh, bw = tiles
             h_in = (bh - 1) * top.sh + top.h_F
             w_in = (bw - 1) * top.sw + top.w_F
-            cfg = conv_launch_config(tiles, top.h_F, top.w_F, h_in, w_in)
-            rows, cols = b_cO, bN * bh * bw
-            held = (-(-rows // (cfg["threads"] // cfg["n_pg"]))
-                    * -(-cols // cfg["n_pg"]))
+            hw = ((top.h_O - 1) * top.sh + top.h_F,
+                  (top.w_O - 1) * top.sw + top.w_F)
+            cfg = conv_launch_config(tiles, top.h_F, top.w_F, h_in, w_in,
+                                     top.c_I, hw)
+            rows, cols = bN * bh * bw, b_cO
+            assert cfg["n32"] * 32 >= cfg["ks"], name
         else:
             bm, bn, bk = tiles
             cfg = matmul_launch_config(bm, bn, bk)
             rows, cols = bm, bn
-            held = cfg["acc_per_thread"]
-            assert cfg["kernel"] == "tensor core", name
-            assert cfg["rows"] >= bm and cfg["cols"] >= bn, name
             assert cfg["ks"] % 32 == 0 and cfg["ks"] >= bk, name
+        held = cfg["acc_per_thread"]
+        assert cfg["kernel"] == "tensor core", name
+        assert cfg["rows"] >= rows and cfg["cols"] >= cols, name
         assert cfg["threads"] <= 512 and cfg["smem"] <= 232448, name
         assert held <= 64 and cfg["threads"] * 64 >= rows * cols, name
         seen.add(rows * cols)
@@ -392,8 +411,9 @@ def test_int8_kernels_on_the_card():
     where there is a GPU; chip_smoke.py checks the main-path shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    for case in sorted(CONV_CASES):
-        N, cI, cO, H, W, hF, wF, sh, sw, tiles = CONV_CASES[case]
+    cases = {**CONV_CASES, **TC_CONV_CASES}
+    for case in sorted(cases):
+        N, cI, cO, H, W, hF, wF, sh, sw, tiles = cases[case]
         _, (tx, tw, ts) = _conv_operands(3, (N, cI, H, W), (cO, cI, hF, wF))
         tx, tw, ts = tx.cuda(), tw.cuda(), ts.cuda()
         for to in (torch.float32, torch.bfloat16):
@@ -422,5 +442,6 @@ def test_int8_kernels_on_the_card():
             torch.testing.assert_close(got, matmul_q_plain(a, b, s, to),
                                        rtol=0, atol=0)
     assert KERNELS["conv2d_q"].launches > 0 < KERNELS["matmul_q"].launches
-    mm = KERNELS["matmul_q"]  # every int8 GEMM runs on the tensor cores
-    assert mm.tensor_core_launches == mm.launches
+    # every int8 conv and GEMM runs on the tensor cores
+    for k in (KERNELS["conv2d_q"], KERNELS["matmul_q"]):
+        assert k.tensor_core_launches == k.launches
