@@ -26,13 +26,15 @@ kernel. Phases, each fatal on failure:
   2. build: all seven kernels, one nvcc per source (six), started together;
      the tensor-core variants of the GEMM, of the direct conv and of flash
      attention (every (hd, block, C) instance of ``flash_tc_kernel``), of
-     the int8 GEMM (``matmul_q_tc_kernel``) and of the int8 conv
+     paged decode (every head-dim instance of ``paged_decode_tc_kernel``),
+     of the int8 GEMM (``matmul_q_tc_kernel``) and of the int8 conv
      (``conv2d_q_tc_kernel``): registers and spills from ptxas and the count
      of tensor-core instructions in their SASS (cuobjdump; HMMA for the bf16
      kernels, IMMA for the int8 ones), fatal if a variant has none or a
-     main-path variant spills (flash: hd 128 at block 64; matmul_q: the
-     variant of the (128, 256) and (256, 128) plans, bf16 out; conv2d_q: the
-     (2, 8) variant of the five layers' plans, bf16 out);
+     main-path variant spills (flash: hd 128 at block 64; paged decode: hd
+     128; matmul_q: the variant of the (128, 256) and (256, 128) plans,
+     bf16 out; conv2d_q: the (2, 8) variant of the five layers' plans, bf16
+     out);
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and main-path shapes (TF32 off); each check names the kernel
      its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
@@ -56,15 +58,17 @@ kernel. Phases, each fatal on failure:
      f32; GQA groups 1 and 8; hd 64 and 128; ragged lengths; int and
      per-row offsets; a pad-tail key mask with one fully masked row; then
      every compiled (hd, block) instance in bf16 at runtime tiles bq 8, 24,
-     40 and 128, so that every warp grid R x C runs; paged tables with
-     padding and a dead row on block 0); each flash check names the kernel
-     it took (bf16: tensor core, f32: fma) and fails on the other;
+     40 and 128, so that every warp grid R x C runs; ``PAGED_CASES``: paged
+     tables with padding and a dead row on block 0, g 1, 8 and 16, hd 16,
+     32, 64 and 128, blocks of 4 and 16 keys, w from 1 to 32 with several
+     slots a CTA, rows of length 0); each flash and paged check names the
+     kernel it took (bf16: tensor core, f32: fma) and fails on the other;
   7. the serving path inside ``ops.record_dispatch()``: the paged engine
      and the contiguous engine on the same 8 greedy requests, then a
      cache-less forward of one prompt, the counters set to 0 just before
      and read just after each of the three runs (the paged engine must
      launch both kernels, the other two runs the flash kernel; every flash
-     launch must be a tensor-core launch); every
+     and every paged-decode launch must be a tensor-core launch); every
      request must finish "length" with 32 tokens, both engines must give
      each request the same first token, and no attention decision may
      leave ``cuda``; then
@@ -80,8 +84,9 @@ kernel. Phases, each fatal on failure:
      bound ratio for one prefill and one decode call; for flash attention,
      SDPA and paged decode also a per-launch time (CUDA events around 50
      back-to-back calls, divided by 50) and the device time of a call (a
-     CUDA graph of 20 calls, replayed: no host work between them), and the
-     prefill's TFLOP/s on the compulsory work;
+     CUDA graph of 20 calls, replayed: no host work between them), the
+     prefill's TFLOP/s on the compulsory work, and paged decode's split S
+     and CTA count;
   9. the int8 kernels against their plain versions: phase 3's six conv cases
      (ragged tiles, stride 2, h_F = 1, c_I = 3), each main-path int8 tile at
      a small N, H and W with ragged edges (conv1's one stage and zero plane;
@@ -446,7 +451,7 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
         ms = e.device_time_total / 1e3
         kind = ("attention kernels" if "flash_kernel" in e.name
                 or "flash_tc_kernel" in e.name
-                or "paged_decode_kernel" in e.name else
+                or "paged_decode" in e.name else
                 "conv1d kernels" if "conv1d_kernel" in e.name else
                 "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
                 else "other aten kernels")
@@ -510,6 +515,66 @@ def paged_decode_operands(gen: torch.Generator, cfg, lens) -> tuple:
     return qp, kp, vp, tables, lengths, depths, w
 
 
+# phase 6's paged-decode checks, (B, KV, g, hd, bs, w, lengths): the
+# serving shape with padding and a dead row, g 1 and 16 at hd 16 over 4-key
+# blocks with several slots a CTA and a length-0 row, hd 32 and 64, and the
+# serve's own table width with a length-0 row
+PAGED_CASES = [
+    (4, 2, 8, 128, 16, 32, (512, 17, 1, 1)),
+    (4, 2, 1, 16, 4, 25, (100, 7, 1, 0)),
+    (4, 2, 16, 16, 4, 25, (100, 7, 1, 0)),
+    (4, 2, 16, 128, 4, 7, (28, 7, 1, 0)),
+    (3, 4, 4, 32, 16, 8, (128, 31, 0)),
+    (3, 4, 4, 64, 16, 9, (144, 16, 0)),
+    (4, 2, 8, 128, 16, 13, (205, 151, 0, 41)),
+    (1, 2, 8, 128, 16, 1, (16,)),
+]
+
+
+def paged_checks(gen: torch.Generator, record) -> None:
+    """Phase 6's paged-decode checks against the plain version, bf16 and
+    f32, each naming the kernel its dtype took (bf16: tensor core, f32:
+    fma) and the split; fatal on the other kernel. Rows past the first have
+    padding at garbage block 0 and the last row is dead (all block 0)."""
+    from repro_torch.kernels import (KERNELS, paged_decode_attention,
+                                     paged_decode_plain)
+    from repro_torch.kernels.flash_attention import paged_launch_config
+
+    dev = torch.device("cuda")
+    pk = KERNELS["paged_decode"]
+    gen.manual_seed(SEED + 11)
+    for B, KV, g, hd, bs, w, lens in PAGED_CASES:
+        nb = 1 + B * w
+        for dt in (torch.bfloat16, torch.float32):
+            kp = torch.randn((nb, KV, bs, hd), generator=gen,
+                             device=dev).to(dt)
+            vp = torch.randn((nb, KV, bs, hd), generator=gen,
+                             device=dev).to(dt)
+            q = torch.randn((B, KV * g, 1, hd), generator=gen,
+                            device=dev).to(dt)
+            tables = (1 + torch.randperm(nb - 1, generator=gen, device=dev)
+                      [:B * w]).reshape(B, w).to(torch.int32)
+            for r, n in enumerate(lens):  # padding points at block 0
+                tables[r, max(1, -(-n // bs)):] = 0
+            if B > 1:
+                tables[-1, :] = 0  # a dead row reads garbage block 0
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            tc = pk.tensor_core_launches
+            got = paged_decode_attention(q, kp, vp, tables, lengths)
+            torch.cuda.synchronize()
+            path = "tensor core" if pk.tensor_core_launches > tc else "fma"
+            if path != ("tensor core" if dt == torch.bfloat16 else "fma"):
+                fail(f"paged_decode: a {dt} call took the {path} kernel")
+            cfg = paged_launch_config(B, KV, g, hd, bs, w, dt)
+            record("paged_decode", got,
+                   paged_decode_plain(q, kp, vp, tables, lengths),
+                   f"{dt} B={B} KV={KV} g={g} hd={hd} bs={bs} w={w} lengths "
+                   f"{lens} on {path}, S {cfg['split']} x "
+                   f"{cfg['slots_per_cta']} slots")
+        del kp, vp, q
+    torch.cuda.empty_cache()
+
+
 def serving_phases(gen: torch.Generator, record) -> tuple:
     """Phases 6-8 (module docstring): the attention kernels against their
     plain versions, the serving path at full width, and the attention
@@ -525,7 +590,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                                      flash_attention_plain,
                                      paged_decode_attention,
                                      paged_decode_plain)
-    from repro_torch.kernels.flash_attention import FLASH_INSTANCES
+    from repro_torch.kernels.flash_attention import (FLASH_INSTANCES,
+                                                     paged_launch_config)
     from repro_torch.kernels.flash_attention import \
         launch_config as flash_config
     from repro_torch.models import transformer as T
@@ -603,26 +669,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                     flash_check(f"bf16 hd={hd} block={blk} (R {r}, C {c}) "
                                 f"g={g} Lq={Lq} Lk={Lk} {kind}", q, k, v,
                                 offs, Lq, mask, blk)
-    Bp, KVp, gp, hdp, bsp, wp = 4, 2, 8, 128, 16, 32
-    nb = 1 + Bp * wp
-    for dt in (torch.bfloat16, torch.float32):
-        kp = randn((nb, KVp, bsp, hdp), dt)
-        vp = randn((nb, KVp, bsp, hdp), dt)
-        q = randn((Bp, KVp * gp, 1, hdp), dt)
-        tables = (1 + torch.randperm(nb - 1, generator=gen, device=dev)
-                  [:Bp * wp]).reshape(Bp, wp).to(torch.int32)
-        tables[1, 2:] = 0  # padding points at garbage block 0
-        tables[3, :] = 0  # a dead row reads garbage block 0
-        lengths = torch.tensor([wp * bsp, 17, 1, 1], dtype=torch.int32,
-                               device=dev)
-        tables[2, 1:] = 0
-        got = paged_decode_attention(q, kp, vp, tables, lengths)
-        torch.cuda.synchronize()
-        record("paged_decode", got, paged_decode_plain(q, kp, vp, tables,
-                                                       lengths),
-               f"{dt} B={Bp} KV={KVp} g={gp} hd={hdp} bs={bsp} w={wp} "
-               "lengths (512, 17, 1, 1 dead)")
-    del kp, vp, q, k, v
+    paged_checks(gen, record)
+    del q, k, v
     torch.cuda.empty_cache()
 
     # -- 7. the serving path ------------------------------------------------
@@ -645,12 +693,14 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
         prompts[i][:32] = shared
     ctx = ExecutionContext(target=H100, backend="cuda")
     attn_names = ("flash_attention", "paged_decode")
-    serve_launches = dict.fromkeys(attn_names + ("flash_tensor_core",), 0)
+    serve_launches = dict.fromkeys(
+        attn_names + ("flash_tensor_core", "paged_tensor_core"), 0)
 
     def counted(run: str, must_launch, fn):
         """Counters to 0 just before ``fn``, read just after; fail unless
-        every kernel of ``must_launch`` ran and every flash launch took the
-        tensor-core kernel. Returns ``fn()`` and the run's launches."""
+        every kernel of ``must_launch`` ran and every flash and paged-decode
+        launch took its tensor-core kernel. Returns ``fn()`` and the run's
+        launches."""
         zero_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -662,6 +712,13 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
             if launched[n] <= 0:
                 fail(f"{run}: the {n} kernel was never launched")
         serve_launches["flash_tensor_core"] += flash_on_tensor_cores(run)
+        pk = KERNELS["paged_decode"]
+        print(f"{run}: paged_decode on the tensor cores "
+              f"{pk.tensor_core_launches} of {pk.launches}", flush=True)
+        if pk.tensor_core_launches != pk.launches:
+            fail(f"{run}: {pk.launches - pk.tensor_core_launches} paged "
+                 "decode launches took the FMA kernel, not the tensor cores")
+        serve_launches["paged_tensor_core"] += pk.tensor_core_launches
         return out, launched
 
     engines = {"paged": (dict(paged=True), attn_names),
@@ -891,9 +948,11 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                                      PEAK_BF16_FLOPS)
     dec_decode = ops.explain("attention_decode", ctx, dtype=qp.dtype,
                              spec_args=(qp, kp, vp, tables, lengths))
+    paged_cfg = paged_launch_config(4, KV, g, hd, 16, w, qp.dtype)
     print(json.dumps({"kernel_shape": "paged_decode", "phase": "paged decode",
                       "B": 4, "KV": KV, "g": g, "hd": hd, "block_size": 16,
                       "w": w, "lengths": [d + 1 for d in depths],
+                      "split": paged_cfg["split"], "ctas": paged_cfg["ctas"],
                       "ms": paged_ms, "plain_ms": paged_plain,
                       "ms_per_launch": paged_launch,
                       "device_ms_per_call": paged_dev,
@@ -921,12 +980,15 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
          "shapes": f"{cfg.name} prefill: B 1, H {H}/{KV}, Lq {Lq}, Lk {Lk}, "
                    f"hd {hd}, bf16, causal + key mask"},
         {"name": "paged_decode", "route": "cuda",
-         "launches": serve_launches["paged_decode"], "ms": paged_ms,
+         "launches": serve_launches["paged_decode"],
+         "tensor_core_launches": serve_launches["paged_tensor_core"],
+         "split": paged_cfg["split"], "ctas": paged_cfg["ctas"],
+         "ms": paged_ms,
          "ms_per_launch": paged_launch, "device_ms_per_call": paged_dev,
          "plain_ms": paged_plain, "bound_ms": paged_bound,
          "bound_by": paged_by, "library_ms": None, "ok": True,
          "shapes": f"{cfg.name} decode: B 4, KV {KV}, g {g}, hd {hd}, "
-                   f"block 16, w {w}, bf16"},
+                   f"block 16, w {w}, bf16, S {paged_cfg['split']}"},
     ], state
 
 
@@ -1826,6 +1888,12 @@ def main() -> None:
     tc_variants("flash_attention", "flash_tc_kernel", flash_variants,
                 {label for label, (hd, b, _) in flash_variants
                  if (hd, b) == (128, 64)})
+    # paged decode's bf16 kernel: HMMA in every head-dim instance; the main
+    # path's (hd 128) must not spill
+    from repro_torch.kernels.flash_attention import PAGED_HEAD_DIMS
+    tc_variants("paged_decode", "paged_decode_tc_kernel",
+                [(f"(hd {hd})", (hd,)) for hd in PAGED_HEAD_DIMS],
+                {"(hd 128)"})
     # the int8 GEMM: IMMA (mma.sync s8) in every instance; the variant of
     # phase 11's plans, (128, 256) and (256, 128), with bf16 out must not
     # spill

@@ -1,6 +1,6 @@
-"""Time the port's int8 direct conv and its paged decode on the card.
+"""Time the port's int8 direct conv on the card.
 
-    python3 scripts/time_int8_conv.py [--root DIR] [--paged]
+    python3 scripts/time_int8_conv.py [--root DIR]
 
 Each of the five ResNet-50 layers at batch 1000 (chip_smoke.py's
 ``layer_inputs``, quantized on the card with ``quantize_conv_operands``)
@@ -8,10 +8,9 @@ goes through ``ops.conv2d_q`` on the ``cuda`` backend under the H100 int8
 plans, bf16 out, as in chip_smoke.py's phase 10, timed as a call (CUDA
 events around one call, host work included), a launch (50 back-to-back
 calls) and on the device (a replayed CUDA graph of 20 calls): the
-measurement of chip_smoke.py's rows 6-7 block. With ``--paged``, also
-``paged_decode_attention`` at phase 8's shape, the same three ways. Prints
-one JSON line a layer, one with the sums and, with ``--paged``, one for the
-paged decode. The measuring code is always this checkout's; ``--root``
+measurement of chip_smoke.py's rows 6-7 block. Prints one JSON line a
+layer and one with the sums (``scripts/time_paged_decode.py`` times the
+paged decode). The measuring code is always this checkout's; ``--root``
 times another checkout's package (its ``src``), so that two versions of
 the kernel can be compared on one card in one run: run them in turn,
 A B B A. Needs a CUDA device.
@@ -29,8 +28,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose package is timed (default: this one)")
-    ap.add_argument("--paged", action="store_true",
-                    help="also time the paged decode at the serving shape")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(HERE))
@@ -78,25 +75,6 @@ def main() -> None:
                       "shapes": "sum over the five ResNet-50 layers at batch "
                                 f"{cs.BATCH}, int8 in, bf16 out", **sums}),
           flush=True)
-    if args.paged:
-        from repro_torch.configs import get_config
-        from repro_torch.kernels import paged_decode_attention
-
-        KERNELS["paged_decode"].fn()
-        gen.manual_seed(cs.SEED + 20)
-        _, lens = cs.serving_prompt_lens()
-        q, kp, vp, tables, lengths, depths, width = cs.paged_decode_operands(
-            gen, get_config(cs.ARCH), lens)
-
-        def paged():
-            return paged_decode_attention(q, kp, vp, tables, lengths)
-
-        print(json.dumps({
-            "root": str(root), "device": cs.smi(), "kernel": "paged_decode",
-            "B": 4, "lengths": [d + 1 for d in depths], "w": width,
-            "ms": cs.median_ms(paged, 2, 20),
-            "ms_per_launch": cs.per_launch_ms(paged),
-            "device_ms_per_call": cs.graph_ms_per_call(paged)}), flush=True)
 
 
 if __name__ == "__main__":

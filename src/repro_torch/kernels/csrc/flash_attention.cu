@@ -291,16 +291,6 @@ constexpr int tc_smem_bytes() {
   return 5 * BLOCK * (HD + 8) * 2 + (C - 1) * R * 32 * (4 + HD / 2) * 4;
 }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 template <int HD, int BLOCK, int C>
 __global__ void __launch_bounds__(32 * tc_warps<BLOCK>(), 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -1,12 +1,12 @@
 // Device helpers shared by the tensor-core kernels of csrc/matmul.cu,
-// csrc/conv2d.cu, csrc/flash_attention.cu and csrc/quant.cu: cp.async
-// 16-byte copies into shared memory, ldmatrix (bf16 tiles, and int8 tiles
-// read as b16 pairs), the mma.sync m16n8k16 bf16 and m16n8k32 s8 products,
-// the tile copies that feed a shared-memory ring, a kernel's launch
-// attributes set once, and what the two direct convs (bf16 and int8) share:
-// the halo window's copy into a slot, the output tile of a CTA and 4-pixel
-// stores. Included once by each source (the build hashes the headers of
-// csrc/ with the source).
+// csrc/conv2d.cu, csrc/flash_attention.cu, csrc/paged_decode.cu and
+// csrc/quant.cu: cp.async 16-byte copies into shared memory, ldmatrix
+// (bf16 tiles, and int8 tiles read as b16 pairs), the mma.sync m16n8k16
+// bf16 and m16n8k32 s8 products, the tile copies that feed a shared-memory
+// ring, a kernel's launch attributes set once, and what the two direct
+// convs (bf16 and int8) share: the halo window's copy into a slot, the
+// output tile of a CTA and 4-pixel stores. Included once by each source
+// (the build hashes the headers of csrc/ with the source).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +55,17 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r0)[2], uint32_t (&r1)[2],
 __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+// two f32 values as one register of a bf16 pair (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

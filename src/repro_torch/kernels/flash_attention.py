@@ -11,16 +11,21 @@ On CUDA tensors, :func:`flash_attention` launches ``csrc/flash_attention.cu``
 (the reference's ``_flash_kernel`` and ``_flash_kernel_dyn`` in one source:
 offsets and lengths are int32 device arrays, static ones constant arrays)
 and :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (the
-reference's ``_paged_decode_kernel``). The flash source has two kernels,
-chosen by the input dtype (:func:`launch_config`): bf16 takes
+reference's ``_paged_decode_kernel``). Each source has two kernels, chosen
+by the input dtype: for flash (:func:`launch_config`) bf16 takes
 ``flash_tc_kernel`` (both products on the tensor cores with ``mma.sync``, a
 two-slot ``cp.async`` K/V ring, an R x C warp grid that splits the keys of
-a tile over C warps at decode shapes); f32 takes the FMA ``flash_kernel``.
-On CPU tensors each wrapper runs its plain PyTorch version
-(:func:`flash_attention_plain`, :func:`paged_decode_plain`). There is no
-fallback between the two. :func:`flash_attention_tc_emulate` models the
-tensor-core kernel's arithmetic (bf16 P, split keys, merge) for the CPU
-tests; nothing on the main path calls it.
+a tile over C warps at decode shapes) and f32 the FMA ``flash_kernel``; for
+paged decode (:func:`paged_launch_config`) bf16 takes
+``paged_decode_tc_kernel`` (``mma.sync``) and f32 the FMA
+``paged_decode_fma_kernel``, both a split of each row's table slots over
+the CTAs of one thread-block cluster, merged through distributed shared
+memory, dead slots skipped. On CPU tensors each wrapper runs its plain
+PyTorch version (:func:`flash_attention_plain`, :func:`paged_decode_plain`).
+There is no fallback between the two. :func:`flash_attention_tc_emulate`
+and :func:`paged_decode_tc_emulate` model the kernels' arithmetic (bf16 P,
+split keys, merges) for the CPU tests; nothing on the main path calls
+them.
 
 Masking follows the reference's finite ``NEG_INF = -1e30``: a query row whose
 keys are all masked averages V over its keys, giving neither zeros nor NaN.
@@ -28,6 +33,8 @@ Keys past the array's end (the kernel's ragged tile edge) get zero weight.
 
 ``attention_hbm_words`` / ``paged_decode_hbm_words`` are the reference's
 counters, unchanged: the words one launch moves, from its launch geometry.
+``paged_decode_issued_words`` counts what the paged kernel issues, which
+skips dead slots: at most the counter.
 """
 
 from __future__ import annotations
@@ -72,6 +79,12 @@ FLASH_INSTANCES = frozenset(
     + [(hd, b) for hd in (64, 128) for b in (32, 64)])
 PAGED_HEAD_DIMS = (16, 32, 64, 128)
 PAGED_MAX_GROUP = 16  # query heads per kv head (csrc/paged_decode.cu G_MAX)
+# csrc/paged_decode.cu's launch constants (a test pins them to the source)
+PAGED_WARPS = 4  # WARPS: a CTA's warps (each an 8-key slab of a tile, bf16)
+PAGED_KEY_TILE = 32  # KEY_TILE: keys a ring slot holds
+PAGED_RING = 4  # RING: ring slots
+PAGED_MAX_SPLIT = 8  # MAX_SPLIT: CTAs a cluster, the portable cluster size
+PAGED_TARGET_CTAS = 264  # TARGET_CTAS: twice the H100's 132 SMs
 
 
 def attention_blocks(dh: int, target: HardwareTarget,
@@ -417,6 +430,145 @@ def paged_decode_plain(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     return o.reshape(B, H, 1, hd).to(q.dtype)
 
 
+def paged_launch_config(B: int, KV: int, g: int, hd: int, bs: int, w: int,
+                        dtype) -> dict:
+    """The launch of ``csrc/paged_decode.cu`` for B rows of ``w`` table slots
+    of ``bs`` keys, KV kv heads of ``g`` query heads and head dim ``hd``,
+    from the shapes alone (never the lengths, so the host reads nothing
+    from the device): ``split`` S, the CTAs of a (row, kv head) cluster;
+    ``slots_per_cta``, the table slots each takes in order (as many CTAs as
+    bring the grid to ``PAGED_TARGET_CTAS``, at most ``PAGED_MAX_SPLIT`` and
+    at most w, then as few as take the w slots in shares of that size);
+    ``grid`` (S, KV, B) and ``cluster`` (S, 1, 1); ``ctas``; ``kernel``
+    (``"tensor core"`` for bf16, ``"fma"`` for f32); ``warps``,
+    ``key_tile``, ``slab`` (the keys of a tile one softmax state takes: a
+    warp's 8 on the tensor cores, the whole tile on the FMA pipe) and
+    ``smem`` (dynamic shared-memory bytes, as the source computes them:
+    the query rows and the ring's K/V rows, padded to hd + 8 bf16 or hd + 4
+    f32, and the FMA kernel's scores and softmax state). Raises
+    ValueError for a shape the kernel does not take, TypeError for another
+    dtype."""
+    if (hd not in PAGED_HEAD_DIMS or not 1 <= g <= PAGED_MAX_GROUP
+            or min(B, KV, bs, w) < 1 or max(B, KV) > 65535):
+        raise ValueError(f"paged_decode_attention takes hd in "
+                         f"{PAGED_HEAD_DIMS}, 1 to {PAGED_MAX_GROUP} query "
+                         f"heads per kv head and 1 to 65535 rows and kv "
+                         f"heads, got B={B}, KV={KV}, g={g}, hd={hd}, "
+                         f"bs={bs}, w={w}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16, "
+                        f"not {dtype}")
+    want = max(1, -(-PAGED_TARGET_CTAS // (B * KV)))
+    spc = -(-w // min(PAGED_MAX_SPLIT, w, want))
+    split = -(-w // spc)
+    rows = PAGED_MAX_GROUP + PAGED_RING * 2 * PAGED_KEY_TILE
+    if dtype == torch.bfloat16:
+        kernel, slab = "tensor core", PAGED_KEY_TILE // PAGED_WARPS
+        smem = rows * (hd + 8) * 2
+    else:
+        kernel, slab = "fma", PAGED_KEY_TILE
+        smem = 4 * (rows * (hd + 4) + PAGED_MAX_GROUP * PAGED_KEY_TILE
+                    + 3 * PAGED_MAX_GROUP)
+    check_smem(smem, f"paged_decode hd={hd}")
+    return dict(split=split, slots_per_cta=spc, grid=(split, KV, B),
+                cluster=(split, 1, 1), ctas=split * KV * B, kernel=kernel,
+                warps=PAGED_WARPS, key_tile=PAGED_KEY_TILE, slab=slab,
+                smem=smem)
+
+
+def paged_live_slots(length: int, w: int, bs: int) -> int:
+    """The table slots the kernel loads for a row: those that start before
+    its length, or all ``w`` for a row of length 0 or less, which averages
+    V over them as the reference does."""
+    return min(w, -(-length // bs)) if length > 0 else w
+
+
+def paged_cta_keys(length: int, w: int, bs: int, split: int,
+                   slots_per_cta: int) -> list:
+    """The keys [k0, k1) of its row that each CTA of a cluster walks (an
+    empty range for a CTA with no live slot): rank r takes slots
+    [r spc, (r + 1) spc), cut at the row's live slots."""
+    live = paged_live_slots(length, w, bs)
+    out = []
+    for r in range(split):
+        j0 = r * slots_per_cta
+        j1 = max(j0, min(j0 + slots_per_cta, live))
+        out.append((j0 * bs, j1 * bs))
+    return out
+
+
+def paged_decode_tc_emulate(q: torch.Tensor, kp: torch.Tensor,
+                            vp: torch.Tensor, tables: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """``csrc/paged_decode.cu``'s arithmetic in plain PyTorch, for the CPU
+    tests only: the S CTAs of ``paged_launch_config``, each over its live
+    keys (:func:`paged_cta_keys`) in key tiles, one online softmax in the
+    log2 domain a slab (bf16: each warp's 8 keys of a tile, P rounded to
+    bf16 before P V, l summed from the f32 probabilities; f32: the whole
+    tile, P in f32), the slabs' (m, l, O) merged into the CTA's partial,
+    then the live CTAs' partials merged as the cluster merges them."""
+    B, H, _, hd = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    w = tables.shape[1]
+    g = H // KV
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype)
+    tc = cfg["kernel"] == "tensor core"
+    kt, slab = cfg["key_tile"], cfg["slab"]
+    sl2 = torch.tensor((1.0 / hd ** 0.5) * LOG2E, dtype=torch.float32)
+    qg = q.reshape(B, KV, g, hd).float()
+    tables = tables.long()
+    out = torch.empty((B, KV, g, hd), dtype=torch.float32)
+    for b in range(B):
+        length = int(lengths[b])
+        # the row's keys in order, (KV, w * bs, hd)
+        kr = kp[tables[b]].float().permute(1, 0, 2, 3).reshape(KV, w * bs, hd)
+        vr = vp[tables[b]].float().permute(1, 0, 2, 3).reshape(KV, w * bs, hd)
+        parts = []
+        for k0, k1 in paged_cta_keys(length, w, bs, cfg["split"],
+                                     cfg["slots_per_cta"]):
+            if k1 == k0:
+                continue  # no live slot: not read by the merge
+            states = {}  # slab offset in a tile -> (m, l, O)
+            for kb in range(k0, k1, kt):
+                for c0 in range(0, kt, slab):
+                    lo, hi = kb + c0, min(kb + c0 + slab, k1)
+                    if lo >= hi:
+                        continue  # no key in the slab
+                    m, lsum, o = states.get(c0, (
+                        torch.full((KV, g), NEG_INF),
+                        torch.zeros((KV, g)), torch.zeros((KV, g, hd))))
+                    with no_tf32():
+                        s = torch.einsum("kgd,knd->kgn", qg[b],
+                                         kr[:, lo:hi]) * sl2
+                    live = torch.arange(lo, hi) < length
+                    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+                    mx = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp2(m - mx)
+                    pr = torch.exp2(s - mx[..., None])
+                    lsum = alpha * lsum + pr.sum(-1)
+                    if tc:
+                        pr = pr.to(torch.bfloat16).float()
+                    with no_tf32():
+                        pv = torch.einsum("kgn,knd->kgd", pr, vr[:, lo:hi])
+                    states[c0] = (mx, lsum, alpha[..., None] * o + pv)
+            parts.append(_merge_partials(list(states.values())))
+        m, lsum, o = _merge_partials(parts)
+        lsum = torch.where(lsum == 0, torch.ones_like(lsum), lsum)
+        out[b] = o / lsum[..., None]
+    return out.reshape(B, H, 1, hd).to(q.dtype)
+
+
+def _merge_partials(parts: list) -> tuple:
+    """(m*, sum e^(m_j - m*) l_j, sum e^(m_j - m*) O_j) of the partials
+    (m_j, l_j, O_j), in the log2 domain: one merge of the kernel."""
+    m = torch.stack([p[0] for p in parts])
+    ms = m.amax(0)
+    wt = torch.exp2(m - ms)
+    lsum = (wt * torch.stack([p[1] for p in parts])).sum(0)
+    o = (wt[..., None] * torch.stack([p[2] for p in parts])).sum(0)
+    return ms, lsum, o
+
+
 def paged_decode_attention(
     q: torch.Tensor,        # (B, H, 1, hd) - one new query per sequence
     kp: torch.Tensor,       # (num_blocks, KV, block_size, hd) - key pool
@@ -439,11 +591,11 @@ def paged_decode_attention(
     KV, bs = kp.shape[1], kp.shape[2]
     w = tables.shape[1]
     g = H // KV
-    if hd not in PAGED_HEAD_DIMS or g > PAGED_MAX_GROUP or H % KV:
-        raise ValueError(f"paged_decode_attention takes hd in "
-                         f"{PAGED_HEAD_DIMS} and at most {PAGED_MAX_GROUP} "
-                         f"query heads per kv head, got hd={hd}, H={H}, "
-                         f"KV={KV}")
+    if H % KV:
+        raise ValueError(f"paged_decode_attention: H={H} query heads do not "
+                         f"fold over KV={KV} kv heads")
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype)
+    q, kp, vp = _aligned(q), _aligned(kp), _aligned(vp)
     dev = q.device
     tables = tables.to(device=dev, dtype=torch.int32).contiguous()
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
@@ -456,7 +608,8 @@ def paged_decode_attention(
         PAGED_KERNEL.launch(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), dtype_code(q.dtype), hd, B,
-            KV, g, bs, w, 1.0 / hd ** 0.5, stream)
+            KV, g, bs, w, 1.0 / hd ** 0.5, stream,
+            tensor_core=cfg["kernel"] == "tensor core")
     return out
 
 
@@ -481,6 +634,25 @@ def attention_hbm_words(BH: int, Lq: int, Lk: int, dh: int,
     return (p_q * BH * lqp * dh
             + 2.0 * p_kv * BH * kv_fetches * lkp * dh
             + p_o * BH * lqp * dh)
+
+
+def paged_decode_issued_words(lengths, B: int, KV: int, g: int, w: int,
+                              block_size: int, hd: int, p_q: float = 1.0,
+                              p_kv: float = 1.0, p_o: float = 1.0) -> float:
+    """Words ``csrc/paged_decode.cu`` issues for one step with these
+    ``lengths``: each (row, kv head) cluster loads its (g, hd) query group
+    once (rank 0; the other ranks copy it through distributed shared
+    memory), k and v of the row's live slots only (:func:`paged_live_slots`)
+    and stores the group once; no partial leaves the cluster. The int32
+    table entries of the live slots and the lengths count 1 word each once
+    a row, as :func:`paged_decode_hbm_words` counts the whole tables (the KV
+    clusters of a row re-read them from the L2). At most that counter, and
+    equal to it when every row's slots are all live."""
+    live = sum(paged_live_slots(int(n), w, block_size) for n in lengths)
+    return (p_q * B * KV * g * hd
+            + 2.0 * p_kv * KV * live * block_size * hd
+            + p_o * B * KV * g * hd
+            + live + B)
 
 
 def paged_decode_hbm_words(B: int, KV: int, g: int, w: int, block_size: int,

@@ -401,8 +401,8 @@ def test_flash_gradient_recomputes_through_aten():
 def test_attention_kernels_match_plain_on_the_card():
     """The two hand-written kernels against their plain versions (runs only
     where there is a GPU and nvcc; chip_smoke.py runs the full set). The
-    main-path flash shapes are held to chip_smoke.py's bf16 tolerance,
-    2^-7 x max(1, max|plain|)."""
+    main-path flash and paged-decode shapes are held to chip_smoke.py's
+    bf16 tolerance, 2^-7 x max(1, max|plain|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     ((_, tq), (_, tk), (_, tv)), off, Lq = _flash_inputs("g2_ragged_blocks",
@@ -439,3 +439,18 @@ def test_attention_kernels_match_plain_on_the_card():
     torch.testing.assert_close(paged_decode_attention(*args).float(),
                                paged_decode_plain(*args).float(),
                                rtol=2e-2, atol=2e-2)
+    # Qwen's paged decode step (B 4, KV 2, g 8, hd 128, blocks of 16, w 15)
+    # at the serve's depths, on the tensor-core kernel
+    ((_, q), (_, kp), (_, vp)), tables, _ = _paged_inputs(
+        "bf16", B=4, KV=2, g=8, hd=128, bs=16, w=15, seed=12)
+    lengths = np.array([205, 151, 120, 41], np.int32)
+    for r, n in enumerate(lengths):
+        tables[r, -(-n // 16):] = 0  # padding points at garbage block 0
+    args = (q.cuda(), kp.cuda(), vp.cuda(), torch.from_numpy(tables).cuda(),
+            torch.from_numpy(lengths).cuda())
+    tc = KERNELS["paged_decode"].tensor_core_launches
+    got = paged_decode_attention(*args)
+    assert KERNELS["paged_decode"].tensor_core_launches == tc + 1
+    want = paged_decode_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * max(1.0, want.float().abs().max().item())
