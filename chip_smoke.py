@@ -162,7 +162,23 @@ kernel. Phases, each fatal on failure:
      replayed CUDA graph of 20 calls), with the device time's share of the
      bound, the plain version's time and ``ops.explain``'s words; fatal
      unless the kernel's error is 0; then one line of sums;
- 16. the ``kernels`` JSON line, the card's name and power limit, and the
+ 16. the static audit (``repro_torch.verify``) of every main-path
+     dispatch at full width under ``H100``, on the operands phases 4, 8, 10,
+     11 and 15 leave: the five layers on ``cuda``, ``im2col`` and
+     ``conv2d_q``, phase 11's three GEMMs, the Qwen prefill and contiguous
+     decode attention, phase 8's paged decode with its tables and lengths,
+     and the hybrid's 8 conv1d prefill shapes. Each is audited by
+     ``ops.explain(..., audit=True)`` (counted words equal to the counter,
+     shared memory within the card's, every ``cp.async`` ring schedule
+     hazard-free), launched once through its public entry, and held to its
+     plan: the wrapper's ``last_launch`` grid, block, shared memory and
+     cluster must be the plan's, and the words the counter does not charge
+     and the shortfall must equal their formulas (the int8 kernels'
+     per-CTA scale slices, conv1d's per-CTA filter reads, paged decode's
+     dead slots, the im2col GEMM's padded k-step and filter transpose,
+     flash's offsets; the window runs' overhang within run - 1 elements a
+     row); one ``{"audit": ...}`` line each, fatal on any mismatch;
+ 17. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -234,6 +250,10 @@ INT8_GEMMS = {"512x384x256": (512, 384, 256),
               "conv5_x Im2Col 49000x4608x512": (BATCH * 49, 4608, 512)}
 CONV_LIBRARY_NOTE = ("F.conv2d on the bf16 operands writes bf16, half the "
                      "kernel's f32 output bytes")
+
+
+# operands that phases 4, 8, 10, 11 and 15 leave for phase 16's audit
+HELD: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -930,6 +950,9 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     # paged decode: the serving pool's block size, the deepest row's width
     qp, kp, vp, tables, lengths, depths, w = paged_decode_operands(gen, cfg,
                                                                    lens)
+    HELD["attention"] = {"prefill": (q, k, v, off0, km),
+                         "decode": (qd, kd, vd, depth),
+                         "paged": (qp, kp, vp, tables, lengths)}
     paged_ms = median_ms(lambda: paged_decode_attention(qp, kp, vp, tables,
                                                         lengths), 2, 20)
     paged_plain = median_ms(lambda: paged_decode_plain(qp, kp, vp, tables,
@@ -1301,6 +1324,7 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
                "checked_images": [[0, BLOCK - 1], [s.N - BLOCK, s.N - 1]]}
         conv_rows[name] = row
         print(json.dumps(row), flush=True)
+        HELD.setdefault("conv_q", {})[name] = (xq, wq, sc)
         del xq, wq, sc, y
         torch.cuda.empty_cache()
     conv_launches = KERNELS["conv2d_q"].launches
@@ -1386,6 +1410,7 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
             row["device_tops_per_s"] = 2.0 * row["m"] * row["n"] * row[
                 "k"] / row["device_ms"] / 1e9
         print(json.dumps(row), flush=True)
+    HELD["matmul_q"] = kept
     del kept
     torch.cuda.empty_cache()
 
@@ -1804,6 +1829,7 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
             sums[key] = sums[key] + row[key] if both else "not measured"
         by_sum[row["bound_by"]] += row["bound_ms"]
         print(json.dumps(row), flush=True)
+        HELD.setdefault("conv1d", []).append((L, x, w))
         del x
     for key in ("device_ms", "library_device_ms"):
         if isinstance(sums[key], float):
@@ -1819,6 +1845,184 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
                       "in-projection; ms a call, ms_per_launch 50 back to "
                       "back, device_ms a replayed CUDA graph; library "
                       "F.conv1d (groups=D)"}
+
+
+def audit_phase() -> int:
+    """Phase 16 (module docstring): every main-path dispatch, on the
+    operands the earlier phases left in ``HELD``, audited by
+    ``ops.explain(..., audit=True)`` (an ``AuditError`` ends the run),
+    launched once through its public entry and held to its access plan: the
+    wrapper's ``last_launch`` grid, block, dynamic shared memory and
+    cluster must be the plan's, and the words the counter does not charge
+    (and the shortfall) must equal their formulas, computed here from the
+    launch and the shapes. One JSON line a dispatch; returns their count."""
+    from repro_torch import ops
+    from repro_torch.core.conv_model import resnet50_layers, round_up
+    from repro_torch.kernels import KERNELS, paged_decode_hbm_words
+    from repro_torch.kernels.conv1d import _conv1d_geometry
+    from repro_torch.kernels.flash_attention import paged_decode_issued_words
+    from repro_torch.kernels.matmul import launch_config as mm_config
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+
+    ctxs = {be: ExecutionContext(target=H100, backend=be)
+            for be in ("cuda", "im2col")}
+    layers = resnet50_layers(BATCH)
+    count = 0
+
+    def check(name, op, kernel, backend, spec_args, spec_kw, needs, run,
+              expect):
+        nonlocal count
+        d = ops.explain(op, ctxs[backend], dtype=spec_args[0].dtype,
+                        needs=needs, spec_args=spec_args, spec_kw=spec_kw,
+                        audit=True)
+        rep = d.audit_report
+        if not rep.ok or d.audited != d.measured_words:
+            fail(f"audit {name}: {rep.problems} {rep.hazards}")
+        KERNELS[kernel].last_launch = None
+        run()
+        torch.cuda.synchronize()
+        got, plan = KERNELS[kernel].last_launch, rep.launch
+        want = {"grid": plan.grid, "block": plan.block,
+                "smem": plan.smem_bytes, "cluster": plan.cluster}
+        if got != want:
+            fail(f"audit {name}: the {kernel} wrapper launched {got}, the "
+                 f"access plan says {want}")
+        uncounted = {k: v for k, v in rep.uncounted.items() if v}
+        exp_unc, exp_short, overhang = expect(d, got)
+        if overhang is not None:
+            # the window runs' overhang has no closed form: it must lie
+            # within run - 1 elements of every window row
+            words = uncounted.pop("input run overhang", 0.0)
+            if not 0 <= words <= overhang:
+                fail(f"audit {name}: run overhang {words} words, above "
+                     f"{overhang}")
+        if uncounted != exp_unc or rep.shortfall != exp_short:
+            fail(f"audit {name}: uncounted {uncounted}, shortfall "
+                 f"{rep.shortfall}; the formulas give {exp_unc}, "
+                 f"{exp_short}")
+        print(json.dumps({
+            "audit": name, "backend": backend, "kernel": plan.kernel,
+            "grid": list(got["grid"]), "block": list(got["block"]),
+            "cluster": list(got["cluster"]), "smem_bytes": got["smem"],
+            "counted_words": rep.counted_words,
+            "measured_words": d.measured_words,
+            "issued_words": rep.issued_words, "uncounted": rep.uncounted,
+            "shortfall": rep.shortfall, "bound_ratio": d.bound_ratio,
+            "hazards": len(rep.hazards)}), flush=True)
+        count += 1
+
+    def ctas(got):
+        return got["grid"][0] * got["grid"][1] * got["grid"][2]
+
+    def overhang_bound(s, t, p, run):
+        # words of run - 1 elements for every window row of every CTA
+        h_in = (t[3] - 1) * s.sh + s.h_F
+        rows = (-(-s.N // t[0]) * t[0] * s.c_I * h_in * -(-s.h_O // t[3])
+                * -(-s.w_O // t[4]) * -(-s.c_O // t[2]))
+        return p * (run - 1) * rows
+
+    for name, s in layers.items():
+        x, w = HELD["conv"][name]
+        stride = (s.sh, s.sw)
+        kw = {"stride": stride, "out_dtype": torch.float32}
+
+        def conv_expect(d, got, s=s):
+            return {}, 0.0, overhang_bound(s, d.plan.tiles, 0.5, 8)
+
+        def im2col_expect(d, got, s=s):
+            (m, _, k), (bm, bn, bk) = gemm_tiles(s)
+            cfg = mm_config(bm, bn, bk, 2, k)
+            kp = round_up(k, bk)
+            short = kp - min(kp, cfg["n_spans"] * cfg["ks"])
+            tiles = -(-m // bm) * -(-s.c_O // bn)
+            return ({"filter transpose read": 0.5 * s.c_O * k,
+                     "filter transpose write": 0.5 * s.c_O * k},
+                    tiles * short * (bm + bn) * 0.5, None)
+
+        check(f"conv2d/{name}", "conv2d", "conv2d", "cuda", (x, w), kw, (),
+              lambda: ops.conv2d(x, w, stride, ctx=ctxs["cuda"],
+                                 out_dtype=torch.float32), conv_expect)
+        check(f"conv2d/{name}", "conv2d", "matmul", "im2col", (x, w), kw, (),
+              lambda: ops.conv2d(x, w, stride, ctx=ctxs["im2col"],
+                                 out_dtype=torch.float32), im2col_expect)
+        torch.cuda.empty_cache()
+    del HELD["conv"]
+    for name, s in layers.items():
+        xq, wq, sc = HELD["conv_q"][name]
+        stride = (s.sh, s.sw)
+
+        def conv_q_expect(d, got, s=s):
+            t = d.plan.tiles
+            n_co = -(-s.c_O // t[2])
+            return ({"scale (per-CTA slices)": float((ctas(got) - n_co)
+                                                     * t[2])},
+                    0.0, overhang_bound(s, t, 0.25, 16))
+
+        check(f"conv2d_q/{name}", "conv2d_q", "conv2d_q", "cuda",
+              (xq, wq, sc), {"stride": stride, "out_dtype": torch.bfloat16},
+              (), lambda: ops.conv2d_q(xq, wq, sc, stride,
+                                       ctx=ctxs["cuda"]), conv_q_expect)
+    del HELD["conv_q"]
+    for label, (aq, bq, sc) in HELD.pop("matmul_q").items():
+        def mm_q_expect(d, got, n=bq.shape[1]):
+            bn = d.plan.tiles[1]
+            excess = float((ctas(got) - -(-n // bn)) * bn)
+            return ({"scale (per-CTA slices)": excess} if excess else {},
+                    0.0, None)
+
+        check(f"matmul_q/{label}", "matmul_q", "matmul_q", "cuda",
+              (aq, bq, sc), {"out_dtype": torch.bfloat16}, (),
+              lambda: ops.matmul_q(aq, bq, sc, ctx=ctxs["cuda"]),
+              mm_q_expect)
+    att = HELD.pop("attention")
+    q, k, v, off0, km = att["prefill"]
+
+    def flash_expect(d, got):
+        return {"q_offset/kv_lens": 2.0 * ctas(got)}, 0.0, None
+
+    check("attention/qwen prefill", "attention", "flash_attention", "cuda",
+          (q, k, v), None, ("dynamic_q_offset", "key_mask"),
+          lambda: ops.attention(q, k, v, q_offset=off0, key_mask=km,
+                                ctx=ctxs["cuda"]), flash_expect)
+    qd, kd, vd, depth = att["decode"]
+    check("attention/qwen contiguous decode", "attention", "flash_attention",
+          "cuda", (qd, kd, vd), None, ("per_row_q_offset",),
+          lambda: ops.attention(qd, kd, vd, q_offset=depth,
+                                ctx=ctxs["cuda"]), flash_expect)
+    qp, kp, vp, tables, lengths = att["paged"]
+
+    def paged_expect(d, got):
+        B, H, _, hd = qp.shape
+        KV, bs, w = kp.shape[1], kp.shape[2], tables.shape[1]
+        lens = lengths.tolist()
+        return {}, (paged_decode_hbm_words(B, KV, H // KV, w, bs, hd, 0.5,
+                                           0.5, 0.5)
+                    - paged_decode_issued_words(lens, B, KV, H // KV, w, bs,
+                                                hd, 0.5, 0.5, 0.5)), None
+
+    check("attention_decode/qwen paged", "attention_decode", "paged_decode",
+          "cuda", (qp, kp, vp, tables, lengths), None, (),
+          lambda: ops.attention_decode(qp, kp, vp, tables, lengths,
+                                       ctx=ctxs["cuda"]), paged_expect)
+    for L, x, w in HELD.pop("conv1d"):
+        def conv1d_expect(d, got, x=x, w=w):
+            K = w.shape[0]
+            bB, bD, Bp, Dp, (nB, nD) = _conv1d_geometry(x, w, None, H100)
+            exp = {}
+            if nD == 1 and nB > 1:
+                exp["w (per-CTA fetches)"] = (nB - 1) * K * bD * 0.5
+            B, L_, D = x.shape
+            pad = nB * nD * bB * L_ * bD - B * L_ * D
+            w_pad = (nB * nD if nD > 1 else 1) * K * bD - (
+                nB if nD > 1 else 1) * K * D
+            return exp, float((2 * pad + w_pad) * 0.5), None
+
+        check(f"conv1d_causal/jamba prefill L{L}", "conv1d_causal",
+              "conv1d_causal", "cuda", (x, w), None, (),
+              lambda: ops.conv1d_causal(x, w, ctx=ctxs["cuda"]),
+              conv1d_expect)
+    return count
 
 
 def main() -> None:
@@ -2085,6 +2289,7 @@ def main() -> None:
             rows[(name, be)] = row
             print(json.dumps(row), flush=True)
             del y
+        HELD.setdefault("conv", {})[name] = (x, w)  # phase 16's operands
         del x, w
         torch.cuda.empty_cache()
     main_launches = {n: KERNELS[n].launches for n in ("conv2d", "matmul")}
@@ -2160,7 +2365,12 @@ def main() -> None:
     # -- 13.-15. the hybrid mamba path ---------------------------------------
     conv1d_kernel = hybrid_phases(gen, record)
 
-    # -- 16. summary --------------------------------------------------------
+    # -- 16. the static audit of every main-path dispatch --------------------
+    audited = audit_phase()
+    print(f"audit: {audited} dispatches audited, launched and held to their "
+          "access plans", flush=True)
+
+    # -- 17. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),

@@ -46,7 +46,12 @@ class CudaKernel:
     the kernel; ``tensor_core_launches`` counts the launches among them that
     took a tensor-core kernel of the source (the bf16 paths of the GEMM, the
     direct conv and flash attention, and every int8 GEMM), so a run can
-    show which kernel its calls took.
+    show which kernel its calls took. ``last_launch`` records the launch
+    the wrapper made last: ``{"grid": (x, y, z), "block": (x, y, z),
+    "smem": dynamic shared-memory bytes, "cluster": (x, y, z)}`` (None
+    before the first), as the wrapper computed them for the C entry, so a
+    run can hold them against a launch's access plan
+    (``repro_torch.verify``).
     ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v`` report:
     registers, shared memory and spills per kernel) are set by the build."""
 
@@ -56,6 +61,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.tensor_core_launches = 0
+        self.last_launch: Optional[dict] = None
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._fn = None
@@ -106,15 +112,26 @@ class CudaKernel:
                 self._fn = fn
             return self._fn
 
-    def launch(self, *args, tensor_core: bool = False) -> None:
+    def launch(self, *args, tensor_core: bool = False,
+               grid: Sequence[int] = (1, 1, 1),
+               block: Sequence[int] = (1, 1, 1), smem: int = 0,
+               cluster: Sequence[int] = (1, 1, 1)) -> None:
         """Call the C entry (which launches on the given stream) and raise
         on a non-zero ``cudaError_t``; counts the launch, and among the
-        launches those of a tensor-core kernel."""
+        launches those of a tensor-core kernel, and records its ``grid``,
+        ``block``, dynamic shared memory ``smem`` and ``cluster`` (the
+        wrapper's, padded to dim3 triples) as ``last_launch``."""
         err = self.fn()(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} failed with cudaError_t {err}")
         self.launches += 1
         self.tensor_core_launches += int(tensor_core)
+
+        def dim3(v):
+            return tuple(int(x) for x in v) + (1,) * (3 - len(v))
+
+        self.last_launch = {"grid": dim3(grid), "block": dim3(block),
+                            "smem": int(smem), "cluster": dim3(cluster)}
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

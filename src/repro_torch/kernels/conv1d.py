@@ -241,7 +241,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bB: int, bD: int,
                       dtype_code(x.dtype), K, cfg["vec"], B, L, D,
                       x.stride(0), x.stride(1), bB, cfg["group_width"],
                       cfg["span"], cfg["parts"], cfg["cols"], *cfg["grid"],
-                      cfg["threads"], cfg["smem"], stream)
+                      cfg["threads"], cfg["smem"], stream, grid=cfg["grid"],
+                      block=(cfg["threads"],), smem=cfg["smem"])
     return out
 
 
@@ -262,3 +263,114 @@ def conv1d_causal(
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv1d_causal_plain(x, w)
     return _launch(x, w, bB, bD, grid)
+
+
+def conv1d_program(items: int, nch: int, plain: bool):
+    """``conv1d_ring_kernel``'s events for one CTA of ``items`` (batch row,
+    chunk) stages of ``nch`` chunks a row: the filter block written
+    before the prologue's copies and the ``__syncthreads`` after them, then
+    the ``STAGES``-slot ring with ``STAGES - 2`` chunks in flight
+    (``wait_group(STAGES - 3)``), each chunk also reading the previous
+    chunk's slot for its K - 1 tail rows except at a batch row's first
+    chunk, and a ``wait_group(0)`` at exit. ``plain`` (2-byte copies)
+    writes the ring with stores in the same order."""
+    from repro_torch.verify.hazards import Program
+
+    prog = Program()
+    prog.write("filter", 0, 0)
+    prog.ring("ring", items, STAGES, STAGES - 2, plain=plain,
+              reads_prev=lambda it: it % nch != 0, prologue_barrier=True)
+    prog.read("filter", 0, 0)
+    prog.wait_group(0)
+    return prog
+
+
+def conv1d_access_plan(
+    x,  # tensor (meta tensors work), (B, L, D)
+    w,  # tensor, (K, D)
+    tiles: Optional[Tuple[int, int]] = None,
+    target: Optional[HardwareTarget] = None,
+    op: str = "conv1d_causal",
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``conv1d_causal`` launch (``conv1d_ring_kernel``), from
+    :func:`launch_config`: the walk is the CUDA grid (batch tiles, then the
+    CTAs of channel groups and parts, x fastest) with the CTA's (batch row,
+    chunk) stages innermost. A stage copies and stores its real rows and
+    channels; the filter block once a CTA (counted once a launch when nD
+    == 1, as the counter charges it; the other batch tiles' reads are
+    uncounted); skipped: the padding of ragged B and D tiles, which the
+    counter charges and the kernel never reads. A real ``x`` gives the copy
+    width (:func:`operand_width`); a meta one the 16-byte copies."""
+    import numpy as np
+
+    from repro_torch.verify.access import (CudaLaunch, FlatAccess,
+                                           KernelAccessPlan, ScratchAlloc,
+                                           WindowAccess)
+
+    B, L, D = x.shape
+    K = w.shape[0]
+    bB, bD, Bp, Dp, (nB, nD) = _conv1d_geometry(x, w, tiles, target)
+    isz = x.dtype.itemsize
+    vec = None if x.device.type == "meta" else operand_width(x)
+    cfg = launch_config(K, bB, bD, (nB, nD), isz, vec)
+    p_x, p_w = isz / 4.0, w.dtype.itemsize / 4.0
+    gx = cfg["grid"][0]
+    nch = -(-L // CHUNK)
+    walk = (nB, gx, bB * nch)
+    span, gw, parts = cfg["span"], cfg["group_width"], cfg["parts"]
+
+    def chans(bx):  # the CTA's first channel and real channels
+        grp, part = bx // parts, bx % parts
+        c0 = grp * gw + part * span
+        return c0, np.maximum(0, np.minimum(np.minimum(c0 + span,
+                                                       grp * gw + gw), D)
+                              - c0)
+
+    def window(by, bx, it):
+        c0, cw = chans(bx)
+        b = by * bB + it // nch
+        t0 = it % nch * CHUNK
+        rows = np.where(b < B, np.minimum(CHUNK, L - t0), 0)
+        return (np.minimum(b, B - 1), 1), (t0, rows), (c0, cw)
+
+    def filt(first):
+        def win(by, bx, it):
+            c0, cw = chans(bx)
+            mine = (it == 0) & (((by == 0) == first) if nD == 1 else first)
+            return (0, np.where(mine, K, 0)), (c0, cw)
+        return win
+
+    accesses = [
+        WindowAccess(name="x", kind="load", array_shape=(B, L, D),
+                     word_size=p_x, window=window),
+        WindowAccess(name="w", kind="load", array_shape=(K, D),
+                     word_size=p_w, window=filt(True)),
+        WindowAccess(name="out", kind="store", array_shape=(B, L, D),
+                     word_size=p_x, window=window),
+    ]
+    if nD == 1 and nB > 1:
+        accesses.append(WindowAccess(
+            name="w (per-CTA fetches)", kind="load", array_shape=(K, D),
+            word_size=p_w, window=filt(False), counted=False,
+            note="every batch tile's CTAs read the filter block again"))
+    pad = nB * nD * bB * L * bD - B * L * D
+    w_pad = (nB * nD if nD > 1 else 1) * K * bD - (nB if nD > 1 else 1) * K * D
+    skipped = ()
+    if pad or w_pad:
+        skipped = (FlatAccess(name="ragged B and D padding", kind="load",
+                              words=2 * pad * p_x + w_pad * p_w),)
+    ring = round_up(STAGES * cfg["stage_bytes"], 16)
+    scratch = (ScratchAlloc(f"ring[{STAGES}]", ring / 4.0),
+               ScratchAlloc("filter (f32)", (cfg["smem"] - ring) / 4.0))
+    counts = sorted({min(bB, B - by * bB) * nch for by in range(nB)})
+    plain = cfg["copy_bytes"] < 4
+    dma = tuple(s for n in counts for s in conv1d_program(
+        n, nch, plain).schedules({"ring": STAGES, "filter": 1},
+                                 cfg["threads"] // 32, f"{op} ({n} stages)"))
+    return KernelAccessPlan(
+        op=op, grid=walk, accesses=tuple(accesses), scratch=scratch,
+        dma=dma, skipped=skipped,
+        launch=CudaLaunch("conv1d_ring_kernel", (gx, nB, 1),
+                          (cfg["threads"], 1, 1), cfg["smem"]),
+        note="(batch row, chunk) stages innermost")

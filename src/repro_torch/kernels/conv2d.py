@@ -346,7 +346,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stride, out_dtype,
             None if koff is None else koff.data_ptr(), out.data_ptr(),
             dtype_code(x.dtype), dtype_code(out_dtype), cfg["variant"],
             geometry, len(GEOMETRY), cfg["threads"], cfg["smem"], stream,
-            tensor_core=tensor_core)
+            tensor_core=tensor_core, grid=(math.prod(grid[:4]),),
+            block=(cfg["threads"],), smem=cfg["smem"])
     return out[:N, :c_O, :h_O, :w_O]
 
 
@@ -416,3 +417,266 @@ def conv2d_hbm_words(
     return (n_steps * bN * b_cI * h_in * w_in * p_in
             + n_steps * b_cO * b_cI * h_F * w_F * p_flt
             + Np * cOp * hOp * wOp * p_out)
+
+
+
+# ---------------------------------------------------------------------------
+# Access plan (repro_torch.verify): the launch as structured data.
+# ---------------------------------------------------------------------------
+
+def window_overhang(N: int, c_I: int, H: int, W: int, grid, tiles, stride,
+                    cs: int, n_st: int, h_in: int, w_in: int,
+                    run: int) -> float:
+    """Elements the tensor-core kernels' window copies read beyond the
+    windows the counter charges, over all CTAs of a launch of
+    ``grid`` = (nN, nCO, nH, nW, ...) (:func:`_launch_geometry`) with ring
+    stages of ``cs`` channels. A window row is copied as the ``run``-element
+    runs aligned in x that cover it (csrc/tc_common.cuh, ``copy_window``),
+    so a live row (an image below N, a channel below c_I, a row below H, a
+    first column below W) also reads the (origin mod run) elements before
+    its origin; past the row's end the copy is partial (src-size), so
+    nothing more. A whole-plane window (h_in = H, w_in = W) is one row an
+    image, the stage's channel planes, whose last run may also read on
+    into the next stage's planes."""
+    import numpy as np
+
+    nN, nCO, nH, nW = grid[:4]
+    bN, _, _, bh, bw = tiles
+    sh, sw = stride
+    HW, img = H * W, c_I * H * W
+    n0 = np.arange(nN)[:, None, None] * bN
+    ci0 = np.arange(n_st)[None, :, None] * cs
+    if h_in == H and w_in == W:
+        n_abs = n0 + np.arange(bN)[None, None, :]
+        a = (n_abs * img + ci0 * HW) % run
+        length = cs * HW
+        reach = -(-(length + a) // run) * run - a  # the last run's end
+        right = np.maximum(0, np.minimum(reach, (c_I - ci0) * HW) - length)
+        live = (n_abs < N) & (ci0 < c_I)
+        return float(np.where(live, a + right, 0).sum() * nCO * nH * nW)
+    # rows: (n, c, r) of a window lie at n * img + c * HW + r * W from the
+    # step's origin; one residue table per count of live images, channels
+    # and rows, applied to the steps' origins mod run
+    h0 = np.arange(nH)[None, :, None, None] * bh * sh
+    col0 = np.arange(nW)[None, None, :, None] * bw * sw
+    n0 = np.arange(nN)[:, None, None, None] * bN
+    ci0 = np.arange(n_st)[None, None, None, :] * cs
+    shape = (nN, nH, nW, n_st)
+    nv = np.broadcast_to(np.clip(N - n0, 0, bN), shape)
+    cv = np.broadcast_to(np.clip(c_I - ci0, 0, cs), shape)
+    rv = np.broadcast_to(np.clip(H - h0, 0, h_in), shape)
+    rv = np.where(col0 < W, rv, 0)
+    base = (n0 * img + ci0 * HW + h0 * W + col0) % run
+    total = 0
+    keys = np.stack([nv, cv, rv]).reshape(3, -1)
+    flat_base = np.broadcast_to(base, shape).reshape(-1)
+    uniq, inv = np.unique(keys, axis=1, return_inverse=True)
+    for u, (a, c, r) in enumerate(uniq.T):
+        if a * c * r == 0:
+            continue
+        offs = (np.arange(a)[:, None, None] * img
+                + np.arange(c)[None, :, None] * HW
+                + np.arange(r)[None, None, :] * W) % run
+        hist = np.bincount(offs.reshape(-1), minlength=run)
+        table = np.array([(hist * ((b + np.arange(run)) % run)).sum()
+                          for b in range(run)])
+        total += int(table[flat_base[inv.reshape(-1) == u]].sum())
+    return float(total * nCO)
+
+
+def conv_ring_program(n_st: int, slots: int, staged: bool,
+                      scale: bool = False):
+    """The tensor-core convs' events for one CTA (``conv2d_tc_kernel``,
+    ``conv2d_q_tc_kernel``): the tables (and for ``scale`` the CTA's scale
+    slice, read in the epilogue) written before a ``__syncthreads``,
+    a ring of ``slots`` slots over the ``n_st`` c_I stages with one stage
+    in flight (``wait_group(0)``, ``__syncthreads``, issue stage s + 1, read
+    stage s), the closing ``wait_group(0)``, and, where the epilogue is
+    ``staged`` through shared memory, a ``__syncthreads``, the tile written
+    over the ring, a ``__syncthreads`` and its read."""
+    from repro_torch.verify.hazards import Program
+
+    prog = Program()
+    if scale:
+        prog.write("scale", 0, 0)
+    prog.write("tables", 0, 0)
+    prog.barrier()
+    prog.ring("ring", n_st, slots, 1)
+    prog.read("tables", 0, 0)
+    prog.wait_group(0)
+    if staged:
+        prog.barrier()
+        prog.write("ring", 0, n_st)
+        prog.barrier()
+        prog.read("ring", 0, n_st)
+    if scale:
+        prog.read("scale", 0, 0)
+    return prog
+
+
+def conv_access_plan(op: str, x, w, stride, t, out_dtype, cfg):
+    """The access plan of one direct-conv launch (``conv2d`` or the int8
+    ``conv2d_q``, which also reads a scale) from its launch configuration
+    ``cfg``: the walk is the CUDA grid's CTAs in ``tile_of`` order (n, h, w
+    blocks, c_O tiles fastest) with the CTA's c_I stages innermost (a
+    tensor-core ring stage of ``cfg["cs"]`` channels, or the FMA kernel's
+    plan block). Counted: a stage's input window and filter block over the
+    padded extents, the output tile once a CTA, and for ``conv2d_q`` one
+    scale slice a c_O tile; uncounted: the other CTAs' scale slices and
+    the window copies' 16-byte-run overhang (:func:`window_overhang`);
+    skipped: plan channels past the stages the kernel runs."""
+    import numpy as np
+
+    from repro_torch.verify.access import (BlockAccess, CudaLaunch,
+                                           FlatAccess, KernelAccessPlan,
+                                           ScratchAlloc, WindowAccess)
+
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    bN, b_cI, b_cO, bh, bw = t
+    (Np, cIp, cOp, hOp, wOp, Hp, Wp, h_in, w_in,
+     grid) = _launch_geometry(N, c_I, c_O, H, W, h_F, w_F, sh, sw, t)
+    nN, nCO, nH, nW = grid[:4]
+    tc = cfg["kernel"] == "tensor core"
+    scale = op == "conv2d_q"
+    run = 16 // x.dtype.itemsize  # a window copy: 16 bytes aligned in x
+    cs, n_st = (cfg["cs"], cfg["n_st"]) if tc else (b_cI, grid[4])
+    p_in = x.dtype.itemsize / 4.0
+    p_flt = w.dtype.itemsize / 4.0
+    p_out = out_dtype.itemsize / 4.0
+    walk = (nN, nH, nW, nCO, n_st)
+
+    def csz(s):  # a stage's plan channels (the last may be short)
+        return np.clip(cIp - s * cs, 0, cs)
+
+    def x_window(n, h, wb, co, s):
+        return ((n * bN, bN), (s * cs, csz(s)),
+                (h * bh * sh, h_in), (wb * bw * sw, w_in))
+
+    def x_requires(n, h, wb, co, s):
+        # first/last output row of the tile -> strided tap extent
+        row_lo, row_hi = h * bh, h * bh + bh - 1
+        col_lo, col_hi = wb * bw, wb * bw + bw - 1
+        return ((n * bN, (n + 1) * bN), (s * cs, s * cs + csz(s)),
+                (row_lo * sh, row_hi * sh + h_F),
+                (col_lo * sw, col_hi * sw + w_F))
+
+    accesses = [
+        WindowAccess(name="input", kind="load",
+                     array_shape=(Np, cIp, Hp, Wp), word_size=p_in,
+                     window=x_window, requires=x_requires),
+        WindowAccess(
+            name="filter", kind="load", array_shape=(cOp, cIp, h_F, w_F),
+            word_size=p_flt,
+            window=lambda n, h, wb, co, s: (
+                (co * b_cO, b_cO), (s * cs, csz(s)), (0, h_F), (0, w_F)),
+            requires=lambda n, h, wb, co, s: (
+                (co * b_cO, (co + 1) * b_cO), (s * cs, s * cs + csz(s)),
+                (0, h_F), (0, w_F))),
+        BlockAccess(
+            name="output", kind="store", block_shape=(bN, b_cO, bh, bw),
+            array_shape=(Np, cOp, hOp, wOp), word_size=p_out,
+            index_map=lambda n, h, wb, co, s: (n, co, h, wb)),
+    ]
+    if scale:
+        def first(n, h, wb, s):
+            return (n == 0) & (h == 0) & (wb == 0) & (s == 0)
+
+        accesses += [
+            WindowAccess(
+                name="scale", kind="load", array_shape=(1, cOp),
+                word_size=1.0,
+                window=lambda n, h, wb, co, s: (
+                    (0, 1), (co * b_cO, np.where(first(n, h, wb, s), b_cO,
+                                                 0))),
+                note="one c_O slice a c_O tile, as the counter's once"),
+            WindowAccess(
+                name="scale (per-CTA slices)", kind="load",
+                array_shape=(1, cOp), word_size=1.0, counted=False,
+                window=lambda n, h, wb, co, s: (
+                    (0, 1), (co * b_cO, np.where(
+                        (s == 0) & ~first(n, h, wb, s), b_cO, 0))),
+                note="every other CTA reads its c_O slice again"),
+        ]
+    skipped = []
+    short = cIp - min(cIp, n_st * cs)  # plan channels no stage covers
+    if short:
+        tiles = nN * nCO * nH * nW
+        skipped.append(FlatAccess(
+            name="channels past the stages", kind="load",
+            words=tiles * short * (bN * h_in * w_in * p_in
+                                   + b_cO * h_F * w_F * p_flt)))
+    if tc:
+        accesses.append(FlatAccess(
+            name="input run overhang", kind="load", counted=False,
+            words=p_in * window_overhang(N, c_I, H, W, grid, t, stride, cs,
+                                         n_st, h_in, w_in, run),
+            note=f"{run}-element runs aligned in x (window_overhang)"))
+        layout = [("gather table", cfg.get("koff_bytes", 0)),
+                  ("row table", cfg.get("rows_bytes", 0)),
+                  (f"ring[{cfg['slots']}]", cfg["slots"] * cfg["slot_bytes"])]
+        if scale:
+            layout = [("scale slice", cfg["off_koff"]),
+                      ("gather table", cfg["off_rows"] - cfg["off_koff"]),
+                      ("row table", cfg["off_ring"] - cfg["off_rows"]),
+                      (f"ring[{cfg['slots']}]",
+                       cfg["slots"] * cfg["slot_bytes"])]
+        staged = bool(cfg["vst"])
+    else:
+        layout = [("window", cfg["x_bytes"]),
+                  ("filter", cfg["smem"] - cfg["x_bytes"])]
+        staged = False
+    used = sum(b for _, b in layout)
+    if cfg["smem"] > used:
+        layout.append(("epilogue tile past the ring", cfg["smem"] - used))
+    scratch = tuple(ScratchAlloc(name, nbytes / 4.0)
+                    for name, nbytes in layout)
+    dma = None
+    if tc:
+        prog = conv_ring_program(n_st, cfg["slots"], staged, scale)
+        slots = {"ring": cfg["slots"], "tables": 1}
+        if scale:
+            slots["scale"] = 1
+        dma = prog.schedules(slots, cfg["threads"] // 32, op)
+    return KernelAccessPlan(
+        op=op, grid=walk, accesses=tuple(accesses), scratch=scratch,
+        dma=dma, skipped=tuple(skipped),
+        launch=CudaLaunch(f"{op}_tc_kernel" if tc else f"{op}_kernel",
+                          (nN * nCO * nH * nW, 1, 1),
+                          (cfg["threads"], 1, 1), cfg["smem"]),
+        note="stages innermost; the ring repeats identically per CTA")
+
+
+def conv2d_access_plan(
+    x,  # tensor (meta tensors work), (N, c_I, H, W)
+    w,  # tensor, (c_O, c_I, h_F, w_F)
+    stride: Tuple[int, int] = (1, 1),
+    tiles: Optional[Sequence[int]] = None,
+    plan: Optional[ExecutionPlan] = None,
+    target: Optional[HardwareTarget] = None,
+    out_dtype=torch.float32,
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``conv2d`` launch as :func:`conv2d` makes it: bf16 inputs the
+    tensor-core kernel (its ring stages, window overhang, shared-memory
+    layout and ring schedule from :func:`launch_config`), f32 the FMA kernel
+    (one stage a plan c_I block, plain loads). The input's ``requires``
+    region is derived independently of the window, from the tile's output
+    rows through the strided tap arithmetic. Raises ValueError for tiles no
+    kernel variant covers."""
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    h_O = (H - h_F) // sh + 1
+    w_O = (W - w_F) // sw + 1
+    t = resolve_kernel_plan(
+        _conv_spec(N, c_I, c_O, h_O, w_O, h_F, w_F, sh, sw,
+                   x.dtype.itemsize * 8),
+        plan=plan, target=target, tiles=tiles)
+    t = _normalize_tiles(t, h_O, w_O)
+    h_in = (t[3] - 1) * sh + h_F
+    w_in = (t[4] - 1) * sw + w_F
+    cfg = launch_config(t, h_F, w_F, h_in, w_in, x.dtype.itemsize, c_I,
+                        (H, W))
+    return conv_access_plan("conv2d", x, w, (sh, sw), t, out_dtype, cfg)

@@ -350,7 +350,8 @@ def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
             None if key_mask is None else key_mask.data_ptr(),
             dtype_code(q.dtype), Dh, block, BH, Lq, Lk, bq, bk,
             q_seq_len or 0, per_batch, int(bool(causal)), 1.0 / Dh ** 0.5,
-            stream, tensor_core=tc)
+            stream, tensor_core=tc, grid=cfg["grid"],
+            block=(cfg["threads"],), smem=cfg["smem"])
     return out
 
 
@@ -609,7 +610,9 @@ def paged_decode_attention(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), dtype_code(q.dtype), hd, B,
             KV, g, bs, w, 1.0 / hd ** 0.5, stream,
-            tensor_core=cfg["kernel"] == "tensor core")
+            tensor_core=cfg["kernel"] == "tensor core", grid=cfg["grid"],
+            block=(32 * cfg["warps"],), smem=cfg["smem"],
+            cluster=cfg["cluster"])
     return out
 
 
@@ -665,3 +668,296 @@ def paged_decode_hbm_words(B: int, KV: int, g: int, w: int, block_size: int,
             + 2.0 * p_kv * B * KV * w * block_size * hd
             + p_o * B * KV * g * hd
             + B * w + B)
+
+
+# ---------------------------------------------------------------------------
+# Access plans (repro_torch.verify): the launches as structured data.
+# ---------------------------------------------------------------------------
+
+def _dtype_of(p: float):
+    return torch.bfloat16 if p == 0.5 else torch.float32
+
+
+def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool):
+    """``flash_tc_kernel``'s events for one CTA walking ``n_q_cta`` q tiles:
+    each opens with a ``__syncthreads`` (the previous tile's output was
+    staged in Q's rows) and issues its Q tile and K/V tile 0 (K/V only at
+    the first q tile when ``resident``) in one commit group; then K/V tile
+    kt runs ``wait_group(0)``, ``__syncthreads``, issues tile kt + 1 into
+    slot (kt + 1) % 2, reads Q (at kt = 0) and slot kt % 2; with C > 1 key
+    slabs (``merge``) slabs 1 .. C - 1 write the merge area and slab 0
+    reads it after a ``__syncthreads``; slab 0 stages its output rows in
+    its own Q rows (a warp's own rows: ``__syncwarp``); a
+    ``wait_group(0)`` at exit."""
+    from repro_torch.verify.hazards import Program
+
+    prog = Program()
+    span = n_k + n_k % 2  # K/V steps a q tile (kept even: slot = step % 2)
+    for i in range(n_q_cta):
+        base = 0 if resident else i * span
+        prog.barrier()
+        prog.start("q", 0, 2 * i)
+        if not resident or i == 0:
+            prog.start("k/v", 0, base)
+        prog.commit()
+        for kt in range(n_k):
+            prog.wait_group(0)
+            prog.barrier()
+            if not resident and kt + 1 < n_k:
+                prog.start("k/v", (kt + 1) % 2, base + kt + 1)
+            prog.commit()
+            if kt == 0:
+                prog.read("q", 0, 2 * i)
+            prog.read("k/v", kt % 2, base + kt)
+        if merge:
+            prog.write("merge", 0, i)
+            prog.barrier()
+            prog.read("merge", 0, i)
+        prog.write("q", 0, 2 * i + 1, local=not merge)
+        prog.read("q", 0, 2 * i + 1, local=True)
+    prog.wait_group(0)
+    return prog
+
+
+def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
+                                block_q: int, block_k: int,
+                                p_q: float = 1.0, p_kv: float = 1.0,
+                                p_o: float = 1.0, dynamic: bool = False,
+                                op: str = "attention"):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one flash
+    launch over the folded (BH, Lq) view, as :func:`launch_config` gives it
+    (bf16 when ``p_q`` is 0.5: ``flash_tc_kernel``; else the FMA
+    ``flash_kernel``). The walk: CTAs (row, q tile) with the K/V tiles
+    innermost, or, when the keys fit one tile, one CTA a row walking its q
+    tiles with K/V resident. Counted: Q once a q tile, K and V once a
+    (q tile, K/V tile) step (once a row when resident), O once a q tile;
+    uncounted: the int32 offset and length every CTA reads (the wrapper
+    always passes both; ``dynamic`` is kept for the reference's signature).
+    The key mask of padded prefill is not modeled. Raises ValueError for a
+    (dh, block) the source does not compile."""
+    import numpy as np  # noqa: F401
+
+    from repro_torch.verify.access import (BlockAccess, CudaLaunch,
+                                           FlatAccess, KernelAccessPlan,
+                                           ScratchAlloc, WindowAccess)
+
+    if block_q != block_k:
+        raise ValueError(f"flash_attention compiles square tiles, got "
+                         f"block_q={block_q}, block_k={block_k}")
+    cfg = launch_config(Lq, Lk, dh, block_q, _dtype_of(p_q), rows=BH)
+    bq, bk, n_q, n_k = cfg["bq"], cfg["bk"], cfg["n_q"], cfg["n_k"]
+    lqp, lkp = n_q * bq, n_k * bk
+    resident = cfg["kv_resident"]
+    tc = cfg["kernel"] == "tensor core"
+    q_idx = (lambda b, i, t: (b, t, 0)) if resident else \
+        (lambda b, i, t: (b, i, 0))
+    accesses = [
+        BlockAccess(name="q", kind="load", block_shape=(1, bq, dh),
+                    array_shape=(BH, lqp, dh), word_size=p_q,
+                    index_map=q_idx),
+        BlockAccess(name="out", kind="store", block_shape=(1, bq, dh),
+                    array_shape=(BH, lqp, dh), word_size=p_o,
+                    index_map=q_idx),
+    ]
+    for name in ("k", "v"):
+        if resident:
+            accesses.append(BlockAccess(
+                name=name, kind="load", block_shape=(1, bk, dh),
+                array_shape=(BH, lkp, dh), word_size=p_kv,
+                index_map=lambda b, i, t: (b, 0, 0),
+                note="the row's one tile, resident across its q tiles"))
+        else:
+            accesses.append(WindowAccess(
+                name=name, kind="load", array_shape=(BH, lkp, dh),
+                word_size=p_kv,
+                window=lambda b, i, t: ((b, 1), (t * bk, bk), (0, dh))))
+    ctas = cfg["grid"][0] * cfg["grid"][1]
+    accesses.append(FlatAccess(
+        name="q_offset/kv_lens", kind="load", words=2.0 * ctas,
+        counted=False, note="one int32 offset and length a CTA"))
+    walk = (BH, 1, n_q) if resident else (BH, n_q, n_k)
+    dma = None
+    if tc:
+        r, c = cfg["warp_grid"]
+        tile = block_q * cfg["pitch"] * 2
+        scratch = (ScratchAlloc("q tile", tile / 4.0),
+                   ScratchAlloc(f"k/v ring[{cfg['slots']}]",
+                                2 * cfg["slots"] * tile / 4.0),
+                   ScratchAlloc("merge (m, l, O)",
+                                (cfg["smem"] - (1 + 2 * cfg["slots"]) * tile)
+                                / 4.0))
+        prog = flash_program(n_q if resident else 1, n_k, resident, c > 1)
+        bufs = {"q": 1, "k/v": cfg["slots"]}
+        if c > 1:
+            bufs["merge"] = 1
+        dma = prog.schedules(bufs, cfg["warps"], op)
+        kernel = "flash_tc_kernel"
+    else:
+        scratch = (ScratchAlloc("q, k, v, scores, state",
+                                cfg["smem"] / 4.0),)
+        kernel = "flash_kernel"
+    return KernelAccessPlan(
+        op=op, grid=walk, accesses=tuple(accesses), scratch=scratch,
+        dma=dma, launch=CudaLaunch(kernel, (*cfg["grid"], 1),
+                                   (cfg["threads"], 1, 1), cfg["smem"]),
+        note="K/V tiles (or, resident, q tiles) innermost")
+
+
+def paged_program(tiles, tc: bool):
+    """The events of one cluster of ``paged_decode_tc_kernel`` (``tc``) or
+    ``paged_decode_fma_kernel``, ``tiles[r]`` key tiles for rank r: rank 0
+    issues the query group (its own commit group; empty in the others),
+    every rank the ring's prologue (tiles 0 .. RING - 2, a group each);
+    ``wait_group(RING - 1)`` and the first ``cluster.sync``; each other
+    live rank copies the group from rank 0's shared memory; tile t runs
+    ``wait_group(RING - 2)``, ``__syncthreads``, issues tile t + RING - 1
+    into slot (t - 1) % RING, reads the query (t = 0) and slot t % RING;
+    a live rank then, after a ``__syncthreads``, writes its partial over
+    the ring (bf16: the 4 warps' partials, a ``__syncthreads``, the CTA's
+    behind them); the second ``cluster.sync``; rank 0 reads the live
+    ranks' partials; the third ``cluster.sync``; ``wait_group(0)``; exit."""
+    from repro_torch.verify.hazards import Program
+
+    R = PAGED_RING
+    live = sum(1 for t in tiles if t > 0)
+    prog = Program()
+    for r, n in enumerate(tiles):
+        if r == 0:
+            prog.start("q", 0, 0, rank=r)
+        prog.commit(rank=r)
+        for t in range(R - 1):
+            if t < n:
+                prog.start("ring", t % R, t, rank=r)
+            prog.commit(rank=r)
+        prog.wait_group(R - 1, rank=r)
+        prog.cluster_sync(rank=r)
+        if r and n:
+            prog.remote_read("q", 0, 0, rank=r, peer=0)
+            prog.write("q", 0, 0, rank=r)
+        for t in range(n):
+            prog.wait_group(R - 2, rank=r)
+            prog.barrier(rank=r)
+            if t + R - 1 < n:
+                prog.start("ring", (t + R - 1) % R, t + R - 1, rank=r)
+            prog.commit(rank=r)
+            if t == 0:
+                prog.read("q", 0, 0, rank=r)
+            prog.read("ring", t % R, t, rank=r)
+        if n:
+            prog.barrier(rank=r)
+            for s in range(R):  # the partials lie over the ring's slots
+                prog.write("ring", s, -1 - s, rank=r)
+            if tc:
+                prog.write("warp partials", 0, 0, rank=r)
+                prog.barrier(rank=r)
+                prog.read("warp partials", 0, 0, rank=r)
+            prog.write("part", 0, 0, rank=r)
+        prog.cluster_sync(rank=r)
+        if r == 0:
+            for k in range(live):
+                prog.remote_read("part", 0, 0, rank=r, peer=k)
+        prog.cluster_sync(rank=r)
+        prog.wait_group(0, rank=r)
+        prog.exit(rank=r)
+    return prog
+
+
+def paged_decode_access_plan(B: int, KV: int, g: int, w: int,
+                             block_size: int, hd: int, num_blocks: int,
+                             p_q: float = 1.0, p_kv: float = 1.0,
+                             p_o: float = 1.0, tables=None,
+                             op: str = "attention_decode", lengths=None):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one paged
+    decode launch, as :func:`paged_launch_config` gives it (bf16 when
+    ``p_q`` is 0.5). The walk: the (S, KV, B) grid's CTAs (rank fastest)
+    with each CTA's key tiles innermost. Counted: the query group once a
+    cluster (rank 0 reads it; the others copy it from rank 0's shared
+    memory), K and V of the key tiles each rank walks, read through the
+    table (a window of the row's logical keys), the output group once a
+    cluster, the live slots' table entries and the lengths. With
+    ``lengths`` unknown (None: meta tensors, ``explain``) every slot is
+    live; with concrete ``lengths`` the kernel skips the slots wholly past
+    a row's length (:func:`paged_live_slots`), and their K/V and table
+    words are ``skipped``: the audit's shortfall, which equals
+    ``paged_decode_hbm_words - paged_decode_issued_words``. ``tables``
+    (concrete) is checked for live entries inside the pool."""
+    import numpy as np
+
+    from repro_torch.verify.access import (BlockAccess, CudaLaunch,
+                                           FlatAccess, KernelAccessPlan,
+                                           ScratchAlloc, WindowAccess)
+
+    bs = block_size
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, _dtype_of(p_q))
+    S, spc = cfg["split"], cfg["slots_per_cta"]
+    if lengths is None:
+        live = np.full(B, w, dtype=np.int64)
+    else:
+        live = np.array([paged_live_slots(int(n), w, bs) for n in lengths],
+                        dtype=np.int64)
+    if tables is not None:
+        t_np = np.asarray(tables, dtype=np.int64).reshape(B, w)
+        used = np.arange(w)[None, :] < live[:, None]
+        bad = used & ((t_np < 0) | (t_np >= num_blocks))
+        if bad.any():
+            raise ValueError(f"paged decode table entries {t_np[bad][:4]} "
+                             f"lie outside the pool of {num_blocks} blocks")
+    T = -(-spc * bs // PAGED_KEY_TILE)
+    j0 = np.arange(S)[None, :] * spc
+    j1 = np.maximum(j0, np.minimum(j0 + spc, live[:, None]))  # (B, S)
+    k0, k1 = np.broadcast_to(j0 * bs, (B, S)), j1 * bs
+
+    def kv_window(b, h, r, t):
+        kb = k0[b, r] + t * PAGED_KEY_TILE
+        rows = np.clip(k1[b, r] - kb, 0, PAGED_KEY_TILE)
+        return (b, 1), (h, 1), (np.where(rows > 0, kb, 0), rows), (0, hd)
+
+    accesses = [
+        BlockAccess(name="q", kind="load", block_shape=(1, 1, g, hd),
+                    array_shape=(B, KV, g, hd), word_size=p_q,
+                    index_map=lambda b, h, r, t: (b, h, 0, 0),
+                    note="rank 0 reads it; the others copy it through "
+                         "distributed shared memory"),
+        WindowAccess(name="k_pool", kind="load",
+                     array_shape=(B, KV, w * bs, hd), word_size=p_kv,
+                     window=kv_window,
+                     note="the row's logical keys, read through its table"),
+        WindowAccess(name="v_pool", kind="load",
+                     array_shape=(B, KV, w * bs, hd), word_size=p_kv,
+                     window=kv_window),
+        BlockAccess(name="out", kind="store", block_shape=(1, 1, g, hd),
+                    array_shape=(B, KV, g, hd), word_size=p_o,
+                    index_map=lambda b, h, r, t: (b, h, 0, 0)),
+        FlatAccess(name="tables", kind="load", words=float(live.sum()),
+                   note="int32 entries of the live slots, once a row"),
+        FlatAccess(name="lengths", kind="load", words=float(B)),
+    ]
+    dead = B * w - int(live.sum())
+    skipped = ()
+    if dead:
+        skipped = (
+            FlatAccess(name="dead slots' k/v", kind="load",
+                       words=2.0 * p_kv * KV * dead * bs * hd),
+            FlatAccess(name="dead slots' table entries", kind="load",
+                       words=float(dead)),
+        )
+    tc = cfg["kernel"] == "tensor core"
+    tiles = -(-(k1 - k0) // PAGED_KEY_TILE)  # (B, S)
+    bufs = {"q": 1, "ring": PAGED_RING, "part": 1}
+    if tc:
+        bufs["warp partials"] = 1
+    dma = tuple(
+        s for pattern in sorted({tuple(int(v) for v in row)
+                                 for row in tiles})
+        for s in paged_program(pattern, tc).schedules(
+            bufs, cfg["warps"], f"{op} (tiles {pattern})"))
+    return KernelAccessPlan(
+        op=op, grid=(B, KV, S, T), accesses=tuple(accesses),
+        scratch=(ScratchAlloc("query rows, k/v ring (partials after the "
+                              "walk)", cfg["smem"] / 4.0),),
+        dma=dma, skipped=skipped,
+        launch=CudaLaunch("paged_decode_tc_kernel" if tc
+                          else "paged_decode_fma_kernel",
+                          (S, KV, B), (32 * cfg["warps"], 1, 1),
+                          cfg["smem"], cfg["cluster"]),
+        note="key tiles innermost; clusters of S ranks")

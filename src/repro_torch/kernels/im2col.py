@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.plan import HardwareTarget
 
-from .matmul import matmul, matmul_hbm_words
+from .matmul import matmul, matmul_access_plan, matmul_hbm_words
 
 
 def im2col_patches(x: torch.Tensor, h_F: int, w_F: int,
@@ -87,3 +87,50 @@ def im2col_hbm_words(
         torch.empty((k, c_O), dtype=w.dtype, device="meta"),
         target=target, out_dtype=out_dtype)
     return expand + gemm
+
+
+def im2col_access_plan(
+    x,  # tensor (meta tensors work), (N, c_I, H, W)
+    w,  # tensor, (c_O, c_I, h_F, w_F)
+    stride: Tuple[int, int] = (1, 1),
+    target: Optional[HardwareTarget] = None,
+    out_dtype=torch.float32,
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``conv2d_im2col`` dispatch: the hand-written GEMM's CUDA plan over the
+    patch matrix (:func:`matmul_access_plan`) prefixed with the aten patch
+    expansion as flat traffic (read the input once, write the (m, k) patch
+    matrix once), exactly what ``im2col_hbm_words`` charges, and the
+    filter's transposed copy into the GEMM's (k, c_O) operand, which it
+    does not."""
+    import dataclasses as _dc
+
+    from repro_torch.verify.access import FlatAccess
+
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    h_O = (H - h_F) // sh + 1
+    w_O = (W - w_F) // sw + 1
+    m, k = N * h_O * w_O, c_I * h_F * w_F
+    p_in = x.dtype.itemsize / 4.0
+    gemm = matmul_access_plan(
+        torch.empty((m, k), dtype=x.dtype, device="meta"),
+        torch.empty((k, c_O), dtype=w.dtype, device="meta"),
+        target=target, out_dtype=out_dtype, op="conv2d[im2col]")
+    p_w = w.dtype.itemsize / 4.0
+    expand = (
+        FlatAccess(name="im2col_input_read", kind="load",
+                   words=p_in * N * c_I * H * W,
+                   note="aten patch expansion reads the input once"),
+        FlatAccess(name="im2col_patch_write", kind="store",
+                   words=p_in * float(m) * k,
+                   note="aten patch expansion writes the (m, k) matrix"),
+        FlatAccess(name="filter transpose read", kind="load",
+                   words=p_w * c_O * k, counted=False,
+                   note="w.reshape(c_O, k).t().contiguous()"),
+        FlatAccess(name="filter transpose write", kind="store",
+                   words=p_w * c_O * k, counted=False),
+    )
+    return _dc.replace(gemm, accesses=expand + gemm.accesses,
+                       note="patch expansion + LP-tiled GEMM")

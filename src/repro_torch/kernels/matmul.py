@@ -222,7 +222,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), dtype_code(a.dtype),
             dtype_code(out_dtype), cfg["variant"], m, n, k, bm, bn, bk,
             mp // bm, np_ // bn, *geometry, cfg["threads"], cfg["smem"],
-            stream, tensor_core=cfg["kernel"] == "tensor core")
+            stream, tensor_core=cfg["kernel"] == "tensor core",
+            grid=((mp // bm) * (np_ // bn),), block=(cfg["threads"],),
+            smem=cfg["smem"])
     return out[:m, :n]
 
 
@@ -273,3 +275,161 @@ def matmul_hbm_words(
     p_b = b.dtype.itemsize / 4.0
     p_out = out_dtype.itemsize / 4.0
     return (n_steps * (bm * bk * p_a + bk * bn * p_b) + mp * np_ * p_out)
+
+
+def gemm_access_plan(op: str, kernel: str, m: int, n: int, k: int,
+                     tiles: Tuple[int, int, int], p_a: float, p_b: float,
+                     p_out: float, ks: int, n_spans: int, threads: int,
+                     smem: int, scratch, dma, shares=(1, 1, None, None),
+                     scale: bool = False):
+    """The access plan of one tiled GEMM launch (``matmul``, the int8
+    ``matmul_q``): the walk is the CUDA grid's CTAs (n tiles fastest; a
+    narrow plan's ``shares`` = (sm, sn, cbm, cbn) CTA shares of each tile,
+    the tile's shares consecutive) with the CTA's ``n_spans`` k-spans of
+    ``ks`` innermost. Counted: A and B spans over the padded k range (a
+    tile's rows or columns once, by its first share along the other side),
+    the output once a CTA, and for ``scale`` one slice a column tile;
+    uncounted: the other shares' re-reads and the other CTAs' scale
+    slices; skipped: padded k past the spans the kernel runs."""
+    import numpy as np
+
+    from repro_torch.verify.access import (CudaLaunch, FlatAccess,
+                                           KernelAccessPlan, WindowAccess)
+
+    bm, bn, bk = tiles
+    mp, np_, kp = round_up(m, bm), round_up(n, bn), round_up(k, bk)
+    sm, sn, cbm, cbn = shares
+    cbm, cbn = cbm or bm, cbn or bn
+    nMT, nNT = mp // bm * sm, np_ // bn * sn
+    walk = (nMT, nNT, n_spans)
+
+    def rows(i):  # the share's first row and rows
+        si = i % sm * cbm
+        return i // sm * bm + si, np.minimum(cbm, bm - si)
+
+    def cols(j):
+        sj = j % sn * cbn
+        return j // sn * bn + sj, np.minimum(cbn, bn - sj)
+
+    def kspan(s):
+        return s * ks, np.clip(kp - s * ks, 0, ks)
+
+    def a_win(first):
+        def window(i, j, s):
+            r0, rl = rows(i)
+            k0, kl = kspan(s)
+            mine = (j % sn == 0) == first
+            return (r0, np.where(mine, rl, 0)), (k0, kl)
+        return window
+
+    def b_win(first):
+        def window(i, j, s):
+            c0, cl = cols(j)
+            k0, kl = kspan(s)
+            mine = (i % sm == 0) == first
+            return (k0, kl), (c0, np.where(mine, cl, 0))
+        return window
+
+    def a_requires(i, j, s):
+        r0, rl = rows(i)
+        k0, kl = kspan(s)
+        return ((r0, np.where(j % sn == 0, r0 + rl, r0)), (k0, k0 + kl))
+
+    accesses = [
+        WindowAccess(name="a", kind="load", array_shape=(mp, kp),
+                     word_size=p_a, window=a_win(True), requires=a_requires),
+        WindowAccess(name="b", kind="load", array_shape=(kp, np_),
+                     word_size=p_b, window=b_win(True)),
+        WindowAccess(
+            name="out", kind="store", array_shape=(mp, np_),
+            word_size=p_out,
+            window=lambda i, j, s: ((rows(i)[0], np.where(s == 0, rows(i)[1],
+                                                          0)),
+                                    (cols(j)[0], cols(j)[1]))),
+    ]
+    if sn > 1:
+        accesses.append(WindowAccess(
+            name="a (CTA-share re-reads)", kind="load", array_shape=(mp, kp),
+            word_size=p_a, window=a_win(False), counted=False,
+            note="each share of a tile's columns reads the tile's rows"))
+    if sm > 1:
+        accesses.append(WindowAccess(
+            name="b (CTA-share re-reads)", kind="load",
+            array_shape=(kp, np_), word_size=p_b, window=b_win(False),
+            counted=False,
+            note="each share of a tile's rows reads the tile's columns"))
+    if scale:
+        def slice_of(first):
+            def window(i, j, s):
+                c0, cl = cols(j)
+                mine = (s == 0) & ((i == 0) == first)
+                return (0, 1), (c0, np.where(mine, cl, 0))
+            return window
+
+        accesses += [
+            WindowAccess(name="scale", kind="load", array_shape=(1, np_),
+                         word_size=1.0, window=slice_of(True),
+                         note="one slice a column tile, as the counter's "
+                              "once"),
+            WindowAccess(name="scale (per-CTA slices)", kind="load",
+                         array_shape=(1, np_), word_size=1.0,
+                         window=slice_of(False), counted=False,
+                         note="every other CTA reads its slice again"),
+        ]
+    skipped = []
+    short = kp - min(kp, n_spans * ks)  # padded k no span reaches
+    if short:
+        skipped.append(FlatAccess(
+            name="k past the spans", kind="load",
+            words=(mp // bm) * (np_ // bn) * short * (bm * p_a + bn * p_b)))
+    return KernelAccessPlan(
+        op=op, grid=walk, accesses=tuple(accesses), scratch=scratch,
+        dma=dma, skipped=tuple(skipped),
+        launch=CudaLaunch(kernel, (nMT * nNT, 1, 1), (threads, 1, 1), smem),
+        note="k-spans innermost; the ring repeats identically per CTA")
+
+
+def matmul_access_plan(
+    a,  # tensor (meta tensors work), (m, k)
+    b,  # tensor, (k, n)
+    tiles: Optional[Tuple[int, int, int]] = None,
+    plan: Optional[ExecutionPlan] = None,
+    target: Optional[HardwareTarget] = None,
+    out_dtype=torch.float32,
+    op: str = "matmul",
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``matmul`` launch as :func:`matmul` makes it: bf16 inputs the
+    tensor-core kernel (the k-spans, slots and shared memory of
+    :func:`launch_config`; its ring: ``slots - 1`` spans in flight,
+    ``wait_group(slots - 2)``, one ``__syncthreads`` a span, no wait at
+    exit, as its trailing groups are empty), f32 the FMA kernel (one stage a
+    plan k-step, plain loads). Raises ValueError for tiles no variant
+    covers."""
+    from repro_torch.verify.access import ScratchAlloc
+    from repro_torch.verify.hazards import ring_schedule
+
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bn, bk = resolve_kernel_plan(
+        _matmul_spec(m, n, k, a.dtype.itemsize * 8),
+        plan=plan, target=target, tiles=tiles)
+    cfg = launch_config(bm, bn, bk, a.dtype.itemsize, k)
+    if cfg["kernel"] == "tensor core":
+        kernel, ks, n_spans = "matmul_tc_kernel", cfg["ks"], cfg["n_spans"]
+        held = min(cfg["slots"], n_spans)
+        scratch = (ScratchAlloc(f"ring[{held}] (A and B spans)",
+                                cfg["smem"] / 4.0),)
+        dma = ring_schedule(n_spans, cfg["slots"], cfg["slots"] - 1,
+                            cfg["threads"] // 32, name=f"{op}: ring",
+                            drain=False)
+    else:
+        kernel, ks, n_spans = "matmul_kernel", bk, -(-k // bk)
+        scratch = (ScratchAlloc("a tile", cfg["a_bytes"] / 4.0),
+                   ScratchAlloc("b tile",
+                                (cfg["smem"] - cfg["a_bytes"]) / 4.0))
+        dma = None
+    return gemm_access_plan(
+        op, kernel, m, n, k, (bm, bn, bk), a.dtype.itemsize / 4.0,
+        b.dtype.itemsize / 4.0, out_dtype.itemsize / 4.0, ks, n_spans,
+        cfg["threads"], cfg["smem"], scratch, dma)

@@ -51,8 +51,9 @@ from repro_torch.plan.planner import resolve_kernel_plan
 from ._build import (ACC_PER_THREAD, MAX_SMEM_BYTES, MAX_THREADS_Q,
                      CudaKernel, check_cuda_operands, check_smem, dtype_code)
 from .conv2d import (_gather_table_on, _launch_geometry, _normalize_tiles,
-                     gather_table, row_offsets, window_layout)
-from .matmul import vector_width, warp_layout, warp_tiles
+                     conv_access_plan, gather_table, row_offsets,
+                     window_layout)
+from .matmul import gemm_access_plan, vector_width, warp_layout, warp_tiles
 
 _c = ctypes
 CONV_KERNEL = CudaKernel("quant.cu", "repro_conv2d_q", [
@@ -309,7 +310,8 @@ def _conv_launch(x, w, scale, stride, out_dtype,
             x.data_ptr(), w.data_ptr(), koff.data_ptr(), scale.data_ptr(),
             out.data_ptr(), dtype_code(out_dtype), cfg["variant"], geometry,
             len(CONV_GEOMETRY), cfg["threads"], cfg["smem"], stream,
-            tensor_core=True)
+            tensor_core=True, grid=(math.prod(grid[:4]),),
+            block=(cfg["threads"],), smem=cfg["smem"])
     return out[:N, :c_O, :h_O, :w_O]
 
 
@@ -574,7 +576,9 @@ def _matmul_launch(a, b, scale, out_dtype,
         MATMUL_KERNEL.launch(
             a.data_ptr(), b.data_ptr(), scale.data_ptr(), out.data_ptr(),
             dtype_code(out_dtype), cfg["variant"], geometry, len(GEOMETRY),
-            cfg["threads"], cfg["smem"], stream, tensor_core=True)
+            cfg["threads"], cfg["smem"], stream, tensor_core=True,
+            grid=(g["nMT"] * g["nNT"],), block=(cfg["threads"],),
+            smem=cfg["smem"])
     return out[:m, :n]
 
 
@@ -728,3 +732,127 @@ def matmul_q_hbm_words(
     p_out = _wordwidth(out_dtype)
     return (n_steps * (bm * bk * p_a + bk * bn * p_b)
             + mp * np_ * p_out + np_ * 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Access plans (repro_torch.verify)
+# ---------------------------------------------------------------------------
+
+def conv2d_q_access_plan(
+    x,  # tensor (meta tensors work), (N, c_I, H, W) int8
+    w,  # tensor, (c_O, c_I, h_F, w_F) int8
+    scale=None,  # (1, c_O) f32; only its place in the signature matters
+    stride: Tuple[int, int] = (1, 1),
+    tiles: Optional[Sequence[int]] = None,
+    plan: Optional[ExecutionPlan] = None,
+    target: Optional[HardwareTarget] = None,
+    out_dtype=torch.bfloat16,
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``conv2d_q`` launch (``conv2d_q_tc_kernel``): the bf16 conv's walk
+    (``conv2d.conv_access_plan``) at int8 widths over the ring stages of
+    :func:`conv_launch_config` (two plan c_I blocks a stage), 16-element
+    window runs, the epilogue staged through shared memory, and the scale:
+    the counter charges its c_O words once, while every CTA reads its
+    b_cO slice, an excess of (CTAs - c_O tiles) x b_cO words."""
+    N, c_I, H, W = x.shape
+    c_O, _, h_F, w_F = w.shape
+    sh, sw = stride
+    h_O = (H - h_F) // sh + 1
+    w_O = (W - w_F) // sw + 1
+    t = resolve_kernel_plan(
+        _conv_spec_q(N, c_I, c_O, h_O, w_O, h_F, w_F, sh, sw, x.dtype,
+                     w.dtype, out_dtype),
+        plan=plan, target=target, tiles=tiles)
+    t = _normalize_tiles(t, h_O, w_O)
+    h_in = (t[3] - 1) * sh + h_F
+    w_in = (t[4] - 1) * sw + w_F
+    cfg = conv_launch_config(t, h_F, w_F, h_in, w_in, c_I, (H, W))
+    return conv_access_plan("conv2d_q", x, w, (sh, sw), t, out_dtype, cfg)
+
+
+def matmul_q_program(n_spans: int):
+    """``matmul_q_tc_kernel``'s events for one CTA: the scale slice written
+    before the prologue's ``__syncthreads`` (read in the epilogue); spans 0
+    and 1 issued (A into slot s % 3, B into slot s % 2, a commit group
+    each), ``wait_group(1)``, ``__syncthreads``, span 0 transposed (B slot
+    0 read, B^T slot 0 written); then span s: ``wait_group(0)``,
+    ``__syncthreads``, span s + 2 issued (an empty group past the last),
+    span s + 1 transposed, A slot s % 3 and B^T slot s % 2 read; a
+    ``wait_group(0)`` at exit."""
+    from repro_torch.verify.hazards import Program
+
+    a_slots, b_slots, t_slots = RING
+    prog = Program()
+    prog.write("scale", 0, 0)
+
+    def load(s):
+        prog.start("A", s % a_slots, s)
+        prog.start("B", s % b_slots, s)
+
+    def transpose(s):
+        prog.read("B", s % b_slots, s)
+        prog.write("B^T", s % t_slots, s)
+
+    for s in range(a_slots - 1):
+        if s < n_spans:
+            load(s)
+        prog.commit()
+    prog.wait_group(a_slots - 2)
+    prog.barrier()
+    if n_spans:
+        transpose(0)
+    for s in range(n_spans):
+        prog.wait_group(a_slots - 3)
+        prog.barrier()
+        if s + a_slots - 1 < n_spans:
+            load(s + a_slots - 1)
+        prog.commit()
+        if s + 1 < n_spans:
+            transpose(s + 1)
+        prog.read("A", s % a_slots, s)
+        prog.read("B^T", s % t_slots, s)
+    prog.wait_group(0)
+    prog.read("scale", 0, 0)
+    return prog
+
+
+def matmul_q_access_plan(
+    a,  # tensor (meta tensors work), (m, k) int8
+    b,  # tensor, (k, n) int8
+    scale=None,
+    tiles: Optional[Tuple[int, int, int]] = None,
+    plan: Optional[ExecutionPlan] = None,
+    target: Optional[HardwareTarget] = None,
+    out_dtype=torch.bfloat16,
+):
+    """The :class:`repro_torch.verify.access.KernelAccessPlan` of one
+    ``matmul_q`` launch (``matmul_q_tc_kernel``), from
+    :func:`matmul_launch_config`: the CTA shares of a narrow plan (each
+    share reads the narrow operand's whole slice of the tile: the re-reads
+    are uncounted), the k-spans, the 3 A, 2 B and 2 B^T stages and the
+    scale slice in shared memory, the ring of :func:`matmul_q_program`,
+    and the scale: the counter charges its n words once, every CTA reads
+    its slice."""
+    from repro_torch.verify.access import ScratchAlloc
+
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bn, bk = resolve_kernel_plan(
+        _matmul_spec_q(m, n, k, a.dtype, b.dtype, out_dtype),
+        plan=plan, target=target, tiles=tiles)
+    cfg = matmul_launch_config(bm, bn, bk, k)
+    scratch = (
+        ScratchAlloc("A ring", cfg["off_bs"] / 4.0),
+        ScratchAlloc("B ring", (cfg["off_bt"] - cfg["off_bs"]) / 4.0),
+        ScratchAlloc("B^T ring", (cfg["off_sc"] - cfg["off_bt"]) / 4.0),
+        ScratchAlloc("scale slice", (cfg["smem"] - cfg["off_sc"]) / 4.0),
+    )
+    dma = matmul_q_program(cfg["n_spans"]).schedules(
+        {"A": RING[0], "B": RING[1], "B^T": RING[2], "scale": 1},
+        cfg["threads"] // 32, "matmul_q")
+    return gemm_access_plan(
+        "matmul_q", "matmul_q_tc_kernel", m, n, k, (bm, bn, bk),
+        _wordwidth(a.dtype), _wordwidth(b.dtype), _wordwidth(out_dtype),
+        cfg["ks"], cfg["n_spans"], cfg["threads"], cfg["smem"], scratch, dma,
+        shares=(cfg["sm"], cfg["sn"], cfg["cbm"], cfg["cbn"]), scale=True)

@@ -46,7 +46,18 @@ class DispatchDecision:
     ``"analytic"``; ``measured_words`` the HBM words (32-bit) the chosen
     kernel's launch geometry moves for this call (None when the entry is not
     instrumented), reported via ``bound_ratio`` against the plan's Thm 2.1
-    ``lower_bound``."""
+    ``lower_bound``.
+
+    ``audited`` is the static auditor's independent word count (set only
+    when the call resolved with ``audit=True``): ``repro_torch.verify``
+    abstractly interprets the entry's :class:`KernelAccessPlan` (the CUDA
+    launch's CTAs and ring stages, the windows they copy) and raises
+    ``verify.AuditError`` unless it reproduces ``measured_words`` exactly,
+    fits the CTA's shared memory, stays at/below the recorded bound ratio,
+    and every ring schedule is hazard-free; so when this field is set it
+    *equals* ``measured_words``. ``audit_report`` keeps the auditor's whole
+    report (issued words, the words the counter does not charge, the
+    shortfall), which the reference's decision does not carry."""
 
     op: str
     requested: str
@@ -55,6 +66,9 @@ class DispatchDecision:
     plan: Optional[Any] = None
     plan_source: str = "analytic"  # "explicit" | "analytic"
     measured_words: Optional[float] = None
+    audited: Optional[float] = None
+    audit_report: Optional[Any] = dataclasses.field(default=None,
+                                                    compare=False, repr=False)
 
     @property
     def fell_back(self) -> bool:
@@ -86,6 +100,8 @@ class DispatchDecision:
             if self.bound_ratio is not None:
                 msg += (f" = {self.bound_ratio:.2f}x the "
                         f"{self.lower_bound:.3e}-word lower bound")
+        if self.audited is not None:
+            msg += " (statically audited)"
         return msg
 
 
@@ -168,6 +184,26 @@ def _attach_plan_and_words(entry: OpEntry, decision: DispatchDecision,
     return decision
 
 
+def _maybe_audit(entry: OpEntry, decision: DispatchDecision,
+                 ctx: ExecutionContext, spec_args: Optional[tuple],
+                 spec_kw: Optional[dict], audit: bool) -> DispatchDecision:
+    """Opt-in static audit: build the entry's KernelAccessPlan, abstractly
+    interpret it, and stamp the audited word count on the decision. Raises
+    ``repro_torch.verify.AuditError`` on any mismatch/violation/hazard. Lazy
+    import keeps the hot dispatch path free of the verify machinery."""
+    if not audit or spec_args is None or entry.access_plan_fn is None:
+        return decision
+    from repro_torch.verify import audit as _audit
+
+    ap = entry.access_plan_fn(ctx, decision.plan, *spec_args,
+                              **(spec_kw or {}))
+    report = _audit.audit_decision(ap, decision, target=ctx.target)
+    if not report.ok:
+        raise _audit.AuditError(report)
+    return dataclasses.replace(decision, audited=report.counted_words,
+                               audit_report=report)
+
+
 def _dtype(dtype) -> Optional[str]:
     return None if dtype is None else dtype_name(dtype)
 
@@ -175,34 +211,44 @@ def _dtype(dtype) -> Optional[str]:
 def resolve(op: str, ctx: Optional[ExecutionContext] = None,
             dtype: Optional[str] = None, needs: Tuple[str, ...] = (),
             spec_args: Optional[tuple] = None, spec_kw: Optional[dict] = None,
+            audit: bool = False,
             plan: Optional[Any] = None) -> Tuple[OpEntry, DispatchDecision]:
     """Capability-resolve one call; resolve the entry's plan and measured
-    HBM-word counter if it declares them. Records the decision."""
+    HBM-word counter if it declares them. ``audit=True`` also runs the
+    ``repro_torch.verify`` static auditor against the chosen entry's access
+    plan (raising on any mismatch or hazard). Records the decision."""
     entry, decision = _explain_entry(op, ctx, dtype, needs, spec_args,
-                                     spec_kw, plan)
+                                     spec_kw, plan, audit)
     for log in _TRACE:
         log.append(decision)
     return entry, decision
 
 
 def _explain_entry(op, ctx=None, dtype=None, needs=(), spec_args=None,
-                  spec_kw=None, plan=None) -> Tuple[OpEntry, DispatchDecision]:
+                   spec_kw=None, plan=None, audit=False
+                   ) -> Tuple[OpEntry, DispatchDecision]:
     ctx = default_context() if ctx is None else ctx
     entry, decision = _resolve_entry(op, ctx, _dtype(dtype), tuple(needs))
-    return entry, _attach_plan_and_words(entry, decision, ctx, spec_args,
-                                         spec_kw, plan=plan)
+    decision = _attach_plan_and_words(entry, decision, ctx, spec_args,
+                                      spec_kw, plan=plan)
+    return entry, _maybe_audit(entry, decision, ctx, spec_args, spec_kw,
+                               audit)
 
 
 def explain(op: str, ctx: Optional[ExecutionContext] = None,
             dtype: Optional[str] = None, needs: Tuple[str, ...] = (),
             spec_args: Optional[tuple] = None,
             spec_kw: Optional[dict] = None,
+            audit: bool = False,
             plan: Optional[Any] = None) -> DispatchDecision:
     """The decision ``resolve`` would make, without executing anything.
     ``spec_args``/``spec_kw`` mirror the op's call (e.g. conv2d needs
     ``stride=``) so the reported plan and measured words are the ones the
-    dispatched kernel would consume; meta tensors work."""
-    return _explain_entry(op, ctx, dtype, needs, spec_args, spec_kw, plan)[1]
+    dispatched kernel would consume; meta tensors work. ``audit=True`` runs
+    the static communication auditor and stamps
+    ``DispatchDecision.audited``."""
+    return _explain_entry(op, ctx, dtype, needs, spec_args, spec_kw, plan,
+                          audit)[1]
 
 
 def dispatch_call(op: str, ctx: ExecutionContext, dtype: Optional[str],

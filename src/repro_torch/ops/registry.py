@@ -45,23 +45,29 @@ import torch
 
 from repro_torch.core.conv_model import Precision
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv1d import (conv1d_causal as _conv1d_cuda,
+from repro_torch.kernels.conv1d import (conv1d_access_plan,
+                                        conv1d_causal as _conv1d_cuda,
                                         conv1d_hbm_words)
 from repro_torch.kernels.conv2d import (_conv_spec, conv2d as _conv2d_cuda,
-                                        conv2d_hbm_words)
+                                        conv2d_access_plan, conv2d_hbm_words)
 from repro_torch.kernels.flash_attention import (NEG_INF, attention_blocks,
                                                  attention_hbm_words,
                                                  flash_attention as _flash_cuda,
+                                                 flash_attention_access_plan,
+                                                 paged_decode_access_plan,
                                                  paged_decode_attention,
                                                  paged_decode_hbm_words,
                                                  paged_decode_plain)
-from repro_torch.kernels.im2col import conv2d_im2col, im2col_hbm_words
+from repro_torch.kernels.im2col import (conv2d_im2col, im2col_access_plan,
+                                        im2col_hbm_words)
 from repro_torch.kernels.matmul import (_matmul_spec, matmul as _matmul_cuda,
-                                        matmul_hbm_words)
+                                        matmul_access_plan, matmul_hbm_words)
 from repro_torch.kernels.quant import (_conv_spec_q, _matmul_spec_q,
                                        conv2d_q as _conv2d_q_cuda,
+                                       conv2d_q_access_plan,
                                        conv2d_q_hbm_words,
                                        matmul_q as _matmul_q_cuda,
+                                       matmul_q_access_plan,
                                        matmul_q_hbm_words)
 from repro_torch.plan import AttentionSpec
 
@@ -110,6 +116,12 @@ class OpEntry:
     # measured HBM words the kernel's launch geometry moves for this call:
     # (ctx, plan, *spec_args, **spec_kw) -> float. None = not instrumented.
     words_fn: Optional[Callable] = None
+    # structured launch metadata for the static auditor: (ctx, plan,
+    # *spec_args, **spec_kw) -> repro_torch.verify.KernelAccessPlan of the
+    # CUDA launch the entry makes; the auditor abstractly interprets it and
+    # must reproduce words_fn exactly. None = not statically auditable (the
+    # aten entries).
+    access_plan_fn: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -502,28 +514,98 @@ def _cuda_matmul_q_words(ctx, plan, a, b, scale=None,
                               out_dtype=out_dtype)
 
 
+# -- access plans (repro_torch.verify): the CUDA launch each entry makes, as
+# structured data the static auditor can abstractly interpret --------------
+
+def _cuda_matmul_access(ctx, plan, a, b, out_dtype=None, **kw):
+    return matmul_access_plan(a, b, plan=plan, target=ctx.target,
+                              out_dtype=out_dtype or ctx.acc_dtype)
+
+
+def _cuda_conv2d_access(ctx, plan, x, w, stride=(1, 1), out_dtype=None,
+                        **kw):
+    return conv2d_access_plan(x, w, stride=stride, plan=plan,
+                              target=ctx.target,
+                              out_dtype=out_dtype or ctx.acc_dtype)
+
+
+def _cuda_conv1d_access(ctx, plan, x, w, **kw):
+    return conv1d_access_plan(x, w, target=ctx.target)
+
+
+def _cuda_attention_access(ctx, plan, q, k, v, **kw):
+    # the launch over the GQA-folded view (_cuda_attention)
+    B, H, Lq, Dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = k.dtype.itemsize / 4.0
+    bq, bk = attention_blocks(Dh, ctx.target, kv_word=p_kv)
+    return flash_attention_access_plan(B * Hkv, g * Lq, Lk, Dh, bq, bk,
+                                       p_q=p_io, p_kv=p_kv, p_o=p_io)
+
+
+def _host_ints(t):
+    """A real tensor's values on the host (None for a meta tensor: only
+    its shape is known)."""
+    return None if t.device.type == "meta" else t.detach().cpu().tolist()
+
+
+def _cuda_attention_decode_access(ctx, plan, q, kp, vp, tables, lengths,
+                                  **kw):
+    # concrete lengths and tables when the call has them (the kernel skips
+    # dead slots); meta tensors model every slot live
+    B, H, _, hd = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    p_io = q.dtype.itemsize / 4.0
+    p_kv = kp.dtype.itemsize / 4.0
+    return paged_decode_access_plan(
+        B, KV, H // KV, tables.shape[1], bs, hd, num_blocks=kp.shape[0],
+        p_q=p_io, p_kv=p_kv, p_o=p_io, tables=_host_ints(tables),
+        lengths=_host_ints(lengths))
+
+
+def _cuda_conv2d_q_access(ctx, plan, x, w, scale=None, stride=(1, 1),
+                          out_dtype=torch.bfloat16, **kw):
+    return conv2d_q_access_plan(x, w, scale, stride=stride, plan=plan,
+                                target=ctx.target, out_dtype=out_dtype)
+
+
+def _cuda_matmul_q_access(ctx, plan, a, b, scale=None,
+                          out_dtype=torch.bfloat16, **kw):
+    return matmul_q_access_plan(a, b, scale, plan=plan, target=ctx.target,
+                                out_dtype=out_dtype)
+
+
 register_backend(Backend(
     name="cuda",
     fallback="torch",
     ops={
         "matmul": OpEntry(_cuda_matmul, spec_fn=_matmul_plan_spec,
-                          words_fn=_cuda_matmul_words),
+                          words_fn=_cuda_matmul_words,
+                          access_plan_fn=_cuda_matmul_access),
         "conv2d": OpEntry(_cuda_conv2d, spec_fn=_conv2d_plan_spec,
-                          words_fn=_cuda_conv2d_words),
-        "conv1d_causal": OpEntry(_cuda_conv1d, words_fn=_cuda_conv1d_words),
+                          words_fn=_cuda_conv2d_words,
+                          access_plan_fn=_cuda_conv2d_access),
+        "conv1d_causal": OpEntry(_cuda_conv1d, words_fn=_cuda_conv1d_words,
+                                 access_plan_fn=_cuda_conv1d_access),
         "attention": OpEntry(
             _cuda_attention, OpCapabilities(flags=frozenset(ATTN_FLAGS)),
-            spec_fn=_attention_plan_spec, words_fn=_cuda_attention_words),
+            spec_fn=_attention_plan_spec, words_fn=_cuda_attention_words,
+            access_plan_fn=_cuda_attention_access),
         "attention_decode": OpEntry(
             _cuda_attention_decode, spec_fn=_attention_decode_plan_spec,
-            words_fn=_cuda_attention_decode_words),
+            words_fn=_cuda_attention_decode_words,
+            access_plan_fn=_cuda_attention_decode_access),
         # int8 streams only (f32/bf16 callers use the full-precision ops)
         "conv2d_q": OpEntry(_cuda_conv2d_q, _INT8,
                             spec_fn=_conv2d_q_plan_spec,
-                            words_fn=_cuda_conv2d_q_words),
+                            words_fn=_cuda_conv2d_q_words,
+                            access_plan_fn=_cuda_conv2d_q_access),
         "matmul_q": OpEntry(_cuda_matmul_q, _INT8,
                             spec_fn=_matmul_q_plan_spec,
-                            words_fn=_cuda_matmul_q_words),
+                            words_fn=_cuda_matmul_q_words,
+                            access_plan_fn=_cuda_matmul_q_access),
     },
 ))
 
@@ -547,6 +629,12 @@ def _im2col_conv2d_words(ctx, plan, x, w, stride=(1, 1), out_dtype=None,
                             out_dtype=out_dtype or ctx.acc_dtype)
 
 
+def _im2col_conv2d_access(ctx, plan, x, w, stride=(1, 1), out_dtype=None,
+                          **kw):
+    return im2col_access_plan(x, w, stride=stride, target=ctx.target,
+                              out_dtype=out_dtype or ctx.acc_dtype)
+
+
 register_backend(Backend(
     name="im2col",
     fallback="torch",
@@ -555,6 +643,7 @@ register_backend(Backend(
         # decision reports the identical Thm 2.1 lower bound; the GEMM's own
         # matmul plan is solved inside conv2d_im2col (memoized).
         "conv2d": OpEntry(_im2col_conv2d, spec_fn=_conv2d_plan_spec,
-                          words_fn=_im2col_conv2d_words),
+                          words_fn=_im2col_conv2d_words,
+                          access_plan_fn=_im2col_conv2d_access),
     },
 ))

@@ -26,6 +26,7 @@ from .planner import (  # noqa: F401
     Planner,
     TunedSection,
     analytic_plan,
+    register_plan_audit_hook,
     resolve_kernel_plan,
     resolve_plan,
 )

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import threading
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 from repro_torch.core.bounds import attention_bound, single_processor_bound
 from repro_torch.core.conv_model import ConvShape, Precision, ceil_div, round_up
@@ -424,6 +424,18 @@ def resolve_kernel_plan(
     return plan.tiles
 
 
+_PLAN_AUDIT_HOOKS: List[Callable[[ExecutionPlan], None]] = []
+
+
+def register_plan_audit_hook(fn: Callable[[ExecutionPlan], None]) -> None:
+    """Register ``fn`` to be called on every freshly built ExecutionPlan
+    (cache hits skip it: the cached object already passed). Hooks raise to
+    reject a plan; ``repro_torch.verify.audit.install_plan_audit`` uses this
+    to run the static plan validator at construction time. Idempotent."""
+    if fn not in _PLAN_AUDIT_HOOKS:
+        _PLAN_AUDIT_HOOKS.append(fn)
+
+
 def _memoize_plan(key: Tuple[OpSpec, HardwareTarget], built: ExecutionPlan
                   ) -> ExecutionPlan:
     with _CACHE_LOCK:
@@ -454,6 +466,8 @@ def analytic_plan(op: Union[OpSpec, ConvShape],
         built = _plan_attention(op, target)
     else:
         raise TypeError(f"cannot plan {type(op).__name__}")
+    for hook in _PLAN_AUDIT_HOOKS:
+        hook(built)
     return _memoize_plan(key, built)
 
 

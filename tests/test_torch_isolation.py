@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package ``repro`` (only the tests
-import both), and importing repro_torch loads no jax module."""
+"""The port stands alone: nothing under src/repro_torch, and neither
+chip_smoke.py nor scripts/verify_torch.py, imports jax or the JAX package
+``repro`` (only the tests import both), and importing repro_torch loads no
+jax module."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "verify_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
