@@ -178,7 +178,26 @@ kernel. Phases, each fatal on failure:
      dead slots, the im2col GEMM's padded k-step and filter transpose,
      flash's offsets; the window runs' overhang within run - 1 elements a
      row); one ``{"audit": ...}`` line each, fatal on any mismatch;
- 17. the ``kernels`` JSON line, the card's name and power limit, and the
+ 17. the autotuner (``repro_torch.plan.autotune``) on the device timer:
+     ``Planner(H100).autotune`` with the default policy on the five layers
+     as bf16 convs (``conv2d_tc_kernel``) and as int8 convs under
+     ``H100.with_quant`` (``conv2d_q_tc_kernel``), their five Im2Col GEMMs
+     (``matmul_tc_kernel``) and phase 11's three int8 GEMMs
+     (``matmul_q_tc_kernel``): 18 searches on the operands phase 16 leaves.
+     Every timed candidate runs once at full size and is held against the
+     plain version (the first and last images or 4,096 rows), fatal on
+     disagreement; each tuned plan then goes through its public entry
+     (``ops.conv2d``/``matmul``/``conv2d_q``/``matmul_q`` with
+     ``autotune=True``): ``plan_source`` "tuned", the winner's words, the
+     static audit, ``last_launch`` equal to the plan and the output; the
+     plan cache's save/clear/load round trip must then re-plan all 18 with
+     no search. Last, the five bf16 conv searches again with
+     ``bound_cap=inf``. One ``{"autotune": ...}`` line a search (candidates
+     enumerated, in the frontier, audited, not auditable by reason; the
+     analytic tiles, the winner and the roofline's pick with words and
+     device ms; words against time as a rank correlation; the fitted
+     ``DMA_SETUP_SECONDS``) and a summary line;
+ 18. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -232,10 +251,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES, PEAK_F32_FLOPS, PEAK_FLOPS as PEAK_BF16_FLOPS,
+    PEAK_INT8_OPS, bound_ms)
+from repro_torch.analysis import timing  # noqa: E402
+
 ARCH = "qwen2_5_3b"
 HYBRID_ARCH = "jamba_1_5_large"
 BATCH = 1000
@@ -252,7 +272,8 @@ CONV_LIBRARY_NOTE = ("F.conv2d on the bf16 operands writes bf16, half the "
                      "kernel's f32 output bytes")
 
 
-# operands that phases 4, 8, 10, 11 and 15 leave for phase 16's audit
+# operands that phases 4, 8, 10, 11 and 15 leave for phase 16's audit; the
+# conv path's stay for phase 17's autotune
 HELD: dict = {}
 
 
@@ -333,42 +354,14 @@ def per_launch_ms(fn, n: int = 50, warmup: int = 3) -> float:
 
 
 def graph_ms_per_call(fn, n: int = 20, replays: int = 5):
-    """Device time of one call with the host out of the way: ``n`` calls
-    captured in a CUDA graph, replayed ``replays`` times between two CUDA
-    events, divided by ``n * replays``; "not measured" where the calls
-    cannot be captured. (``torch.profiler`` traces of such short calls
-    have come back with kernels missing.)"""
+    """Device time of one call (``repro_torch.analysis.timing``: ``n``
+    calls captured in a CUDA graph, replayed ``replays`` times between two
+    CUDA events); "not measured" where the calls cannot be captured."""
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(n):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
+        return timing.graph_ms_per_call(fn, n, replays)
     except RuntimeError as exc:
         print(f"graph capture failed: {exc}", flush=True)
         return "not measured"
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    del graph
-    return start.elapsed_time(end) / (n * replays)
-
-
-def bound_ms(flops: float, nbytes: float, peak_flops: float):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def layer_inputs(gen: torch.Generator, i: int, s):
@@ -1947,7 +1940,6 @@ def audit_phase() -> int:
               lambda: ops.conv2d(x, w, stride, ctx=ctxs["im2col"],
                                  out_dtype=torch.float32), im2col_expect)
         torch.cuda.empty_cache()
-    del HELD["conv"]
     for name, s in layers.items():
         xq, wq, sc = HELD["conv_q"][name]
         stride = (s.sh, s.sw)
@@ -1963,8 +1955,7 @@ def audit_phase() -> int:
               (xq, wq, sc), {"stride": stride, "out_dtype": torch.bfloat16},
               (), lambda: ops.conv2d_q(xq, wq, sc, stride,
                                        ctx=ctxs["cuda"]), conv_q_expect)
-    del HELD["conv_q"]
-    for label, (aq, bq, sc) in HELD.pop("matmul_q").items():
+    for label, (aq, bq, sc) in HELD["matmul_q"].items():
         def mm_q_expect(d, got, n=bq.shape[1]):
             bn = d.plan.tiles[1]
             excess = float((ctas(got) - -(-n // bn)) * bn)
@@ -2023,6 +2014,260 @@ def audit_phase() -> int:
               lambda: ops.conv1d_causal(x, w, ctx=ctxs["cuda"]),
               conv1d_expect)
     return count
+
+
+def rank_correlation(xs, ys):
+    """Spearman's rank correlation of two lists; None for fewer than 3
+    points or a constant list."""
+    from scipy.stats import spearmanr
+
+    if len(xs) < 3 or len(set(xs)) < 2 or len(set(ys)) < 2:
+        return None
+    return float(spearmanr(xs, ys)[0])
+
+
+def autotune_phase() -> dict:
+    """Phase 17 (module docstring): ``Planner(H100).autotune`` on the device
+    timer for the conv path's four kernels (the five layers as bf16 and as
+    int8 convs, their five Im2Col GEMMs, phase 11's three int8 GEMMs: 18
+    searches), every timed candidate held once against its plain version
+    on the operands phase 16 leaves in ``HELD``; each tuned plan through its
+    public entry point (plan source, words, audit, launch, output); the plan
+    cache's save/clear/load round trip (zero re-searches); then the five
+    bf16 conv searches again with ``bound_cap=inf``. One ``{"autotune":
+    ...}`` line a search; returns the summary."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import ops
+    from repro_torch.analysis.roofline import hbm_seconds
+    from repro_torch.core.conv_model import Precision, resnet50_layers
+    from repro_torch.kernels import KERNELS, conv2d_plain, matmul_plain
+    from repro_torch.kernels.conv2d import conv2d as conv2d_kernel
+    from repro_torch.kernels.im2col import im2col_patches
+    from repro_torch.kernels.matmul import matmul as matmul_kernel
+    from repro_torch.kernels.quant import (conv2d_q as conv2d_q_kernel,
+                                           conv2d_q_plain,
+                                           matmul_q as matmul_q_kernel,
+                                           matmul_q_plain)
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import (H100, AutotunePolicy, ConvSpec,
+                                  MatmulSpec, Planner)
+    from repro_torch.plan import autotune
+    from repro_torch.quant import INT8_SPEC
+
+    t_phase = time.perf_counter()
+    bf16, int8 = Precision(0.5, 0.5, 1.0), Precision(0.25, 0.25, 0.5)
+    ctx = ExecutionContext(target=H100, backend="cuda", autotune=True)
+    qctx = dataclasses.replace(ctx, target=H100.with_quant(INT8_SPEC))
+    layers = resnet50_layers(BATCH)
+    fits, lines, tuned = [], [], {}
+
+    def case(label, op, ectx, kernel, operands, plain, entry, spec_kw, call,
+             cut):
+        """One search's op and target, the kernel wrapper that runs a
+        candidate's tiles on ``operands``, the plain version of a slice of
+        rows (images), the public entry and its call, and the rows held
+        against the plain version at each end."""
+        return dict(label=label, op=op, ctx=ectx, kernel=kernel,
+                    operands=operands, plain=plain, entry=entry,
+                    spec_args=tuple(t for t in operands
+                                    if isinstance(t, torch.Tensor)),
+                    spec_kw=spec_kw, call=call, cut=cut)
+
+    def slices(n, cut):
+        return ([slice(0, n)] if n <= 2 * cut
+                else [slice(0, cut), slice(n - cut, n)])
+
+    def held(c, got, wants, what):
+        worst = 0.0
+        for sl, want in zip(slices(got.shape[0], c["cut"]), wants):
+            err, allowed = rel_err(got[sl], want)
+            if not err <= allowed:
+                fail(f"autotune {c['label']}: {what} disagrees with the "
+                     f"plain version ({err} above {allowed})")
+            worst = max(worst, err)
+        return worst
+
+    def search(c, policy, tag, wants):
+        n0 = autotune.search_count()
+        t0 = time.perf_counter()
+        plan = Planner(c["ctx"].target).autotune(c["op"], policy=policy)
+        secs = time.perf_counter() - t0
+        if autotune.search_count() != n0 + 1:
+            fail(f"autotune {c['label']}: no search ran")
+        rep = autotune.search_report(c["op"], c["ctx"].target)
+        if rep.timer != "device":
+            fail(f"autotune {c['label']}: timed on the {rep.timer}")
+        err = 0.0
+        for cand in rep.timed:  # the first run of these kernels at these tiles
+            got = c["kernel"](*c["operands"], tiles=cand.tiles)
+            torch.cuda.synchronize()
+            err = max(err, held(c, got, wants, f"tiles {cand.tiles}"))
+            del got
+        xs = [autotune._transfers(t.grid) for t in rep.timed]
+        ys = [t.seconds - hbm_seconds(t.words) for t in rep.timed]
+        fits.extend(zip(xs, ys))
+        an, win = rep.analytic_candidate, rep.winner
+
+        def row(t):
+            return {"tiles": list(t.tiles), "words": t.words,
+                    "bound_ratio": t.words / plan.lower_bound,
+                    "device_ms": t.seconds * 1e3}
+
+        line = {"autotune": c["label"], "policy": tag, "op": c["op"].to_dict(),
+                "candidates": {"enumerated": rep.enumerated,
+                               "frontier": rep.frontier, "kept": rep.kept,
+                               "audited": len(rep.timed),
+                               "not_auditable": dict(rep.not_auditable)},
+                "analytic": row(an), "winner": row(win),
+                "roofline_pick": row(rep.roofline_pick),
+                "winner_over_analytic": win.seconds / an.seconds,
+                "words_ms_rank_correlation": rank_correlation(
+                    [t.words for t in rep.timed],
+                    [t.seconds for t in rep.timed]),
+                "timed": [[list(t.tiles), t.words, t.seconds * 1e3]
+                          for t in rep.timed],
+                "fitted_dma_setup_seconds": (
+                    sum(x * y for x, y in zip(xs, ys))
+                    / sum(x * x for x in xs)),
+                "max_abs_err": err, "search_seconds": secs}
+        print(json.dumps(line), flush=True)
+        return line
+
+    def gate(c, line):
+        """The tuned plan through the public entry point: plan source,
+        words, the static audit, the launch and the output."""
+        d = ops.explain(c["entry"], c["ctx"], dtype=c["spec_args"][0].dtype,
+                        spec_args=c["spec_args"], spec_kw=c["spec_kw"],
+                        audit=True)
+        if d.plan_source != "tuned" or \
+                list(d.plan.tiles) != line["winner"]["tiles"]:
+            fail(f"autotune {c['label']}: the entry resolved the "
+                 f"{d.plan_source} plan {d.plan.tiles}")
+        if d.measured_words != d.plan.tuned.winner_words or \
+                d.audited != d.measured_words:
+            fail(f"autotune {c['label']}: words {d.measured_words}, winner "
+                 f"{d.plan.tuned.winner_words}, audited {d.audited}")
+        KERNELS[c["entry"]].last_launch = None
+        y = c["call"]()
+        torch.cuda.synchronize()
+        la = d.audit_report.launch
+        want = {"grid": la.grid, "block": la.block, "smem": la.smem_bytes,
+                "cluster": la.cluster}
+        if KERNELS[c["entry"]].last_launch != want:
+            fail(f"autotune {c['label']}: launched "
+                 f"{KERNELS[c['entry']].last_launch}, the plan says {want}")
+        return y
+
+    def run(c):
+        wants = [c["plain"](sl)
+                 for sl in slices(c["operands"][0].shape[0], c["cut"])]
+        line = search(c, AutotunePolicy(), "default", wants)
+        lines.append(line)
+        tuned[c["label"]] = (c["op"], c["ctx"].target,
+                             line["winner"]["tiles"])
+        held(c, gate(c, line), wants, "the public entry's output")
+
+    def conv_case(name, s, q):
+        x, w, *scale = HELD["conv_q" if q else "conv"][name]
+        st = (s.sh, s.sw)
+        op = ConvSpec(N=s.N, c_I=s.c_I, c_O=s.c_O, w_O=s.w_O, h_O=s.h_O,
+                      w_F=s.w_F, h_F=s.h_F, sw=s.sw, sh=s.sh,
+                      prec=int8 if q else bf16)
+        if q:
+            sc = scale[0]
+            return case(f"conv2d_q/{name}", op, qctx, conv2d_q_kernel,
+                        (x, w, sc, st),
+                        lambda sl: conv2d_q_plain(x[sl], w, sc, st),
+                        "conv2d_q", {"stride": st,
+                                     "out_dtype": torch.bfloat16},
+                        lambda: ops.conv2d_q(x, w, sc, st, ctx=qctx), BLOCK)
+        return case(f"conv2d/{name}", op, ctx, conv2d_kernel, (x, w, st),
+                    lambda sl: conv2d_plain(x[sl], w, st), "conv2d",
+                    {"stride": st, "out_dtype": torch.float32},
+                    lambda: ops.conv2d(x, w, st, ctx=ctx,
+                                       out_dtype=torch.float32), BLOCK)
+
+    bf16_convs = [conv_case(n, s, False) for n, s in layers.items()]
+    for c in bf16_convs:
+        run(c)
+    for name, s in layers.items():  # one layer's patches alive at a time
+        x, w = HELD["conv"][name]
+        a = im2col_patches(x, s.h_F, s.w_F, (s.sh, s.sw))
+        b = w.reshape(s.c_O, -1).t().contiguous()
+        run(case(f"matmul/{name} Im2Col",
+                 MatmulSpec(a.shape[0], s.c_O, a.shape[1], bf16), ctx,
+                 matmul_kernel, (a, b), lambda sl: matmul_plain(a[sl], b),
+                 "matmul", {"out_dtype": torch.float32},
+                 lambda: ops.matmul(a, b, ctx=ctx), 4096))
+        del a, b
+        torch.cuda.empty_cache()
+    for name, s in layers.items():
+        run(conv_case(name, s, True))
+    for label, (aq, bq, sc) in HELD["matmul_q"].items():
+        run(case(f"matmul_q/{label}",
+                 MatmulSpec(aq.shape[0], bq.shape[1], aq.shape[1], int8),
+                 qctx, matmul_q_kernel, (aq, bq, sc),
+                 lambda sl: matmul_q_plain(aq[sl], bq, sc), "matmul_q",
+                 {"out_dtype": torch.bfloat16},
+                 lambda: ops.matmul_q(aq, bq, sc, ctx=qctx), 4096))
+
+    # serving never re-searches: save, clear, load, re-plan all 18
+    n0 = autotune.search_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.json")
+        Planner.cache.save(path)
+        Planner.cache.clear()
+        Planner.cache.load(path)
+    for label, (op, target, tiles) in tuned.items():
+        ep = Planner(target).plan(op)
+        if ep.tuned is None or list(ep.tiles) != tiles:
+            fail(f"autotune {label}: the reloaded cache serves {ep.tiles}")
+    re_searches = autotune.search_count() - n0
+    if re_searches:
+        fail(f"{re_searches} re-searches after the plan cache's "
+             "save/clear/load round trip")
+
+    # the five bf16 conv searches again, with no bound cap
+    autotune.clear_records()
+    wide = AutotunePolicy(bound_cap=float("inf"))
+    uncapped = []
+    for c in bf16_convs:
+        wants = [c["plain"](sl)
+                 for sl in slices(c["operands"][0].shape[0], c["cut"])]
+        uncapped.append(search(c, wide, "bound_cap=inf", wants))
+        d = ops.explain("conv2d", ctx, dtype=torch.bfloat16,
+                        spec_args=c["spec_args"], spec_kw=c["spec_kw"],
+                        audit=True)  # its winner audits too
+        if list(d.plan.tiles) != uncapped[-1]["winner"]["tiles"]:
+            fail(f"autotune {c['label']}: uncapped winner not served")
+    autotune.clear_records()
+    sums = {}
+    for line in lines:  # device ms per kernel over its searches
+        t = sums.setdefault(line["autotune"].split("/")[0],
+                            {"analytic_ms": 0.0, "tuned_ms": 0.0})
+        t["analytic_ms"] += line["analytic"]["device_ms"]
+        t["tuned_ms"] += line["winner"]["device_ms"]
+    summary = {
+        "autotune_summary": len(lines) + len(uncapped),
+        "searches_default": len(lines), "searches_uncapped": len(uncapped),
+        "timed_candidates": sum(line["candidates"]["audited"]
+                                for line in lines + uncapped),
+        "re_searches_after_reload": re_searches,
+        "winner_faster_than_analytic": sum(
+            line["winner_over_analytic"] < 1.0 for line in lines),
+        "winner_faster_beyond_3_percent": sum(
+            line["winner_over_analytic"] < 0.97 for line in lines),
+        "roofline_pick_is_winner": sum(
+            line["roofline_pick"]["tiles"] == line["winner"]["tiles"]
+            for line in lines),
+        "device_ms_sums": sums,
+        "fitted_dma_setup_seconds_pooled": (
+            sum(x * y for x, y in fits) / sum(x * x for x, _ in fits)),
+        "phase_seconds": time.perf_counter() - t_phase}
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 def main() -> None:
@@ -2370,7 +2615,10 @@ def main() -> None:
     print(f"audit: {audited} dispatches audited, launched and held to their "
           "access plans", flush=True)
 
-    # -- 17. summary --------------------------------------------------------
+    # -- 17. autotune on the card --------------------------------------------
+    autotune_phase()
+
+    # -- 18. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),

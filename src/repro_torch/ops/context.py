@@ -10,7 +10,10 @@ runs, with which tiles, at which precision, on which device":
   * ``backend`` - an explicit backend (``"torch"`` | ``"cuda"`` |
                   ``"im2col"``). ``None`` defers to ``REPRO_TORCH_BACKEND``
                   and then to the target (``use_pallas`` -> ``"cuda"``);
-  * ``autotune`` - must stay falsy: the measured autotuner is not ported;
+  * ``autotune`` - the measured-autotune policy (``None``/``False`` = off,
+                  ``True`` = the default
+                  :class:`repro_torch.plan.AutotunePolicy`, or a policy):
+                  a searchable op with no tuning record is searched once;
   * ``device``  - where the entry points run: ``"cuda"`` (the default) or
                   ``"cpu"``. A context for ``"cuda"`` on a machine without a
                   GPU raises ``DeviceLost`` at construction; nothing falls
@@ -70,7 +73,7 @@ class ExecutionContext:
 
     target: HardwareTarget = H100
     backend: Optional[str] = None  # "torch" | "cuda" | "im2col" | None
-    autotune: Any = None
+    autotune: Any = None  # None/False | True | repro_torch.plan.AutotunePolicy
     device: str = "cuda"
 
     def __post_init__(self):
@@ -82,9 +85,6 @@ class ExecutionContext:
             raise DeviceLost(
                 "ExecutionContext(device='cuda') but no CUDA device is "
                 "available; pass device='cpu' to run the plain versions")
-        if self.autotune:
-            raise NotImplementedError(
-                "autotune is not available in repro_torch yet")
 
     # -- backend resolution ---------------------------------------------------
     def resolved_backend(self) -> str:
@@ -94,11 +94,13 @@ class ExecutionContext:
 
     # -- plan-cache handle ----------------------------------------------------
     def plan(self, op, explicit=None):
-        """Resolve the ExecutionPlan for ``op`` on this context's target."""
+        """Resolve the ExecutionPlan for ``op`` on this context's target,
+        honouring this context's autotune policy."""
         return self.plan_with_source(op, explicit=explicit)[0]
 
     def plan_with_source(self, op, explicit=None) -> Tuple[Any, str]:
-        """``(plan, source)`` with source ``"explicit"`` | ``"analytic"``."""
+        """``(plan, source)`` with source ``"explicit"`` | ``"tuned"`` |
+        ``"analytic"``."""
         from repro_torch.plan import resolve_plan
 
         return resolve_plan(op, self.target, explicit=explicit,

@@ -42,8 +42,9 @@ class DispatchDecision:
     ``requested`` is the backend the context resolved to; ``chosen`` the one
     that served the call; ``missing`` the capabilities whose absence forced
     the (CPU-only) fallback; ``plan`` the ExecutionPlan the chosen entry consumed
-    (None for aten entries); ``plan_source`` ``"explicit"`` or
-    ``"analytic"``; ``measured_words`` the HBM words (32-bit) the chosen
+    (None for aten entries); ``plan_source`` ``"explicit"``, ``"tuned"``
+    (the measured autotuner's stored winner) or ``"analytic"``;
+    ``measured_words`` the HBM words (32-bit) the chosen
     kernel's launch geometry moves for this call (None when the entry is not
     instrumented), reported via ``bound_ratio`` against the plan's Thm 2.1
     ``lower_bound``.
@@ -64,7 +65,7 @@ class DispatchDecision:
     chosen: str
     missing: Tuple[str, ...] = ()
     plan: Optional[Any] = None
-    plan_source: str = "analytic"  # "explicit" | "analytic"
+    plan_source: str = "analytic"  # "explicit" | "tuned" | "analytic"
     measured_words: Optional[float] = None
     audited: Optional[float] = None
     audit_report: Optional[Any] = dataclasses.field(default=None,
@@ -95,6 +96,11 @@ class DispatchDecision:
                    f"{', '.join(self.missing)}; fell back to {self.chosen!r}")
         if self.plan is not None:
             msg += f"; {self.plan_source} plan"
+            tuned = getattr(self.plan, "tuned", None)
+            if tuned is not None:
+                msg += (f" ({tuned.candidates_timed} candidates timed via "
+                        f"{tuned.source}, winner {tuned.winner_seconds:.2e}s "
+                        f"vs analytic)")
         if self.measured_words is not None:
             msg += f"; measured {self.measured_words:.3e} HBM words"
             if self.bound_ratio is not None:
@@ -163,8 +169,8 @@ def _attach_plan_and_words(entry: OpEntry, decision: DispatchDecision,
                            spec_args: Optional[tuple],
                            spec_kw: Optional[dict],
                            plan: Optional[Any] = None) -> DispatchDecision:
-    """Resolve the entry's plan (explicit ``plan`` > analytic LP) and its
-    measured-HBM-words counter; both need only shapes/dtypes."""
+    """Resolve the entry's plan (explicit ``plan`` > tuned > analytic LP)
+    and its measured-HBM-words counter; both need only shapes/dtypes."""
     if spec_args is None:
         return decision
     kw = spec_kw or {}

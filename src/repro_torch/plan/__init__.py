@@ -1,5 +1,5 @@
 """``repro_torch.plan`` — the planning subsystem (HardwareTarget ->
-ExecutionPlan), the port of ``repro.plan`` without the measured autotuner.
+ExecutionPlan), the port of ``repro.plan`` for single-device targets.
 
     from repro_torch.plan import ConvSpec, Planner, H100
 
@@ -9,7 +9,8 @@ ExecutionPlan), the port of ``repro.plan`` without the measured autotuner.
     ep.comm_volume    # modeled HBM <-> shared-memory words
     ep.efficiency     # vs the Thm 2.1 lower bound
 
-    Planner.cache.save(p)  # persist plans; .load/.clear/.size
+    Planner(H100).autotune(op)  # measured frontier search (plan.autotune)
+    Planner.cache.save(p)  # persist plans + tuning records; .load/.clear/.size
 """
 
 from .ops import (  # noqa: F401
@@ -29,6 +30,12 @@ from .planner import (  # noqa: F401
     register_plan_audit_hook,
     resolve_kernel_plan,
     resolve_plan,
+)
+from .autotune import (  # noqa: F401
+    AutotunePolicy,
+    TuningRecord,
+    predicted_seconds,
+    target_fingerprint,
 )
 from .target import (  # noqa: F401
     CPU_INTERPRET,

@@ -5,14 +5,12 @@ HBL-derived blocking LP against the target's memory-hierarchy model, refine to
 integers, then lower the solution to kernel tile/grid shapes.
 
 :class:`Planner` is the single public entry point: ``.plan(op)`` resolves
-through :func:`resolve_plan` (explicit > analytic) and ``Planner.cache`` (a
-process-wide :class:`PlanCache`) saves/loads the memoized plans. The measured
-autotuner of ``repro.plan.autotune`` is not ported yet: a truthy
-``autotune`` raises ``NotImplementedError``, and plans never carry a
-``tuned`` section, although the section round-trips through JSON. Targets
-with mesh axes (the reference's sharding leg) also raise
-``NotImplementedError``. Attention ops take the closed-form leg
-(:func:`_plan_attention`), as in the reference.
+through :func:`resolve_plan` (explicit > tuned > analytic), ``.autotune(op)``
+runs the measured frontier search of :mod:`repro_torch.plan.autotune`, and
+``Planner.cache`` (a process-wide :class:`PlanCache`) saves/loads the
+memoized plans and the autotuner's tuning records. Targets with mesh axes
+(the reference's sharding leg) raise ``NotImplementedError``. Attention ops
+take the closed-form leg (:func:`_plan_attention`), as in the reference.
 
 Plans are memoized process-wide, keyed on the (op, target) value pair. The
 LP, the integer refinement and the tile lowering are the reference's, line
@@ -61,8 +59,9 @@ def _plan_dtypes(prec: Precision) -> Tuple[Tuple[str, str], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class TunedSection:
-    """The measured-autotune provenance a v6 plan carries (None = analytic).
-    The port never stamps one; it round-trips plans that have one."""
+    """The measured-autotune provenance a v6 plan carries (None = analytic):
+    the timer (``"device"`` or ``"roofline"``), how many audited candidates
+    it timed, and the winner's words and seconds under that timer."""
 
     source: str  # "device" | "roofline"
     candidates_timed: int
@@ -219,44 +218,57 @@ PLAN_CACHE_MAX = 1024
 
 
 class PlanCache:
-    """Facade over the process-wide plan memoizer, reached as
-    ``Planner.cache``. The JSON dump is the reference's ``{"format",
-    "plans", "tuning"}`` dict (``tuning`` always empty here); a bare list of
-    plan dicts also loads."""
+    """Facade over the process-wide plan memoizer *and* the autotuner's
+    TuningRecord store, reached as ``Planner.cache``. The JSON dump is the
+    reference's ``{"format", "plans", "tuning"}`` dict; a bare list of plan
+    dicts also loads."""
 
     def size(self) -> int:
+        """Number of memoized plans (analytic and materialized tuned)."""
         with _CACHE_LOCK:
             return len(_CACHE)
 
     def clear(self) -> None:
+        """Drop every memoized plan and every tuning record. The autotune
+        search counter is *not* reset: re-searches stay observable across a
+        clear()/load() round trip."""
         with _CACHE_LOCK:
             _CACHE.clear()
+        from . import autotune as _autotune
+
+        _autotune.clear_records()
 
     def save(self, path: str) -> int:
-        """Dump the memoized plans; returns entries written."""
+        """Dump memoized plans + tuning records; returns entries written."""
+        from . import autotune as _autotune
+
         with _CACHE_LOCK:
             plans = list(_CACHE.values())
+        records = _autotune.records()
         with open(path, "w") as f:
             json.dump({"format": PLAN_FORMAT_VERSION,
                        "plans": [p.to_dict() for p in plans],
-                       "tuning": []}, f, indent=1)
-        return len(plans)
+                       "tuning": [r.to_dict() for r in records]}, f, indent=1)
+        return len(plans) + len(records)
 
     def load(self, path: str) -> int:
-        """Pre-populate plans from a dump; returns entries loaded. A dump
-        with tuning records raises: serving them needs the autotuner."""
+        """Pre-populate plans + tuning records from a dump; returns entries
+        loaded. Restored tuning records make ``resolve_plan`` serve tuned
+        plans without re-searching."""
         with open(path) as f:
             dump = json.load(f)
-        if isinstance(dump, dict) and dump.get("tuning"):
-            raise NotImplementedError(
-                "this dump carries autotuner records; repro_torch has no "
-                "autotuner yet")
         plan_dicts = dump if isinstance(dump, list) else dump.get("plans", [])
         n = 0
         with _CACHE_LOCK:
             for d in plan_dicts:
                 p = ExecutionPlan.from_dict(d)
                 _CACHE.setdefault((p.op, p.target), p)
+                n += 1
+        if isinstance(dump, dict):
+            from . import autotune as _autotune
+
+            for d in dump.get("tuning", []):
+                _autotune.install_record(_autotune.TuningRecord.from_dict(d))
                 n += 1
         return n
 
@@ -480,14 +492,21 @@ def resolve_plan(
     """The shared plan-resolution path behind ``ctx.plan()``,
     ``ops.explain``, ``resolve_kernel_plan`` and :class:`Planner`. Returns
     ``(plan, source)`` with source ``"explicit"`` (caller-supplied, returned
-    untouched) or ``"analytic"``. A truthy ``autotune`` raises
-    ``NotImplementedError``: the measured autotuner is not ported."""
+    untouched) > ``"tuned"`` (a TuningRecord exists for the pair, or
+    ``autotune`` is ``True`` / an
+    :class:`~repro_torch.plan.autotune.AutotunePolicy` and the op is
+    searchable, running the frontier search once) > ``"analytic"``."""
     if explicit is not None:
         return explicit, "explicit"
-    if autotune:
-        raise NotImplementedError(
-            "autotune is not available in repro_torch yet; pass "
-            "autotune=None for the analytic LP plan")
+    op = as_op_spec(op)
+    from . import autotune as _autotune
+
+    tuned = _autotune.lookup_plan(op, target)
+    if tuned is not None:
+        return tuned, "tuned"
+    policy = _autotune.AutotunePolicy.coerce(autotune)
+    if policy is not None and _autotune.supports(op, target):
+        return _autotune.autotune(op, target, policy=policy), "tuned"
     return analytic_plan(op, target), "analytic"
 
 
@@ -495,22 +514,26 @@ class Planner:
     """The one public planning front door.
 
     ``Planner(target=H100, quant=None, autotune=None)``: a non-None ``quant``
-    spec is attached via ``target.with_quant``; a truthy ``autotune`` raises
-    ``NotImplementedError`` (see :func:`resolve_plan`). ``.plan(op)``
-    resolves the analytic plan; ``.resolve(op, explicit=...)`` also reports
-    the plan source. ``Planner.cache`` is the process-wide
-    :class:`PlanCache`, shared by every instance."""
+    spec is attached via ``target.with_quant``; ``autotune`` is ``None``
+    (analytic only), ``True`` (the default
+    :class:`~repro_torch.plan.autotune.AutotunePolicy`) or a policy, under
+    which ``.plan()`` runs the measured frontier search on first sight of a
+    searchable op and serves the stored winner afterwards. ``.plan(op)``
+    resolves (tuned > analytic); ``.resolve(op, explicit=...)`` also
+    reports the plan source; ``.autotune(op)`` forces a search.
+    ``Planner.cache`` is the process-wide :class:`PlanCache`, shared by
+    every instance."""
 
     cache: PlanCache = PlanCache()
 
     def __init__(self, target: HardwareTarget = H100, quant: Any = None,
                  autotune: Any = None):
-        if autotune:
-            raise NotImplementedError(
-                "autotune is not available in repro_torch yet")
         if quant is not None:
             target = target.with_quant(quant)
         self.target = target
+        from . import autotune as _autotune
+
+        self.autotune_policy = _autotune.AutotunePolicy.coerce(autotune)
 
     def plan(self, op: Union[OpSpec, ConvShape]) -> ExecutionPlan:
         return self.resolve(op)[0]
@@ -518,4 +541,17 @@ class Planner:
     def resolve(self, op: Union[OpSpec, ConvShape],
                 explicit: Optional[ExecutionPlan] = None
                 ) -> Tuple[ExecutionPlan, str]:
-        return resolve_plan(op, self.target, explicit=explicit)
+        return resolve_plan(op, self.target, explicit=explicit,
+                            autotune=self.autotune_policy)
+
+    def autotune(self, op: Union[OpSpec, ConvShape],
+                 policy: Any = None) -> ExecutionPlan:
+        """Run (or reuse) the measured frontier search for ``op`` and return
+        the tuned plan. Raises TypeError for ops the frontier enumerator
+        cannot search (attention plans are closed-form)."""
+        from . import autotune as _autotune
+
+        pol = _autotune.AutotunePolicy.coerce(
+            policy if policy is not None
+            else (self.autotune_policy or True))
+        return _autotune.autotune(op, self.target, policy=pol)

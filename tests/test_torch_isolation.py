@@ -1,7 +1,8 @@
-"""The port stands alone: nothing under src/repro_torch, and neither
-chip_smoke.py nor scripts/verify_torch.py, imports jax or the JAX package
-``repro`` (only the tests import both), and importing repro_torch loads no
-jax module."""
+"""The port stands alone: nothing under src/repro_torch, and none of
+chip_smoke.py, scripts/verify_torch.py and scripts/autotune_torch.py,
+imports jax or the JAX package ``repro`` (only the tests import both), and
+importing repro_torch (the time model and the autotuner too) loads no jax
+module."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "verify_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "verify_torch.py",
+    ROOT / "scripts" / "autotune_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +45,8 @@ def test_import_loads_no_jax():
             "repro_torch.configs.resnet50_convs, repro_torch.configs, "
             "repro_torch.configs.qwen2_5_3b, repro_torch.models, "
             "repro_torch.serving, repro_torch.resilience, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.analysis.roofline, "
+            "repro_torch.analysis.timing, repro_torch.plan.autotune; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -175,8 +175,12 @@ def test_context_rules():
                                  device="cpu").resolved_backend() == "torch"
     assert ctx.acc_dtype == torch.float32
     assert ctx.stream_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        tops.ExecutionContext(device="cpu", autotune=True)
+    tuning = tops.ExecutionContext(device="cpu", autotune=True)
+    try:
+        plan, src = tuning.plan_with_source(tp.MatmulSpec(64, 64, 64))
+        assert src == "tuned" and plan.tuned.source == "roofline"
+    finally:
+        tp.Planner.cache.clear()
     with pytest.raises(ValueError, match="context runs on"):
         tops.conv2d(torch.zeros(1, 1, 3, 3, device="meta"),
                     torch.zeros(1, 1, 3, 3, device="meta"), ctx=ctx)

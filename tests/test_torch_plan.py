@@ -1,6 +1,6 @@
 """repro_torch.plan against repro.plan: equal plans for every preset on the
 paper's layers and their Im2Col GEMMs, plan JSON crossing both ways, and the
-port's own rules (H100 default, no autotuner, no mesh targets)."""
+port's own rules (H100 default, the autotuner on the CPU, no mesh targets)."""
 
 import json
 
@@ -106,6 +106,30 @@ def test_plan_cache_dump_crosses(tmp_path):
             jp.Planner(jp.TPU_V5E).plan(jp.MatmulSpec(64, 64, 64)).to_dict()],
             "tuning": []}, f)
     assert tp.Planner.cache.load(jpath) == 1
+    # a reference dump with a tuning record: the port serves its winner
+    # without a search of its own
+    from repro.plan import autotune as jat
+    from repro_torch.plan import autotune as tat
+
+    jop = jp.MatmulSpec(300, 200, 100, JPrecision(.5, .5, 1.))
+    top = tp.MatmulSpec(300, 200, 100, Precision(.5, .5, 1.))
+    try:
+        jtuned = jp.Planner(jt).autotune(
+            jop, policy=jp.AutotunePolicy(timer="roofline"))
+        (rec,) = [r for r in jat.records() if r.op == jop]
+        with open(jpath, "w") as f:
+            json.dump({"format": 6, "plans": [],
+                       "tuning": [rec.to_dict()]}, f)
+        tp.Planner.cache.clear()
+        n0 = tat.search_count()
+        assert tp.Planner.cache.load(jpath) == 1
+        served, src = tp.Planner(tp.H100).resolve(top)
+        assert src == "tuned" and served.tiles == jtuned.tiles
+        assert served.tuned.to_dict() == jtuned.tuned.to_dict()
+        assert tat.search_count() == n0
+    finally:
+        jp.Planner.cache.clear()
+        tp.Planner.cache.clear()
 
 
 def test_port_defaults_and_limits():
@@ -114,10 +138,16 @@ def test_port_defaults_and_limits():
     assert tp.H100.memory_model().M_eff == 29056.0
     assert tp.H100.memory_model().M_acc_eff == 16384.0
     assert tp.get_target("h100") is tp.H100
-    with pytest.raises(NotImplementedError):
-        tp.Planner(tp.H100, autotune=True)
-    with pytest.raises(NotImplementedError):
-        tp.resolve_plan(tp.MatmulSpec(64, 64, 64), tp.H100, autotune=True)
+    roofline = tp.AutotunePolicy(timer="roofline")
+    try:
+        tuned = tp.Planner(tp.H100, autotune=roofline).plan(
+            tp.MatmulSpec(64, 64, 64))
+        assert tuned.tuned is not None and tuned.tuned.source == "roofline"
+        p, src = tp.resolve_plan(tp.MatmulSpec(96, 64, 64), tp.H100,
+                                 autotune=roofline)
+        assert src == "tuned" and p.tuned is not None
+    finally:
+        tp.Planner.cache.clear()
     with pytest.raises(NotImplementedError):
         tp.Planner(tp.H100.with_mesh([("data", 4)])).plan(
             tp.MatmulSpec(64, 64, 64))
