@@ -34,7 +34,8 @@ kernel. Phases, each fatal on failure:
      main-path variant spills (flash: hd 128 at block 64; paged decode: hd
      128; matmul_q: the variant of the (128, 256) and (256, 128) plans,
      bf16 out; conv2d_q: the (2, 8) variant of the five layers' plans, bf16
-     out);
+     out); the direct conv's LINEAR variant (narrow tiles) is reported
+     with the others;
   3. conv and GEMM kernels against their plain PyTorch versions on ragged,
      stride-2 and main-path shapes (TF32 off); each check names the kernel
      its dtype took (bf16: tensor core, f32: fma). The bf16 GEMM cases
@@ -42,8 +43,10 @@ kernel. Phases, each fatal on failure:
      ring's span, m < 16 and an odd pitch over several spans; the conv
      cases c_I = 40 over stages of 16 (the last ragged), a 392-row tile,
      conv5_x's and conv1's tiles, and bf16 inputs 2, 4 and 8 bytes off a
-     16-byte boundary; conv1, conv2_x and conv5_x at full batch (first and
-     last 8 images);
+     16-byte boundary; three narrow convs whose H100 plans only the LINEAR
+     warp layout covers (784 x 16, 1800 x 8 and 1568 x 8 accumulators, f32
+     and bf16 out, fatal unless LINEAR on the tensor cores); conv1, conv2_x
+     and conv5_x at full batch (first and last 8 images);
   4. the conv path, launch counters set to 0 just before and read just
      after: one JSON line per layer and backend (tiles, measured words, bound
      ratio, Im2Col/tiled gap, median ms, F.conv2d ms, launches, tensor-core
@@ -71,14 +74,24 @@ kernel. Phases, each fatal on failure:
      and every paged-decode launch must be a tensor-core launch); every
      request must finish "length" with 32 tokens, both engines must give
      each request the same first token, and no attention decision may
-     leave ``cuda``; then
+     leave ``cuda``; the launches must be the steps': 36 flash launches a
+     prefill (and, contiguous, a decode step) and 36 paged-decode launches a
+     decode step (2,232 at 62 steps). Each decode step after the serve's
+     first (an eager warm-up) must be a CUDA graph replay, with one graph a
+     table width (paged) or one graph (contiguous), each replayed; the
+     launches and decisions are met through the replays' credit. Each
+     serve's line adds the warm-up steps, replays, graphs and capture
+     seconds and the CUDA-event device times of its replays, eager step and
+     prefills with their busy share of the wall time; then
      teacher-forced logits of two requests under the ``cuda`` and ``torch``
      backends, and every generated token of both engines against the
      cache-less ``torch`` forward (tolerances below); then the paged
      engine's serve once more under ``torch.profiler``: device time by
      kernel kind and by kernel, the device's busy share against the
-     untraced serve's wall time, and the traced serve's own wall time and
-     decode step (the profiler's cost on the host);
+     untraced serve's wall time beside the CUDA events' device time of the
+     same traced serve (a profiler sum below the events' lost kernels), and
+     the traced serve's own wall time and decode step (the profiler's cost
+     on the host);
   8. each attention kernel's time beside its plain version, its library call
      and its bound at the serving shapes, and ``ops.explain``'s words and
      bound ratio for one prefill and one decode call; for flash attention,
@@ -127,7 +140,8 @@ kernel. Phases, each fatal on failure:
      must finish "length" with 32 tokens, its first token must equal the
      bf16 paged engine's, every ``attention`` decision must be ``cuda`` and
      every ``attention_decode_quant`` decision ``torch`` by request, every
-     flash launch a tensor-core launch, and phase 7's decode check must
+     flash launch a tensor-core launch, every decode step but the warm-up a
+     replay (phase 7's graph gates), and phase 7's decode check must
      pass; the share of tokens equal to the bf16
      pool's, the pool's capacity gain and the serve's times are reported,
      and the serve is traced as in phase 7; then, per int8 conv layer, a
@@ -151,7 +165,8 @@ kernel. Phases, each fatal on failure:
      ``max_len`` 512; every request must finish "length" with 32 tokens,
      conv1d must launch exactly 7 x 8 = 56 times, every flash launch must
      be a tensor-core launch, every ``conv1d_causal`` and ``attention``
-     decision must be ``cuda``; then phase 7's
+     decision must be ``cuda``, every decode step but the warm-up a replay
+     of the one graph; then phase 7's
      teacher-forced and decode checks at 8 layers; the serve's times, its
      ``torch.profiler`` trace, and one decode step's forward alone
      (launches, device time) beside the weight-stream floor;
@@ -197,7 +212,21 @@ kernel. Phases, each fatal on failure:
      analytic tiles, the winner and the roofline's pick with words and
      device ms; words against time as a rank correlation; the fitted
      ``DMA_SETUP_SECONDS``) and a summary line;
- 18. the ``kernels`` JSON line, the card's name and power limit, and the
+ 18. the decode steps as CUDA graphs (``repro_torch.serving.graphs``):
+     for the paged bf16, contiguous and paged int8 engines of Qwen2.5-3B
+     and the hybrid engine of phase 14's Jamba cut, at published widths
+     with 4 slots, a seeded random cache and one step's inputs
+     (``probe_inputs``: every row live at a random depth), the step run
+     eagerly and as a captured graph's replay on clones of that state
+     (``check_replay``); fatal unless the logits and every cache leaf are
+     equal bit for bit. One ``{"graph_step": ...}`` line an engine: the
+     eager step's host and device ms, the replay's host and device ms, the
+     capture's seconds, five replays under ``torch.profiler`` (its kernel
+     time a replay beside the CUDA events' of the same run: whether the
+     profiler loses kernels of a graph), the weight-stream floor, and the
+     graphs, warm-ups
+     and capture seconds of that engine's serve in phases 7, 12 and 14;
+ 19. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -237,6 +266,7 @@ The check prints how many positions were the exact argmax.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -272,9 +302,25 @@ CONV_LIBRARY_NOTE = ("F.conv2d on the bf16 operands writes bf16, half the "
                      "kernel's f32 output bytes")
 
 
+# phase 3's narrow convs, (N, c_I, c_O, H = W) with 3 x 3 filters: their H100
+# plans (784 x 16, 1800 x 8 and 1568 x 8 accumulators) take the LINEAR layout
+NARROW_CONVS = ((4, 8, 16, 16), (4, 3, 8, 32), (8, 16, 8, 30))
+
+
+class _Shape:
+    """A stride-1 3 x 3 conv's shape, as ``conv_tiles`` reads a layer."""
+
+    def __init__(self, N, c_I, c_O, h_O, w_O):
+        self.N, self.c_I, self.c_O, self.h_O, self.w_O = N, c_I, c_O, h_O, w_O
+        self.h_F = self.w_F = 3
+        self.sh = self.sw = 1
+
+
 # operands that phases 4, 8, 10, 11 and 15 leave for phase 16's audit; the
 # conv path's stay for phase 17's autotune
 HELD: dict = {}
+# each serve's graph line (phases 7, 12 and 14), printed again by phase 18
+GRAPHS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -441,6 +487,97 @@ def decode_check(name: str, reqs, cfg, params, ref_ctx, allowance) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def serve_events():
+    """CUDA events around every graph replay, eager decode step and
+    prefill forward of the serves run inside (``DecodeGraphs.replay`` and
+    ``.eager``, ``Engine._prefill``), and the host seconds each replay call
+    takes; yields the record that ``events_summary`` reads."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import DecodeGraphs
+
+    rec = {"replay": [], "eager": [], "prefill": [], "replay_host": [],
+           "keys": []}
+    saved = [(DecodeGraphs, "replay"), (DecodeGraphs, "eager"),
+             (Engine, "_prefill")]
+    saved = [(cls, name, getattr(cls, name)) for cls, name in saved]
+
+    def timed(kind, fn):
+        def wrapper(self, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kw)
+            host = time.perf_counter() - t0
+            end.record()
+            rec[kind].append((start, end))
+            if kind == "replay":
+                rec["replay_host"].append(host)
+                rec["keys"].append(args[0])
+            return out
+        return wrapper
+
+    for cls, name, fn in saved:
+        setattr(cls, name, timed(name.strip("_"), fn))
+    try:
+        yield rec
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def events_summary(rec: dict, wall_ms: float) -> dict:
+    """Device milliseconds of the serve's replays (median, sum), eager
+    steps and prefill forwards from ``serve_events``' record, the replays'
+    host milliseconds to return, and the events' busy share: their sum over
+    the serve's wall time (kernels outside them, the sampler's and the
+    cache landing's, are not in it)."""
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in rec[k]]
+          for k in ("replay", "eager", "prefill")}
+    total = sum(sum(v) for v in ms.values())
+    return {"replays": len(ms["replay"]),
+            "replay_device_ms_median": (statistics.median(ms["replay"])
+                                        if ms["replay"] else None),
+            "replay_device_ms_sum": sum(ms["replay"]),
+            "replay_host_ms_median": (
+                1e3 * statistics.median(rec["replay_host"])
+                if rec["replay_host"] else None),
+            "eager_step_device_ms": ms["eager"],
+            "prefill_device_ms_sum": sum(ms["prefill"]),
+            "events_device_ms": total,
+            "events_busy_share": total / wall_ms}
+
+
+def graph_gates(name: str, eng, rec: dict) -> dict:
+    """Fatal unless every decode step of the serve just run was a graph
+    replay but its one eager warm-up, each captured graph was replayed,
+    and the graphs are one per table width (paged) or one (contiguous).
+    Returns the serve's graph line."""
+    st = eng.stats
+    runs = st.warmup_steps + st.replayed_steps
+    if st.eager_steps or st.warmup_steps != 1 or runs < len(st.decode_s):
+        fail(f"{name}: {st.warmup_steps} warm-up steps, {st.replayed_steps} "
+             f"replays and {st.eager_steps} other eager steps for "
+             f"{len(st.decode_s)} decode steps: every step but the warm-up "
+             "must be a replay")
+    if len(set(st.graphs)) != len(st.graphs) or \
+            set(st.graphs) != set(rec["keys"]):
+        fail(f"{name}: graphs {st.graphs}, replayed keys "
+             f"{sorted(set(rec['keys']), key=str)}")
+    if (eng.paged and None in st.graphs) or (
+            not eng.paged and st.graphs != [None]):
+        fail(f"{name}: graphs {st.graphs}: one a table width (paged) or one "
+             "(contiguous) expected")
+    return {"warmup_steps": st.warmup_steps,
+            "replayed_steps": st.replayed_steps,
+            "graphs": len(st.graphs),
+            "graph_widths": [w for w in st.graphs if w is not None],
+            "capture_s_sum": sum(st.capture_s),
+            "capture_s_max": max(st.capture_s, default=0.0)}
+
+
 def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
     """Serve ``prompts`` (32 new tokens each) once more under
     ``torch.profiler`` and print device time by kernel kind and by kernel,
@@ -452,11 +589,13 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with serve_events() as rec, \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()
         traced = 1e3 * (time.perf_counter() - t0)
+    events = events_summary(rec, traced)
     by_name, by_kind = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -465,13 +604,17 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
         kind = ("attention kernels" if "flash_kernel" in e.name
                 or "flash_tc_kernel" in e.name
                 or "paged_decode" in e.name else
-                "conv1d kernels" if "conv1d_kernel" in e.name else
+                "conv1d kernels" if "conv1d" in e.name else
                 "GEMMs (cuBLAS)" if "nvjet" in e.name or "gemm" in e.name
                 else "other aten kernels")
         for table, key in ((by_name, e.name[:80]), (by_kind, kind)):
             n, t = table.get(key, (0, 0.0))
             table[key] = (n + 1, t + ms)
     busy = sum(t for _, t in by_kind.values())
+    # the profiler's kernel time against the replays', eager steps' and
+    # prefills' CUDA events of the same traced serve: a profiler sum below
+    # the events' lost kernels (the events miss only the sampler's and the
+    # cache landing's, so they are a floor of the device's work)
     print(json.dumps({
         "traced": what,
         "untraced_wall_ms": untraced_ms,
@@ -480,6 +623,12 @@ def trace_serve(what: str, eng, prompts, untraced_ms: float) -> None:
             1e3 * statistics.median(eng.stats.decode_s),
         "device_kernel_ms": busy or "not measured",
         "device_busy_share": busy / untraced_ms if busy else "not measured",
+        "events_device_ms": events["events_device_ms"],
+        "events_busy_share_of_untraced": events["events_device_ms"]
+        / untraced_ms,
+        "profiler_over_events": (busy / events["events_device_ms"]
+                                 if busy else "not measured"),
+        "traced_replay_device_ms_median": events["replay_device_ms_median"],
         "decode_steps": len(eng.stats.decode_s),
         "by_kind": {k: {"launches": n, "ms": t}
                     for k, (n, t) in by_kind.items()},
@@ -743,13 +892,27 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
             eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
                          block_size=16, **kw)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, launched = counted(f"{name} engine", must,
-                                  lambda: eng.serve(reqs))
-            wall = time.perf_counter() - t0
+            with serve_events() as ev:
+                t0 = time.perf_counter()
+                _, launched = counted(f"{name} engine", must,
+                                      lambda: eng.serve(reqs))
+                wall = time.perf_counter() - t0
             served[name] = reqs
             ntok = sum(len(r.out_tokens) for r in reqs)
             st = eng.stats
+            graphs_row = graph_gates(f"{name} engine", eng, ev)
+            GRAPHS[name] = graphs_row
+            # every launch of the serve, met through the replays' credit:
+            # flash once a layer at each prefill (and, contiguous, at each
+            # decode step), paged decode once a layer at each decode step
+            runs = st.warmup_steps + st.replayed_steps
+            want = {"flash_attention": cfg.n_layers * (
+                len(st.prefill_s) + (0 if kw["paged"] else runs)),
+                "paged_decode": cfg.n_layers * runs if kw["paged"] else 0}
+            if launched != want:
+                fail(f"{name} engine: launches {launched}, expected {want} "
+                     f"({cfg.n_layers} layers, {len(st.prefill_s)} prefills, "
+                     f"{runs} decode steps)")
             stats[name] = {
                 "engine": name, "requests": len(reqs),
                 "prompt_lens": [int(n) for n in lens],
@@ -759,7 +922,8 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                 "prefill_ms_mean": 1e3 * statistics.mean(st.prefill_s),
                 "prefill_ms_median": 1e3 * statistics.median(st.prefill_s),
                 "decode_step_ms_median": 1e3 * statistics.median(st.decode_s),
-                "decode_steps": len(st.decode_s), "launches": launched}
+                "decode_steps": len(st.decode_s), "launches": launched,
+                **graphs_row, **events_summary(ev, 1e3 * wall)}
             print(json.dumps(stats[name]), flush=True)
             for r in reqs:
                 if r.finish_reason != "length" or len(r.out_tokens) != 32:
@@ -1414,11 +1578,12 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
                  block_size=16, paged=True, kv_dtype="int8")
     torch.cuda.synchronize()
     zero_counts()
-    with ops.record_dispatch() as log:
+    with ops.record_dispatch() as log, serve_events() as ev:
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graphs_row = GRAPHS["paged int8"] = graph_gates("int8 KV engine", eng, ev)
     launched = {n: KERNELS[n].launches for n in ("flash_attention",
                                                   "paged_decode")}
     print(f"int8 KV engine launches: {json.dumps(launched)}", flush=True)
@@ -1467,7 +1632,8 @@ def quant_phases(gen: torch.Generator, record, serve: dict) -> list:
         "max_gap_to_row_max": check["max_gap_to_row_max"],
         "pool_capacity_gain_over_bf16": gain,
         "bf16_paged_decode_step_ms_median":
-            serve["bf16_stats"]["decode_step_ms_median"]}), flush=True)
+            serve["bf16_stats"]["decode_step_ms_median"],
+        **graphs_row, **events_summary(ev, 1e3 * wall)}), flush=True)
     del eng, reqs
     # where the int8 pool's decode time goes, beside phase 7's bf16 trace
     trace_serve("paged int8 KV engine, the same 8 requests",
@@ -1697,13 +1863,14 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     names = ("conv1d_causal", "flash_attention")
     torch.cuda.synchronize()
-    with ops.record_dispatch() as log:
+    with ops.record_dispatch() as log, serve_events() as ev:
         zero_counts()
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {n: KERNELS[n].launches for n in names}
+    graphs_row = GRAPHS["hybrid"] = graph_gates("hybrid engine", eng, ev)
     print(f"hybrid engine launches: {json.dumps(launched)}", flush=True)
     flash_on_tensor_cores("hybrid engine")
     if launched["conv1d_causal"] != n_mamba * len(reqs):
@@ -1736,7 +1903,8 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
         "decode_steps": len(st.decode_s), "launches": launched,
         "decisions": {n: len(ds) for n, ds in decisions.items()},
         "weight_stream_gb": weight_bytes / 1e9,
-        "weight_stream_floor_ms": 1e3 * weight_bytes / PEAK_BYTES}
+        "weight_stream_floor_ms": 1e3 * weight_bytes / PEAK_BYTES,
+        **graphs_row, **events_summary(ev, 1e3 * wall)}
     print(json.dumps(serve_row), flush=True)
 
     # teacher-forced logits, cuda against torch, and every generated token
@@ -2270,6 +2438,71 @@ def autotune_phase() -> dict:
     return summary
 
 
+def graph_phase() -> None:
+    """Phase 18 (module docstring): one decode step of each engine eagerly
+    and as a captured graph's replay, on equal random state at published
+    widths; fatal unless logits and every cache leaf are equal bit for bit.
+    One ``{"graph_step": ...}`` line an engine."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.serving import Engine
+    from repro_torch.serving.graphs import check_replay, probe_inputs
+
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    paged = dict(paged=True, block_size=16)
+    models = (
+        (ARCH, (("paged bf16", "paged", paged),
+                ("contiguous", "contiguous", dict(paged=False)),
+                ("paged int8", "paged int8", dict(paged, kv_dtype="int8")))),
+        (HYBRID_ARCH, (("hybrid", "hybrid", {}),)))
+    for arch, engines in models:
+        cfg = get_config(arch)
+        if arch == HYBRID_ARCH:  # phase 14's cut: one unit, experts off
+            cfg = dataclasses.replace(cfg, n_experts=0, experts_per_token=0,
+                                      n_layers=len(cfg.pattern))
+        master = T.init_params(cfg, seed=SEED, device="cuda")
+        params = T.compute_params(master, cfg)
+        del master
+        weight_bytes = sum(t.numel() * t.element_size() for n, t in
+                           params.state_dict().items() if n != "embed")
+        for name, serve_key, kw in engines:
+            eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
+                         **kw)
+            with torch.inference_mode():
+                state = probe_inputs(eng, seed=SEED + 80)
+                res = check_replay(eng, *state, profile=True)
+            row = {"graph_step": name, "model": cfg.name,
+                   "layers": cfg.n_layers, "batch": 4,
+                   "table_width": state[4],
+                   "logits_equal": res["logits_equal"],
+                   "leaves_equal": res["leaves_equal"],
+                   "written_leaves": res["written_leaves"],
+                   "eager_step_host_ms": 1e3 * res["eager_host_s"],
+                   "eager_step_device_ms": 1e3 * res["eager_device_s"],
+                   "replay_host_ms": 1e3 * res["replay_host_s"],
+                   "replay_device_ms": 1e3 * res["replay_device_s"],
+                   "capture_s": res["capture_s"],
+                   # the same replays traced: a profiler sum below the
+                   # events' time is kernels lost, or idle between nodes
+                   "profiled_replay": res["profiled_replay"],
+                   "weight_stream_floor_ms": 1e3 * weight_bytes / PEAK_BYTES,
+                   "serve": GRAPHS.get(serve_key)}
+            print(json.dumps(row), flush=True)
+            if not (res["logits_equal"] and res["leaves_equal"]
+                    and res["finite"] and res["written_leaves"]):
+                fail(f"{name}: a replayed decode step differs from the eager "
+                     f"one (unequal leaves {res['unequal_leaves'][:4]}, "
+                     f"logits equal {res['logits_equal']})")
+            del eng, state
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2311,6 +2544,7 @@ def main() -> None:
     # the bf16 paths of the GEMM and the direct conv: every tensor-core
     # variant holds HMMA in its SASS (the product runs on the tensor cores);
     # those the main path takes (f32 out) must not spill
+    from repro_torch.kernels.conv2d import LINEAR as CONV_LINEAR
     from repro_torch.kernels.conv2d import TC_VARIANTS as CONV_VARIANTS
     from repro_torch.kernels.conv2d import launch_config as conv_config
     from repro_torch.kernels.matmul import (LINEAR, LINEAR_TILES,
@@ -2327,8 +2561,8 @@ def main() -> None:
         t, (h_in, w_in) = conv_tiles(s)
         main_variants.add(conv_config(t, s.h_F, s.w_F, h_in, w_in, 2,
                                       s.c_I)["variant"])
-    tc_variants("conv2d", "conv2d_tc_kernel",
-                *gemm_like_variants(CONV_VARIANTS, main_variants))
+    tc_variants("conv2d", "conv2d_tc_kernel", *gemm_like_variants(
+        CONV_VARIANTS + ((1, LINEAR_TILES),), main_variants, CONV_LINEAR))
     # flash attention's bf16 kernel: every (hd, block, C) instance; the
     # main path takes hd 128 at block 64 (C 1 at prefill, 4 at decode, 2 at
     # the hybrid's short prefills)
@@ -2380,6 +2614,7 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions ----------------------------
     gen.manual_seed(SEED)
+    ctx_plan = ExecutionContext(target=H100, backend="cuda")
     conv_cases = [  # (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles)
         (2, 4, 8, 25, 25, 3, 3, 1, 1, (1, 4, 8, 5, 7)),   # ragged h/w tiles
         (2, 4, 8, 25, 25, 3, 3, 2, 2, (2, 4, 8, 1, 23)),  # stride 2
@@ -2448,9 +2683,29 @@ def main() -> None:
             record("conv2d", got, conv2d_plain(x, w, (sh, sw)),
                    f"bf16 at +{2 * off} bytes {(N, cI, cO, H, W)} tiles "
                    f"{tiles}")
+    # narrow convs (few output channels, many pixels a tile): their H100
+    # plans take the LINEAR warp layout, which no rectangular block covers
+    for (N, cI, cO, H) in NARROW_CONVS:
+        x = randn((N, cI, H, H), torch.bfloat16)
+        w = randn((cO, cI, 3, 3), torch.bfloat16, (cI * 9) ** -0.5)
+        tiles, (h_in, w_in) = conv_tiles(_Shape(N, cI, cO, H - 2, H - 2))
+        cfg = conv_config(tiles, 3, 3, h_in, w_in, 2, cI, (H, H))
+        if cfg["variant"] != CONV_LINEAR:
+            fail(f"conv2d narrow {(N, cI, cO, H)}: plan {tiles} took variant "
+                 f"{cfg['variant']}, not LINEAR")
+        for od in (torch.float32, torch.bfloat16):
+            tc = KERNELS["conv2d"].tensor_core_launches
+            got = conv2d_kernel(x, w, out_dtype=od, ctx=ctx_plan)
+            torch.cuda.synchronize()
+            if KERNELS["conv2d"].tensor_core_launches != tc + 1:
+                fail(f"conv2d narrow {(N, cI, cO, H)} was not a tensor-core "
+                     "launch")
+            record("conv2d", got, conv2d_plain(x, w, (1, 1), od),
+                   f"narrow bf16->{od} {(N, cI, cO, H, H, 3, 3)} plan "
+                   f"{tiles} on tensor core, LINEAR ({cfg['threads'] // 32} "
+                   f"warps, {cfg['rows']} x {cfg['cols']} covered)")
     # main-path shapes: conv1, conv2_x and conv5_x at full batch, and the
     # GEMM of conv5_x's Im2Col
-    ctx_plan = ExecutionContext(target=H100, backend="cuda")
     for name in ("conv1", "conv2_x", "conv5_x"):
         s = layers[name]
         x, w = layer_inputs(gen, list(layers).index(name), s)
@@ -2618,7 +2873,10 @@ def main() -> None:
     # -- 17. autotune on the card --------------------------------------------
     autotune_phase()
 
-    # -- 18. summary --------------------------------------------------------
+    # -- 18. the decode steps as CUDA graphs: replay against eager ----------
+    graph_phase()
+
+    # -- 19. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),

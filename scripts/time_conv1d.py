@@ -31,10 +31,11 @@ def main() -> None:
 
     import torch
 
-    import chip_smoke as cs
-
-    sys.path.insert(0, str(root / "src"))  # ahead of chip_smoke's own src
+    # the timed package first: chip_smoke puts its own src ahead on import
+    sys.path.insert(0, str(root / "src"))
     import repro_torch
+
+    import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
 

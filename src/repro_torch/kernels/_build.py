@@ -10,6 +10,7 @@ where only the plain versions run.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,7 +54,11 @@ class CudaKernel:
     run can hold them against a launch's access plan
     (``repro_torch.verify``).
     ``build_seconds`` and ``build_log`` (nvcc's ``-Xptxas -v`` report:
-    registers, shared memory and spills per kernel) are set by the build."""
+    registers, shared memory and spills per kernel) are set by the build.
+
+    Inside :func:`record_launches` (a CUDA graph's capture, which executes
+    nothing) a launch is recorded there instead of counted; each replay of
+    the graph credits the record (:meth:`LaunchRecord.credit`)."""
 
     def __init__(self, source: str, entry: str, argtypes: Sequence):
         self.source = source
@@ -120,18 +125,65 @@ class CudaKernel:
         on a non-zero ``cudaError_t``; counts the launch, and among the
         launches those of a tensor-core kernel, and records its ``grid``,
         ``block``, dynamic shared memory ``smem`` and ``cluster`` (the
-        wrapper's, padded to dim3 triples) as ``last_launch``."""
+        wrapper's, padded to dim3 triples) as ``last_launch``. Under
+        :func:`record_launches` the counts go to the record, and a library
+        not yet built raises: no build may run inside a capture."""
+        if _RECORDS and self._fn is None:
+            raise RuntimeError(f"{self.source} is not built: a capture must "
+                               "follow an eager warm-up step")
         err = self.fn()(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} failed with cudaError_t {err}")
-        self.launches += 1
-        self.tensor_core_launches += int(tensor_core)
 
         def dim3(v):
             return tuple(int(x) for x in v) + (1,) * (3 - len(v))
 
         self.last_launch = {"grid": dim3(grid), "block": dim3(block),
                             "smem": int(smem), "cluster": dim3(cluster)}
+        if _RECORDS:
+            _RECORDS[-1].add(self, tensor_core)
+            return
+        self.launches += 1
+        self.tensor_core_launches += int(tensor_core)
+
+
+class LaunchRecord:
+    """The kernel launches one captured CUDA graph makes: per kernel the
+    launches, the tensor-core launches among them and the last launch's
+    configuration. A replay runs the launches without the wrappers' host
+    code, so it credits them with :meth:`credit`."""
+
+    def __init__(self):
+        self.counts: Dict[CudaKernel, List] = {}
+
+    def add(self, kernel: CudaKernel, tensor_core: bool) -> None:
+        n = self.counts.setdefault(kernel, [0, 0, None])
+        n[0] += 1
+        n[1] += int(tensor_core)
+        n[2] = kernel.last_launch
+
+    def credit(self, times: int = 1) -> None:
+        """Count the recorded launches ``times`` over, as ``times``
+        replays of the graph."""
+        for k, (n, tc, last) in self.counts.items():
+            k.launches += times * n
+            k.tensor_core_launches += times * tc
+            k.last_launch = last
+
+
+_RECORDS: List[LaunchRecord] = []  # active recorders, innermost last
+
+
+@contextlib.contextmanager
+def record_launches():
+    """While active, every :meth:`CudaKernel.launch` is added to the
+    yielded :class:`LaunchRecord` and counted nowhere else."""
+    rec = LaunchRecord()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

@@ -21,6 +21,7 @@ launch moves, from the launch geometry both share (``_conv1d_geometry``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -100,13 +101,16 @@ def operand_width(x: torch.Tensor) -> int:
     """Elements one copy of ``x`` may move: the widest of 16, 8 or 4 bytes
     (or one bf16) that divides D, the batch and time strides the walk steps
     by, and the base address."""
-    B, L, D = x.shape
-    isz = x.element_size()
-    steps = [D] + [x.stride(0)] * (B > 1) + [x.stride(1)] * (L > 1)
-    return max(1, math.gcd(16, x.data_ptr(), *(s * isz for s in steps))
-               // isz)
+    return _width(tuple(x.shape), x.stride(), x.element_size(), x.data_ptr())
 
 
+def _width(shape, strides, isz: int, base: int) -> int:
+    B, L, D = shape
+    steps = [D] + [strides[0]] * (B > 1) + [strides[1]] * (L > 1)
+    return max(1, math.gcd(16, base, *(s * isz for s in steps)) // isz)
+
+
+@functools.lru_cache(maxsize=None)  # read-only: a launch copies what it sends
 def launch_config(K: int, bB: int, bD: int, grid: Tuple[int, int],
                   itemsize: int, vec: Optional[int] = None) -> dict:
     """One launch's geometry for the plan's (bB, bD) tiles and (nB, nD)
@@ -218,8 +222,27 @@ def conv1d_ring_emulate(x: torch.Tensor, w: torch.Tensor, cfg: dict):
     return y, words
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, bB: int, bD: int,
-            grid: Tuple[int, int]) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _launch_args(shape: Tuple[int, int, int], strides: Tuple[int, int, int],
+                 dtype, base: int, K: int, tiles: Optional[Tuple[int, int]],
+                 target: Optional[HardwareTarget]) -> tuple:
+    """Everything of a launch but its pointers and stream, from what it
+    depends on: x's shape, strides and dtype, its base address mod 16 and
+    the taps; the grid and config of :func:`launch_config` and the C
+    entry's integer arguments."""
+    x = torch.empty_strided(shape, strides, dtype=dtype, device="meta")
+    B, L, D = shape
+    isz = x.element_size()
+    bB, bD, _, _, grid = _conv1d_geometry(x, None, tiles, target)
+    cfg = launch_config(K, bB, bD, grid, isz, _width(shape, strides, isz,
+                                                      base))
+    ints = (dtype_code(dtype), K, cfg["vec"], B, L, D, strides[0],
+            strides[1], bB, cfg["group_width"], cfg["span"], cfg["parts"],
+            cfg["cols"], *cfg["grid"], cfg["threads"], cfg["smem"])
+    return cfg, ints
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, tiles, target) -> torch.Tensor:
     for t in (x, w):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError("conv1d_causal: x and w must lie on one CUDA "
@@ -229,20 +252,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bB: int, bD: int,
     if x.stride(2) != 1 or not w.is_contiguous():
         raise ValueError("conv1d_causal: x's channel axis and w must be "
                          "contiguous")
-    B, L, D = x.shape
-    K = w.shape[0]
-    cfg = launch_config(K, bB, bD, grid, x.element_size(), operand_width(x))
-    out = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
-    if L == 0:
+    cfg, ints = _launch_args(tuple(x.shape), x.stride(), x.dtype,
+                             x.data_ptr() % 16, w.shape[0],
+                             None if tiles is None else tuple(tiles), target)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.shape[1] == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      dtype_code(x.dtype), K, cfg["vec"], B, L, D,
-                      x.stride(0), x.stride(1), bB, cfg["group_width"],
-                      cfg["span"], cfg["parts"], cfg["cols"], *cfg["grid"],
-                      cfg["threads"], cfg["smem"], stream, grid=cfg["grid"],
-                      block=(cfg["threads"],), smem=cfg["smem"])
+        KERNEL.launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints,
+                      stream, grid=cfg["grid"], block=(cfg["threads"],),
+                      smem=cfg["smem"])
     return out
 
 
@@ -259,10 +279,9 @@ def conv1d_causal(
     if x.ndim != 3 or w.ndim != 2 or w.shape[1] != x.shape[2]:
         raise ValueError(f"x must be (B, L, D) and w (K, D), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    bB, bD, _, _, grid = _conv1d_geometry(x, w, tiles, target)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv1d_causal_plain(x, w)
-    return _launch(x, w, bB, bD, grid)
+    return _launch(x, w, tiles, target)
 
 
 def conv1d_program(items: int, nch: int, plain: bool):

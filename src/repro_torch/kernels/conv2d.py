@@ -63,7 +63,7 @@ GEOMETRY = ("N", "c_I", "H", "W", "c_O", "h_F", "w_F", "sh", "sw",
             "n_pg", "ldw", "x_bytes",
             "n16", "ldb", "slots", "wn", "planes", "koff_bytes",
             "slot_bytes", "run", "vwb", "b_run", "vst", "ldS",
-            "rows_bytes", "d_row", "d_ch", "d_img", "zero")
+            "rows_bytes", "d_row", "d_ch", "d_img", "zero", "cn")
 # f32 inputs: the FMA kernel's (CO_T, P_T) micro-tiles, in csrc/conv2d.cu's
 # launch_fma order
 MICRO_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (1, 64))
@@ -71,8 +71,12 @@ MICRO_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (1, 64))
 # (rows: output pixels, columns: output channels), in launch_tc's order. The
 # main path takes (4, 4) for its 32-channel tiles (conv1, conv3_x, conv4_x)
 # and (2, 8) for its 64-channel ones (conv2_x, conv5_x). A tile neither
-# covers raises ValueError.
+# covers within 8 warps (few output channels, many pixels) takes the LINEAR
+# variant, index len(TC_VARIANTS) (warp w owns m16n8 tiles 16w .. 16w + 15
+# in row-major order, as the GEMMs' LINEAR); a tile of more than 8 warps x
+# 64 accumulators raises ValueError.
 TC_VARIANTS = ((4, 4), (2, 8))
+LINEAR = len(TC_VARIANTS)
 # Elements a window copy of the tensor-core kernel moves: 16 bytes of bf16,
 # aligned in the input (csrc/conv2d.cu's G).
 WINDOW_RUN = 8
@@ -193,7 +197,7 @@ def window_layout(tiles, cs: int, zc: bool, h_in: int, w_in: int, c_I: int,
 def _tc_config(tiles, h_F: int, w_F: int, h_in: int, w_in: int,
                c_I: Optional[int], hw: Optional[Tuple[int, int]]) -> dict:
     bN, b_cI, b_cO, bh, bw = tiles
-    lay = warp_layout(bN * bh * bw, b_cO, TC_VARIANTS, linear=False)
+    lay = warp_layout(bN * bh * bw, b_cO, TC_VARIANTS)
     taps = h_F * w_F
     H, W = hw or (h_in, w_in)
     cs = b_cI if c_I is None else min(b_cI, c_I)
@@ -335,7 +339,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stride, out_dtype,
                  vwb=vector_width(c_I * taps, cs * taps, ptrs=(w.data_ptr(),)),
                  b_run=int(cs == c_I), vst=cfg["vst"], ldS=cfg["lds"],
                  rows_bytes=cfg["rows_bytes"], d_row=cfg["d_row"],
-                 d_ch=cfg["d_ch"], d_img=cfg["d_img"], zero=cfg["zero"])
+                 d_ch=cfg["d_ch"], d_img=cfg["d_img"], zero=cfg["zero"],
+                 cn=cfg["cols"] // 8)
     else:
         g.update(n_pg=cfg["n_pg"], ldw=cfg["ldw"])
     geometry = (ctypes.c_longlong * len(GEOMETRY))(*(g[k] for k in GEOMETRY))

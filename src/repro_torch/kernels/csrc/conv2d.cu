@@ -43,8 +43,14 @@
 //    taps fold into 10 k16 slices).
 //  * Warps own (MI, NI) blocks of m16n8 tiles (the wrapper picks the
 //    compiled block and the warp grid from the plan; wide blocks gather
-//    fewer A fragments a product). 128 registers a thread, so two CTAs share
-//    an SM: one computes while the other waits on its copies.
+//    fewer A fragments a product). A narrow tile no rectangular block
+//    covers within 8 warps (few output channels, many pixels: 784 x 16,
+//    1800 x 8) takes the LINEAR variant, as the GEMMs do: warp w owns m16n8
+//    tiles 16w .. 16w + 15 of the covered tile in row-major order, and
+//    gathers a tile's A where its m16 row changes, computing the row
+//    offsets there (16 tiles' offsets held across the loop spilled). 128
+//    registers a thread, so two CTAs share an SM: one computes while the
+//    other waits on its copies.
 //  * A two-slot ring over c_I: step ci + 1's copies are issued before step
 //    ci's products, one commit group a step, cp.async.wait_group before a
 //    step is read and a __syncthreads before its slot is refilled. A stage
@@ -101,12 +107,13 @@ struct ConvParams {
   // gather offset of its zero plane (kernels/conv2d.py, window_layout)
   int n16, ldB, slots, wn, planes, koff_bytes, slot_bytes, run, vwb, b_run,
       vst, ldS, rows_bytes, d_row, d_ch, d_img, zero;
+  int cn;  // n8 columns of the covered tile (LINEAR's tiles run row-major)
   FastDiv f_gpr, f_rows, f_ch, f_bw, f_bhw, f_m4, f_kc, f_ks;  // set by the host
 };
 
 // The C entry's geometry array, in ConvParams order (kernels/conv2d.py,
 // GEOMETRY).
-constexpr int N_GEOMETRY = 44;
+constexpr int N_GEOMETRY = 45;
 
 // Elements a window copy moves: 16 bytes of bf16, aligned in x (the
 // wrapper's WINDOW_RUN).
@@ -125,7 +132,7 @@ ConvParams unpack(const long long* g) {
   int* tail[] = {&p.n16, &p.ldB, &p.slots, &p.wn, &p.planes, &p.koff_bytes,
                  &p.slot_bytes, &p.run, &p.vwb, &p.b_run,
                  &p.vst, &p.ldS, &p.rows_bytes, &p.d_row, &p.d_ch, &p.d_img,
-                 &p.zero};
+                 &p.zero, &p.cn};
   for (int* f : tail) *f = (int)g[i++];
   // the window copy's view: images x channels x rows x runs a row's cover
   // (a whole-plane window: images x 1 x 1 x runs)
@@ -260,8 +267,10 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 
 // MI x NI m16n8 tiles a warp; the warps form a (blockDim / 32 / wn) x wn
-// grid over the covered tile.
-template <typename Tout, int MI, int NI>
+// grid over the covered tile (LINEAR: MI = 1, NI = 16 tiles in row-major
+// order of the covered tile's (rows / 16) x cn grid, for a narrow tile no
+// rectangular block covers within 8 warps).
+template <typename Tout, int MI, int NI, bool LINEAR>
 __global__ void __launch_bounds__(256, 2)
 conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  const int* __restrict__ koff_g, Tout* __restrict__ out,
@@ -281,8 +290,9 @@ conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp / p.wn, wn = warp % p.wn;
-  const int cols = p.wn * NI * 8;
+  const int cols = LINEAR ? p.cn * 8 : p.wn * NI * 8;
   const int M = p.bN * p.bh * p.bw;
+  [[maybe_unused]] const int tiles = ((M + 15) >> 4) * p.cn;  // LINEAR's
   const int taps = p.h_F * p.w_F, ks = p.b_cI * taps;
   const int HW = p.H * p.W;
   // step 0's window and filter origins in x and w; step s's lie s * b_cI
@@ -315,9 +325,17 @@ conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // Window offset (elements) of the rows this thread owns in each m16 tile,
   // rows g and g + 8 in the low and high halves (a window holds fewer than
   // 2^16 elements); rows past M read any valid offset and are never stored.
-  uint32_t moff[MI];
+  // LINEAR computes a tile's offsets where it gathers (row_off): 16 tiles'
+  // offsets held across the loop would spill.
+  auto row_off = [&](int r) -> int {
+    if (r >= M) return 0;
+    const int n = p.f_bhw(r), rem = r - n * p.bh * p.bw;
+    const int ho = p.f_bw(rem), wo = rem - ho * p.bw;
+    return n * p.d_img + ho * p.sh * p.d_row + wo * p.sw;
+  };
+  uint32_t moff[LINEAR ? 1 : MI];
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
+  for (int i = 0; i < (LINEAR ? 0 : MI); ++i) {
     moff[i] = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -390,6 +408,30 @@ conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int kc = kk * 16 + 2 * (lane & 3);
       const int2 k01 = *reinterpret_cast<const int2*>(koff + kc);
       const int2 k23 = *reinterpret_cast<const int2*>(koff + kc + 8);
+      if constexpr (LINEAR) {
+        // tile j of the warp: its m16 row's A (gathered again only where
+        // the row changes) and its n8 column's B
+        uint32_t a[4];
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int q = warp * NI + j;
+          if (q >= tiles) break;
+          const int nt = q % p.cn;
+          if (j == 0 || nt == 0) {
+            const int r = (q / p.cn) * 16 + (lane >> 2);
+            const unsigned short* r0 = xs + row_off(r);
+            const unsigned short* r1 = xs + row_off(r + 8);
+            a[0] = uint32_t(r0[k01.x]) | (uint32_t(r0[k01.y]) << 16);
+            a[1] = uint32_t(r1[k01.x]) | (uint32_t(r1[k01.y]) << 16);
+            a[2] = uint32_t(r0[k23.x]) | (uint32_t(r0[k23.y]) << 16);
+            a[3] = uint32_t(r1[k23.x]) | (uint32_t(r1[k23.y]) << 16);
+          }
+          uint32_t b[2];
+          ldsm_x2(b, bs + (nt * 8 + (lane & 7)) * p.ldB + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[0][j], a, b);
+        }
+        continue;
+      }
       uint32_t bfr[NI][2];
 #pragma unroll
       for (int j = 0; j < NI; j += 2) {
@@ -426,8 +468,22 @@ conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // multiples of 4)
     __syncthreads();  // every warp is done with the ring
     float* st = reinterpret_cast<float*>(smem);
+    if constexpr (LINEAR) {
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+      for (int j = 0; j < NI; ++j) {
+        const int q = warp * NI + j;
+        if (q >= tiles) break;
+        const int mt = q / p.cn, c = (q - mt * p.cn) * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + (lane >> 2) + 8 * h;
+          if (c < p.b_cO) st[c * p.ldS + r] = acc[0][j][2 * h];
+          if (c + 1 < p.b_cO) st[(c + 1) * p.ldS + r] = acc[0][j][2 * h + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < (LINEAR ? 0 : MI); ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = (wm * MI + i) * 16 + (lane >> 2) + 8 * h;
@@ -455,6 +511,26 @@ conv2d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // fragment stores: fragment (i, j) holds rows g, g + 8 (pixels) and
   // columns 2t, 2t + 1 (channels) of its m16n8 tile (g = lane / 4, t =
   // lane % 4)
+  if constexpr (LINEAR) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int q = warp * NI + j;
+      if (q >= tiles) break;
+      const int mt = q / p.cn, c = (q - mt * p.cn) * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + (lane >> 2) + 8 * h;
+        if (r >= M) continue;
+        const int n = p.f_bhw(r), rem = r - n * p.bh * p.bw;
+        const int ho = p.f_bw(rem), wo = rem - ho * p.bw;
+        Tout* o = out + ((te.n0 + n) * p.cOp + te.co0) * plane +
+                  (long long)(te.hb * p.bh + ho) * p.wOp + te.wb * p.bw + wo;
+        if (c < p.b_cO) o[c * plane] = from_f<Tout>(acc[0][j][2 * h]);
+        if (c + 1 < p.b_cO) o[(c + 1) * plane] = from_f<Tout>(acc[0][j][2 * h + 1]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -524,9 +600,10 @@ template <typename Tout>
 cudaError_t launch_tc(int variant, const void* x, const void* w, const void* koff,
                       void* out, const ConvParams& p, long long blocks,
                       int threads, int smem, cudaStream_t s) {
-  switch (variant) {  // (MI, NI) as TC_VARIANTS in kernels/conv2d.py
-    case 0: return launch_k(conv2d_tc_kernel<Tout, 4, 4>, x, w, koff, out, p, blocks, threads, smem, s);
-    case 1: return launch_k(conv2d_tc_kernel<Tout, 2, 8>, x, w, koff, out, p, blocks, threads, smem, s);
+  switch (variant) {  // (MI, NI) as TC_VARIANTS in kernels/conv2d.py, then LINEAR
+    case 0: return launch_k(conv2d_tc_kernel<Tout, 4, 4, false>, x, w, koff, out, p, blocks, threads, smem, s);
+    case 1: return launch_k(conv2d_tc_kernel<Tout, 2, 8, false>, x, w, koff, out, p, blocks, threads, smem, s);
+    case 2: return launch_k(conv2d_tc_kernel<Tout, 1, 16, true>, x, w, koff, out, p, blocks, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }

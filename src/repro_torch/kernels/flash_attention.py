@@ -40,6 +40,7 @@ skips dead slots: at most the counter.
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
 from typing import Optional, Tuple, Union
 
@@ -189,6 +190,7 @@ def flash_tc_instances() -> list:
                    for bq in range(8, b + 1, 8)})
 
 
+@functools.lru_cache(maxsize=None)  # read-only: a launch copies what it sends
 def launch_config(Lq: int, Lk: int, hd: int, block: int, dtype,
                   rows: int = 1) -> dict:
     """The launch of ``csrc/flash_attention.cu`` for ``rows`` folded rows of
@@ -315,6 +317,22 @@ def flash_attention_tc_emulate(
     return out.to(q.dtype)
 
 
+_FILLS = {}  # (rows, value, device) -> a constant (rows,) int32 fill
+
+
+def _row_fill(value: int, rows: int, device) -> torch.Tensor:
+    """``_row_ints`` of an int, made once a (rows, value, device) and kept:
+    the launch only reads it. A fill made inside a CUDA graph's capture
+    holds its value only once the graph runs, so it is not kept."""
+    key = (rows, value, str(device))
+    t = _FILLS.get(key)
+    if t is None:
+        t = _row_ints(value, rows, device)
+        if not torch.cuda.is_current_stream_capturing():
+            _FILLS[key] = t
+    return t
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or one copy of it when its base is not on 16 bytes (the
     tensor-core kernel's cp.async copies and 16-byte stores)."""
@@ -332,12 +350,17 @@ def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bq, bk = cfg["bq"], cfg["bk"]
     dev = q.device
-    offs = _row_ints(q_offset, BH, dev)
-    lens = _row_ints(Lk if kv_lens is None else kv_lens, BH, dev)
+    offs = (_row_fill(int(q_offset), BH, dev)
+            if isinstance(q_offset, numbers.Integral)
+            else _row_ints(q_offset, BH, dev))
+    lens = (_row_fill(Lk, BH, dev) if kv_lens is None
+            else _row_ints(kv_lens, BH, dev))
     per_batch = 1
     if key_mask is not None:
         per_batch = _rows_of(key_mask, BH)
-        key_mask = key_mask.to(device=dev, dtype=torch.bool).contiguous()
+        if (key_mask.dtype != torch.bool or key_mask.device != dev
+                or not key_mask.is_contiguous()):
+            key_mask = key_mask.to(device=dev, dtype=torch.bool).contiguous()
         if key_mask.shape != (BH // per_batch, Lk):
             raise ValueError(f"key_mask shape {tuple(key_mask.shape)}, "
                              f"expected ({BH // per_batch}, {Lk})")

@@ -86,7 +86,7 @@ def _fma_config(bm: int, bn: int, bk: int, itemsize: int) -> dict:
 
 
 def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
-                linear: bool = True, max_threads: int = MAX_THREADS) -> dict:
+                max_threads: int = MAX_THREADS) -> dict:
     """A tensor-core kernel's warp layout for a (bm, bn) tile: the
     compiled variant (an index into ``variants``, the (MI, NI) blocks of
     m16n8 tiles a warp that the kernel compiles; ``len(variants)`` is
@@ -95,10 +95,9 @@ def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
     computed, never stored). The rectangular variant that covers the least
     area wins, then the one with the most warps, then the widest block
     (fewer A fragments a product); a tile none fits within ``max_threads``
-    (the bf16 kernels' 8 warps, the int8 GEMM's 16) takes LINEAR where
-    ``linear`` (the GEMMs). Raises ValueError when the tile holds more than
-    ``max_threads`` x 64 accumulators, or no variant covers it and
-    ``linear`` is false."""
+    (the bf16 kernels' 8 warps, the int8 kernels' 16) takes LINEAR. Raises
+    ValueError when the tile holds more than ``max_threads`` x 64
+    accumulators."""
     cm, cn = -(-bm // 16), -(-bn // 8)
     best = None
     for v, (mi, ni) in enumerate(variants):
@@ -113,7 +112,7 @@ def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
     if best is not None:
         return best[1]
     warps = -(-cm * cn // LINEAR_TILES)
-    if not linear or warps * 32 > max_threads:
+    if warps * 32 > max_threads:
         raise ValueError(
             f"a {bm} x {bn} accumulator tile does not fit one CTA's "
             f"{max_threads} x {ACC_PER_THREAD} registers; plan for the H100 "
@@ -124,8 +123,9 @@ def warp_layout(bm: int, bn: int, variants=TC_VARIANTS,
 
 def warp_tiles(layout: dict, warp: int) -> list:
     """The (m16, n8) tile indices one warp accumulates, as the tensor-core
-    GEMMs (``matmul_tc_kernel``, ``matmul_q_tc_kernel``) map them (a model
-    of the kernels for the tests)."""
+    kernels (``matmul_tc_kernel``, ``matmul_q_tc_kernel``, the convs'
+    ``conv2d_tc_kernel`` and ``conv2d_q_tc_kernel``) map them (a model of
+    the kernels for the tests)."""
     mi, ni, wn = layout["mi"], layout["ni"], layout["wn"]
     if layout["linear"]:
         cm, cn = layout["rows"] // 16, layout["cols"] // 8

@@ -19,7 +19,10 @@ Observability:
                                    (meta tensors work: only shapes/dtypes
                                    are consulted);
   * ``record_dispatch()``        - context manager capturing every decision
-                                   made while it is active.
+                                   made while it is active;
+  * ``capture_decisions()``      - the decisions of a CUDA graph's capture,
+                                   kept out of those logs; each replay adds
+                                   them with ``credit_decisions``.
 """
 
 from __future__ import annotations
@@ -112,6 +115,15 @@ class DispatchDecision:
 
 
 _TRACE: List[List[DispatchDecision]] = []  # stack of active recorders
+_CAPTURES: List[List[DispatchDecision]] = []  # active graph captures
+
+
+def _remove(stack: list, log: list) -> None:
+    # remove by identity: nested recorders hold equal (e.g. empty) lists
+    for i, entry in enumerate(stack):
+        if entry is log:
+            del stack[i]
+            break
 
 
 @contextlib.contextmanager
@@ -122,11 +134,36 @@ def record_dispatch():
     try:
         yield log
     finally:
-        # remove by identity: nested recorders hold equal (e.g. empty) lists
-        for i, entry in enumerate(_TRACE):
-            if entry is log:
-                del _TRACE[i]
-                break
+        _remove(_TRACE, log)
+
+
+@contextlib.contextmanager
+def capture_decisions():
+    """While active (a CUDA graph's capture, which executes nothing) every
+    decision goes to the yielded list and to no ``record_dispatch`` log;
+    each replay of the graph adds them there with
+    :func:`credit_decisions`."""
+    log: List[DispatchDecision] = []
+    _CAPTURES.append(log)
+    try:
+        yield log
+    finally:
+        _remove(_CAPTURES, log)
+
+
+def credit_decisions(decisions: List[DispatchDecision]) -> None:
+    """Add one replay's captured decisions to every active
+    ``record_dispatch`` log."""
+    for log in _TRACE:
+        log.extend(decisions)
+
+
+def _publish(decision: DispatchDecision) -> None:
+    if _CAPTURES:
+        _CAPTURES[-1].append(decision)
+        return
+    for log in _TRACE:
+        log.append(decision)
 
 
 def _lacks(backend: Backend, op: str, dtype: Optional[str],
@@ -225,8 +262,7 @@ def resolve(op: str, ctx: Optional[ExecutionContext] = None,
     plan (raising on any mismatch or hazard). Records the decision."""
     entry, decision = _explain_entry(op, ctx, dtype, needs, spec_args,
                                      spec_kw, plan, audit)
-    for log in _TRACE:
-        log.append(decision)
+    _publish(decision)
     return entry, decision
 
 
@@ -272,8 +308,7 @@ def dispatch_call(op: str, ctx: ExecutionContext, dtype: Optional[str],
     entry, decision = _explain_entry(op, ctx, dtype, needs, spec_args,
                                      spec_kw, plan)
     out = entry.fn(ctx, decision.plan, *call_args, **call_kw)
-    for log in _TRACE:
-        log.append(decision)
+    _publish(decision)
     return out
 
 

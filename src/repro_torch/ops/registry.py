@@ -432,7 +432,8 @@ def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
     g = H // Hkv
     row_offs = q_offset
     if torch.is_tensor(q_offset) and q_offset.ndim:
-        row_offs = q_offset.repeat_interleave(Hkv)  # row b*Hkv+j: batch b
+        # row b*Hkv+j: batch b (an expand, no host read: capturable)
+        row_offs = q_offset[:, None].expand(B, Hkv).reshape(-1)
 
     def fwd(q_, k_, v_):
         out = _flash_cuda(q_.reshape(B * Hkv, g * Lq, Dh).contiguous(),

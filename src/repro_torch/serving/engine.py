@@ -27,8 +27,11 @@ randomness. The draws are not the reference's (JAX's threefry has no torch
 counterpart): greedy output matches the reference, sampled output keeps the
 batch invariance.
 
-The reference compiles its steps with ``jax.jit``; the port runs them
-eagerly, as plain methods. Its resilience behaviour is kept where it needs
+The reference compiles its steps with ``jax.jit``; the port replays each
+decode step as a CUDA graph (``serving.graphs``: after one eager warm-up
+step, one graph per table width of a paged pool, one for a contiguous
+cache), its inputs copied into static buffers, and runs prefill, insert and
+sampling eagerly. Its resilience behaviour is kept where it needs
 no fault-injection campaign: bounded admission retries around a non-finite
 prefill, the NaN-row guard with idempotent decode retries, the
 ``kv.check()`` pool rebuild from host-side request state, per-request
@@ -37,7 +40,8 @@ deadlines and the stall backstop. The campaign sites wait for
 
 ``stats`` holds the last ``serve``'s host-clock times: each admission's
 prefill (prefill, cache landing and first token) and each decode step, both
-ending in a device read of the sampled tokens.
+ending in a device read of the sampled tokens; and how its decode steps
+ran: warm-up steps, replays, graphs and their capture seconds.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +62,7 @@ from repro_torch.plan import H100, HardwareTarget
 from repro_torch.resilience import errors as flt
 
 from . import kv
+from .graphs import DecodeGraphs
 
 # never-deadlock backstop: consecutive scheduling rounds with queued work,
 # no active slot, and no admission before the loop declares itself stalled
@@ -102,10 +107,19 @@ class _Slot:
 @dataclasses.dataclass
 class ServeStats:
     """Host-clock seconds of the last ``serve``: one entry per admission
-    prefill and per lockstep decode step."""
+    prefill and per lockstep decode step (a capture's seconds are in its
+    step's). How the decode steps ran (``serving.graphs``): eager warm-up
+    steps and graph replays on the card, eager steps on the CPU, the
+    graphs captured (their keys: table widths, or None) and each capture's
+    host seconds."""
 
     prefill_s: List[float] = dataclasses.field(default_factory=list)
     decode_s: List[float] = dataclasses.field(default_factory=list)
+    warmup_steps: int = 0
+    replayed_steps: int = 0
+    eager_steps: int = 0
+    graphs: List[Optional[int]] = dataclasses.field(default_factory=list)
+    capture_s: List[float] = dataclasses.field(default_factory=list)
 
 
 def plan_batch_size(cfg: ModelConfig, max_len: int, target: HardwareTarget,
@@ -240,6 +254,21 @@ class Engine:
                              getattr(torch, self.cfg.compute_dtype))
         return logits, cache
 
+    def _decode_forward(self, tok: torch.Tensor, idx: torch.Tensor,
+                        tables: Optional[torch.Tensor], cache):
+        """The lockstep decode step over the pool (``serving.graphs``'
+        step function): one token a row, written at ``idx``, through the
+        block ``tables`` of a paged pool; the f32 logits (B, V)."""
+        logits, _, _ = T.forward(
+            self.params, self.cfg, tokens=tok, cache=cache, cache_index=idx,
+            ctx=self.ctx, block_tables=tables, decode=True)
+        return logits[:, -1]
+
+    def decode_graphs(self, cache) -> DecodeGraphs:
+        """The static-buffer decode runner of a serve over ``cache``."""
+        return DecodeGraphs(self._decode_forward, cache, self.batch_size,
+                            self.device)
+
     def _paged_insert(self, pool, row, blocks: List[int]) -> None:
         """Land the first ``len(blocks)`` blocks of a batch-1 contiguous
         cache row in the pool's physical ``blocks``, in place. For the int8
@@ -314,11 +343,11 @@ class Engine:
             alloc = kv.BlockAllocator(self.num_blocks)
             tables = np.zeros((B, -(-self.max_len // bs)), np.int32)
             slot_blocks: List[List[int]] = [[] for _ in range(B)]
-            # device-side table cache: tables only change at admission/finish,
-            # so most decode steps skip the host->device upload
-            tables_dev: Dict[int, torch.Tensor] = {}  # width -> device slice
         else:
             cache = T.init_cache(self.cfg, B, self.max_len, device=dev)
+        # the decode steps' static buffers and graphs; tables only change at
+        # admission, finish and rebuild, which mark the device copies stale
+        steps_run = self.decode_graphs(cache)
         slots: List[Optional[_Slot]] = [None] * B
         tok = np.zeros(B, np.int32)    # last accepted token per slot
         pos = np.zeros(B, np.int32)    # cache depth: next decode write offset
@@ -339,7 +368,7 @@ class Engine:
                     alloc.free(bid)  # shared prefixes -> refcount decrements
                 slot_blocks[s] = []
                 tables[s, :] = 0  # dead row reads/writes garbage block 0
-                tables_dev.clear()
+                steps_run.tables_changed()
 
         def record(s: int, t: int) -> None:
             """Account one generated token for slot s; free it when done."""
@@ -402,7 +431,7 @@ class Engine:
             new_cache = T.init_paged_cache(self.cfg, self.num_blocks, bs,
                                            quantized=self.kv_quant,
                                            device=dev)
-            tables_dev.clear()
+            steps_run.reset(new_cache)  # the graphs wrote the old pool
             for s in range(B):
                 slot = slots[s]
                 if slot is None:
@@ -505,7 +534,7 @@ class Engine:
                         slot_blocks[s] = blocks
                         tables[s, :] = 0
                         tables[s, :len(blocks)] = blocks
-                        tables_dev.clear()
+                        steps_run.tables_changed()
                     queue.popleft()
                     admitted += 1
                     t0 = time.perf_counter()
@@ -520,7 +549,7 @@ class Engine:
                                 alloc.free(bid)
                             slot_blocks[s] = []
                             tables[s, :] = 0
-                            tables_dev.clear()
+                            steps_run.tables_changed()
                         continue
                     logits1, row = out
                     slots[s] = _Slot(request=r, budget=budget,
@@ -564,26 +593,16 @@ class Engine:
             steps = np.array([len(slots[s].generated) if slots[s] else 0
                               for s in range(B)], np.int32)
             idx = np.where([slots[s] is not None for s in range(B)], pos, 0)
-            idx_dev = torch.as_tensor(idx, dtype=torch.int32, device=dev)
-            tok_dev = torch.as_tensor(tok, dtype=torch.long,
-                                      device=dev)[:, None]
+            if self.paged:
+                # table width follows the deepest active row; dead rows are
+                # all-zero (garbage) tables
+                w = max(int(pos[s]) // bs + 1 for s in active)
+                key = steps_run.load(tok, idx, tables, w)
+            else:
+                key = steps_run.load(tok, idx)
             for attempt in range(self.numeric_retries + 1):
-                if self.paged:
-                    # table width follows the deepest active row; dead rows
-                    # are all-zero (garbage) tables
-                    w = max(int(pos[s]) // bs + 1 for s in active)
-                    if w not in tables_dev:
-                        tables_dev[w] = torch.as_tensor(
-                            tables[:, :w], device=dev)
-                    logits, cache, _ = T.forward(
-                        self.params, self.cfg, tokens=tok_dev, cache=cache,
-                        cache_index=idx_dev, ctx=self.ctx,
-                        block_tables=tables_dev[w], decode=True)
-                else:
-                    logits, cache, _ = T.forward(
-                        self.params, self.cfg, tokens=tok_dev, cache=cache,
-                        cache_index=idx_dev, ctx=self.ctx, decode=True)
-                nxt, bad = self._sample(logits[:, -1], seeds, steps, temps)
+                logits = steps_run.run(key)
+                nxt, bad = self._sample(logits, seeds, steps, temps)
                 bad_rows = [s for s in active if bad[s]]
                 if not bad_rows:
                     break
@@ -600,6 +619,11 @@ class Engine:
                 pos[s] += 1
                 record(s, int(nxt[s]))
             stats.decode_s.append(time.perf_counter() - t0)
+        stats.warmup_steps = steps_run.warmups
+        stats.replayed_steps = steps_run.replays
+        stats.eager_steps = steps_run.eager_steps
+        stats.graphs = steps_run.graphs
+        stats.capture_s = list(steps_run.capture_s)
         return requests
 
 

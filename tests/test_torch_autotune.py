@@ -160,20 +160,32 @@ def test_analytic_tiles_that_do_not_audit_raise():
     assert not at.records()
 
 
+NARROW_CONVS = {  # (N, c_I, c_O, H = W), 3 x 3: their H100 analytic tiles
+    (4, 8, 16, 16): (4, 8, 16, 14, 14),
+    (4, 3, 8, 32): (2, 3, 8, 30, 30),
+    (8, 16, 8, 30): (2, 16, 8, 28, 28)}
+
+
 def test_narrow_conv_analytic_plan_does_not_launch():
-    # an open port fault (ROADMAP queue 3): the H100 plan of a conv with 16
-    # output channels and 784 pixels a tile fits the accumulator budget,
-    # but no warp block of conv2d_tc_kernel covers it within 8 warps
-    narrow = ConvSpec(N=4, c_I=8, c_O=16, w_O=14, h_O=14, w_F=3, h_F=3)
-    assert planner_mod.analytic_plan(narrow, H100).tiles == (4, 8, 16, 14,
-                                                             14)
-    with pytest.raises(ValueError, match="accumulator tile"):
-        ops.explain("conv2d", CPU, audit=True, spec_args=(
-            torch.empty((4, 8, 16, 16), dtype=torch.bfloat16, device="meta"),
-            torch.empty((16, 8, 3, 3), dtype=torch.bfloat16, device="meta")),
-            spec_kw={"stride": (1, 1)})
-    with pytest.raises(RuntimeError, match="accumulators above"):
-        Planner(H100).autotune(narrow, policy=ROOFLINE)
+    # the name is the open fault's, now a regression pin (ROADMAP queue 3,
+    # closed): the H100 plans of convs with few output channels and many
+    # pixels a tile (784 x 16, 1800 x 8, 1568 x 8 accumulators) fit the
+    # accumulator budget but no rectangular warp block of conv2d_tc_kernel
+    # within 8 warps; they take its LINEAR layout, so each audits and the
+    # autotuner searches it
+    for (N, c_I, c_O, H), tiles in NARROW_CONVS.items():
+        narrow = ConvSpec(N=N, c_I=c_I, c_O=c_O, w_O=H - 2, h_O=H - 2,
+                          w_F=3, h_F=3)
+        assert planner_mod.analytic_plan(narrow, H100).tiles == tiles
+        d = ops.explain("conv2d", CPU, audit=True, spec_args=(
+            torch.empty((N, c_I, H, H), dtype=torch.bfloat16, device="meta"),
+            torch.empty((c_O, c_I, 3, 3), dtype=torch.bfloat16,
+                        device="meta")), spec_kw={"stride": (1, 1)})
+        assert d.plan.tiles == tiles and d.audited == d.measured_words
+        tuned = Planner(H100).autotune(narrow, policy=ROOFLINE)
+        rep = at.search_report(narrow)
+        assert rep.analytic == tiles and tiles in {c.tiles for c in rep.timed}
+        assert tuned.tuned.candidates_timed == len(rep.timed) > 0
 
 
 def test_device_timer_needs_a_card():

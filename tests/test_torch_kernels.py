@@ -20,6 +20,7 @@ import repro_torch.plan as tp
 from repro import ops as jops
 from repro_torch.kernels import KERNELS, conv2d_plain, matmul_plain, ref
 from repro_torch.kernels.conv2d import conv2d as tconv2d
+from repro_torch.kernels.conv2d import LINEAR as CONV_LINEAR
 from repro_torch.kernels.conv2d import (WINDOW_RUN, _launch_geometry,
                                         conv2d_hbm_words, gather_table,
                                         launch_config, row_offsets)
@@ -362,13 +363,95 @@ def test_tensor_core_conv_launch_config(layer):
                                   (64, 8, 512, 7, 7)],
                          ids=str)
 def test_tensor_core_conv_refuses_a_tile_no_variant_covers(tile):
-    """A bf16 tile no compiled warp block covers within 8 warps raises
-    ValueError (never the FMA kernel); f32 takes the FMA kernel where its
-    micro-tiles fit."""
-    with pytest.raises(ValueError, match="accumulator tile"):
-        launch_config(tile, 3, 3, 9, 9, 2)
+    """A bf16 tile no rectangular warp block covers within 8 warps takes
+    the LINEAR variant where its padded accumulator tile fits 8 warps x 64
+    accumulators, and raises ValueError only past that (never the FMA
+    kernel); f32 takes the FMA kernel where its micro-tiles fit."""
+    bN, _, b_cO, bh, bw = tile
+    covered = -(-bN * bh * bw // 16) * 16 * -(-b_cO // 8) * 8
+    if covered <= 256 * 64:
+        cfg = launch_config(tile, 3, 3, 9, 9, 2)
+        assert cfg["variant"] == CONV_LINEAR and cfg["linear"]
+        assert cfg["threads"] <= 256 and cfg["acc_per_thread"] == 64
+    else:
+        with pytest.raises(ValueError, match="accumulator tile"):
+            launch_config(tile, 3, 3, 9, 9, 2)
     if tile[2] < 512:
         assert launch_config(tile, 3, 3, 9, 9, 4)["kernel"] == "fma"
+
+
+# The launch of the five layers' bf16 plans, analytic and as the measured
+# autotuner tuned them on the card (PERF.md §6), as the tree before the
+# LINEAR conv layout computed them: warp block, warp grid, covered tile,
+# threads, ring stage, window layout, shared memory, and the words
+# conv2d_hbm_words charges. The LINEAR layout is taken only where no
+# rectangular block fits, so none of these may move.
+PINNED_KEYS = ("variant", "mi", "ni", "wm", "wn", "rows", "cols", "threads",
+               "cs", "n_st", "ks", "n16", "planes", "ldb", "slots", "d_row",
+               "d_ch", "d_img", "zero", "x_elems", "x_bytes", "slot_bytes",
+               "koff_bytes", "rows_bytes", "vst", "lds", "smem")
+PINNED_MAIN_PATH = {
+    ("conv1", "analytic"): ((2, 3, 32, 16, 16), (
+        0, 4, 4, 8, 1, 512, 32, 256, 3, 1, 147, 10, 4, 168, 1, 45, 1665,
+        6723, 5027, 13462, 26928, 37680, 640, 1776, 4, 516, 66048),
+        1119307000.0),
+    ("conv1", "tuned"): ((2, 3, 64, 8, 16), (
+        1, 2, 8, 8, 1, 256, 64, 256, 3, 1, 147, 10, 4, 168, 1, 45, 945,
+        3843, 2867, 7702, 15408, 36912, 640, 1008, 4, 260, 66560),
+        1147531000.0),
+    ("conv2_x", "analytic"): ((4, 16, 64, 8, 8), (
+        1, 2, 8, 8, 1, 256, 64, 256, 16, 4, 144, 9, 16, 152, 2, 18, 180,
+        2936, 2912, 11760, 23520, 42976, 576, 5120, 4, 260, 91648),
+        583296000.0),
+    ("conv3_x", "analytic"): ((1, 16, 32, 28, 14), (
+        0, 4, 4, 7, 1, 448, 32, 224, 16, 8, 144, 9, 16, 152, 2, 30, 900,
+        14456, 14432, 14472, 28944, 38672, 576, 3840, 0, 452, 81760),
+        493568000.0),
+    ("conv3_x", "tuned"): ((1, 16, 32, 14, 28), (
+        0, 4, 4, 7, 1, 448, 32, 224, 16, 8, 144, 9, 16, 152, 2, 38, 612,
+        9848, 9824, 9864, 19728, 29456, 576, 2048, 4, 452, 61536),
+        493568000.0),
+    ("conv4_x", "analytic"): ((2, 16, 32, 14, 14), (
+        0, 4, 4, 7, 1, 448, 32, 224, 16, 16, 144, 9, 16, 152, 2, 16, 256,
+        4152, 4128, 8320, 16640, 26368, 576, 4096, 0, 452, 57408),
+        459776000.0),
+    ("conv4_x", "tuned"): ((2, 32, 32, 14, 14), (
+        0, 4, 4, 7, 1, 448, 32, 224, 32, 8, 288, 18, 32, 296, 2, 16, 256,
+        8248, 8224, 16512, 33024, 51968, 1152, 8192, 0, 452, 113280),
+        459776000.0),
+    ("conv5_x", "analytic"): ((5, 32, 64, 7, 7), (
+        1, 2, 8, 8, 1, 256, 64, 256, 16, 32, 144, 9, 16, 152, 2, 9, 81,
+        1352, 1328, 6776, 13552, 33008, 576, 5760, 0, 260, 72352),
+        426905600.0),
+    ("conv5_x", "tuned"): ((5, 16, 64, 7, 7), (
+        1, 2, 8, 8, 1, 256, 64, 256, 16, 32, 144, 9, 16, 152, 2, 9, 81,
+        1352, 1328, 6776, 13552, 33008, 576, 5760, 0, 260, 72352),
+        426905600.0),
+}
+
+
+@pytest.mark.parametrize("key", sorted(PINNED_MAIN_PATH),
+                         ids=lambda k: "-".join(k))
+def test_tensor_core_conv_main_path_launch_is_pinned(key):
+    """The main path's bf16 conv launches keep their rectangular warp
+    blocks, launch configuration, shared memory and words (the analytic
+    plans are the planner's own; the tuned tiles the card picked)."""
+    from repro.core.conv_model import resnet50_layers
+
+    layer, kind = key
+    tiles, want, words = PINNED_MAIN_PATH[key]
+    s = resnet50_layers(1000)[layer]
+    if kind == "analytic":
+        assert _conv_plan(s)[0] == tiles
+    H, W = (s.h_O - 1) * s.sh + s.h_F, (s.w_O - 1) * s.sw + s.w_F
+    h_in, w_in = (tiles[3] - 1) * s.sh + s.h_F, (tiles[4] - 1) * s.sw + s.w_F
+    cfg = launch_config(tiles, s.h_F, s.w_F, h_in, w_in, 2, s.c_I, (H, W))
+    assert tuple(cfg[k] for k in PINNED_KEYS) == want
+    assert not cfg["linear"]
+    x = torch.empty((s.N, s.c_I, H, W), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((s.c_O, s.c_I, s.h_F, s.w_F), dtype=torch.bfloat16,
+                    device="meta")
+    assert conv2d_hbm_words(x, w, (s.sh, s.sw), tiles=tiles) == words
 
 
 def _emulate_tc_conv(x, w, stride, tiles):
@@ -378,7 +461,9 @@ def _emulate_tc_conv(x, w, stride, tiles):
     input, the zero plane zeroed, every other slot element NaN, which no
     product may read), the filter block as [co][k] rows zero-padded to 16
     k, A gathered through the wrapper's gather_table and the kernel's
-    row_offsets, one GEMM per stage into the tile's accumulator."""
+    row_offsets, one GEMM per stage into the tile's accumulator (for the
+    LINEAR layout, one m16 x n8 product per tile each warp owns, as
+    warp_tiles maps them, every covered tile owned once)."""
     N, c_I, H, W = x.shape
     c_O, _, h_F, w_F = w.shape
     sh, sw = stride
@@ -401,6 +486,7 @@ def _emulate_tc_conv(x, w, stride, tiles):
     wk[:c_O, :c_I] = w.float().reshape(c_O, c_I, -1)
     out = torch.zeros(Np, cOp, hOp, wOp)
     M = bN * bh * bw
+    owned = torch.zeros(cfg["rows"], cfg["cols"])
     for n0 in range(0, Np, bN):
         for co0 in range(0, cOp, b_cO):
             for r0 in range(0, hOp, bh):
@@ -425,11 +511,63 @@ def _emulate_tc_conv(x, w, stride, tiles):
                         assert not a[:, cfg["ks"]:].any()  # the zero plane
                         assert not a.isnan().any()  # no slack is gathered
                         with ref.no_tf32():
-                            acc += a @ b.t()
+                            if not cfg["linear"]:
+                                acc += a @ b.t()
+                            for wp in range(cfg["threads"] // 32
+                                            if cfg["linear"] else 0):
+                                for mt, nt in warp_tiles(cfg, wp):
+                                    rs = slice(mt * 16, mt * 16 + 16)
+                                    cs_ = slice(nt * 8, nt * 8 + 8)
+                                    acc[rs, cs_] += a[rs] @ b[cs_].t()
+                                    owned[rs, cs_] += 1
                     out[n0:n0 + bN, co0:co0 + b_cO, r0:r0 + bh,
                         c0:c0 + bw] = acc[:M, :b_cO].reshape(
                             bN, bh, bw, b_cO).permute(0, 3, 1, 2)
+    if cfg["linear"]:  # each covered tile once a stage of each CTA
+        assert (owned == owned.flatten()[0]).all() and owned.max() > 0
     return out[:N, :c_O, :h_O, :w_O]
+
+
+# (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles): the H100 plans of narrow
+# convs (few output channels, many pixels a tile), which no rectangular warp
+# block covers within 8 warps: they take the LINEAR layout
+NARROW_CONV_CASES = {
+    "narrow_784x16": (4, 8, 16, 16, 16, 3, 3, 1, 1, (4, 8, 16, 14, 14)),
+    "narrow_1800x8": (4, 3, 8, 32, 32, 3, 3, 1, 1, (2, 3, 8, 30, 30)),
+    "narrow_1568x8": (8, 16, 8, 30, 30, 3, 3, 1, 1, (2, 16, 8, 28, 28)),
+}
+
+
+def test_conv_geometry_matches_the_source():
+    """The C entry's geometry array: GEOMETRY's length and order are
+    csrc/conv2d.cu's N_GEOMETRY and ConvParams fields."""
+    import re
+
+    from repro_torch.kernels._build import CSRC
+    from repro_torch.kernels.conv2d import GEOMETRY
+
+    src = (CSRC / "conv2d.cu").read_text()
+    n = int(re.search(r"constexpr int N_GEOMETRY = (\d+);", src).group(1))
+    assert n == len(GEOMETRY) == len(set(GEOMETRY))
+    assert GEOMETRY[-1] == "cn" and "&p.zero, &p.cn}" in src
+
+
+@pytest.mark.parametrize("case", sorted(NARROW_CONV_CASES))
+def test_narrow_conv_plans_take_the_linear_layout(case):
+    """The H100 planner's tiles for each narrow conv, and their launch: the
+    LINEAR variant, at most 8 warps of 16 m16n8 tiles that cover the tile."""
+    N, cI, cO, H, W, hF, wF, sh, sw, tiles = NARROW_CONV_CASES[case]
+    h_O, w_O = (H - hF) // sh + 1, (W - wF) // sw + 1
+    spec = tp.ConvSpec(N=N, c_I=cI, c_O=cO, w_O=w_O, h_O=h_O, w_F=wF, h_F=hF,
+                       sw=sw, sh=sh, prec=tp.ops.Precision(0.5, 0.5, 1.0))
+    assert tuple(tp.Planner(tp.H100).plan(spec).tiles) == tiles
+    bN, _, b_cO, bh, bw = tiles
+    cfg = launch_config(tiles, hF, wF, (bh - 1) * sh + hF, (bw - 1) * sw + wF,
+                        2, cI, (H, W))
+    assert cfg["variant"] == CONV_LINEAR and cfg["linear"]
+    cm, cn = -(-bN * bh * bw // 16), -(-b_cO // 8)
+    assert (cfg["rows"], cfg["cols"]) == (cm * 16, cn * 8)
+    assert cfg["threads"] == 32 * -(-cm * cn // 16) <= 256
 
 
 # (N, c_I, c_O, H, W, h_F, w_F, sh, sw, tiles): each H100 tile shape at a
@@ -444,6 +582,7 @@ TC_CONV_CASES = {
                      H100_CONV_TILES["conv4_x"]),
     "conv5_x_tile": (6, 40, 70, 9, 9, 3, 3, 1, 1,
                      H100_CONV_TILES["conv5_x"]),
+    **NARROW_CONV_CASES,
 }
 
 
