@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four paths. The conv path is the paper's experiment: the five ResNet-50
+Five paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -20,7 +20,10 @@ published widths (d_model 8192, 64 query heads over 8 KV heads, hd 128, d_ff
 to one pattern unit of 8 layers (7 mamba, 1 attention) with its MoE FFN
 replaced by the dense SwiGLU, through the contiguous engine, the
 hand-written causal conv1d kernel (every mamba prefill) and the flash
-kernel. Phases, each fatal on failure:
+kernel. The MoE path serves OLMoE-1B-7B at its published widths and full
+depth (its routed expert FFN in aten einsums, as the reference leaves it to
+XLA) and InternVL2-1B's language backbone, also on stub patch embeddings,
+through the same attention kernels. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
@@ -226,7 +229,34 @@ kernel. Phases, each fatal on failure:
      profiler loses kernels of a graph), the weight-stream floor, and the
      graphs, warm-ups
      and capture seconds of that engine's serve in phases 7, 12 and 14;
- 19. the ``kernels`` JSON line, the card's name and power limit, and the
+ 19. OLMoE-1B-7B, the MoE FFN (``repro_torch.models.moe``) at published
+     widths and full depth (16 layers, d_model 2048, 16 query heads over 16
+     KV heads, hd 128, 64 experts top 8 of d_ff 1024, vocab 50304; 6.92 B
+     seeded random parameters made on the card after the earlier phases'
+     models and operands are freed; the peak of allocated memory printed):
+     phase 7's 8 requests through the paged and the contiguous engine at
+     the published capacity factor 1.25, inside ``ops.record_dispatch()``
+     and ``moe.count_drops`` (the choices dropped at capacity, replays
+     included), each held to ``serve_and_gate`` (32 tokens "length", phase
+     7's graph gates, 16 flash launches a prefill and 16 paged-decode
+     launches a decode step, all on the tensor cores), every attention
+     decision on ``cuda``, first tokens equal across the engines, and
+     teacher-forced logits of two requests (below); then a paged serve at
+     capacity factor E / K = 8, where no group can drop a choice (fatal on
+     a drop), whose every token goes through ``decode_check``; then one
+     decode step eagerly and replayed (phase 18's ``check_replay``, bit for
+     bit, fatal otherwise) with its device and host ms, kernels a replay
+     and capture seconds beside the step's two weight floors: all weights
+     but the embedding (the dense dispatch reads every expert) and one
+     token's active ones;
+ 20. InternVL2-1B's language backbone at published widths and full depth
+     (24 layers, d_model 896, 14 query heads over 2 KV heads: a group of
+     7, hd 64, vocab 151655): the same 8 requests through the paged engine
+     with phase 19's gates, teacher-forced and decode checks; then one
+     forward over stub patch embeddings ((2, 256, 896), seeded) through
+     ``embeds=``, its 24 flash launches on the tensor cores and its logits
+     under ``cuda`` within the allowance of the ``torch`` backend's;
+ 21. the ``kernels`` JSON line, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -246,10 +276,16 @@ attention layer and is carried through the remaining layers, so the logit
 difference grows like a random walk over the layers: the check allows
 max|cuda - torch| <= 4 * 2^-8 * sqrt(n_layers) * max(1, max|logits|) (four
 standard deviations of that walk; 0.094 of the logit scale at 36 layers)
-and prints the measured error beside it. On the hybrid path the mamba
-layers' conv1d outputs differ between the backends in the same way (the
-oracle sums its taps in another order before the bf16 cast), one rounding
-per layer: the same allowance with n_layers = 8.
+and prints the measured error beside it. With experts (phase 19) a near-tie
+of the router that the two backends break differently sends a token to
+another expert and, at capacity, moves which later tokens are dropped:
+the ``torch`` forward is run twice, routed freely (its error, the (token,
+layer, k) choices that differ and the smallest k-th to (k+1)-th
+probability gap are printed) and routed to the ``cuda`` run's choices
+(``expert_choices``), which is held to the allowance. On the hybrid path
+the mamba layers' conv1d outputs differ between the backends in the same
+way (the oracle sums its taps in another order before the bf16 cast), one
+rounding per layer: the same allowance with n_layers = 8.
 
 Generated tokens: the engines decode from their KV caches (paged blocks,
 shared prefixes, per-row slots), so each request's prompt and generated
@@ -288,6 +324,8 @@ from repro_torch.analysis import timing  # noqa: E402
 
 ARCH = "qwen2_5_3b"
 HYBRID_ARCH = "jamba_1_5_large"
+MOE_ARCH = "olmoe_1b_7b"
+VLM_ARCH = "internvl2_1b"
 BATCH = 1000
 WARMUP, TIMED = 1, 5
 BLOCK = 8  # images compared with the plain version at each end of the batch
@@ -647,6 +685,159 @@ def serving_prompt_lens() -> tuple:
     return rng, rng.integers(17, 201, size=8)
 
 
+def serving_prompts(vocab: int) -> tuple:
+    """The 8 greedy requests' prompts of phases 7, 19 and 20 over ``vocab``
+    token ids, two of them sharing a 32-token prefix. Returns (lengths,
+    prompts, the sharing requests)."""
+    import numpy as np
+
+    rng, lens = serving_prompt_lens()
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+    shared = rng.integers(0, vocab, size=32).astype(np.int32)
+    sharing = [i for i in range(len(prompts)) if lens[i] >= 32][:2]
+    for i in sharing:  # two requests share a 32-token prefix
+        prompts[i][:32] = shared
+    return lens, prompts, sharing
+
+
+def logit_allowance(n_layers: int):
+    """The teacher-forced tolerance (module docstring) of an ``n_layers``
+    model, as a function of the reference logits."""
+    def allowance(logits):
+        return (4 * 2.0 ** -8 * n_layers ** 0.5
+                * max(1.0, logits.abs().max().item()))
+    return allowance
+
+
+def count_launches(run: str, must_launch, fn) -> tuple:
+    """The attention kernels' counters to 0 just before ``fn``, read just
+    after; fail unless every kernel of ``must_launch`` ran and every flash
+    and paged-decode launch took its tensor-core kernel. Returns ``fn()``,
+    the run's launches and its tensor-core launches, by kernel."""
+    from repro_torch.kernels import KERNELS
+
+    names = ("flash_attention", "paged_decode")
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {n: KERNELS[n].launches for n in names}
+    print(f"{run} launches: {json.dumps(launched)}", flush=True)
+    for n in must_launch:
+        if launched[n] <= 0:
+            fail(f"{run}: the {n} kernel was never launched")
+    tc = {"flash_attention": flash_on_tensor_cores(run)}
+    pk = KERNELS["paged_decode"]
+    print(f"{run}: paged_decode on the tensor cores "
+          f"{pk.tensor_core_launches} of {pk.launches}", flush=True)
+    if pk.tensor_core_launches != pk.launches:
+        fail(f"{run}: {pk.launches - pk.tensor_core_launches} paged "
+             "decode launches took the FMA kernel, not the tensor cores")
+    tc["paged_decode"] = pk.tensor_core_launches
+    return out, launched, tc
+
+
+def serve_and_gate(name: str, eng, prompts, count=None) -> tuple:
+    """Serve ``prompts`` greedily (32 new tokens each) on ``eng`` through
+    ``count(run, must_launch, fn)`` (the counted run, returning ``fn()``
+    and the launches; default ``count_launches``), under
+    ``serve_events``. Fatal unless every request finishes "length" with 32
+    tokens, the graph gates hold (``graph_gates``) and the attention
+    launches are the steps': flash once a layer at each prefill (and,
+    contiguous, at each decode step), paged decode once a layer at each
+    decode step. Returns the requests and the serve's row."""
+    from repro_torch.serving import Request
+
+    cfg = eng.cfg
+    must = (("flash_attention", "paged_decode") if eng.paged
+            else ("flash_attention",))
+    if count is None:
+        def count(run, must_launch, fn):
+            return count_launches(run, must_launch, fn)[:2]
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    with serve_events() as ev:
+        t0 = time.perf_counter()
+        _, launched = count(f"{name} engine", must, lambda: eng.serve(reqs))
+        wall = time.perf_counter() - t0
+    ntok = sum(len(r.out_tokens) for r in reqs)
+    st = eng.stats
+    graphs_row = graph_gates(f"{name} engine", eng, ev)
+    runs = st.warmup_steps + st.replayed_steps
+    want = {"flash_attention": cfg.n_layers * (
+        len(st.prefill_s) + (0 if eng.paged else runs)),
+        "paged_decode": cfg.n_layers * runs if eng.paged else 0}
+    if launched != want:
+        fail(f"{name} engine: launches {launched}, expected {want} "
+             f"({cfg.n_layers} layers, {len(st.prefill_s)} prefills, "
+             f"{runs} decode steps)")
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.out_tokens) != 32:
+            fail(f"{name} engine: a request finished {r.finish_reason!r} "
+                 f"with {len(r.out_tokens)} tokens, not 'length' with 32")
+    row = {"engine": name, "requests": len(reqs),
+           "prompt_lens": [len(p) for p in prompts],
+           "generated_tokens": ntok, "wall_s": wall, "tok_per_s": ntok / wall,
+           "prefill_ms_mean": 1e3 * statistics.mean(st.prefill_s),
+           "prefill_ms_median": 1e3 * statistics.median(st.prefill_s),
+           "decode_step_ms_median": 1e3 * statistics.median(st.decode_s),
+           "decode_steps": len(st.decode_s), "launches": launched,
+           **graphs_row, **events_summary(ev, 1e3 * wall)}
+    return reqs, row
+
+
+def routing_differences(ra, rb, k: int) -> dict:
+    """Two recorded forwards' routing (``moe.record_routing`` logs): the
+    (token, layer, k) expert choices that differ, all choices, the smallest
+    gap between the k-th and (k+1)-th router probability of the first, and
+    each run's choices dropped at capacity."""
+    return {
+        "routing_flips": sum(int((x.gate_idx != y.gate_idx).sum().item())
+                             for x, y in zip(ra, rb)),
+        "routing_choices": sum(x.gate_idx.numel() for x in ra),
+        "min_topk_gap": min(
+            (lambda v: (v[..., k - 1] - v[..., k]).min().item())(
+                torch.topk(x.probs, k + 1, dim=-1).values) for x in ra),
+        "dropped_choices": [sum(int((x.kept == 0).sum().item()) for x in r)
+                            for r in (ra, rb)]}
+
+
+def teacher_forced(key: str, i: int, seq, cfg, params, ctx, ref_ctx,
+                   allowance) -> dict:
+    """Request ``i``'s prompt and generated tokens ``seq`` through the
+    cache-less forward under ``ctx`` and ``ref_ctx``; prints one ``{key:
+    i, ...}`` line and fails if the logits differ by more than
+    ``allowance``. A model with experts runs the ``ref_ctx`` forward twice:
+    routed freely (its error, the routing flips and the smallest top-k gap
+    are printed) and routed to the ``ctx`` run's expert choices, the one
+    held to the allowance (module docstring)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(seq[None], device="cuda")
+    with torch.inference_mode(), moe.record_routing() as ra:
+        a, _, _ = T.forward(params, cfg, tokens=toks, ctx=ctx)
+    with torch.inference_mode(), moe.record_routing() as rb:
+        b, _, _ = T.forward(params, cfg, tokens=toks, ctx=ref_ctx)
+    row = {key: i, "tokens": len(seq)}
+    if ra:
+        row.update(routing_differences(ra, rb, cfg.experts_per_token),
+                   max_abs_err_routed_freely=(a - b).abs().max().item())
+        with torch.inference_mode():
+            b, _, _ = T.forward(params, cfg, tokens=toks, ctx=ref_ctx,
+                                expert_choices=[r.gate_idx for r in ra])
+    err = (a - b).abs().max().item()
+    allowed = allowance(b)
+    row.update(max_abs_err=err, mean_abs_err=(a - b).abs().mean().item(),
+               allowed=allowed, max_abs_logit=b.abs().max().item(),
+               argmax_agreement=(a.argmax(-1) == b.argmax(-1)).float()
+               .mean().item())
+    print(json.dumps(row), flush=True)
+    if not err <= allowed:
+        fail(f"{key} {i}: cuda vs torch logit error {err} above {allowed}")
+    return row
+
+
 def paged_decode_operands(gen: torch.Generator, cfg, lens) -> tuple:
     """Phase 8's paged-decode call: 4 rows of a bf16 pool of 16-position
     blocks, at depths from the serve's prompt lengths ``lens``, their blocks
@@ -846,90 +1037,33 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
           f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
           f"{cfg.hd}, vocab {cfg.padded_vocab}); random weights made on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
-    rng, lens = serving_prompt_lens()
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lens]
-    shared = rng.integers(0, cfg.vocab_size, size=32).astype(np.int32)
-    sharing = [i for i in range(len(prompts)) if lens[i] >= 32][:2]
-    for i in sharing:  # two requests share a 32-token prefix
-        prompts[i][:32] = shared
+    lens, prompts, sharing = serving_prompts(cfg.vocab_size)
     ctx = ExecutionContext(target=H100, backend="cuda")
     attn_names = ("flash_attention", "paged_decode")
     serve_launches = dict.fromkeys(
         attn_names + ("flash_tensor_core", "paged_tensor_core"), 0)
 
     def counted(run: str, must_launch, fn):
-        """Counters to 0 just before ``fn``, read just after; fail unless
-        every kernel of ``must_launch`` ran and every flash and paged-decode
-        launch took its tensor-core kernel. Returns ``fn()`` and the run's
-        launches."""
-        zero_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        launched = {n: KERNELS[n].launches for n in attn_names}
+        """``count_launches``, adding the run's launches to the path's."""
+        out, launched, tc = count_launches(run, must_launch, fn)
         for n in attn_names:
             serve_launches[n] += launched[n]
-        print(f"{run} launches: {json.dumps(launched)}", flush=True)
-        for n in must_launch:
-            if launched[n] <= 0:
-                fail(f"{run}: the {n} kernel was never launched")
-        serve_launches["flash_tensor_core"] += flash_on_tensor_cores(run)
-        pk = KERNELS["paged_decode"]
-        print(f"{run}: paged_decode on the tensor cores "
-              f"{pk.tensor_core_launches} of {pk.launches}", flush=True)
-        if pk.tensor_core_launches != pk.launches:
-            fail(f"{run}: {pk.launches - pk.tensor_core_launches} paged "
-                 "decode launches took the FMA kernel, not the tensor cores")
-        serve_launches["paged_tensor_core"] += pk.tensor_core_launches
+        serve_launches["flash_tensor_core"] += tc["flash_attention"]
+        serve_launches["paged_tensor_core"] += tc["paged_decode"]
         return out, launched
 
-    engines = {"paged": (dict(paged=True), attn_names),
-               "contiguous": (dict(paged=False), ("flash_attention",))}
     served, stats = {}, {}
     with ops.record_dispatch() as log:
-        for name, (kw, must) in engines.items():
-            reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+        for name, paged in (("paged", True), ("contiguous", False)):
             eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
-                         block_size=16, **kw)
-            torch.cuda.synchronize()
-            with serve_events() as ev:
-                t0 = time.perf_counter()
-                _, launched = counted(f"{name} engine", must,
-                                      lambda: eng.serve(reqs))
-                wall = time.perf_counter() - t0
-            served[name] = reqs
-            ntok = sum(len(r.out_tokens) for r in reqs)
-            st = eng.stats
-            graphs_row = graph_gates(f"{name} engine", eng, ev)
-            GRAPHS[name] = graphs_row
-            # every launch of the serve, met through the replays' credit:
-            # flash once a layer at each prefill (and, contiguous, at each
-            # decode step), paged decode once a layer at each decode step
-            runs = st.warmup_steps + st.replayed_steps
-            want = {"flash_attention": cfg.n_layers * (
-                len(st.prefill_s) + (0 if kw["paged"] else runs)),
-                "paged_decode": cfg.n_layers * runs if kw["paged"] else 0}
-            if launched != want:
-                fail(f"{name} engine: launches {launched}, expected {want} "
-                     f"({cfg.n_layers} layers, {len(st.prefill_s)} prefills, "
-                     f"{runs} decode steps)")
-            stats[name] = {
-                "engine": name, "requests": len(reqs),
-                "prompt_lens": [int(n) for n in lens],
-                "shared_prefix_requests": sharing,
-                "generated_tokens": ntok, "wall_s": wall,
-                "tok_per_s": ntok / wall,
-                "prefill_ms_mean": 1e3 * statistics.mean(st.prefill_s),
-                "prefill_ms_median": 1e3 * statistics.median(st.prefill_s),
-                "decode_step_ms_median": 1e3 * statistics.median(st.decode_s),
-                "decode_steps": len(st.decode_s), "launches": launched,
-                **graphs_row, **events_summary(ev, 1e3 * wall)}
+                         block_size=16, paged=paged)
+            served[name], stats[name] = serve_and_gate(name, eng, prompts,
+                                                       counted)
+            stats[name]["shared_prefix_requests"] = sharing
+            GRAPHS[name] = {k: stats[name][k] for k in (
+                "warmup_steps", "replayed_steps", "graphs", "graph_widths",
+                "capture_s_sum", "capture_s_max")}
             print(json.dumps(stats[name]), flush=True)
-            for r in reqs:
-                if r.finish_reason != "length" or len(r.out_tokens) != 32:
-                    fail(f"{name} engine: a request finished "
-                         f"{r.finish_reason!r} with {len(r.out_tokens)} "
-                         "tokens, not 'length' with 32")
             del eng
         tokens = torch.as_tensor(prompts[0][None].astype(np.int64),
                                  device=dev)
@@ -958,31 +1092,13 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
 
     # teacher-forced logits: cuda against torch on the card
     ref_ctx = ExecutionContext(target=H100, backend="torch")
-
-    def allowance(logits):  # the teacher-forced tolerance (docstring)
-        return (4 * 2.0 ** -8 * cfg.n_layers ** 0.5
-                * max(1.0, logits.abs().max().item()))
-
+    allowance = logit_allowance(cfg.n_layers)
     for i in (0, 1):
         r = served["paged"][i]
-        seq = np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)
-        toks = torch.as_tensor(seq[None], device=dev)
-        with torch.inference_mode():
-            a, _, _ = T.forward(params, cfg, tokens=toks, ctx=ctx)
-            b, _, _ = T.forward(params, cfg, tokens=toks, ctx=ref_ctx)
-        err = (a - b).abs().max().item()
-        scale = max(1.0, b.abs().max().item())
-        allowed = allowance(b)
-        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        row = {"teacher_forced": i, "tokens": len(seq),
-               "max_abs_err": err, "mean_abs_err": (a - b).abs().mean().item(),
-               "allowed": allowed, "max_abs_logit": scale,
-               "argmax_agreement": agree}
-        print(json.dumps(row), flush=True)
-        if not err <= allowed:
-            fail(f"teacher-forced logits of request {i}: cuda vs torch "
-                 f"error {err} above {allowed}")
-    del a, b, logits
+        teacher_forced("teacher_forced", i,
+                       np.concatenate([r.prompt, r.out_tokens]).astype(
+                           np.int64), cfg, params, ctx, ref_ctx, allowance)
+    del logits
 
     # every generated token of both engines against the cache-less torch
     # forward: a near-tie of that row's max (docstring)
@@ -1909,30 +2025,12 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
 
     # teacher-forced logits, cuda against torch, and every generated token
     # under the cache-less torch forward (phase 7's checks at 8 layers)
-    def allowance(logits):
-        return (4 * 2.0 ** -8 * cfg.n_layers ** 0.5
-                * max(1.0, logits.abs().max().item()))
-
+    allowance = logit_allowance(cfg.n_layers)
     for i in (5, 1):  # the 1-token prompt and the two-chunk prompt
         r = reqs[i]
-        seq = np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)
-        toks = torch.as_tensor(seq[None], device=dev)
-        with torch.inference_mode():
-            a, _, _ = T.forward(params, cfg, tokens=toks, ctx=ctx)
-            b, _, _ = T.forward(params, cfg, tokens=toks, ctx=ref_ctx)
-        err = (a - b).abs().max().item()
-        allowed = allowance(b)
-        print(json.dumps({
-            "hybrid_teacher_forced": i, "tokens": len(seq),
-            "max_abs_err": err, "mean_abs_err": (a - b).abs().mean().item(),
-            "allowed": allowed, "max_abs_logit": b.abs().max().item(),
-            "argmax_agreement":
-                (a.argmax(-1) == b.argmax(-1)).float().mean().item()}),
-            flush=True)
-        if not err <= allowed:
-            fail(f"hybrid teacher-forced logits of request {i}: cuda vs "
-                 f"torch error {err} above {allowed}")
-        del a, b
+        teacher_forced("hybrid_teacher_forced", i,
+                       np.concatenate([r.prompt, r.out_tokens]).astype(
+                           np.int64), cfg, params, ctx, ref_ctx, allowance)
     decode_check("hybrid contiguous", reqs, cfg, params, ref_ctx, allowance)
     torch.cuda.empty_cache()
 
@@ -2503,6 +2601,212 @@ def graph_phase() -> None:
         torch.cuda.empty_cache()
 
 
+def moe_weight_floors(params, cfg) -> dict:
+    """A decode step's two weight floors at the HBM rate: every weight but
+    the embedding read once (the dense dispatch einsums read every expert),
+    and one token's active weights (K of E experts)."""
+    sd = params.state_dict()
+    expert = sum(t.numel() * t.element_size() for n, t in sd.items()
+                 if ".ffn.w_" in n)
+    other = sum(t.numel() * t.element_size() for n, t in sd.items()
+                if n != "embed" and ".ffn.w_" not in n)
+    active = other + expert * cfg.experts_per_token / cfg.n_experts
+    return {"expert_gb": expert / 1e9, "other_gb": other / 1e9,
+            "all_expert_floor_ms": 1e3 * (expert + other) / PEAK_BYTES,
+            "active_gb": active / 1e9,
+            "active_floor_ms": 1e3 * active / PEAK_BYTES}
+
+
+def lm_serve_phase(arch: str, engines, tag: str) -> dict:
+    """Phases 19 and 20 (module docstring): ``arch`` at published widths
+    and full depth with seeded random weights, served greedily through
+    ``engines`` ((name, Engine keywords)) inside
+    ``ops.record_dispatch()`` with ``moe.count_drops``; each serve held to
+    ``serve_and_gate``; every attention decision on ``cuda``; first tokens
+    equal across the engines; teacher-forced logits of two requests under
+    ``cuda`` and ``torch`` (with the routing flips of an MoE model). Returns
+    what the phase's own checks reuse: config, weights, contexts, prompts,
+    allowance, the first engine's requests and rows."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.serving import Engine
+
+    HELD.clear()  # phases 16-17 are done with their operands
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    master = T.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(t.numel() for t in master.parameters())
+    params = T.compute_params(master, cfg)
+    del master  # the engines and forwards use the bf16 copy
+    torch.cuda.synchronize()
+    print(f"{tag}: {cfg.name} at published widths and full depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top "
+          f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}, "
+          f"vocab {cfg.padded_vocab}); {n_params / 1e9:.3f} B parameters made "
+          f"on the card in {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    _, prompts, sharing = serving_prompts(cfg.vocab_size)
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    ref_ctx = ExecutionContext(target=H100, backend="torch")
+    served, rows = {}, {}
+    with ops.record_dispatch() as log:
+        for name, kw in engines:
+            eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
+                         block_size=16, **kw)
+            with moe.count_drops("cuda") as drops:
+                served[name], rows[name] = serve_and_gate(
+                    f"{tag} {name}", eng, prompts)
+                dropped, routed = drops.tolist()
+            rows[name].update(model=cfg.name, shared_prefix_requests=sharing,
+                              pool_blocks=eng.num_blocks,
+                              dropped_choices=dropped, routed_choices=routed,
+                              dropped_share=dropped / routed if routed
+                              else 0.0)
+            print(json.dumps(rows[name]), flush=True)
+            del eng
+    attn = [d for d in log if d.op in ("attention", "attention_decode")]
+    off = [d for d in attn if d.chosen != "cuda"]
+    print(f"{tag} dispatch: {len(attn)} attention decisions, {len(off)} off "
+          "cuda", flush=True)
+    if not attn or off:
+        fail(f"{tag}: attention decisions chosen off cuda: {off[:3]}")
+    firsts = {n: [int(r.out_tokens[0]) for r in reqs]
+              for n, reqs in served.items()}
+    if len({tuple(f) for f in firsts.values()}) != 1:
+        fail(f"{tag}: first tokens differ between engines: {firsts}")
+    allowance = logit_allowance(cfg.n_layers)
+    first = engines[0][0]
+    for i in (0, 1):
+        r = served[first][i]
+        teacher_forced(f"{tag}_teacher_forced", i,
+                       np.concatenate([r.prompt, r.out_tokens]).astype(
+                           np.int64), cfg, params, ctx, ref_ctx, allowance)
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "params": params, "ctx": ctx, "ref_ctx": ref_ctx,
+            "prompts": prompts, "allowance": allowance,
+            "requests": served[first], "rows": rows}
+
+
+def moe_phase() -> None:
+    """Phase 19 (module docstring): OLMoE-1B-7B at published widths and
+    full depth."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.serving import Engine
+    from repro_torch.serving.graphs import check_replay, probe_inputs
+
+    t_phase = time.perf_counter()
+    run = lm_serve_phase(MOE_ARCH, (("paged", dict(paged=True)),
+                                    ("contiguous", dict(paged=False))), "moe")
+    cfg, params, ctx = run["cfg"], run["params"], run["ctx"]
+    # every generated token against the cache-less forward, on a serve at
+    # capacity factor E / K, where no group drops a choice: at 1.25 the
+    # drops depend on how the tokens are grouped (module docstring)
+    cfg8 = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    eng = Engine(cfg8, params, max_len=512, batch_size=4, ctx=ctx,
+                 block_size=16, paged=True)
+    with moe.count_drops("cuda") as drops:
+        reqs8, row8 = serve_and_gate(
+            f"moe paged, capacity factor {cfg8.capacity_factor:g}", eng,
+            run["prompts"])
+        dropped8, routed8 = drops.tolist()
+    row8.update(dropped_choices=dropped8, routed_choices=routed8)
+    print(json.dumps(row8), flush=True)
+    if dropped8:
+        fail(f"moe: {dropped8} choices dropped at capacity factor "
+             f"{cfg8.capacity_factor:g}, where no group can drop one")
+    decode_check(f"moe paged, capacity factor {cfg8.capacity_factor:g}",
+                 reqs8, cfg8, params, run["ref_ctx"], run["allowance"])
+    del eng
+    # one decode step eagerly and replayed (phase 18's check) at 1.25:
+    # bit-equal, its device and host time and its graph's kernels
+    eng = Engine(cfg, params, max_len=512, batch_size=4, ctx=ctx,
+                 block_size=16, paged=True)
+    with torch.inference_mode():
+        state = probe_inputs(eng, seed=SEED + 90)
+        res = check_replay(eng, *state, profile=True)
+    del eng, state
+    floors = moe_weight_floors(params, cfg)
+    paged = run["rows"]["paged"]
+    row = {"moe_step": cfg.name, "batch": 4,
+           "logits_equal": res["logits_equal"],
+           "leaves_equal": res["leaves_equal"],
+           "replay_device_ms": 1e3 * res["replay_device_s"],
+           "replay_host_ms": 1e3 * res["replay_host_s"],
+           "eager_step_device_ms": 1e3 * res["eager_device_s"],
+           "capture_s": res["capture_s"],
+           "kernels_per_replay": res["profiled_replay"]["profiler_kernels"],
+           "profiled_replay": res["profiled_replay"], **floors,
+           "serve_replay_device_ms_median": paged["replay_device_ms_median"],
+           "serve_decode_step_ms_median": paged["decode_step_ms_median"],
+           "serve_prefill_ms_median": paged["prefill_ms_median"],
+           "serve_tok_per_s": paged["tok_per_s"],
+           "dropped_share_at_1.25": paged["dropped_share"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": smi(), "phase_seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    if not (res["logits_equal"] and res["leaves_equal"] and res["finite"]
+            and res["written_leaves"]):
+        fail(f"moe: a replayed decode step differs from the eager one "
+             f"(unequal leaves {res['unequal_leaves'][:4]})")
+    del params, run
+    torch.cuda.empty_cache()
+
+
+def vlm_phase() -> None:
+    """Phase 20 (module docstring): InternVL2-1B's backbone at published
+    widths and full depth, and one forward over stub patch embeddings."""
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    run = lm_serve_phase(VLM_ARCH, (("paged", dict(paged=True)),), "vlm")
+    cfg, params = run["cfg"], run["params"]
+    decode_check("vlm paged", run["requests"], cfg, params, run["ref_ctx"],
+                 run["allowance"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 100)
+    embeds = torch.randn((2, 256, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+
+    def forward(c):
+        with torch.inference_mode():
+            return T.forward(params, cfg, embeds=embeds, ctx=c)[0]
+
+    a, launched, _ = count_launches("vlm stub-embedding forward",
+                                    ("flash_attention",),
+                                    lambda: forward(run["ctx"]))
+    b = forward(run["ref_ctx"])
+    err = (a - b).abs().max().item()
+    allowed = run["allowance"](b)
+    print(json.dumps({
+        "vlm_embeds_forward": list(embeds.shape), "launches": launched,
+        "logits_shape": list(a.shape), "max_abs_err": err,
+        "allowed": allowed, "argmax_agreement":
+        (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+        "phase_seconds": time.perf_counter() - t_phase}), flush=True)
+    if (a.shape != (2, 256, cfg.padded_vocab) or not torch.isfinite(a).all()
+            or launched["flash_attention"] != cfg.n_layers):
+        fail(f"vlm: stub-embedding forward gave {tuple(a.shape)} logits, "
+             f"{launched} launches")
+    if not err <= allowed:
+        fail(f"vlm: stub-embedding logits, cuda vs torch error {err} above "
+             f"{allowed}")
+    del a, b, params, run
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2876,7 +3180,13 @@ def main() -> None:
     # -- 18. the decode steps as CUDA graphs: replay against eager ----------
     graph_phase()
 
-    # -- 19. summary --------------------------------------------------------
+    # -- 19. OLMoE-1B-7B, the MoE FFN at published widths --------------------
+    moe_phase()
+
+    # -- 20. InternVL2-1B's backbone and its stub frontend's embeddings ------
+    vlm_phase()
+
+    # -- 21. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),

@@ -1,9 +1,10 @@
 """Model and layer configurations (``--arch <id>``), the counterpart of
 ``repro.configs``: the paper's own ResNet-50 conv shapes (``resnet50_convs``)
 and the LM architectures whose blocks are ported: the dense pure-attention
-ones and jamba's hybrid mamba + attention unit (its MoE FFN is not ported:
-serve it with ``n_experts=0``). Each LM module exposes CONFIG (published
-widths) and SMOKE (reduced, runs on the CPU).
+ones, the MoE ones (OLMoE, Phi-3.5-MoE), InternVL2's backbone (its vision
+frontend is a stub: patch embeddings enter through ``embeds=``) and jamba's
+hybrid mamba + attention unit with its MoE FFNs. Each LM module exposes
+CONFIG (published widths) and SMOKE (reduced, runs on the CPU).
 
 The reference's other architectures need blocks that are not ported yet;
 asking for one raises ``NotImplementedError`` naming its ROADMAP item.
@@ -22,17 +23,17 @@ ARCH_IDS: List[str] = [
     "phi3_medium_14b",
     "minitron_8b",
     "jamba_1_5_large",
+    "olmoe_1b_7b",
+    "phi3_5_moe_42b",
+    "internvl2_1b",
 ]
 
 # the reference's architectures that wait for blocks of a later slice
 NOT_PORTED: Dict[str, str] = {
-    "phi3_5_moe_42b": "the MoE FFN (ROADMAP queue 1, item 6: left out)",
-    "olmoe_1b_7b": "the MoE FFN (ROADMAP queue 1, item 6: left out)",
     "xlstm_1_3b": "mLSTM/sLSTM blocks (ROADMAP queue 1, item 9)",
-    "hubert_xlarge": "the encoder stub frontend (ROADMAP queue 1, item 6: "
-                     "left out)",
-    "internvl2_1b": "the VLM stub frontend (ROADMAP queue 1, item 6: left "
-                    "out)",
+    "hubert_xlarge": "a flash-attention instance at head dim 80 (ROADMAP "
+                     "queue 1, item 6: hubert) and training, its main path "
+                     "(ROADMAP queue 1, item 10)",
 }
 
 

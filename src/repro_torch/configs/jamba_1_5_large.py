@@ -4,9 +4,11 @@ d_ff=24576, vocab=65536, MoE 16e top-2, Mamba+attn 1:7 interleave.
 
 Pattern unit: 8 blocks (attn at position 4, mamba elsewhere) repeated 9x;
 MoE FFN on every other position (moe_every=2), dense SwiGLU otherwise.
-The port runs its mamba and attention blocks; the MoE FFN is not ported
-(ROADMAP queue 1, item 6), so the config is served with experts off
-(``dataclasses.replace(CONFIG, n_experts=0, experts_per_token=0)``).
+The port runs all three block kinds. At published widths one pattern unit's
+four MoE FFNs hold 38.7 B parameters (77 GB in bf16), more than the card, so
+the card serves a unit with experts off (``dataclasses.replace(CONFIG,
+n_experts=0, experts_per_token=0, n_layers=8)``); the experts are held
+against the reference on SMOKE.
 """
 from repro_torch.models.config import ModelConfig, reduced
 

@@ -10,9 +10,11 @@ place where a later slice's layout changes go.
 (``repro.models.transformer.init_params``) into the port's
 ``models.transformer.Transformer``: the tree's ``layers`` leaves (``b0`` ..
 ``b{n-1}``, one per pattern position: attention or mamba leaves, norms and
-FFN) are stacked on a leading ``repeats`` axis, and the converter unstacks
-them into one module dict per repeat. Every leaf keeps its layout (``embed`` (V, D) and
-``head`` (D, V) included): nothing is transposed.
+the FFN, a SwiGLU or an MoE's ``router``/``w_gate``/``w_up``/``w_down``)
+are stacked on a leading ``repeats`` axis (an expert leaf is (repeats, E,
+D, F)), and the converter unstacks them into one module dict per repeat.
+Every leaf keeps its layout (``embed`` (V, D) and ``head`` (D, V)
+included): nothing is transposed.
 
 Plan state needs no converter: ``ExecutionPlan.to_json`` / ``from_json``
 (and ``Planner.cache.save`` / ``load``) write and read the same format-v6

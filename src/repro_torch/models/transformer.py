@@ -1,6 +1,8 @@
 """Config-driven model assembly (the counterpart of
 ``repro.models.transformer``) for patterns of ``attn`` and ``mamba`` blocks:
-the dense GQA architectures (``("attn",)``) and jamba's hybrid unit (seven
+the dense GQA architectures (``("attn",)``), the MoE ones (OLMoE,
+Phi-3.5-MoE), InternVL2's language backbone, which also takes the stub
+frontend's patch embeddings (``embeds=``), and jamba's hybrid unit (seven
 mamba blocks and one attention block).
 
 The reference stacks one pattern unit's parameters on a leading ``repeats``
@@ -11,20 +13,23 @@ the reference's stacked layout (``{"b0": {"k": (repeats, B, KV, L, hd),
 ...}}`` for attention, ``{"b1": {"h": ..., "tail": ...}}`` for mamba) and
 layer r reads and writes slice r of each leaf in place.
 
-Block kinds: ``attn`` and ``mamba``, each followed by a SwiGLU FFN when
-``d_ff > 0``; ``mlstm``, ``slstm`` and MoE FFNs raise
+Block kinds: ``attn`` and ``mamba``, each followed by an FFN when
+``d_ff > 0``: the routed MoE (``moe.moe_block``) at every
+``moe_every``-th position of a config with experts, a SwiGLU elsewhere.
+``mlstm`` and ``slstm`` blocks, and the encoder's stub frontend, raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from repro_torch.ops import ExecutionContext
 
+from . import moe as moe_lib
 from . import ssm
 from .config import ModelConfig
 from .layers import (MLP, Attention, attention_block, dtype_of, embed,
@@ -39,13 +44,10 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: blocks {sorted(missing)} are not ported to "
             "repro_torch yet (ROADMAP queue 1, item 9)")
-    if cfg.n_experts:
+    if cfg.inputs_are_embeddings and cfg.family != "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 6: left out)")
-    if cfg.inputs_are_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: stub frontends are not ported to repro_torch yet")
+            f"{cfg.name}: the {cfg.family} stub frontend is not ported to "
+            "repro_torch yet (ROADMAP queue 1, item 6: hubert's encoder)")
 
 
 # ---------------------------------------------------------------------------
@@ -56,10 +58,16 @@ def _has_ffn(cfg: ModelConfig, pos: int) -> bool:
     return cfg.d_ff > 0 and cfg.pattern[pos] in ("attn", "mamba", "slstm")
 
 
+def _is_moe(cfg: ModelConfig, pos: int) -> bool:
+    return (_has_ffn(cfg, pos) and cfg.n_experts > 0
+            and pos % cfg.moe_every == 0)
+
+
 class Block(nn.Module):
     """The block at pattern position ``pos``: ``norm1``, ``core``
-    (attention or mamba), and with an FFN ``norm2``, ``ffn`` (SwiGLU) — the
-    reference's ``b{pos}`` leaves."""
+    (attention or mamba), and with an FFN ``norm2``, ``ffn`` (``moe.MoE`` at
+    an MoE position, else the SwiGLU ``MLP``) — the reference's ``b{pos}``
+    leaves."""
 
     def __init__(self, cfg: ModelConfig, pos: int, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -73,13 +81,16 @@ class Block(nn.Module):
         if _has_ffn(cfg, pos):
             self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                                  device=device))
-            self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device, generator)
+            self.ffn = (moe_lib.MoE(cfg, device, generator)
+                        if _is_moe(cfg, pos) else
+                        MLP(cfg.d_model, cfg.d_ff, dtype, device, generator))
 
 
 class Transformer(nn.Module):
     """``embed`` (padded vocab, D), ``layers`` (one ``{"b0": Block, ...}``
     per repeat, a block per pattern position), ``final_norm`` (D,), ``head``
-    (D, padded vocab)."""
+    (D, padded vocab). A ``vlm`` config keeps ``embed`` for its text tokens,
+    as the reference does, beside the stub frontend's ``embeds``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -113,10 +124,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         return Transformer(cfg, device=device, generator=gen)
 
 
-# leaves read in their own dtype: the norm scales, and the mamba leaves that
-# the reference reads in f32 (conv_w at decode; b_dt, log_A, D_skip always)
-KEEP_DTYPE = ("norm1", "norm2", "final_norm", "conv_w", "b_dt", "log_A",
-              "D_skip")
+# leaves read in their own dtype: the norm scales, the MoE router (f32 in the
+# reference, so routing matches it) and the mamba leaves that the reference
+# reads in f32 (conv_w at decode; b_dt, log_A, D_skip always)
+KEEP_DTYPE = ("norm1", "norm2", "final_norm", "router", "conv_w", "b_dt",
+              "log_A", "D_skip")
 
 
 def compute_params(params: Transformer, cfg: ModelConfig) -> Transformer:
@@ -251,6 +263,8 @@ def hidden_forward(
     positions: Optional[torch.Tensor] = None,  # (L,) or (B, L)
     block_tables: Optional[torch.Tensor] = None,  # (B, w) paged tables
     decode: bool = False,
+    n_groups: int = 1,
+    expert_choices: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Backbone only: returns (final-norm hidden states, cache, aux).
 
@@ -269,12 +283,21 @@ def hidden_forward(
     (``ssm.mamba_decode_step``); with a cache they start from, and write
     back, its ``h``/``tail`` state. They consume every position in order, so
     recurrent patterns are prefilled at their exact length (no pad tokens).
-    ``aux`` is the reference's auxiliary loss, zero for dense blocks."""
+    MoE FFNs route the call's B * L tokens in ``n_groups`` groups
+    (``moe.moe_block``: one group unless they divide evenly); pad tokens and
+    a decode step's dead rows route and take capacity, as in the reference.
+    ``aux`` is the sum of the MoE blocks' load-balancing losses, zero
+    without experts. ``expert_choices`` (not in the reference) gives the
+    j-th MoE block of the forward its ``choices`` (``moe.moe_block``; a
+    recorded run's ``moe.Routing.gate_idx``). ``embeds`` (a stub
+    frontend's (B, L, D) output) enters in place of the token embedding."""
     _check_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embeds.to(cd) if embeds is not None else embed(params.embed, tokens,
                                                        cd)
     L = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0  # MoE blocks run so far
     if cache_index is None:
         cache_index = 0
     if positions is None:
@@ -297,9 +320,18 @@ def hidden_forward(
             x = x + out
             if _has_ffn(cfg, i):
                 h = rms_norm(x, blk.norm2, cfg.norm_eps)
-                x = x + mlp(blk.ffn, h, cd)
+                if _is_moe(cfg, i):
+                    f, a = moe_lib.moe_block(
+                        blk.ffn, h, cfg, n_groups=n_groups, ctx=ctx,
+                        choices=(None if expert_choices is None
+                                 else expert_choices[n_moe]))
+                    n_moe += 1
+                    aux = aux + a
+                else:
+                    f = mlp(blk.ffn, h, cd)
+                x = x + f
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
 
 
 def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
@@ -331,11 +363,14 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
     decode: bool = False,
+    n_groups: int = 1,
+    expert_choices: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss)."""
     x, cache, aux = hidden_forward(
         params, cfg, tokens=tokens, embeds=embeds, cache=cache,
         cache_index=cache_index, ctx=ctx, attn_mask=attn_mask,
-        positions=positions, block_tables=block_tables, decode=decode)
+        positions=positions, block_tables=block_tables, decode=decode,
+        n_groups=n_groups, expert_choices=expert_choices)
     logits = lm_logits(params.head, x, dtype_of(cfg.compute_dtype))
     return logits, cache, aux

@@ -22,12 +22,15 @@ import repro.configs as jc
 import repro_torch.configs as tc
 from repro.models import layers as JL
 from repro.models import transformer as JT
+from repro_torch import ops as tops
 from repro_torch.convert import transformer_from_jax
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.ops import ExecutionContext
 
 ARCHS = ["qwen2_5_3b", "stablelm_1_6b"]
+MOE_ARCHS = ["olmoe_1b_7b", "phi3_5_moe_42b", "jamba_1_5_large"]
 CTXS = {"cuda": ExecutionContext(backend="cuda", device="cpu"),
         "torch": ExecutionContext(backend="torch", device="cpu")}
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -59,13 +62,23 @@ def test_configs_are_the_reference(arch):
 
 
 def test_unported_archs_name_their_item():
-    for arch in ("olmoe_1b_7b", "xlstm_1_3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch, item in (("xlstm_1_3b", "item 9"),
+                       ("hubert_xlarge", "item 10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             tc.get_config(arch)
-    # jamba's mamba blocks are ported; its MoE FFN still names its item
+    # the encoder's stub frontend still names its item; the vlm's is ported
+    encoder = dataclasses.replace(tc.get_smoke("internvl2_1b"),
+                                  family="encoder")
     with torch.device("meta"), pytest.raises(NotImplementedError,
                                              match="ROADMAP queue 1, item 6"):
-        T.Transformer(tc.get_config("jamba_1_5_large"))
+        T.Transformer(encoder)
+    # jamba builds whole, with its MoE FFN at every other position
+    with torch.device("meta"):
+        jamba = T.Transformer(tc.get_config("jamba_1_5_large"))
+    unit = jamba.layers[0]
+    assert [i for i in range(8) if isinstance(unit[f"b{i}"].ffn, M.MoE)] \
+        == [0, 2, 4, 6]
+    assert all(isinstance(unit[f"b{i}"].ffn, TL.MLP) for i in (1, 3, 5, 7))
     assert set(tc.ARCH_IDS) | set(tc.NOT_PORTED) == set(jc.ARCH_IDS)
     assert tc.get_config("phi3_medium_14b").hd == 128
     assert tc.get_config("minitron_8b").n_kv_heads == 8
@@ -173,7 +186,6 @@ def test_masked_bucketed_prefill(arch):
                                                 dtype=jnp.float32),
                             cache_index=jnp.zeros((), jnp.int32),
                             attn_mask=jnp.asarray(mask))
-    from repro_torch import ops as tops
     with torch.no_grad(), tops.record_dispatch() as log:
         got, _, _ = T.forward(model, tcfg, tokens=torch.from_numpy(toks),
                               cache=T.init_cache(tcfg, 1, Lmax,
@@ -251,3 +263,96 @@ def test_compute_params_computes_the_same():
         a, _, _ = T.forward(model, cfg, tokens=toks, ctx=CTXS["cuda"])
         b, _, _ = T.forward(copy, cfg, tokens=toks, ctx=CTXS["cuda"])
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the MoE configs and InternVL2's backbone ---------------------------------
+
+@pytest.mark.parametrize("arch", MOE_ARCHS[:2] + ["internvl2_1b"])
+def test_moe_and_vlm_configs_are_the_reference(arch):
+    assert arch in tc.ARCH_IDS and arch not in tc.NOT_PORTED
+    for get in ("get_config", "get_smoke"):
+        assert dataclasses.asdict(getattr(tc, get)(arch)) == \
+            dataclasses.asdict(getattr(jc, get)(arch))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("backend", sorted(CTXS))
+def test_moe_forward_equal_reference(arch, backend):
+    """Logits and the summed aux loss of the smoke configs with experts
+    (jamba: MoE at positions 0, 2, 4 and 6 of its unit), in one group and
+    in two; every MoE layer's chosen experts and kept mask as the
+    reference's (their sum of drops equal)."""
+    jcfg, jparams, tcfg, model = _models(arch)
+    toks = _tokens(jcfg, 2, 11, seed=7)
+    for n_groups in (1, 2):
+        want, _, want_aux = JT.forward(jparams, jcfg,
+                                       tokens=jnp.asarray(toks),
+                                       n_groups=n_groups)
+        with torch.no_grad(), M.record_routing() as log:
+            got, _, aux = T.forward(model, tcfg,
+                                    tokens=torch.from_numpy(toks),
+                                    ctx=CTXS[backend], n_groups=n_groups)
+        _close(got, want)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+        moe_layers = tcfg.repeats * sum(
+            T._is_moe(tcfg, i) for i in range(len(tcfg.pattern)))
+        assert len(log) == moe_layers and float(aux) > 0
+        assert all(r.gate_idx.shape[0] == n_groups for r in log)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS[:2])
+def test_moe_forward_bf16_compute(arch):
+    jcfg, jparams, tcfg, model = _models(arch, "bfloat16")
+    toks = _tokens(jcfg, 2, 9, seed=1)
+    want, _, want_aux = JT.forward(jparams, jcfg, tokens=jnp.asarray(toks))
+    with torch.no_grad():
+        got, _, aux = T.forward(model, tcfg, tokens=torch.from_numpy(toks),
+                                ctx=CTXS["cuda"])
+    _close(got, want, rtol=5e-2, atol=5e-2)
+    # the second layer routes bf16 hidden states that differ in their last
+    # bits between the packages: its f32 probabilities differ about 2^-8 of
+    # that
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-3)
+
+
+@pytest.mark.parametrize("backend", sorted(CTXS))
+def test_vlm_embeddings_forward_equal_reference(backend):
+    """InternVL2's backbone on stub patch embeddings (``embeds=``) and on
+    text tokens through its kept ``embed``, against the reference."""
+    jcfg, jparams, tcfg, model = _models("internvl2_1b")
+    assert "embed" in jparams and model.embed.shape == jparams["embed"].shape
+    emb = np.random.default_rng(8).standard_normal(
+        (2, 12, jcfg.d_model)).astype(np.float32)
+    want, _, _ = JT.forward(jparams, jcfg, embeds=jnp.asarray(emb))
+    with torch.no_grad(), tops.record_dispatch() as log:
+        got, cache, aux = T.forward(model, tcfg,
+                                    embeds=torch.from_numpy(emb),
+                                    ctx=CTXS[backend])
+    assert cache is None and float(aux) == 0.0
+    _close(got, want)
+    assert [d.chosen for d in log if d.op == "attention"] == \
+        [backend] * tcfg.n_layers
+    toks = _tokens(jcfg, 2, 7, seed=9)
+    want, _, _ = JT.forward(jparams, jcfg, tokens=jnp.asarray(toks))
+    with torch.no_grad():
+        got, _, _ = T.forward(model, tcfg, tokens=torch.from_numpy(toks),
+                              ctx=CTXS[backend])
+    _close(got, want)
+
+
+def test_compute_params_keeps_the_router_f32():
+    """The compute-dtype copy casts the experts and keeps the router in f32
+    (the reference routes in f32): logits equal to casting at use."""
+    cfg = tc.get_smoke("olmoe_1b_7b")
+    model = T.init_params(cfg, seed=2, device="cpu")
+    copy = T.compute_params(model, cfg)
+    ffn = copy.layers[0]["b0"].ffn
+    assert ffn.router.dtype == torch.float32
+    assert ffn.w_gate.dtype == ffn.w_down.dtype == torch.bfloat16
+    assert ffn.w_up.shape == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+    toks = torch.from_numpy(_tokens(cfg, 2, 9, seed=3))
+    with torch.no_grad():
+        a, _, aux_a = T.forward(model, cfg, tokens=toks, ctx=CTXS["cuda"])
+        b, _, aux_b = T.forward(copy, cfg, tokens=toks, ctx=CTXS["cuda"])
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(aux_a) == float(aux_b)

@@ -28,6 +28,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import plan_batch_size as jplan_batch_size
 from repro_torch import ops as tops
 from repro_torch.convert import transformer_from_jax
+from repro_torch.models import moe
 from repro_torch.serving import kv
 from repro_torch.serving.engine import (Engine, Request, WaveEngine,
                                         plan_batch_size)
@@ -186,7 +187,8 @@ def _workload(seed=3):
     return prompts
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "stablelm_1_6b"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "stablelm_1_6b",
+                                  "olmoe_1b_7b"])
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
 def test_greedy_tokens_equal_reference_engine(arch, paged):
     """7 requests (two sharing a 16-token prefix) over 3 slots, so admission
@@ -205,6 +207,37 @@ def test_greedy_tokens_equal_reference_engine(arch, paged):
         assert b.finish_reason == a.finish_reason == "length"
     assert len(eng.stats.prefill_s) == len(prompts)
     assert eng.stats.decode_s
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_moe_dead_rows_take_capacity_as_in_the_reference(paged,
+                                                        monkeypatch):
+    """OLMoE's smoke config (4 experts, top 2) on 12 slots: a decode step
+    routes all 12 rows, dead ones included, into a capacity of 8 a expert,
+    so choices are dropped at decode (asserted) — and the tokens are still
+    the reference engine's, which routes its dead rows the same way."""
+    jcfg, jparams, tcfg, model = _models("olmoe_1b_7b")
+    prompts = _workload()
+    want = [JRequest(prompt=p, max_new_tokens=7) for p in prompts]
+    JEngine(jcfg, jparams, max_len=64, batch_size=12, paged=paged).serve(want)
+    got = [Request(prompt=p, max_new_tokens=7) for p in prompts]
+    eng = _engine(tcfg, model, max_len=64, batch_size=12, paged=paged)
+    forward, drops = eng._decode_forward, []
+
+    def counted(*args):
+        with moe.count_drops("cpu") as counts:
+            out = forward(*args)
+        drops.append(counts.tolist())
+        return out
+
+    monkeypatch.setattr(eng, "_decode_forward", counted)
+    eng.serve(got)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.out_tokens, a.out_tokens)
+        assert b.finish_reason == a.finish_reason == "length"
+    assert moe.capacity(tcfg, 12) == 8
+    assert all(routed == 12 * 2 * tcfg.n_layers for _, routed in drops)
+    assert max(dropped for dropped, _ in drops) > 0
 
 
 def test_paged_matches_contiguous_and_dispatches_cuda():

@@ -3,7 +3,8 @@ buffers (CUDA graphs on the card, the same buffers eagerly on the CPU).
 
 (a) Greedy tokens equal the reference engine's (repro.serving.engine, its
 jitted steps) on the smoke configs for the paged bf16 pool, the paged int8
-pool, the contiguous cache and the hybrid (jamba cut to one pattern unit),
+pool, the contiguous cache, the hybrid (jamba cut to one pattern unit) and
+OLMoE's MoE model on the paged pool,
 on schedules that cross table widths, admit into used slots and, for the
 pools, rebuild the pool once through ``kv.check`` (the reference never
 rebuilds: its tokens are the same). (b) The crediting arithmetic: a
@@ -11,8 +12,9 @@ capture counts nothing, and replays x its recorded launches and decisions
 equal the eager counts; the runner's policy (warm-up, one graph a width,
 replays, a rebuild dropping the graphs) under a stand-in for CUDA graphs
 that, like one, runs a step's device work only at replay. (c) On the card
-(marked ``cuda``): a replayed step equals an eager step bit for bit, and a
-step that reads the device inside a capture raises.
+(marked ``cuda``): a replayed step equals an eager step bit for bit (OLMoE's
+routed FFN included), and a step that reads the device inside a capture
+raises.
 
 The parity runs use compute_dtype float32, as tests/test_serving.py runs
 the reference.
@@ -53,6 +55,15 @@ def _qwen():
     return jcfg, jparams, tcfg, transformer_from_jax(jparams, tcfg, "cpu")
 
 
+def _olmoe():
+    jcfg = dataclasses.replace(jc.get_smoke("olmoe_1b_7b"),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(tc.get_smoke("olmoe_1b_7b"),
+                               compute_dtype="float32")
+    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jparams, tcfg, transformer_from_jax(jparams, tcfg, "cpu")
+
+
 def _jamba():
     kw = dict(n_experts=0, experts_per_token=0, compute_dtype="float32")
     jcfg = dataclasses.replace(jconfig.reduced(
@@ -72,17 +83,19 @@ ENGINES = {
     "paged_int8": (dict(paged=True, kv_dtype="int8"), "qwen"),
     "contiguous": (dict(paged=False), "qwen"),
     "hybrid": ({}, "jamba"),
+    "paged_moe": (dict(paged=True), "olmoe"),
 }
+MODELS = {"qwen": _qwen, "jamba": _jamba, "olmoe": _olmoe}
 SCHEDULES = {"qwen": ((5, 29, 3, 17, 30, 8, 21, 12, 26), 64, 2, 96),
-             "jamba": ((3, 9, 4, 14, 6), 8, 2, 32)}
+             "jamba": ((3, 9, 4, 14, 6), 8, 2, 32),
+             "olmoe": ((5, 29, 3, 17, 30, 8, 21, 12, 26), 64, 2, 96)}
 
 
 @pytest.mark.parametrize("name", sorted(ENGINES))
 def test_greedy_tokens_equal_reference_through_static_buffers(name,
                                                               monkeypatch):
     kw, model_name = ENGINES[name]
-    jcfg, jparams, tcfg, model = _qwen() if model_name == "qwen" \
-        else _jamba()
+    jcfg, jparams, tcfg, model = MODELS[model_name]()
     lens, max_new, batch, max_len = SCHEDULES[model_name]
     rng = np.random.default_rng(7)
     prompts = [rng.integers(1, 200, size=n).astype(np.int32) for n in lens]
@@ -337,6 +350,24 @@ def test_replayed_step_equals_eager_step_on_the_card():
         res = graphs.check_replay(eng, *graphs.probe_inputs(eng, seed=1))
         assert res["logits_equal"] and res["leaves_equal"], (name, res)
         assert res["finite"] and res["written_leaves"] > 0, (name, res)
+
+
+@pytest.mark.cuda
+def test_moe_replayed_step_equals_eager_step_on_the_card():
+    """OLMoE's smoke config: the routed MoE FFN (sort, cumsum, one-hot
+    compares, expert einsums) in a replayed decode step, bit for bit the
+    eager step, for the paged pool and the contiguous cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from repro_torch.models import transformer as T
+
+    cfg = tc.get_smoke("olmoe_1b_7b")
+    model = T.init_params(cfg, seed=0, device="cuda")
+    for paged in (True, False):
+        eng = Engine(cfg, model, max_len=64, batch_size=3, paged=paged)
+        res = graphs.check_replay(eng, *graphs.probe_inputs(eng, seed=2))
+        assert res["logits_equal"] and res["leaves_equal"], (paged, res)
+        assert res["finite"] and res["written_leaves"] > 0, (paged, res)
 
 
 _DEVICE_READ = """

@@ -345,9 +345,15 @@ def test_configs_are_the_reference():
                                n_layers=8)
     assert unit.repeats == 1 and unit.pattern.count("mamba") == 7
     assert unit.d_inner == 16384 and ssm._heads(unit) == (128, 128)
-    with torch.device("meta"), pytest.raises(NotImplementedError,
-                                             match="item 6"):
-        T.Transformer(cfg)  # the MoE FFN
+    with torch.device("meta"):
+        model = T.Transformer(cfg)  # the MoE FFN too, at published widths
+    assert len(model.layers) == 9
+    for i in (0, 2, 4, 6):
+        ffn = model.layers[0][f"b{i}"].ffn
+        assert ffn.w_gate.shape == ffn.w_up.shape == (16, 8192, 24576)
+        assert ffn.w_down.shape == (16, 24576, 8192)
+        assert ffn.router.shape == (8192, 16)
+        assert ffn.router.dtype == torch.float32
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
