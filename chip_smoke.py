@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Five paths. The conv path is the paper's experiment: the five ResNet-50
+Six paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -23,7 +23,13 @@ hand-written causal conv1d kernel (every mamba prefill) and the flash
 kernel. The MoE path serves OLMoE-1B-7B at its published widths and full
 depth (its routed expert FFN in aten einsums, as the reference leaves it to
 XLA) and InternVL2-1B's language backbone, also on stub patch embeddings,
-through the same attention kernels. Phases, each fatal on failure:
+through the same attention kernels. The training path
+(``repro_torch.train``) trains HuBERT-xLarge at its published widths and
+full depth (48 layers, d_model 1280, 16 heads of hd 80: the hd-80
+instance of the flash kernel, non-causal) on stub frame embeddings, and
+Qwen2.5-3B at its published widths cut to 8 layers through ``Trainer``,
+then checkpoints and resumes the smoke config through
+``repro_torch.launch.train``. Phases, each fatal on failure:
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
@@ -34,7 +40,7 @@ through the same attention kernels. Phases, each fatal on failure:
      (``conv2d_q_tc_kernel``): registers and spills from ptxas and the count
      of tensor-core instructions in their SASS (cuobjdump; HMMA for the bf16
      kernels, IMMA for the int8 ones), fatal if a variant has none or a
-     main-path variant spills (flash: hd 128 at block 64; paged decode: hd
+     main-path variant spills (flash: hd 128 and hd 80 at block 64; paged decode: hd
      128; matmul_q: the variant of the (128, 256) and (256, 128) plans,
      bf16 out; conv2d_q: the (2, 8) variant of the five layers' plans, bf16
      out); the direct conv's LINEAR variant (narrow tiles) is reported
@@ -256,8 +262,39 @@ through the same attention kernels. Phases, each fatal on failure:
      forward over stub patch embeddings ((2, 256, 896), seeded) through
      ``embeds=``, its 24 flash launches on the tensor cores and its logits
      under ``cuda`` within the allowance of the ``torch`` backend's;
- 21. the ``kernels`` JSON line, the card's name and power limit, and the
-     last line ``{"ok": true, "device": {...}}``.
+ 21. HuBERT-xLarge trained at published widths and full depth (1.26 B
+     seeded f32 parameters made on the card after the earlier phases'
+     models are freed; one fixed batch of 8 x 512 frames of stub
+     embeddings 0.1 N(0, 1) and labels in [0, 504)): from the same weights
+     and batch, the ``cuda`` forward's logits within the allowance of the
+     ``torch`` backend's (n_layers = 48), the ``cuda`` step's loss within
+     the same allowance and its gradient's global norm within 1e-2
+     relative of the ``torch`` backend's (both run the same aten backward,
+     on inputs that differ by one bf16 rounding a layer); 48 flash launches
+     in the step's forward, all on the tensor cores, every attention
+     decision on ``cuda``; 8 steps of ``make_train_step`` (AdamW lr 1e-3,
+     warm-up 2, 8 steps; no remat) with every loss and grad norm finite,
+     the parameters moved and the last loss below the first. Reported:
+     step ms (CUDA events, median of steps 2-8), frames/s, the plain
+     products' share 6 N tokens / step time / 989 TFLOP/s, peak memory;
+     one more step taken apart (forward, backward and AdamW between CUDA
+     events, its kernels by kind under ``torch.profiler``); then the hd-80
+     instance at the step's attention shape (a call, a launch, device
+     time) beside SDPA's;
+ 22. Qwen2.5-3B at published widths cut to 8 layers (its full 36 layers'
+     3.09 B parameters need 49 GB of f32 weights, gradients and moments
+     before any activation; phase 21 is the full-depth leg), 8 steps
+     through ``Trainer`` on ``SyntheticSource`` batches of 4 x 512 tokens
+     with the chunked cross entropy (8 chunks): 8 flash launches a
+     forward, all on the tensor cores; the first batch's logits and loss
+     under ``cuda`` within the allowance of ``torch``'s; every loss
+     finite. Then the smoke config through ``launch.train.main`` for 6
+     steps with a checkpoint every 3, the newest checkpoint removed and
+     the run started again: it resumes at step 3 and its losses equal the
+     uninterrupted run's within 1e-3 relative;
+ 23. the ``kernels`` JSON line (the flash entry lists its compiled
+     instances and the hd-80 timing), the card's name and power limit,
+     and the last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
@@ -304,6 +341,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -964,19 +1002,21 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     # -- 6. attention kernels against their plain versions ------------------
     fk = KERNELS["flash_attention"]
 
-    def flash_check(what, q, k, v, off, q_seq_len, mask, block=None):
+    def flash_check(what, q, k, v, off, q_seq_len, mask, block=None,
+                    causal=True):
         """One flash call against its plain version, naming the kernel it
         took (bf16: tensor core, f32: fma); fatal on the other."""
         tc = fk.tensor_core_launches
-        got = flash_attention(q, k, v, q_offset=off, q_seq_len=q_seq_len,
-                              key_mask=mask, block_q=block, block_k=block)
+        got = flash_attention(q, k, v, causal=causal, q_offset=off,
+                              q_seq_len=q_seq_len, key_mask=mask,
+                              block_q=block, block_k=block)
         torch.cuda.synchronize()
         path = "tensor core" if fk.tensor_core_launches > tc else "fma"
         if path != ("tensor core" if q.dtype == torch.bfloat16 else "fma"):
             fail(f"flash_attention {what}: a {q.dtype} call took the {path} "
                  "kernel")
         fold = q_seq_len if q_seq_len and q_seq_len < q.shape[1] else None
-        want = flash_attention_plain(q, k, v, True, off, fold, None, mask)
+        want = flash_attention_plain(q, k, v, causal, off, fold, None, mask)
         record("flash_attention", got, want, f"{what} on {path}")
 
     gen.manual_seed(SEED + 10)
@@ -1004,7 +1044,7 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     # tiles bq 8, 24, 40 and 128 (every warp grid R x C it compiles),
     # folded GQA groups, per-row offsets, a pad-tail mask with a fully
     # masked row, one resident key tile (Lk 37 at block 64 and 128) and
-    # several
+    # several; hd 80 (the encoder's) causal and not
     for hd, blk in sorted(FLASH_INSTANCES):
         for g, Lq in ((1, 8), (8, 3), (1, 40), (8, 16)):
             for Lk in (37, 300):
@@ -1019,9 +1059,11 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                 for kind, mask in (("rows", None), ("rows+mask", km)):
                     r, c = flash_config(g * Lq, Lk, hd, blk, torch.bfloat16)[
                         "warp_grid"]
-                    flash_check(f"bf16 hd={hd} block={blk} (R {r}, C {c}) "
-                                f"g={g} Lq={Lq} Lk={Lk} {kind}", q, k, v,
-                                offs, Lq, mask, blk)
+                    for causal in (True, False) if hd == 80 else (True,):
+                        flash_check(f"bf16 hd={hd} block={blk} (R {r}, C "
+                                    f"{c}) g={g} Lq={Lq} Lk={Lk} {kind}"
+                                    f"{'' if causal else ' non-causal'}", q,
+                                    k, v, offs, Lq, mask, blk, causal)
     paged_checks(gen, record)
     del q, k, v
     torch.cuda.empty_cache()
@@ -2807,6 +2849,353 @@ def vlm_phase() -> None:
     torch.cuda.empty_cache()
 
 
+HUBERT_ARCH = "hubert_xlarge"
+TRAIN_ARCH = "qwen2_5_3b"
+TRAIN_LAYERS = 8  # phase 22's depth cut (module docstring)
+
+
+def median_event_ms(fn, times: int) -> tuple:
+    """``times`` calls of ``fn``, each between two CUDA events; returns
+    (the per-call ms list, the calls' results)."""
+    ms, outs = [], []
+    for _ in range(times):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(fn())
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, outs
+
+
+def step_breakdown(params, opt, batch, cfg, ctx) -> None:
+    """One more training step, taken apart: the forward (``loss_fn``), the
+    backward and the AdamW update between CUDA events, under
+    ``torch.profiler``, whose kernels are summed by kind (the flash
+    kernel, cuBLAS GEMMs, other aten kernels). Prints one
+    ``{"train_step_breakdown": ...}`` line; reported, not gated."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, apply_updates
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        ev[0].record()
+        total, _ = T.loss_fn(params, cfg, batch, ctx=ctx)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        apply_updates(params, grads, opt, AdamWConfig(lr=1e-4))
+        ev[3].record()
+        torch.cuda.synchronize()
+    params.zero_grad(set_to_none=True)
+    del grads, total
+    by_kind, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("flash kernel" if "flash_tc_kernel" in e.name else
+                "GEMMs (cuBLAS)" if any(w in e.name for w in (
+                    "nvjet", "gemm", "cutlass", "xmma")) else
+                "other aten kernels")
+        for table, key in ((by_kind, kind), (by_name, e.name[:80])):
+            n, t = table.get(key, (0, 0.0))
+            table[key] = (n + 1, t + e.device_time_total / 1e3)
+    parts = dict(zip(("forward_ms", "backward_ms", "adamw_ms"),
+                     (ev[i].elapsed_time(ev[i + 1]) for i in range(3))))
+    print(json.dumps({
+        "train_step_breakdown": cfg.name, **parts,
+        "step_ms": sum(parts.values()), "params": len(opt.m),
+        "profiled_kernel_ms": sum(t for _, t in by_kind.values()),
+        "by_kind": {k: {"launches": n, "ms": t}
+                    for k, (n, t) in by_kind.items()},
+        "top_kernels": [{"name": k, "launches": n, "ms": t}
+                        for k, (n, t) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][1])
+                        [:12]]}), flush=True)
+
+
+def hubert_phase() -> dict:
+    """Phase 21 (module docstring): HuBERT-xLarge trained at published
+    widths and full depth on a fixed batch of stub frame embeddings, the
+    ``cuda`` step held to the ``torch`` backend's; then the hd-80 flash
+    instance timed at the step's attention shape. Returns the ``hd80``
+    part of the ``kernels`` line's flash entry."""
+    import dataclasses
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (KERNELS, flash_attention,
+                                     flash_attention_plain)
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.optimizer import (AdamWConfig, global_norm,
+                                             init_state)
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    HELD.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HUBERT_ARCH)
+    B, L = 8, 512  # 512 frames of 20 ms: a 10.2 s utterance
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 110)
+    batch = {"embeds": 0.1 * torch.randn((B, L, cfg.d_model), generator=gen,
+                                         device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                                     device="cuda")}
+    torch.cuda.synchronize()
+    print(f"hubert: {cfg.name} at published widths and full depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of hd {cfg.hd}, d_ff {cfg.d_ff}, {cfg.vocab_size} labels, "
+          f"causal={cfg.causal}); {n_params / 1e9:.3f} B f32 parameters made "
+          f"on the card in {time.perf_counter() - t0:.1f} s; batch {B} x {L} "
+          "frames of stub embeddings", flush=True)
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    ref_ctx = ExecutionContext(target=H100, backend="torch")
+    allowance = logit_allowance(cfg.n_layers)
+    # the same weights and batch through both backends: logits, loss, and
+    # the gradient's global norm (one aten backward each)
+    with torch.inference_mode():
+        a, _, _ = T.forward(params, cfg, embeds=batch["embeds"], ctx=ctx)
+        b, _, _ = T.forward(params, cfg, embeds=batch["embeds"],
+                            ctx=ref_ctx)
+    err, allowed = (a - b).abs().max().item(), allowance(b)
+    row = {"hubert_forward": [B, L], "logits_shape": list(a.shape),
+           "max_abs_err": err, "allowed": allowed,
+           "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean()
+           .item()}
+    if (a.shape != (B, L, cfg.padded_vocab) or not torch.isfinite(a).all()
+            or not err <= allowed):
+        fail(f"hubert: cuda vs torch logits {tuple(a.shape)}, error {err} "
+             f"above {allowed}")
+    del a, b
+    loss_ref, _ = T.loss_fn(params, cfg, batch, ctx=ref_ctx)
+    loss_ref.backward()
+    gnorm_ref = global_norm(p.grad for p in params.parameters()).item()
+    loss_ref = loss_ref.item()
+    params.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    step = make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8),
+        TrainConfig(remat=False, ctx=ctx))
+    opt = init_state(params)
+    before = params.layers[0]["b0"].core.wq.detach().clone()
+    losses, gnorms, step_ms = [], [], []
+    with ops.record_dispatch() as log:
+        zero_counts()
+        ms, outs = median_event_ms(lambda: step(params, opt, batch)[2], 1)
+    k = KERNELS["flash_attention"]
+    launched, tc = k.launches, k.tensor_core_launches
+    attn = [d for d in log if d.op == "attention"]
+    off = [d for d in attn if d.chosen != "cuda"]
+    step_ms += ms
+    losses.append(outs[0]["loss"].item())
+    gnorms.append(outs[0]["grad_norm"].item())
+    ms, outs = median_event_ms(lambda: step(params, opt, batch)[2], 7)
+    step_ms += ms
+    losses += [o["loss"].item() for o in outs]
+    gnorms += [o["grad_norm"].item() for o in outs]
+    moved = (params.layers[0]["b0"].core.wq - before).abs().max().item()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_step = statistics.median(step_ms[1:]) / 1e3
+    tokens = B * L
+    row.update(
+        launches_first_step=launched, tensor_core_launches=tc,
+        attention_decisions=len(attn), off_cuda=len(off),
+        loss_cuda=losses[0], loss_torch=loss_ref,
+        loss_abs_err=abs(losses[0] - loss_ref),
+        grad_norm_cuda=gnorms[0], grad_norm_torch=gnorm_ref,
+        grad_norm_rel_err=abs(gnorms[0] - gnorm_ref) / gnorm_ref,
+        losses=losses, grad_norms=gnorms, step_ms=step_ms,
+        step_ms_median_2_8=1e3 * t_step, frames_per_s=tokens / t_step,
+        plain_product_share=6.0 * n_params * tokens / t_step
+        / PEAK_BF16_FLOPS, params_b=n_params / 1e9,
+        max_param_change=moved, max_memory_allocated_gb=peak, card=smi())
+    print(json.dumps(row), flush=True)
+    if launched != cfg.n_layers or tc != launched:
+        fail(f"hubert: {launched} flash launches ({tc} on the tensor cores) "
+             f"in a step's forward, expected {cfg.n_layers}")
+    if not attn or off:
+        fail(f"hubert: attention decisions off cuda: {off[:3]}")
+    if not abs(losses[0] - loss_ref) <= allowed:
+        fail(f"hubert: cuda loss {losses[0]} vs torch {loss_ref}, above "
+             f"{allowed}")
+    if not abs(gnorms[0] - gnorm_ref) <= 1e-2 * gnorm_ref:
+        fail(f"hubert: grad norm {gnorms[0]} vs torch {gnorm_ref}")
+    if (not all(map(math.isfinite, losses + gnorms)) or not moved > 0
+            or not losses[-1] < losses[0]):
+        fail(f"hubert: losses {losses}, grad norms {gnorms}, parameter "
+             f"change {moved}: not trained")
+    step_breakdown(params, opt, batch, cfg, ctx)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    # the hd-80 instance at the step's attention shape, beside SDPA
+    H, hd = cfg.n_heads, cfg.hd
+    q, kk, v = (torch.randn((B, H, L, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(3))
+    qf, kf, vf = (t.reshape(B * H, L, hd) for t in (q, kk, v))
+
+    def kernel():
+        return flash_attention(qf, kf, vf, causal=False)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kk, v)
+
+    zero_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    if (KERNELS["flash_attention"].tensor_core_launches != 1
+            or KERNELS["flash_attention"].launches != 1):
+        fail("hubert: the hd-80 flash call was not one tensor-core launch")
+    want = flash_attention_plain(qf, kf, vf, False)
+    kerr, kallowed = rel_err(got, want)
+    if not kerr <= kallowed:
+        fail(f"hubert: hd-80 flash error {kerr} above {kallowed}")
+    flops = 4.0 * B * H * L * L * hd
+    nbytes = 4 * q.numel() * 2
+    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    hd80 = {"instance": "(80, 64, 1)", "shape": f"{cfg.name} step: B {B}, "
+            f"H {H}, L {L}, hd {hd}, bf16, non-causal",
+            "launches_per_forward": cfg.n_layers,
+            "max_abs_err": kerr, "allowed": kallowed,
+            "ms": median_ms(kernel, 2, 10),
+            "ms_per_launch": per_launch_ms(kernel),
+            "device_ms_per_call": graph_ms_per_call(kernel),
+            "plain_ms": median_ms(lambda: flash_attention_plain(
+                qf, kf, vf, False), 1, 3),
+            "library_ms": median_ms(library, 2, 10),
+            "library_ms_per_launch": per_launch_ms(library),
+            "library_device_ms_per_call": graph_ms_per_call(library),
+            "bound_ms": bms, "bound_by": by}
+    print(json.dumps({"kernel_shape": "flash_attention", "phase": "hubert",
+                      **hd80}), flush=True)
+    del q, kk, v, qf, kf, vf, got, want
+    torch.cuda.empty_cache()
+    print(json.dumps({"hubert_phase_seconds": time.perf_counter() - t_phase,
+                      "max_memory_allocated_gb": peak}), flush=True)
+    return hd80
+
+
+def lm_train_phase() -> None:
+    """Phase 22 (module docstring): Qwen2.5-3B at published widths cut to
+    8 layers, trained 8 steps through ``Trainer`` on ``SyntheticSource``
+    batches with the chunked loss; then a checkpoint and resume of the
+    smoke config through ``repro_torch.launch.train.main``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    B, L, steps = 4, 512, 8
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    ref_ctx = ExecutionContext(target=H100, backend="torch")
+    trainer = Trainer(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps),
+        TrainConfig(steps=steps, loss_chunks=8, log_every=0, ctx=ctx,
+                    seed=SEED),
+        DataConfig(batch_size=B, seq_len=L, vocab_size=cfg.vocab_size,
+                   seed=SEED))
+    trainer.init(SEED)
+    n_params = sum(p.numel() for p in trainer.params.parameters())
+    print(f"train: {cfg.name} at published widths (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.padded_vocab}) cut to {cfg.n_layers} "
+          f"layers; {n_params / 1e9:.3f} B f32 parameters", flush=True)
+    tokens = torch.as_tensor(trainer.source.batch(0)["tokens"], device="cuda")
+    allowance = logit_allowance(cfg.n_layers)
+    with torch.inference_mode():
+        a, _, _ = T.forward(trainer.params, cfg, tokens=tokens, ctx=ctx)
+        b, _, _ = T.forward(trainer.params, cfg, tokens=tokens, ctx=ref_ctx)
+        err, allowed = (a - b).abs().max().item(), allowance(b)
+        del a, b
+        loss_ref, _ = T.loss_fn(trainer.params, cfg, {"tokens": tokens},
+                                ctx=ref_ctx, loss_chunks=8)
+    torch.cuda.empty_cache()
+    with ops.record_dispatch() as log:
+        zero_counts()
+        hist = trainer.run()
+    k = KERNELS["flash_attention"]
+    attn = [d for d in log if d.op == "attention"]
+    off = [d for d in attn if d.chosen != "cuda"]
+    row = {"train_lm": cfg.name, "layers": cfg.n_layers, "batch": [B, L],
+           "reduced": f"n_layers 36 -> {cfg.n_layers}: the full depth's "
+                      "3.09 B parameters need 49 GB of f32 weights, "
+                      "gradients and AdamW moments before any activation",
+           "params_b": n_params / 1e9, "loss_chunks": 8,
+           "losses": hist["loss"], "step_s": hist["step_time"],
+           "step_ms_median": 1e3 * statistics.median(hist["step_time"][1:]),
+           "tokens_per_s": B * L / statistics.median(hist["step_time"][1:]),
+           "skipped_steps": trainer.skipped_steps,
+           "flash_launches": k.launches, "tensor_core_launches":
+           k.tensor_core_launches, "attention_decisions": len(attn),
+           "off_cuda": len(off), "logits_max_abs_err": err,
+           "allowed": allowed, "first_loss_torch": loss_ref.item(),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(row), flush=True)
+    if not err <= allowed:
+        fail(f"train: cuda vs torch logits error {err} above {allowed}")
+    if len(hist["loss"]) != steps or not all(map(math.isfinite,
+                                                 hist["loss"])):
+        fail(f"train: losses {hist['loss']}, {trainer.skipped_steps} "
+             "skipped")
+    if not abs(hist["loss"][0] - loss_ref.item()) <= allowed:
+        fail(f"train: first loss {hist['loss'][0]} vs torch "
+             f"{loss_ref.item()}, above {allowed}")
+    if (k.launches != cfg.n_layers * steps or k.tensor_core_launches
+            != k.launches or not attn or off):
+        fail(f"train: {k.launches} flash launches ({k.tensor_core_launches} "
+             f"on the tensor cores, {len(off)} decisions off cuda), "
+             f"expected {cfg.n_layers} a step's forward")
+    del trainer, tokens
+    torch.cuda.empty_cache()
+    # checkpoint and resume on the smoke config, through the launcher
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6",
+                "--ckpt-every", "3", "--ckpt-dir", tmp]
+        whole = launch_train.main(argv)
+        shutil.rmtree(os.path.join(tmp, "step_00000006"))
+        resumed = launch_train.main(argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = [abs(x - y) / abs(y) for x, y in zip(resumed["loss"],
+                                               whole["loss"][3:])]
+    print(json.dumps({"train_resume": TRAIN_ARCH + " smoke",
+                      "uninterrupted": whole["loss"],
+                      "resumed_steps": resumed["step"],
+                      "resumed": resumed["loss"], "max_rel_err": max(rel),
+                      "phase_seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    if resumed["step"] != [3, 4, 5] or not max(rel) <= 1e-3:
+        fail(f"train: resumed steps {resumed['step']} losses "
+             f"{resumed['loss']} vs {whole['loss'][3:]}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2869,12 +3258,13 @@ def main() -> None:
         CONV_VARIANTS + ((1, LINEAR_TILES),), main_variants, CONV_LINEAR))
     # flash attention's bf16 kernel: every (hd, block, C) instance; the
     # main path takes hd 128 at block 64 (C 1 at prefill, 4 at decode, 2 at
-    # the hybrid's short prefills)
+    # the hybrid's short prefills) and, training HuBERT-xLarge, hd 80 at
+    # block 64
     flash_variants = [(f"(hd {hd}, block {b}, C {c})", (hd, b, c))
                       for hd, b, c in flash_tc_instances()]
     tc_variants("flash_attention", "flash_tc_kernel", flash_variants,
                 {label for label, (hd, b, _) in flash_variants
-                 if (hd, b) == (128, 64)})
+                 if (hd, b) in ((128, 64), (80, 64))})
     # paged decode's bf16 kernel: HMMA in every head-dim instance; the main
     # path's (hd 128) must not spill
     from repro_torch.kernels.flash_attention import PAGED_HEAD_DIMS
@@ -3186,7 +3576,13 @@ def main() -> None:
     # -- 20. InternVL2-1B's backbone and its stub frontend's embeddings ------
     vlm_phase()
 
-    # -- 21. summary --------------------------------------------------------
+    # -- 21. HuBERT-xLarge trained at published widths and full depth --------
+    hd80 = hubert_phase()
+
+    # -- 22. a causal LM trained through Trainer; checkpoint and resume ------
+    lm_train_phase()
+
+    # -- 23. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -3218,6 +3614,9 @@ def main() -> None:
         source, replaces = meta[k["name"]]
         k.update(source=source, replaces=replaces,
                  max_abs_err=max_err[k["name"]])
+    from repro_torch.kernels.flash_attention import flash_tc_instances
+    attn_kernels[0].update(
+        instances=[list(i) for i in flash_tc_instances()], hd80=hd80)
     kernels += attn_kernels + quant_kernels + [conv1d_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

@@ -40,6 +40,13 @@
 //    hit eight distinct bank groups). K and V run through a two-slot ring:
 //    tile t + 1 is issued after iteration t's cp.async.wait_group(0) and
 //    __syncthreads, before its products; one commit group a tile.
+//  * Head dims 16, 32, 64, 80 and 128 (the switch at the C entry). At hd
+//    80 (HuBERT-xLarge: 1280 / 16) a row is 10 16-byte chunks, which divide
+//    neither 128 nor 256 threads, so the tile copies take copy_plan's
+//    per-chunk division (zero-filled past the ragged edges like the row
+//    division); Q K^T takes 5 k16 steps, P V 5 ldmatrix.x4.trans pairs of
+//    n8 tiles, and the pitch of 88 elements (176 bytes) is still an odd
+//    multiple of 16 bytes.
 //  * Masks and the online softmax stay in registers: lane (g, t) of a warp
 //    holds rows g and g + 8 of its slab; the row max reduces over the quad
 //    (shfl_xor 1, 2), the row sum once at the end. Logits are scaled by
@@ -308,6 +315,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int SLOT = 2 * BLOCK * P;  // one ring slot: K, then V
   constexpr int PART = 4 + 4 * DT;     // floats a lane hands over to merge
   static_assert(R >= 1 && R * C == W && NW >= 8, "warp grid");
+  static_assert(HD % 16 == 0, "k16 steps of Q K^T, n8 pairs of P V");
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* const sq = reinterpret_cast<bf16*>(smem_tc);
   bf16* const ring = sq + BLOCK * P;
@@ -665,6 +673,7 @@ extern "C" int repro_flash_attention(
     case 16: return (int)launch_b<16>(dtype, block, a);
     case 32: return (int)launch_b<32>(dtype, block, a);
     case 64: return (int)launch_b<64>(dtype, block, a);
+    case 80: return (int)launch_b<80>(dtype, block, a);
     case 128: return (int)launch_b<128>(dtype, block, a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -74,10 +74,11 @@ PAGED_KERNEL = CudaKernel("paged_decode.cu", "repro_paged_decode", [
     _c.c_float, _c.c_void_p,                             # scale, stream
 ])
 # the (hd, block) instances compiled into csrc/flash_attention.cu; every H100
-# plan for hd in {16, 32, 64, 128} at bf16 or f32 K/V is one of them
+# plan for hd in {16, 32, 64, 80, 128} at bf16 or f32 K/V is one of them
+# (hd 80: HuBERT-xLarge's 1280 / 16, planned at block 64)
 FLASH_INSTANCES = frozenset(
     [(hd, b) for hd in (16, 32) for b in (32, 64, 128)]
-    + [(hd, b) for hd in (64, 128) for b in (32, 64)])
+    + [(hd, b) for hd in (64, 80, 128) for b in (32, 64)])
 PAGED_HEAD_DIMS = (16, 32, 64, 128)
 PAGED_MAX_GROUP = 16  # query heads per kv head (csrc/paged_decode.cu G_MAX)
 # csrc/paged_decode.cu's launch constants (a test pins them to the source)

@@ -9,7 +9,9 @@ runs every kernel's plain version instead. ``--engine wave`` runs the
 wave-lockstep baseline scheduler. ``--batch 0`` sizes the slot pool from
 the hardware target's memory model. Reported tok/s counts only tokens that
 were actually generated. Weights are random, made on the device from
-``--seed``: the repository holds no checkpoint to load.
+``--seed``, unless ``--ckpt-dir`` names a training run's checkpoints: then
+the newest committed step's ``params`` are served (the reference's format,
+written by either package's trainer).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config instead of published widths")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest committed checkpoint's params")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
@@ -69,6 +73,14 @@ def main(argv=None):
     ctx = ExecutionContext(target=target, backend=args.backend,
                            device=args.device)
     params = T.init_params(cfg, seed=args.seed, device=args.device)
+    if args.ckpt_dir:
+        from repro_torch.convert import transformer_from_jax, transformer_tree
+        from repro_torch.train import checkpoint as ckpt
+
+        restored, _ = ckpt.restore(args.ckpt_dir,
+                                   {"params": transformer_tree(params)},
+                                   device=args.device)
+        params = transformer_from_jax(restored["params"], cfg, args.device)
 
     rng = np.random.default_rng(args.seed)
     stop = () if args.stop_token is None else (args.stop_token,)

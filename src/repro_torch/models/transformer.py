@@ -2,8 +2,9 @@
 ``repro.models.transformer``) for patterns of ``attn`` and ``mamba`` blocks:
 the dense GQA architectures (``("attn",)``), the MoE ones (OLMoE,
 Phi-3.5-MoE), InternVL2's language backbone, which also takes the stub
-frontend's patch embeddings (``embeds=``), and jamba's hybrid unit (seven
-mamba blocks and one attention block).
+frontend's patch embeddings (``embeds=``), HuBERT's encoder (``causal=False``,
+no embedding table: its stub frontend's frame embeddings are its only input)
+and jamba's hybrid unit (seven mamba blocks and one attention block).
 
 The reference stacks one pattern unit's parameters on a leading ``repeats``
 axis and ``lax.scan``s over it; the port holds one ``{"b0": Block, ...}``
@@ -16,8 +17,16 @@ layer r reads and writes slice r of each leaf in place.
 Block kinds: ``attn`` and ``mamba``, each followed by an FFN when
 ``d_ff > 0``: the routed MoE (``moe.moe_block``) at every
 ``moe_every``-th position of a config with experts, a SwiGLU elsewhere.
-``mlstm`` and ``slstm`` blocks, and the encoder's stub frontend, raise
-``NotImplementedError``.
+``mlstm`` and ``slstm`` blocks raise ``NotImplementedError``.
+
+The losses (``next_token_loss``, ``classification_loss``,
+``chunked_next_token_loss``, ``loss_fn``) are the reference's; the training
+step (``repro_torch.train``) differentiates ``loss_fn`` with autograd.
+``remat=True`` recomputes each repeat's unit in the backward pass
+(``torch.utils.checkpoint``, non-reentrant). The reference's remat saves the
+products without batch dimensions
+(``dots_with_no_batch_dims_saveable``); torch has no such policy, so the
+port saves only each unit's input: other tensors kept, the same numbers.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint as checkpoint_lib
 
 from repro_torch.ops import ExecutionContext
 
@@ -44,10 +54,13 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: blocks {sorted(missing)} are not ported to "
             "repro_torch yet (ROADMAP queue 1, item 9)")
-    if cfg.inputs_are_embeddings and cfg.family != "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} stub frontend is not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 6: hubert's encoder)")
+
+
+def _has_embed(cfg: ModelConfig) -> bool:
+    """A token embedding table, as the reference's ``init_params``: every
+    config but a stub frontend's whose only input is ``embeds`` (the
+    encoder); the ``vlm`` keeps one for its text tokens."""
+    return not cfg.inputs_are_embeddings or cfg.family == "vlm"
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +103,8 @@ class Transformer(nn.Module):
     """``embed`` (padded vocab, D), ``layers`` (one ``{"b0": Block, ...}``
     per repeat, a block per pattern position), ``final_norm`` (D,), ``head``
     (D, padded vocab). A ``vlm`` config keeps ``embed`` for its text tokens,
-    as the reference does, beside the stub frontend's ``embeds``."""
+    as the reference does, beside the stub frontend's ``embeds``; the
+    encoder has no ``embed`` (``None``, no leaf)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -98,9 +112,12 @@ class Transformer(nn.Module):
         _check_ported(cfg)
         dtype = dtype_of(cfg.param_dtype)
         V, D = cfg.padded_vocab, cfg.d_model
-        emb = torch.empty((V, D), dtype=torch.float32, device=device)
-        self.embed = nn.Parameter(
-            truncated_normal_(emb, 1.0, generator).to(dtype))
+        if _has_embed(cfg):
+            emb = torch.empty((V, D), dtype=torch.float32, device=device)
+            self.embed = nn.Parameter(
+                truncated_normal_(emb, 1.0, generator).to(dtype))
+        else:
+            self.register_parameter("embed", None)
         self.layers = nn.ModuleList(
             nn.ModuleDict({f"b{i}": Block(cfg, i, device, generator)
                            for i in range(len(cfg.pattern))})
@@ -265,6 +282,7 @@ def hidden_forward(
     decode: bool = False,
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Backbone only: returns (final-norm hidden states, cache, aux).
 
@@ -290,48 +308,82 @@ def hidden_forward(
     without experts. ``expert_choices`` (not in the reference) gives the
     j-th MoE block of the forward its ``choices`` (``moe.moe_block``; a
     recorded run's ``moe.Routing.gate_idx``). ``embeds`` (a stub
-    frontend's (B, L, D) output) enters in place of the token embedding."""
+    frontend's (B, L, D) output) enters in place of the token embedding.
+    ``remat`` recomputes each repeat's unit in the backward pass (module
+    docstring); it is for the cache-less training forward and raises with a
+    cache, whose in-place writes a recompute would repeat."""
     _check_ported(cfg)
+    if remat and cache is not None:
+        raise NotImplementedError(
+            "remat recomputes a unit in the backward pass; a cache's in-place "
+            "writes cannot be recomputed")
     cd = dtype_of(cfg.compute_dtype)
-    x = embeds.to(cd) if embeds is not None else embed(params.embed, tokens,
-                                                       cd)
+    if embeds is not None:
+        x = embeds.to(cd)
+    elif params.embed is None:
+        raise ValueError(f"{cfg.name} has no embedding table: pass embeds=")
+    else:
+        x = embed(params.embed, tokens, cd)
     L = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    n_moe = 0  # MoE blocks run so far
     if cache_index is None:
         cache_index = 0
     if positions is None:
         positions = _positions(cache_index, L, x.device)
+    n_moe = sum(_is_moe(cfg, i) for i in range(len(cfg.pattern)))  # a unit's
     for r, unit in enumerate(params.layers):
-        for i, kind in enumerate(cfg.pattern):
-            blk = unit[f"b{i}"]
-            h = rms_norm(x, blk.norm1, cfg.norm_eps)
-            bc = None if cache is None else cache[f"b{i}"]
-            if kind == "attn":
-                out = _attention(blk, h, cfg, positions, bc, r, cache_index,
-                                 ctx, attn_mask, block_tables)
-            else:
-                state = None if bc is None else (bc["h"][r], bc["tail"][r])
-                step = ssm.mamba_decode_step if decode else ssm.mamba_block
-                out, upd = step(blk.core, h, cfg, state, ctx=ctx)
-                if upd is not None:
-                    for leaf, new in zip(state, upd):
-                        leaf.copy_(new)
-            x = x + out
-            if _has_ffn(cfg, i):
-                h = rms_norm(x, blk.norm2, cfg.norm_eps)
-                if _is_moe(cfg, i):
-                    f, a = moe_lib.moe_block(
-                        blk.ffn, h, cfg, n_groups=n_groups, ctx=ctx,
-                        choices=(None if expert_choices is None
-                                 else expert_choices[n_moe]))
-                    n_moe += 1
-                    aux = aux + a
-                else:
-                    f = mlp(blk.ffn, h, cd)
-                x = x + f
+        choices = (None if expert_choices is None
+                   else expert_choices[r * n_moe:(r + 1) * n_moe])
+
+        def run(x_, unit=unit, r=r, choices=choices):
+            return _unit_forward(unit, x_, r, cfg, positions, cache,
+                                 cache_index, ctx, attn_mask, block_tables,
+                                 decode, n_groups, choices)
+
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint_lib.checkpoint(run, x, use_reentrant=False)
+        else:
+            x, a = run(x)
+        aux = aux + a
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, cache, aux
+
+
+def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
+                  cache_index, ctx, attn_mask, block_tables, decode: bool,
+                  n_groups: int, choices) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Repeat r's pattern unit; returns (x, the unit's MoE aux loss).
+    ``choices`` holds the unit's MoE blocks' expert choices, in order."""
+    cd = dtype_of(cfg.compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0  # the unit's MoE blocks run so far
+    for i, kind in enumerate(cfg.pattern):
+        blk = unit[f"b{i}"]
+        h = rms_norm(x, blk.norm1, cfg.norm_eps)
+        bc = None if cache is None else cache[f"b{i}"]
+        if kind == "attn":
+            out = _attention(blk, h, cfg, positions, bc, r, cache_index,
+                             ctx, attn_mask, block_tables)
+        else:
+            state = None if bc is None else (bc["h"][r], bc["tail"][r])
+            step = ssm.mamba_decode_step if decode else ssm.mamba_block
+            out, upd = step(blk.core, h, cfg, state, ctx=ctx)
+            if upd is not None:
+                for leaf, new in zip(state, upd):
+                    leaf.copy_(new)
+        x = x + out
+        if _has_ffn(cfg, i):
+            h = rms_norm(x, blk.norm2, cfg.norm_eps)
+            if _is_moe(cfg, i):
+                f, a = moe_lib.moe_block(
+                    blk.ffn, h, cfg, n_groups=n_groups, ctx=ctx,
+                    choices=None if choices is None else choices[n_moe])
+                n_moe += 1
+                aux = aux + a
+            else:
+                f = mlp(blk.ffn, h, cd)
+            x = x + f
+    return x, aux
 
 
 def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
@@ -365,12 +417,103 @@ def forward(
     decode: bool = False,
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss)."""
     x, cache, aux = hidden_forward(
         params, cfg, tokens=tokens, embeds=embeds, cache=cache,
         cache_index=cache_index, ctx=ctx, attn_mask=attn_mask,
         positions=positions, block_tables=block_tables, decode=decode,
-        n_groups=n_groups, expert_choices=expert_choices)
+        n_groups=n_groups, expert_choices=expert_choices, remat=remat)
     logits = lm_logits(params.head, x, dtype_of(cfg.compute_dtype))
     return logits, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Losses (differentiated by repro_torch.train)
+# ---------------------------------------------------------------------------
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logsumexp(logits) - logits[target] per position, in f32."""
+    lg = logits.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    true_logit = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    return logz - true_logit
+
+
+def next_token_loss(logits: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Causal LM shift-by-one cross entropy, mean over (B, L-1)."""
+    return _token_nll(logits[:, :-1], tokens[:, 1:]).mean()
+
+
+def classification_loss(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Per-frame classification (encoder models)."""
+    return _token_nll(logits, labels).mean()
+
+
+def chunked_next_token_loss(params: Transformer, cfg: ModelConfig,
+                            x: torch.Tensor, tokens: torch.Tensor,
+                            n_chunks: int) -> torch.Tensor:
+    """Cross entropy without materializing the full (B, L, V) logits: the
+    sequence is split into ``n_chunks``, each chunk's logits are computed,
+    reduced, and recomputed in the backward pass
+    (``torch.utils.checkpoint``). Essential when V ~ 150k."""
+    B, L, D = x.shape
+    xs, tg = x[:, :-1], tokens[:, 1:].long()
+    pad = (-xs.shape[1]) % n_chunks
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        tg = torch.nn.functional.pad(tg, (0, pad), value=-1)
+    c = xs.shape[1] // n_chunks
+    cd = dtype_of(cfg.compute_dtype)
+
+    def chunk_loss(xc, tc):
+        lg = lm_logits(params.head, xc, cd)
+        nll = _token_nll(lg, tc.clamp(min=0))
+        valid = (tc >= 0).float()
+        return (nll * valid).sum(), valid.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(n_chunks):
+        sl = slice(j * c, (j + 1) * c)
+        if torch.is_grad_enabled():
+            ls, ns = checkpoint_lib.checkpoint(chunk_loss, xs[:, sl], tg[:, sl],
+                                               use_reentrant=False)
+        else:
+            ls, ns = chunk_loss(xs[:, sl], tg[:, sl])
+        tot, cnt = tot + ls, cnt + ns
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], n_groups: int = 1,
+            ctx: Optional[ExecutionContext] = None, remat: bool = False,
+            aux_weight: float = 0.01, loss_chunks: int = 0, act_spec=None):
+    """(loss + aux_weight * aux, (loss, aux)) of one batch: ``tokens`` (a
+    causal LM's next-token loss, chunked when ``loss_chunks > 1``) or
+    ``embeds`` with ``labels`` (the encoder's per-frame classification).
+    ``act_spec`` (a sharding of the activations) is not ported (ROADMAP
+    queue 1, item 13)."""
+    if act_spec is not None:
+        raise NotImplementedError(
+            "act_spec (sequence-parallel activations) is not ported to "
+            "repro_torch yet (ROADMAP queue 1, item 13)")
+    if loss_chunks > 1 and cfg.causal and "tokens" in batch:
+        x, _, aux = hidden_forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), n_groups=n_groups, ctx=ctx,
+            remat=remat)
+        loss = chunked_next_token_loss(params, cfg, x, batch["tokens"],
+                                       loss_chunks)
+        return loss + aux_weight * aux, (loss, aux)
+    logits, _, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        n_groups=n_groups, ctx=ctx, remat=remat)
+    if cfg.causal and "tokens" in batch:
+        loss = next_token_loss(logits, batch["tokens"])
+    else:
+        loss = classification_loss(logits, batch["labels"])
+    return loss + aux_weight * aux, (loss, aux)

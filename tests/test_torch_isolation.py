@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch, and none of
 chip_smoke.py, scripts/verify_torch.py and scripts/autotune_torch.py,
-imports jax or the JAX package ``repro`` (only the tests import both), and
+imports jax, ``ml_dtypes`` or the JAX package ``repro`` (only the tests
+import both), and
 importing repro_torch (the time model and the autotuner too) loads no jax
 module."""
 
@@ -16,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "verify_torch.py",
     ROOT / "scripts" / "autotune_torch.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -46,9 +47,10 @@ def test_import_loads_no_jax():
             "repro_torch.configs.qwen2_5_3b, repro_torch.models, "
             "repro_torch.serving, repro_torch.resilience, "
             "repro_torch.launch.serve, repro_torch.analysis.roofline, "
-            "repro_torch.analysis.timing, repro_torch.plan.autotune; "
+            "repro_torch.analysis.timing, repro_torch.plan.autotune, "
+            "repro_torch.data, repro_torch.train, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,

@@ -102,6 +102,12 @@ CASES = {
         8, 8 * 20, 20, 128, 64, 64, 0.5, 0.5, 0.5),
     "flash/one tile": lambda: flash_attention_access_plan(
         4, 24, 40, 64, 64, 64, 0.5, 0.5, 0.5),
+    # flash at hd 80: HuBERT-xLarge's prefill (B 8 x 16 heads, 512 frames)
+    # and a bq-8 launch (C 4, the merge area)
+    "flash/hd 80 prefill": lambda: flash_attention_access_plan(
+        128, 512, 512, 80, 64, 64, 0.5, 0.5, 0.5),
+    "flash/hd 80 bq 8": lambda: flash_attention_access_plan(
+        8, 8, 300, 80, 64, 64, 0.5, 0.5, 0.5),
     # the int8 GEMM: the three GEMMs; one span; two spans (fewer than the
     # A ring's three); a narrow plan's CTA shares
     "matmul_q/512x384x256": lambda: _gemm(512, 384, 256, torch.int8),
