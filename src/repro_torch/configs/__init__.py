@@ -1,14 +1,16 @@
 """Model and layer configurations (``--arch <id>``), the counterpart of
 ``repro.configs``: the paper's own ResNet-50 conv shapes (``resnet50_convs``)
-and the LM architectures whose blocks are ported: the dense pure-attention
-ones, the MoE ones (OLMoE, Phi-3.5-MoE), InternVL2's backbone (its vision
-frontend is a stub: patch embeddings enter through ``embeds=``), HuBERT's
-encoder (its waveform frontend is a stub too: frame embeddings enter through
-``embeds=``) and jamba's hybrid mamba + attention unit with its MoE FFNs. Each LM module exposes
-CONFIG (published widths) and SMOKE (reduced, runs on the CPU).
+and every LM architecture of the reference: the dense pure-attention ones,
+the MoE ones (OLMoE, Phi-3.5-MoE), InternVL2's backbone (its vision frontend
+is a stub: patch embeddings enter through ``embeds=``), HuBERT's encoder
+(its waveform frontend is a stub too: frame embeddings enter through
+``embeds=``), jamba's hybrid mamba + attention unit with its MoE FFNs and
+xLSTM's mLSTM + sLSTM unit. Each LM module exposes CONFIG (published widths)
+and SMOKE (reduced, runs on the CPU).
 
-The reference's other architectures need blocks that are not ported yet;
-asking for one raises ``NotImplementedError`` naming its ROADMAP item.
+``NOT_PORTED`` names an architecture of the reference that waits for blocks
+of a later slice (none now); asking for one raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,12 +30,11 @@ ARCH_IDS: List[str] = [
     "phi3_5_moe_42b",
     "internvl2_1b",
     "hubert_xlarge",
+    "xlstm_1_3b",
 ]
 
 # the reference's architectures that wait for blocks of a later slice
-NOT_PORTED: Dict[str, str] = {
-    "xlstm_1_3b": "mLSTM/sLSTM blocks (ROADMAP queue 1, item 9)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def _module(arch: str):

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
         --smoke --device cpu --requests 4 --prompt-len 8 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b \\
+        --smoke --device cpu
 
 Runs on the card under the ``h100`` preset by default; ``--device cpu``
 runs every kernel's plain version instead. ``--engine wave`` runs the
@@ -42,8 +44,10 @@ def main(argv=None):
                     help="token id that ends a request (EOS)")
     ap.add_argument("--engine", choices=("slot", "wave"), default="slot",
                     help="continuous batching (slot) or the wave baseline")
-    ap.add_argument("--paged", choices=("on", "off"), default="on",
-                    help="paged KV pool (on) or per-slot contiguous cache")
+    ap.add_argument("--paged", choices=("on", "off"), default=None,
+                    help="paged KV pool (on) or per-slot contiguous cache "
+                         "(off); default: paged for pure-attention models, "
+                         "contiguous for recurrent ones (xLSTM, jamba)")
     ap.add_argument("--target", default="h100",
                     help="hardware target preset (h100 | tpu_v5e | gemmini "
                          "| cpu_interpret); sets plan/precision policy and "
@@ -95,7 +99,7 @@ def main(argv=None):
     cls = WaveEngine if args.engine == "wave" else Engine
     eng = cls(cfg, params, max_len=args.max_len,
               batch_size=args.batch or None, target=target, ctx=ctx,
-              paged=args.paged == "on")
+              paged=None if args.paged is None else args.paged == "on")
     del params  # the engine keeps its compute-dtype copy
     t0 = time.perf_counter()
     eng.serve(reqs)

@@ -4,7 +4,12 @@
 A model is a repeated *pattern unit* of blocks (e.g. ("attn",) for dense LMs,
 ("mamba",)*7 + ("attn",) for jamba's 1:7 interleave, ("mlstm", "slstm") for
 xLSTM). The port builds one module per layer and runs them in a Python loop
-(``models.transformer``); ``attn`` and ``mamba`` blocks are ported.
+(``models.transformer``); all four block kinds are ported.
+
+``param_count`` is the reference's formula, kept equal to it: it counts
+an mLSTM block's projections at ``d_inner`` (1,715,994,624 for
+``xlstm_1_3b``), while both packages build (D, D) ones (1,113,229,504
+parameters).
 """
 
 from __future__ import annotations

@@ -156,14 +156,16 @@ def attention_block(
     x: torch.Tensor,  # (B, L, D)
     cfg,
     positions: torch.Tensor,  # (L,) or (B, L) absolute positions of x
-    cache: Optional[Tuple[torch.Tensor, ...]] = None,  # (B,KV,Lmax,hd) k, v
+    cache: Optional[Tuple[torch.Tensor, ...]] = None,  # k, v or (kv,)
     cache_index=None,  # int, tensor scalar or (B,) tensor: write offset(s)
     ctx: Optional[ExecutionContext] = None,
     attn_mask: Optional[torch.Tensor] = None,  # (B, L) True = real token
     block_tables: Optional[torch.Tensor] = None,  # (B, w): paged-pool tables
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
     """Returns (out, cache). With a cache, keys/values are written at
-    cache_index (in place) and attention runs over the full cache.
+    cache_index (in place) and attention runs over the full cache: ``(k,
+    v)``, each (B, KV, Lmax, hd), or the fused layout ``(kv,)``, one (B, KV,
+    Lmax, 2, hd) tensor whose axis 3 holds K then V.
 
     ``block_tables`` switches the cache to the paged layout: ``cache`` is the
     shared ``(num_blocks, KV, block_size, hd)`` k/v pool, row i's keys live in
@@ -237,26 +239,29 @@ def attention_block(
         o = ops.attention_decode(q.to(cd), kp, vp, block_tables,
                                  (pos + 1).to(torch.int32), ctx=ctx)
         return project_out(o), (kp, vp)
-    if cache is not None and len(cache) == 1:
-        raise NotImplementedError(
-            "the fused (B, KV, L, 2, hd) KV layout is not ported; use "
-            "fused_kv_cache=False")
     if cache is not None:
-        ck, cv = cache
+        # the fused layout, one (B, KV, Lmax, 2, hd) leaf: K and V land in
+        # one write of their stack
+        fused = len(cache) == 1
+        new = (torch.stack([k, v], dim=3),) if fused else (k, v)
         if rows is not None:  # per-slot write offsets (continuous batching)
             at = rows.long()[:, None] + torch.arange(L, device=x.device)
             b_ix = torch.arange(B, device=x.device)[:, None]
-            ck[b_ix, :, at] = k.transpose(1, 2).to(ck.dtype)
-            cv[b_ix, :, at] = v.transpose(1, 2).to(cv.dtype)
+            for c, u in zip(cache, new):
+                c[b_ix, :, at] = u.transpose(1, 2).to(c.dtype)
             q_offset = rows
         else:
-            ck[:, :, start:start + L] = k.to(ck.dtype)
-            cv[:, :, start:start + L] = v.to(cv.dtype)
+            for c, u in zip(cache, new):
+                c[:, :, start:start + L] = u.to(c.dtype)
             # a tensor scalar: the in-cache call, as the reference's traced
             # offset (filled on the device, no host copy)
             q_offset = torch.full((), start, dtype=torch.int32,
                                   device=x.device)
-        new_cache = (ck, cv)
+        new_cache = tuple(cache)
+        # strided views of the fused leaf: the cuda entry copies them
+        # contiguous before the kernel reads them
+        ck, cv = ((cache[0][..., 0, :], cache[0][..., 1, :]) if fused
+                  else cache)
         k_att, v_att = ck.to(cd), cv.to(cd)
     else:
         new_cache = None

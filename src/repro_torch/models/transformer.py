@@ -1,23 +1,26 @@
 """Config-driven model assembly (the counterpart of
-``repro.models.transformer``) for patterns of ``attn`` and ``mamba`` blocks:
-the dense GQA architectures (``("attn",)``), the MoE ones (OLMoE,
-Phi-3.5-MoE), InternVL2's language backbone, which also takes the stub
-frontend's patch embeddings (``embeds=``), HuBERT's encoder (``causal=False``,
-no embedding table: its stub frontend's frame embeddings are its only input)
-and jamba's hybrid unit (seven mamba blocks and one attention block).
+``repro.models.transformer``) for every architecture of the reference: the
+dense GQA ones (``("attn",)``), the MoE ones (OLMoE, Phi-3.5-MoE), InternVL2's
+language backbone, which also takes the stub frontend's patch embeddings
+(``embeds=``), HuBERT's encoder (``causal=False``, no embedding table: its
+stub frontend's frame embeddings are its only input), jamba's hybrid unit
+(seven mamba blocks and one attention block) and xLSTM's (an mLSTM and an
+sLSTM block).
 
 The reference stacks one pattern unit's parameters on a leading ``repeats``
 axis and ``lax.scan``s over it; the port holds one ``{"b0": Block, ...}``
 module dict per repeat in an ``nn.ModuleList`` and runs them in a Python
-loop, so it needs no counterpart of ``repro.models.scan_util``. Caches keep
-the reference's stacked layout (``{"b0": {"k": (repeats, B, KV, L, hd),
-...}}`` for attention, ``{"b1": {"h": ..., "tail": ...}}`` for mamba) and
-layer r reads and writes slice r of each leaf in place.
+loop. Caches keep the reference's stacked layout (``{"b0": {"k": (repeats,
+B, KV, L, hd), ...}}`` for attention, or with ``fused_kv_cache`` one
+``{"kv": (repeats, B, KV, L, 2, hd)}`` leaf; ``{"b1": {"h": ..., "tail":
+...}}`` for mamba, ``{"C": ..., "n": ...}`` for mLSTM and ``{"c": ...,
+"n": ...}`` for sLSTM) and layer r reads and writes slice r of each leaf in
+place.
 
-Block kinds: ``attn`` and ``mamba``, each followed by an FFN when
-``d_ff > 0``: the routed MoE (``moe.moe_block``) at every
-``moe_every``-th position of a config with experts, a SwiGLU elsewhere.
-``mlstm`` and ``slstm`` blocks raise ``NotImplementedError``.
+Block kinds: ``attn``, ``mamba``, ``mlstm`` and ``slstm``; each but
+``mlstm`` is followed by an FFN when ``d_ff > 0``: the routed MoE
+(``moe.moe_block``) at every ``moe_every``-th position of a config with
+experts, a SwiGLU elsewhere.
 
 The losses (``next_token_loss``, ``classification_loss``,
 ``chunked_next_token_loss``, ``loss_fn``) are the reference's; the training
@@ -40,20 +43,23 @@ import torch.utils.checkpoint as checkpoint_lib
 from repro_torch.ops import ExecutionContext
 
 from . import moe as moe_lib
-from . import ssm
+from . import ssm, xlstm
 from .config import ModelConfig
 from .layers import (MLP, Attention, attention_block, dtype_of, embed,
                      lm_logits, mlp, rms_norm, truncated_normal_)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
-
-def _check_ported(cfg: ModelConfig) -> None:
-    missing = set(cfg.pattern) - {"attn", "mamba"}
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: blocks {sorted(missing)} are not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 9)")
+# each recurrent block kind: its module, its cache leaves' names, its state's
+# initializer, its prefill block and its decode step
+_RECURRENT = {
+    "mamba": (ssm.Mamba, ("h", "tail"), ssm.init_mamba_state,
+              ssm.mamba_block, ssm.mamba_decode_step),
+    "mlstm": (xlstm.MLSTM, ("C", "n"), xlstm.init_mlstm_state,
+              xlstm.mlstm_block, xlstm.mlstm_decode_step),
+    "slstm": (xlstm.SLSTM, ("c", "n"), xlstm.init_slstm_state,
+              xlstm.slstm_block, xlstm.slstm_decode_step),
+}
 
 
 def _has_embed(cfg: ModelConfig) -> bool:
@@ -78,19 +84,21 @@ def _is_moe(cfg: ModelConfig, pos: int) -> bool:
 
 class Block(nn.Module):
     """The block at pattern position ``pos``: ``norm1``, ``core``
-    (attention or mamba), and with an FFN ``norm2``, ``ffn`` (``moe.MoE`` at
-    an MoE position, else the SwiGLU ``MLP``) — the reference's ``b{pos}``
-    leaves."""
+    (attention, mamba, mLSTM or sLSTM), and with an FFN ``norm2``, ``ffn``
+    (``moe.MoE`` at an MoE position, else the SwiGLU ``MLP``) — the
+    reference's ``b{pos}`` leaves."""
 
     def __init__(self, cfg: ModelConfig, pos: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dtype = dtype_of(cfg.param_dtype)
+        kind = cfg.pattern[pos]
+        if kind != "attn" and kind not in _RECURRENT:
+            raise ValueError(f"unknown block kind {kind!r}")
         self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                              device=device))
-        self.core = (Attention(cfg, device, generator)
-                     if cfg.pattern[pos] == "attn"
-                     else ssm.Mamba(cfg, device, generator))
+        core = Attention if kind == "attn" else _RECURRENT[kind][0]
+        self.core = core(cfg, device, generator)
         if _has_ffn(cfg, pos):
             self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                                  device=device))
@@ -109,7 +117,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
         dtype = dtype_of(cfg.param_dtype)
         V, D = cfg.padded_vocab, cfg.d_model
         if _has_embed(cfg):
@@ -142,10 +149,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 # leaves read in their own dtype: the norm scales, the MoE router (f32 in the
-# reference, so routing matches it) and the mamba leaves that the reference
-# reads in f32 (conv_w at decode; b_dt, log_A, D_skip always)
+# reference, so routing matches it), the mamba leaves that the reference
+# reads in f32 (conv_w at decode; b_dt, log_A, D_skip always) and the xLSTM
+# gate biases, which it adds in f32
 KEEP_DTYPE = ("norm1", "norm2", "final_norm", "router", "conv_w", "b_dt",
-              "log_A", "D_skip")
+              "log_A", "D_skip", "b_if", "b_zifo")
 
 
 def compute_params(params: Transformer, cfg: ModelConfig) -> Transformer:
@@ -170,24 +178,26 @@ def compute_params(params: Transformer, cfg: ModelConfig) -> Transformer:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
     """Stacked (repeats-leading) contiguous cache for decode: ``k``/``v``
-    in ``dtype`` for each attention position, the f32 recurrent state
-    ``h``/``tail`` (``ssm.init_mamba_state``) for each mamba position."""
-    _check_ported(cfg)
-    if cfg.fused_kv_cache:
-        raise NotImplementedError(
-            "the fused (B, KV, L, 2, hd) KV layout is not ported")
+    in ``dtype`` for each attention position (with ``cfg.fused_kv_cache``
+    one ``kv`` leaf, K and V stacked on axis 4 of (repeats, B, KV, L, 2,
+    hd)), the f32 recurrent state for each other position: ``h``/``tail``
+    (mamba), ``C``/``n`` (mLSTM), ``c``/``n`` (sLSTM)."""
     shape = (cfg.repeats, batch, cfg.n_kv_heads, max_len, cfg.hd)
     cache: Cache = {}
     for i, kind in enumerate(cfg.pattern):
-        if kind == "attn":
+        if kind == "attn" and cfg.fused_kv_cache:
+            cache[f"b{i}"] = {"kv": torch.zeros(
+                shape[:4] + (2, cfg.hd), dtype=dtype, device=device)}
+        elif kind == "attn":
             cache[f"b{i}"] = {
                 "k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
         else:
-            state = ssm.init_mamba_state(cfg, cfg.repeats * batch,
-                                         torch.float32, device)
+            _, names, init_state, _, _ = _RECURRENT[kind]
+            state = init_state(cfg, cfg.repeats * batch, torch.float32,
+                               device)
             cache[f"b{i}"] = {n: t.unflatten(0, (cfg.repeats, batch))
-                              for n, t in zip(("h", "tail"), state)}
+                              for n, t in zip(names, state)}
     return cache
 
 
@@ -296,10 +306,11 @@ def hidden_forward(
     prefill) or a (B,) tensor (each row at its own depth: continuous-batching
     decode); positions default to ``arange(L) + cache_index`` per row.
     ``attn_mask`` marks padding (False) so attention never reads pad tokens.
-    Mamba blocks run the chunked scan (``ssm.mamba_block``) over the whole
-    sequence, or with ``decode`` one recurrence step per row
-    (``ssm.mamba_decode_step``); with a cache they start from, and write
-    back, its ``h``/``tail`` state. They consume every position in order, so
+    Recurrent blocks (mamba, mLSTM, sLSTM) run their prefill form over the
+    whole sequence (``ssm.mamba_block``, ``xlstm.mlstm_block``,
+    ``xlstm.slstm_block``), or with ``decode`` one recurrence step per row
+    (their ``*_decode_step``); with a cache they start from, and write back
+    in place, its state leaves. They consume every position in order, so
     recurrent patterns are prefilled at their exact length (no pad tokens).
     MoE FFNs route the call's B * L tokens in ``n_groups`` groups
     (``moe.moe_block``: one group unless they divide evenly); pad tokens and
@@ -312,7 +323,6 @@ def hidden_forward(
     ``remat`` recomputes each repeat's unit in the backward pass (module
     docstring); it is for the cache-less training forward and raises with a
     cache, whose in-place writes a recompute would repeat."""
-    _check_ported(cfg)
     if remat and cache is not None:
         raise NotImplementedError(
             "remat recomputes a unit in the backward pass; a cache's in-place "
@@ -365,10 +375,11 @@ def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
             out = _attention(blk, h, cfg, positions, bc, r, cache_index,
                              ctx, attn_mask, block_tables)
         else:
-            state = None if bc is None else (bc["h"][r], bc["tail"][r])
-            step = ssm.mamba_decode_step if decode else ssm.mamba_block
+            _, names, _, block, decode_step = _RECURRENT[kind]
+            state = None if bc is None else tuple(bc[n][r] for n in names)
+            step = decode_step if decode else block
             out, upd = step(blk.core, h, cfg, state, ctx=ctx)
-            if upd is not None:
+            if upd is not None:  # in place: the decode graphs' buffers
                 for leaf, new in zip(state, upd):
                     leaf.copy_(new)
         x = x + out
@@ -389,12 +400,14 @@ def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
 def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
                ctx, attn_mask, block_tables) -> torch.Tensor:
     """One attention block over repeat r's slice of its cache leaves
-    (contiguous ``k``/``v``, the paged pool, or the int8 pool)."""
+    (contiguous ``k``/``v`` or fused ``kv``, the paged pool, or the int8
+    pool)."""
     paged = bc is not None and "kp" in bc
     layer_cache = None
     if bc is not None:
         names = (("kp", "ks", "vp", "vs") if "ks" in bc
-                 else ("kp", "vp") if paged else ("k", "v"))
+                 else ("kp", "vp") if paged
+                 else ("kv",) if "kv" in bc else ("k", "v"))
         layer_cache = tuple(bc[n][r] for n in names)
     out, _ = attention_block(blk.core, h, cfg, positions,
                              cache=layer_cache, cache_index=cache_index,

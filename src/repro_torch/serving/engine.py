@@ -155,10 +155,13 @@ class Engine:
     the context's device; the engine keeps a copy with the matmul weights
     already in the compute dtype (``transformer.compute_params``).
 
-    Patterns with mamba blocks take the contiguous cache (their state is
-    O(1) a row: ``h`` and the conv ``tail``, spliced into the slot at
-    admission with the attention rows) and exact-length prefill
-    (``prefill_bucket`` 1): a pad token would enter the recurrent state.
+    Patterns with recurrent blocks (mamba, mLSTM, sLSTM) take the
+    contiguous cache (their state is O(1) a row: mamba's ``h`` and conv
+    ``tail``, mLSTM's ``C`` and ``n``, sLSTM's ``c`` and ``n``, spliced into
+    the slot at admission with the attention rows) and exact-length prefill
+    (``prefill_bucket`` 1): a pad token would enter the recurrent state. So
+    does a config with ``fused_kv_cache`` (one (B, KV, L, 2, hd) leaf a
+    layer): the paged pools keep K and V apart, and ``paged=True`` raises.
 
     ``paged`` (default: on for pure-attention models) keeps K/V in the
     ``serving.kv`` block pool: admission reserves a request's whole block
@@ -588,7 +591,8 @@ class Engine:
             # garbage block 0 (paged), and their samples are never recorded.
             # A decode step rewrites the same cache positions with the same
             # values, so the numeric retry below can simply re-run it; a
-            # mamba state is advanced once more by it, as in the reference.
+            # recurrent state is advanced once more by it, as in the
+            # reference.
             t0 = time.perf_counter()
             steps = np.array([len(slots[s].generated) if slots[s] else 0
                               for s in range(B)], np.int32)

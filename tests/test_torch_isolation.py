@@ -44,7 +44,9 @@ def test_no_jax_or_reference_import(path):
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.ops, repro_torch.convert, "
             "repro_torch.configs.resnet50_convs, repro_torch.configs, "
-            "repro_torch.configs.qwen2_5_3b, repro_torch.models, "
+            "repro_torch.configs.qwen2_5_3b, repro_torch.configs.xlstm_1_3b, "
+            "repro_torch.models, repro_torch.models.xlstm, "
+            "repro_torch.models.scan_util, "
             "repro_torch.serving, repro_torch.resilience, "
             "repro_torch.launch.serve, repro_torch.analysis.roofline, "
             "repro_torch.analysis.timing, repro_torch.plan.autotune, "

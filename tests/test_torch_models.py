@@ -62,17 +62,22 @@ def test_configs_are_the_reference(arch):
 
 
 def test_unported_archs_name_their_item():
-    # only xLSTM still names its item: hubert's encoder is ported (its
-    # parity tests are in test_torch_hubert.py), and so are the vlm's and
-    # the encoder's stub frontends
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tc.get_config("xlstm_1_3b")
-    assert list(tc.NOT_PORTED) == ["xlstm_1_3b"]
+    # every architecture of the reference is ported: NOT_PORTED is empty,
+    # xLSTM's config is registered and its mLSTM/sLSTM blocks build (their
+    # parity tests are in test_torch_xlstm.py), and so do hubert's encoder
+    # and the vlm's and the encoder's stub frontends; an unknown block kind
+    # raises
+    assert tc.NOT_PORTED == {}
+    assert dataclasses.asdict(tc.get_config("xlstm_1_3b")) == \
+        dataclasses.asdict(jc.get_config("xlstm_1_3b"))
     xlstm = dataclasses.replace(tc.get_smoke("qwen2_5_3b"),
                                 pattern=("mlstm", "slstm"), n_layers=2)
-    with torch.device("meta"), pytest.raises(NotImplementedError,
-                                             match="ROADMAP queue 1, item 9"):
-        T.Transformer(xlstm)
+    with torch.device("meta"):
+        unit = T.Transformer(xlstm).layers[0]
+    assert [type(unit[b].core).__name__ for b in ("b0", "b1")] == \
+        ["MLSTM", "SLSTM"]
+    with torch.device("meta"), pytest.raises(ValueError, match="kind"):
+        T.Transformer(dataclasses.replace(xlstm, pattern=("conv", "attn")))
     encoder = dataclasses.replace(tc.get_smoke("internvl2_1b"),
                                   family="encoder")
     with torch.device("meta"):
@@ -84,7 +89,7 @@ def test_unported_archs_name_their_item():
     assert [i for i in range(8) if isinstance(unit[f"b{i}"].ffn, M.MoE)] \
         == [0, 2, 4, 6]
     assert all(isinstance(unit[f"b{i}"].ffn, TL.MLP) for i in (1, 3, 5, 7))
-    assert set(tc.ARCH_IDS) | set(tc.NOT_PORTED) == set(jc.ARCH_IDS)
+    assert set(tc.ARCH_IDS) == set(jc.ARCH_IDS)
     assert tc.get_config("phi3_medium_14b").hd == 128
     assert tc.get_config("minitron_8b").n_kv_heads == 8
 
@@ -253,6 +258,139 @@ def test_cache_helpers(arch):
         assert leaf.shape == want.shape and str(leaf.dtype)[6:] == \
             str(want.dtype)
         np.testing.assert_array_equal(leaf.numpy(), want)
+
+
+# -- the fused (B, KV, L, 2, hd) KV layout ----------------------------------
+
+def _fused(arch):
+    jcfg, jparams, tcfg, model = _models(arch)
+    return (dataclasses.replace(jcfg, fused_kv_cache=True), jparams,
+            dataclasses.replace(tcfg, fused_kv_cache=True), model, tcfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fused_kv_cache_decode_matches(arch):
+    """The counterpart of tests/test_models.py::
+    test_fused_kv_cache_decode_matches: prefill 8 into the fused cache,
+    then 8 decode steps. The logits equal the reference's fused run (1e-4),
+    the cache-less forward's (1e-4) and the split layout's bit for bit
+    (the attention reads the same K/V values), and the kv leaf equals the
+    reference's."""
+    jcfg, jparams, fcfg, model, scfg = _fused(arch)
+    toks = _tokens(jcfg, 2, 16, seed=5)
+    jcache = JT.init_cache(jcfg, 2, 16, dtype=jnp.float32)
+    runs = {}
+    for name, cfg in (("fused", fcfg), ("split", scfg)):
+        cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+        outs = []
+        with torch.no_grad():
+            for lo, hi in [(0, 8)] + [(t, t + 1) for t in range(8, 16)]:
+                lg, cache, _ = T.forward(
+                    model, cfg, tokens=torch.from_numpy(toks[:, lo:hi]),
+                    cache=cache, cache_index=lo, ctx=CTXS["cuda"],
+                    decode=lo >= 8)
+                outs.append(lg)
+        runs[name] = (torch.cat(outs, dim=1), cache)
+    assert sorted(runs["fused"][1]["b0"]) == ["kv"]
+    assert torch.equal(runs["fused"][0], runs["split"][0])
+    outs = []
+    for lo, hi in [(0, 8)] + [(t, t + 1) for t in range(8, 16)]:
+        lg, jcache, _ = JT.forward(jparams, jcfg,
+                                   tokens=jnp.asarray(toks[:, lo:hi]),
+                                   cache=jcache,
+                                   cache_index=jnp.asarray(lo, jnp.int32),
+                                   decode=lo >= 8)
+        outs.append(lg)
+    _close(runs["fused"][0], jnp.concatenate(outs, axis=1))
+    _close(runs["fused"][1]["b0"]["kv"], jcache["b0"]["kv"])
+    full, _, _ = JT.forward(jparams, jcfg, tokens=jnp.asarray(toks))
+    _close(runs["fused"][0], full)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fused_kv_cache_per_row_decode(arch):
+    """Per-row write offsets (continuous-batching decode) into the fused
+    leaf: logits and the leaf against the reference's, and K and V against
+    the split layout's leaves."""
+    jcfg, jparams, fcfg, model, scfg = _fused(arch)
+    B, L, Lmax = 3, 6, 16
+    toks = _tokens(jcfg, B, L, seed=2)
+    idx = np.array([6, 4, 5], np.int32)
+    jcache = JT.init_cache(jcfg, B, Lmax, dtype=jnp.float32)
+    _, jcache, _ = JT.forward(jparams, jcfg, tokens=jnp.asarray(toks),
+                              cache=jcache,
+                              cache_index=jnp.zeros((), jnp.int32))
+    caches = {n: T.init_cache(c, B, Lmax, dtype=torch.float32, device="cpu")
+              for n, c in (("fused", fcfg), ("split", scfg))}
+    with torch.no_grad():
+        for n, c in (("fused", fcfg), ("split", scfg)):
+            T.forward(model, c, tokens=torch.from_numpy(toks),
+                      cache=caches[n], cache_index=0, ctx=CTXS["cuda"])
+    for step in range(2):
+        nxt = _tokens(jcfg, B, 1, seed=10 + step)
+        want, jcache, _ = JT.forward(jparams, jcfg, tokens=jnp.asarray(nxt),
+                                     cache=jcache,
+                                     cache_index=jnp.asarray(idx + step),
+                                     decode=True)
+        with torch.no_grad():
+            got = {n: T.forward(model, c, tokens=torch.from_numpy(nxt),
+                                cache=caches[n],
+                                cache_index=torch.from_numpy(idx + step),
+                                ctx=CTXS["cuda"], decode=True)[0]
+                   for n, c in (("fused", fcfg), ("split", scfg))}
+        _close(got["fused"], want)
+        assert torch.equal(got["fused"], got["split"])
+    kv = caches["fused"]["b0"]["kv"]
+    _close(kv, jcache["b0"]["kv"])
+    assert torch.equal(kv[..., 0, :], caches["split"]["b0"]["k"])
+    assert torch.equal(kv[..., 1, :], caches["split"]["b0"]["v"])
+
+
+def test_fused_cache_helpers_and_engine_rules():
+    """``init_cache`` builds the reference's (repeats, B, KV, L, 2, hd)
+    leaf; the footprint equals the reference's and the split layout's; the
+    slot helpers work on the new leaf; the engine takes the contiguous
+    cache and refuses ``paged=True``; its greedy tokens equal the split
+    engine's and the reference's fused engine's."""
+    from repro.serving.engine import Engine as JEngine
+    from repro.serving.engine import Request as JRequest
+    from repro_torch.serving import Engine, Request
+
+    jcfg, jparams, fcfg, model, scfg = _fused("qwen2_5_3b")
+    cache = T.init_cache(fcfg, 3, 8, device="cpu")
+    jcache = JT.init_cache(jcfg, 3, 8)
+    assert list(cache["b0"]) == list(jcache["b0"]) == ["kv"]
+    assert cache["b0"]["kv"].shape == jcache["b0"]["kv"].shape == (
+        fcfg.repeats, 3, fcfg.n_kv_heads, 8, 2, fcfg.hd)
+    assert cache["b0"]["kv"].dtype == torch.bfloat16
+    for max_len in (24, 64):
+        assert T.cache_footprint_words(fcfg, max_len) == \
+            JT.cache_footprint_words(jcfg, max_len) == \
+            T.cache_footprint_words(scfg, max_len)
+    row = T.init_cache(fcfg, 1, 8, device="cpu")
+    row["b0"]["kv"].fill_(2.0)
+    T.insert_cache_slot(cache, row, 1)
+    kv = cache["b0"]["kv"]
+    assert (kv[:, 1] == 2.0).all() and (kv[:, 0] == 0).all()
+    T.reset_cache_slot(cache, 1)
+    assert (kv == 0).all()
+    with pytest.raises(ValueError, match="fused"):
+        Engine(fcfg, model, max_len=32, batch_size=2, ctx=CTXS["cuda"],
+               paged=True)
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 3 for n in (5, 1, 9, 3)]
+    out = {}
+    for name, cfg in (("fused", fcfg), ("split", scfg)):
+        eng = Engine(cfg, model, max_len=32, batch_size=2, ctx=CTXS["cuda"],
+                     paged=None if name == "fused" else False)
+        assert not eng.paged
+        out[name] = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        eng.serve(out[name])
+    want = [JRequest(prompt=p, max_new_tokens=6) for p in prompts]
+    JEngine(jcfg, jparams, max_len=32, batch_size=2).serve(want)
+    for a, b, w in zip(out["fused"], out["split"], want):
+        assert a.finish_reason == "length"
+        np.testing.assert_array_equal(a.out_tokens, b.out_tokens)
+        np.testing.assert_array_equal(a.out_tokens, w.out_tokens)
 
 
 def test_compute_params_computes_the_same():

@@ -3,8 +3,9 @@ buffers (CUDA graphs on the card, the same buffers eagerly on the CPU).
 
 (a) Greedy tokens equal the reference engine's (repro.serving.engine, its
 jitted steps) on the smoke configs for the paged bf16 pool, the paged int8
-pool, the contiguous cache, the hybrid (jamba cut to one pattern unit) and
-OLMoE's MoE model on the paged pool,
+pool, the contiguous cache (split and fused K/V), the hybrid (jamba cut to
+one pattern unit), xLSTM's smoke model and OLMoE's MoE model on the paged
+pool,
 on schedules that cross table widths, admit into used slots and, for the
 pools, rebuild the pool once through ``kv.check`` (the reference never
 rebuilds: its tokens are the same). (b) The crediting arithmetic: a
@@ -46,22 +47,21 @@ from repro_torch.serving.engine import Engine, Request, WaveEngine
 CPU = tops.ExecutionContext(device="cpu")  # cuda backend: plain versions
 
 
-def _qwen():
-    jcfg = dataclasses.replace(jc.get_smoke("qwen2_5_3b"),
-                               compute_dtype="float32")
-    tcfg = dataclasses.replace(tc.get_smoke("qwen2_5_3b"),
-                               compute_dtype="float32")
+def _smoke(arch, **kw):
+    jcfg = dataclasses.replace(jc.get_smoke(arch), compute_dtype="float32",
+                               **kw)
+    tcfg = dataclasses.replace(tc.get_smoke(arch), compute_dtype="float32",
+                               **kw)
     jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
     return jcfg, jparams, tcfg, transformer_from_jax(jparams, tcfg, "cpu")
+
+
+def _qwen():
+    return _smoke("qwen2_5_3b")
 
 
 def _olmoe():
-    jcfg = dataclasses.replace(jc.get_smoke("olmoe_1b_7b"),
-                               compute_dtype="float32")
-    tcfg = dataclasses.replace(tc.get_smoke("olmoe_1b_7b"),
-                               compute_dtype="float32")
-    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jparams, tcfg, transformer_from_jax(jparams, tcfg, "cpu")
+    return _smoke("olmoe_1b_7b")
 
 
 def _jamba():
@@ -82,12 +82,18 @@ ENGINES = {
     "paged_bf16": (dict(paged=True), "qwen"),
     "paged_int8": (dict(paged=True, kv_dtype="int8"), "qwen"),
     "contiguous": (dict(paged=False), "qwen"),
+    "contiguous_fused": ({}, "qwen_fused"),
     "hybrid": ({}, "jamba"),
+    "xlstm": ({}, "xlstm"),
     "paged_moe": (dict(paged=True), "olmoe"),
 }
-MODELS = {"qwen": _qwen, "jamba": _jamba, "olmoe": _olmoe}
+MODELS = {"qwen": _qwen, "jamba": _jamba, "olmoe": _olmoe,
+          "qwen_fused": lambda: _smoke("qwen2_5_3b", fused_kv_cache=True),
+          "xlstm": lambda: _smoke("xlstm_1_3b")}
 SCHEDULES = {"qwen": ((5, 29, 3, 17, 30, 8, 21, 12, 26), 64, 2, 96),
+             "qwen_fused": ((5, 29, 3, 17, 30), 16, 2, 64),
              "jamba": ((3, 9, 4, 14, 6), 8, 2, 32),
+             "xlstm": ((3, 9, 4, 21, 6), 8, 2, 32),
              "olmoe": ((5, 29, 3, 17, 30, 8, 21, 12, 26), 64, 2, 96)}
 
 

@@ -166,12 +166,13 @@ def test_apply_updates_is_the_reference_without_decay(arch):
                                        err_msg=f"{part} {path}")
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "jamba_1_5_large"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "jamba_1_5_large",
+                                  "xlstm_1_3b"])
 def test_weight_decay_differs_on_exactly_the_stacked_vectors(arch):
     """The reference decays ``p.ndim >= 2``, and its ``layers`` leaves are
-    stacked (repeats, ...): a per-layer norm scale, bias or ``D_skip`` is
-    (repeats, D) and decays there, not in the port (ROADMAP queue 3, known
-    reference faults). Every other leaf is equal; on those the reference's
+    stacked (repeats, ...): a per-layer norm scale, bias, ``D_skip`` or
+    xLSTM gate bias (``b_if``, ``b_zifo``) is (repeats, D) and decays there,
+    not in the port (ROADMAP queue 3, known reference faults). Every other leaf is equal; on those the reference's
     parameter is the port's less lr * wd * p (p before the step, one step)."""
     ref, port, cfg, initial = _one_update(arch, 0.1, steps=1)
     before = jax.tree_util.tree_flatten_with_path(initial)[0]
@@ -192,7 +193,10 @@ def test_weight_decay_differs_on_exactly_the_stacked_vectors(arch):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
                                        err_msg=name)
     assert "norm1" in differ
-    assert "D_skip" in differ if arch == "jamba_1_5_large" else "bq" in differ
+    assert set(differ) - {"norm1", "norm2"} == {
+        "qwen2_5_3b": {"bq", "bk", "bv"},
+        "jamba_1_5_large": {"b_dt", "log_A", "D_skip"},
+        "xlstm_1_3b": {"b_if", "b_zifo"}}[arch]
 
 
 def test_quantize_int8_takes_one_scale_per_reference_leaf():
@@ -328,6 +332,49 @@ def test_train_step_is_the_reference(arch, monkeypatch):
     _assert_step_close(*_step_both(arch, monkeypatch, kw, kw))
 
 
+def test_xlstm_loss_and_gradient_are_the_reference(monkeypatch):
+    """xLSTM's smoke config (two chunks of 16 a row): ``loss_fn`` and its
+    gradient against the reference's ``jax.value_and_grad`` (loss and grad
+    norm 1e-4 relative, each leaf within 1e-4 of its max |g|), then one
+    training step through ``make_train_step``."""
+    jcfg, jparams, tcfg, model = _models("xlstm_1_3b")
+    nb = _batch(jcfg, 4)
+    (jtot, _), jgrads = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, {k: jnp.asarray(v)
+                                       for k, v in nb.items()}),
+        has_aux=True)(jparams)
+    ttot, _ = T.loss_fn(model, tcfg, {k: torch.from_numpy(v)
+                                      for k, v in nb.items()}, ctx=CPU)
+    ttot.backward()
+    assert float(ttot.detach()) == pytest.approx(float(jtot), rel=1e-4)
+    tg = {n: p.grad for n, p in model.named_parameters()}
+    jg = convert.named_from_tree(_np(jgrads), tcfg, "cpu")
+
+    def norm(g):
+        return float(torch.sqrt(sum((t.double() ** 2).sum()
+                                    for t in g.values())))
+
+    assert norm(tg) == pytest.approx(norm(jg), rel=1e-4)
+    assert tg.keys() == jg.keys()
+    for n, g in tg.items():
+        scale = max(float(jg[n].abs().max()), 1e-30)
+        assert float((g - jg[n]).abs().max()) <= 1e-4 * scale, n
+    _assert_step_close(*_step_both("xlstm_1_3b", monkeypatch))
+
+
+def test_xlstm_trainer_steps_are_the_reference(tmp_path):
+    """Three ``Trainer`` steps of xLSTM's smoke config at weight_decay=0
+    (the reference decays its stacked gate biases): the losses within the
+    loss curve's 1e-3, and every parameter moved."""
+    jtr, ttr = _trainers(str(tmp_path), steps=3, arch="xlstm_1_3b")
+    before = {n: p.detach().clone() for n, p in ttr.params.named_parameters()}
+    want, got = jtr.run(), ttr.run()
+    assert got["step"] == [0, 1, 2] and ttr.skipped_steps == 0
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=0, atol=1e-3)
+    for n, p in ttr.params.named_parameters():
+        assert not torch.equal(p, before[n]), n
+
+
 def test_microbatches_and_remat_match_the_plain_step():
     """stablelm's smoke config: ``microbatches=2`` and ``remat=True`` give
     the plain step's loss and gradients (1e-5 relative)."""
@@ -393,11 +440,11 @@ def test_compressed_step_and_non_finite_skip(monkeypatch):
 
 # -- the loop and checkpoints -------------------------------------------------
 
-def _trainers(tmp, steps=24, **tkw):
+def _trainers(tmp, steps=24, arch="stablelm_1_6b", **tkw):
     """The reference's tests/test_train.py mini trainer in both packages,
     f32 compute and no weight decay, the port's carrying the reference's
     initial weights."""
-    jcfg, tcfg = _cfgs("stablelm_1_6b")
+    jcfg, tcfg = _cfgs(arch)
     dcfg = dict(batch_size=8, seq_len=32, vocab_size=jcfg.vocab_size)
     ocfg = dict(lr=1e-3, warmup_steps=2, total_steps=steps, weight_decay=0.0)
     jtr = JTR.Trainer(jcfg, JO.AdamWConfig(**ocfg), JTR.TrainConfig(
