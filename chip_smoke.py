@@ -34,7 +34,12 @@ published widths and full depth (48 layers alternating mLSTM and sLSTM,
 d_model 2048, 4 heads of hd 512, chunk 256, vocab 50304) through the
 contiguous engine; its blocks are aten (no kernel, as the reference's call
 no Pallas kernel). Qwen2.5-3B is also served with the fused (B, KV, L, 2,
-hd) KV leaf. Phases, each fatal on failure:
+hd) KV leaf. The fault-handling path (``repro_torch.resilience``) runs
+seeded fault campaigns through the conv path and the two Qwen engines.
+Phases, each fatal on failure (from phase 3 to phase 24 each phase's
+dispatch decisions are recorded, and it fails if one of them was degraded
+or the quarantine table is not empty at its end: an organic fault never
+passes as a demotion):
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
@@ -78,8 +83,11 @@ hd) KV leaf. Phases, each fatal on failure:
      40 and 128, so that every warp grid R x C runs; ``PAGED_CASES``: paged
      tables with padding and a dead row on block 0, g 1, 8 and 16, hd 16,
      32, 64 and 128, blocks of 4 and 16 keys, w from 1 to 32 with several
-     slots a CTA, rows of length 0); each flash and paged check names the
-     kernel it took (bf16: tensor core, f32: fma) and fails on the other;
+     slots a CTA, rows of length 0; and the paged engine's launch, its
+     split from the table capacity 512 / 16 = 32: a row of 70 keys must be
+     bit-equal at every table width from 5 to 32); each flash and paged
+     check names the kernel it took (bf16: tensor core, f32: fma) and fails
+     on the other;
   7. the serving path inside ``ops.record_dispatch()``: the paged engine
      and the contiguous engine on the same 8 greedy requests, then a
      cache-less forward of one prompt, the counters set to 0 just before
@@ -113,7 +121,8 @@ hd) KV leaf. Phases, each fatal on failure:
      back-to-back calls, divided by 50) and the device time of a call (a
      CUDA graph of 20 calls, replayed: no host work between them), the
      prefill's TFLOP/s on the compulsory work, and paged decode's split S
-     and CTA count;
+     and CTA count (paged decode launched as the engine launches it, its
+     split from the table capacity 32);
   9. the int8 kernels against their plain versions: phase 3's six conv cases
      (ragged tiles, stride 2, h_F = 1, c_I = 3), each main-path int8 tile at
      a small N, H and W with ragged edges (conv1's one stage and zero plane;
@@ -195,7 +204,8 @@ hd) KV leaf. Phases, each fatal on failure:
      dispatch at full width under ``H100``, on the operands phases 4, 8, 10,
      11 and 15 leave: the five layers on ``cuda``, ``im2col`` and
      ``conv2d_q``, phase 11's three GEMMs, the Qwen prefill and contiguous
-     decode attention, phase 8's paged decode with its tables and lengths,
+     decode attention, phase 8's paged decode with its tables and lengths
+     (at capacity w and at the engine's capacity 32),
      and the hybrid's 8 conv1d prefill shapes. Each is audited by
      ``ops.explain(..., audit=True)`` (counted words equal to the counter,
      shared memory within the card's, every ``cp.async`` ring schedule
@@ -329,7 +339,45 @@ hd) KV leaf. Phases, each fatal on failure:
      replay, capture seconds, tok/s, the prefill median and two floors
      (the bf16 weight stream; the f32 recurrent state read and written a
      step at 4 slots);
- 25. the ``kernels`` JSON line (the flash entry lists its compiled
+ 25. fault handling (``repro_torch.resilience``), the launch counters
+     set to 0 before each half and read after it. (a) The conv path's
+     degradation, priced: on each of the five layers (batch 1000, bf16 in,
+     f32 out, H100 plan, ``cuda`` context) a rate-1.0 launch fault must
+     give one decision, ``degraded`` with ``fault`` "KernelLaunchError" and
+     ``chosen`` "im2col", its ``measured_words`` equal to ``ops.explain``
+     on an ``im2col`` context, its output bit-equal to ``ops.conv2d`` there
+     and the injection resolved "degraded"; the calls the quarantine still
+     serves run on Im2Col (timed with CUDA events) and the next one, the
+     8th resolution since the fault (``QUARANTINE_PROBE_AFTER``), runs on
+     ``cuda`` again, bit-equal to the un-faulted conv, with the quarantine
+     table empty; on conv1 a numeric fault (the kernel runs, its NaN is
+     caught, the call degrades, bit-equal to Im2Col) and a device fault
+     (``DeviceLost`` propagates, resolved "fatal", nothing quarantined).
+     One line a layer: the words ratio degraded over primary and both
+     calls' ms. On the ``cuda`` GEMM (no ``degrade_to``) at 2048^3 a
+     launch, a dma and a numeric fault each retry in place on ``cuda``
+     (never ``torch``), bit-equal, resolved "retried"; a persistent one
+     raises after ``MAX_RUNTIME_ATTEMPTS`` attempts with no launch. (b) The
+     serving campaign: Qwen2.5-3B (seeded again) through the paged bf16
+     and the contiguous engine with phase 7's requests and slots, one clean
+     serve each, then campaigns over launch+dma+numeric+oom+pool at seeds
+     0, 1 and 2 (rate 0.2) and seed 0 at rate 0.05 (``robust_bench``'s
+     default), and on the paged engine seeds 3, 4, ... until the union has
+     injected at all six engine sites. Each campaign must account every
+     injection (``verify_accounted``), finish every request, replay graphs,
+     make no degraded or off-``cuda`` decision, and give each request the
+     clean serve's tokens bit for bit (a failed one a clean prefix of
+     them); at rate 0.05, run three times in turns with three more clean
+     serves (whose tokens must be the first clean serve's), completion
+     must be >= 0.99 in each and the faulted serves' median tok/s >= 0.4x
+     the clean serves' median. After each pool rebuild every live row's K/V in the
+     rebuilt pool is compared with the old pool's, through the old and new
+     tables (the corruption is metadata only); where a rebuild is not bit
+     for bit, a request live across it is held to phase 7's decode check
+     instead. One line a campaign (summary, injections by site, kind and
+     resolution, completion, tok/s, rebuilds, graph resets, captures, the
+     rebuilds' K/V differences) and a summary line;
+ 26. the ``kernels`` JSON line (the flash entry lists its compiled
      instances and the hd-80 timing), the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -1038,6 +1086,37 @@ def paged_checks(gen: torch.Generator, record) -> None:
                    f"{lens} on {path}, S {cfg['split']} x "
                    f"{cfg['slots_per_cta']} slots")
         del kp, vp, q
+    # the serving engine's launch, its split from the table capacity
+    # (max_len 512 / 16 = 32): a row of 70 keys (5 live slots) at every
+    # width from 5 to 32 gives a bit-equal output, held to the plain version
+    B, KV, g, hd, bs, cap = 4, 2, 8, 128, 16, 512 // 16
+    nb = 1 + B * cap
+    for dt in (torch.bfloat16, torch.float32):
+        kp, vp = (torch.randn((nb, KV, bs, hd), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        q = torch.randn((B, KV * g, 1, hd), generator=gen, device=dev).to(dt)
+        tables = (1 + torch.randperm(nb - 1, generator=gen, device=dev)
+                  ).reshape(B, cap).to(torch.int32)
+        lengths = torch.tensor((70, 41, 1, 0), dtype=torch.int32, device=dev)
+        first = None
+        for w in range(5, cap + 1):
+            tw = tables[:, :w].contiguous()
+            got = paged_decode_attention(q, kp, vp, tw, lengths, cap)
+            torch.cuda.synchronize()
+            first = got[0] if first is None else first
+            if not torch.equal(got[0], first):
+                fail(f"paged_decode {dt}: the row of 70 keys differs at w {w} "
+                     "from w 5 at capacity 32")
+            if w in (5, 13, cap):
+                lc = paged_launch_config(B, KV, g, hd, bs, w, dt, cap)
+                record("paged_decode", got,
+                       paged_decode_plain(q, kp, vp, tw, lengths),
+                       f"{dt} B={B} g={g} hd={hd} w={w} capacity {cap} "
+                       f"lengths (70, 41, 1, 0), S {lc['split']} x "
+                       f"{lc['slots_per_cta']} slots")
+        print(f"paged_decode {dt}: the row of 70 keys bit-equal at every w "
+              f"from 5 to {cap} (capacity {cap})", flush=True)
+        del kp, vp, q
     torch.cuda.empty_cache()
 
 
@@ -1337,19 +1416,22 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                       "device_ms_per_call": dec_dev,
                       "library_device_ms_per_call": dec_lib_dev,
                       "bound_ms": dec_bound, "bound_by": dec_by}), flush=True)
-    # paged decode: the serving pool's block size, the deepest row's width
+    # paged decode: the serving pool's block size, the deepest row's width,
+    # the split from the engine's table capacity (max_len 512 / 16), as the
+    # paged engine launches it
     qp, kp, vp, tables, lengths, depths, w = paged_decode_operands(gen, cfg,
                                                                    lens)
+    cap = 512 // 16
     HELD["attention"] = {"prefill": (q, k, v, off0, km),
                          "decode": (qd, kd, vd, depth),
                          "paged": (qp, kp, vp, tables, lengths)}
-    paged_ms = median_ms(lambda: paged_decode_attention(qp, kp, vp, tables,
-                                                        lengths), 2, 20)
-    paged_plain = median_ms(lambda: paged_decode_plain(qp, kp, vp, tables,
-                                                       lengths), 1, 5)
 
     def paged():
-        return paged_decode_attention(qp, kp, vp, tables, lengths)
+        return paged_decode_attention(qp, kp, vp, tables, lengths, cap)
+
+    paged_ms = median_ms(paged, 2, 20)
+    paged_plain = median_ms(lambda: paged_decode_plain(qp, kp, vp, tables,
+                                                       lengths), 1, 5)
 
     paged_launch = per_launch_ms(paged)
     paged_dev = graph_ms_per_call(paged)
@@ -1360,11 +1442,13 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     paged_bound, paged_by = bound_ms(4.0 * live * H * hd, paged_bytes,
                                      PEAK_BF16_FLOPS)
     dec_decode = ops.explain("attention_decode", ctx, dtype=qp.dtype,
-                             spec_args=(qp, kp, vp, tables, lengths))
-    paged_cfg = paged_launch_config(4, KV, g, hd, 16, w, qp.dtype)
+                             spec_args=(qp, kp, vp, tables, lengths),
+                             spec_kw={"capacity": cap})
+    paged_cfg = paged_launch_config(4, KV, g, hd, 16, w, qp.dtype, cap)
     print(json.dumps({"kernel_shape": "paged_decode", "phase": "paged decode",
                       "B": 4, "KV": KV, "g": g, "hd": hd, "block_size": 16,
-                      "w": w, "lengths": [d + 1 for d in depths],
+                      "w": w, "capacity": cap,
+                      "lengths": [d + 1 for d in depths],
                       "split": paged_cfg["split"], "ctas": paged_cfg["ctas"],
                       "ms": paged_ms, "plain_ms": paged_plain,
                       "ms_per_launch": paged_launch,
@@ -2380,6 +2464,13 @@ def audit_phase() -> int:
           "cuda", (qp, kp, vp, tables, lengths), None, (),
           lambda: ops.attention_decode(qp, kp, vp, tables, lengths,
                                        ctx=ctxs["cuda"]), paged_expect)
+    # the engine's launch: the split from its table capacity (512 / 16)
+    check("attention_decode/qwen paged, engine capacity 32",
+          "attention_decode", "paged_decode", "cuda",
+          (qp, kp, vp, tables, lengths), {"capacity": 32}, (),
+          lambda: ops.attention_decode(qp, kp, vp, tables, lengths,
+                                       ctx=ctxs["cuda"], capacity=32),
+          paged_expect)
     for L, x, w in HELD.pop("conv1d"):
         def conv1d_expect(d, got, x=x, w=w):
             K = w.shape[0]
@@ -3565,6 +3656,459 @@ def xlstm_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: fault handling (repro_torch.resilience) at published widths.
+# ---------------------------------------------------------------------------
+
+FAULT_SITES = ("admit/launch", "admit/numeric", "admit/oom", "decode/numeric",
+               "decode/pool", "finish/pool")
+CHAOS_KINDS = ("launch", "dma", "numeric", "oom", "pool")
+# robust_bench's floors at its DEFAULT_SPEC (rate 0.05, seed 0)
+COMPLETION_FLOOR, TOK_S_FLOOR = 0.99, 0.4
+
+
+def _decisions(fn):
+    """``fn()`` inside ``ops.record_dispatch()``, synchronized; returns its
+    result and the decisions it published."""
+    from repro_torch import ops
+
+    with ops.record_dispatch() as log:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, list(log)
+
+
+def conv_fault_checks(gen: torch.Generator) -> list:
+    """Phase 25 (a), the conv path's degradation priced (module
+    docstring). Returns one row a layer."""
+    from repro_torch import ops
+    from repro_torch.core.conv_model import resnet50_layers
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.resilience import errors as flt
+    from repro_torch.resilience import faults as fj
+
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    im2 = ExecutionContext(target=H100, backend="im2col")
+
+    def once(kind, op="conv2d", cap=1):
+        return fj.FaultCampaign(seed=0, rate=1.0, kinds=(kind,), ops=(op,),
+                                max_faults=cap)
+
+    rows = []
+    for i, (name, s) in enumerate(resnet50_layers(BATCH).items()):
+        x, w = layer_inputs(gen, i, s)
+        stride = (s.sh, s.sw)
+        kw = {"stride": stride, "out_dtype": torch.float32}
+        primary, im2col = (ops.explain("conv2d", c, dtype=x.dtype,
+                                       spec_args=(x, w), spec_kw=kw)
+                           for c in (ctx, im2))
+
+        def conv(c=ctx):
+            return ops.conv2d(x, w, stride, ctx=c, out_dtype=torch.float32)
+
+        clean, want = conv(), conv(im2)
+        # a rate-1.0 launch fault: quarantined, degraded to Im2Col, priced
+        camp = once("launch")
+        with fj.activate(camp):
+            got, log = _decisions(conv)
+        camp.verify_accounted()
+        d = log[0] if len(log) == 1 else None
+        if (d is None or not d.degraded or d.fault != "KernelLaunchError"
+                or d.chosen != "im2col" or d.requested != "cuda"
+                or camp.summary()["resolutions"] != {"degraded": 1}):
+            fail(f"faults {name}: a launch fault gave decisions {log}, "
+                 f"{camp.summary()}")
+        if d.measured_words != im2col.measured_words:
+            fail(f"faults {name}: degraded words {d.measured_words}, Im2Col's "
+                 f"{im2col.measured_words}")
+        if not torch.equal(got, want):
+            fail(f"faults {name}: the degraded conv is not Im2Col's output")
+        (q,) = ops.quarantined().values()
+        # the calls the quarantine still serves on Im2Col, timed (one
+        # warm-up), then the next call probes cuda again
+        under = q["probe_in"] - 1
+        degraded_ms, log = _decisions(lambda: median_ms(conv, 1, under - 1))
+        if len(log) != under or not all(
+                e.degraded and e.chosen == "im2col" for e in log):
+            fail(f"faults {name}: under quarantine {[e.chosen for e in log]}")
+        back, log = _decisions(conv)
+        if (len(log) != 1 or log[0].chosen != "cuda" or log[0].degraded
+                or ops.quarantined() or not torch.equal(back, clean)):
+            fail(f"faults {name}: the probe back gave {log}, quarantine "
+                 f"{ops.quarantined()}, bit-equal "
+                 f"{torch.equal(back, clean)}")
+        primary_ms, log = _decisions(lambda: median_ms(conv))
+        if any(e.degraded or e.chosen != "cuda" for e in log):
+            fail(f"faults {name}: the primary after the probe gave {log}")
+        row = {"faults_conv": name, "fault": d.fault, "chosen": d.chosen,
+               "primary_words": primary.measured_words,
+               "degraded_words": d.measured_words,
+               "words_ratio": d.measured_words / primary.measured_words,
+               "primary_bound_ratio": primary.bound_ratio,
+               "degraded_bound_ratio": d.bound_ratio,
+               "degraded_ms": degraded_ms, "primary_ms": primary_ms,
+               "ms_ratio": degraded_ms / primary_ms,
+               "calls_on_im2col": 1 + under,
+               "back_on_cuda_at_call_after_the_fault": under + 1}
+        if i == 0:
+            # a numeric fault: the kernel runs, its NaN is detected, the
+            # call degrades
+            camp = once("numeric")
+            with fj.activate(camp):
+                got, log = _decisions(conv)
+            camp.verify_accounted()
+            inj = camp.injections[0]
+            if (len(log) != 1 or log[0].chosen != "im2col"
+                    or log[0].fault != "NumericFault"
+                    or inj.resolution != "degraded"
+                    or inj.detail != {"leaf": 0}
+                    or not torch.equal(got, want)):
+                fail(f"faults {name}: a numeric fault gave {log}, {inj}")
+            ops.clear_quarantine()
+            # a device fault: fatal, propagates, nothing quarantined
+            camp = once("device")
+            try:
+                with fj.activate(camp):
+                    conv()
+                fail(f"faults {name}: DeviceLost did not propagate")
+            except flt.DeviceLost:
+                pass
+            if (camp.injections[0].resolution != "fatal"
+                    or ops.quarantined()):
+                fail(f"faults {name}: a device fault left {camp.summary()}, "
+                     f"quarantine {ops.quarantined()}")
+            row["numeric_fault"] = "degraded to im2col, bit-equal"
+            row["device_fault"] = "DeviceLost propagated, fatal"
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, w, clean, want, got, back
+        torch.cuda.empty_cache()
+
+    # the matmul (no degrade_to): a transient fault retries in place on
+    # cuda, never torch; a persistent one raises after MAX_RUNTIME_ATTEMPTS
+    from repro_torch.kernels import KERNELS
+
+    gen.manual_seed(SEED + 40)
+    a = torch.randn((2048, 2048), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = (torch.randn((2048, 2048), generator=gen, device="cuda")
+         * 2048 ** -0.5).to(torch.bfloat16)
+    clean = ops.matmul(a, b, ctx=ctx)
+    for kind in ("launch", "dma", "numeric"):
+        camp = once(kind, "matmul")
+        with fj.activate(camp):
+            got, log = _decisions(lambda: ops.matmul(a, b, ctx=ctx))
+        camp.verify_accounted()
+        if ([(e.chosen, e.degraded) for e in log] != [("cuda", False)]
+                or camp.summary()["resolutions"] != {"retried": 1}
+                or ops.quarantined() or not torch.equal(got, clean)):
+            fail(f"faults matmul {kind}: {log}, {camp.summary()}, "
+                 f"quarantine {ops.quarantined()}")
+    camp = fj.FaultCampaign(seed=0, rate=1.0, kinds=("launch",),
+                            ops=("matmul",))
+    before = KERNELS["matmul"].launches
+    try:
+        with fj.activate(camp):
+            ops.matmul(a, b, ctx=ctx)
+        fail("faults matmul: a persistent launch fault did not raise")
+    except flt.KernelLaunchError:
+        pass
+    if (camp.draws != ops.MAX_RUNTIME_ATTEMPTS
+            or KERNELS["matmul"].launches != before or ops.quarantined()):
+        fail(f"faults matmul: persistent fault after {camp.draws} attempts")
+    print(json.dumps({"faults_matmul": "2048^3 bf16", "transient":
+                      {"launch": "retried", "dma": "retried",
+                       "numeric": "retried"}, "chosen": "cuda",
+                      "bit_equal": True, "persistent_raises_after":
+                      camp.draws}), flush=True)
+    return rows
+
+
+def kv_difference(old, old_tables, lengths, new, new_tables, bs: int) -> dict:
+    """Every row live across a pool rebuild (a nonzero row of
+    ``old_tables``), its first ``lengths[s]`` positions of K and V in every
+    layer, gathered through its old table from the ``old`` pool and through
+    its new table from the ``new`` one: the largest difference and whether
+    they are bit-equal."""
+    import numpy as np
+
+    worst, equal, rows, positions = 0.0, True, 0, 0
+    for s in range(old_tables.shape[0]):
+        if not old_tables[s].any():
+            continue
+        n = int(lengths[s])
+        nb = -(-n // bs)
+        rows += 1
+        positions += n
+        dev = next(iter(old.values()))["kp"].device
+        ids = [torch.as_tensor(t[s, :nb].astype(np.int64), device=dev)
+               for t in (old_tables, new_tables)]
+        for u in old:
+            for leaf in ("kp", "vp"):
+                a, b = (c[u][leaf][:, i] for c, i in ((old, ids[0]),
+                                                      (new, ids[1])))
+                R, _, KV, _, hd = a.shape
+                a, b = (t.transpose(1, 2).reshape(R, KV, nb * bs, hd)
+                        [:, :, :n] for t in (a, b))
+                worst = max(worst, (a.float() - b.float()).abs().max().item())
+                equal = equal and torch.equal(a, b)
+    return {"rows": rows, "positions": positions, "max_abs_diff": worst,
+            "bit_equal": equal}
+
+
+def rebuild_probed_engine(**kw):
+    """An ``Engine`` whose decode runner measures each pool rebuild
+    (``kv_difference`` of the old pool, which the allocator corruption
+    left intact, against the rebuilt one, at the first step after it, into
+    ``engine.kv_diffs``) and which keeps every prefill's tokens
+    (``engine.prefills``: a re-prefill's run past its request's prompt)."""
+    import numpy as np
+
+    from repro_torch.serving import Engine
+    from repro_torch.serving.graphs import DecodeGraphs
+
+    class Probe(DecodeGraphs):
+        def __init__(self, engine, cache):
+            super().__init__(engine._decode_forward, cache,
+                             engine.batch_size, engine.device)
+            self.engine, self.last, self.pending = engine, None, None
+
+        def load(self, tok, idx, tables=None, width=None):
+            key = super().load(tok, idx, tables, width)
+            if self.pending is not None:
+                old, old_tables, lengths = self.pending
+                self.pending = None
+                diff = kv_difference(old, old_tables, lengths, self.cache,
+                                     tables, self.engine.block_size)
+                if diff["rows"]:  # a rebuild with no live row copies none
+                    self.engine.kv_diffs.append(diff)
+            if tables is not None:
+                self.last = (tables, np.array(idx))
+            return key
+
+        def reset(self, cache):
+            # a rebuild at the top of a round: every live row was active at
+            # the last step, so it has written its index + 1 positions
+            if self.last is not None and self.pending is None:
+                tables, idx = self.last
+                self.pending = (self.cache, tables.copy(), idx + 1)
+            super().reset(cache)
+
+    class ProbedEngine(Engine):
+        def __init__(self, **kw_):
+            super().__init__(**kw_)
+            self.kv_diffs, self.prefills = [], []
+
+        def decode_graphs(self, cache):
+            return Probe(self, cache)
+
+        def _prefill(self, tokens, mask, last):
+            self.prefills.append(np.array(tokens[0, :int(mask.sum())]))
+            return super()._prefill(tokens, mask, last)
+
+    return ProbedEngine(**kw)
+
+
+def serving_fault_checks() -> dict:
+    """Phase 25 (b), the serving campaign (module docstring). Returns the
+    phase's summary."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.resilience import faults as fj
+    from repro_torch.serving import Request
+
+    cfg = get_config(ARCH)
+    master = T.init_params(cfg, seed=SEED, device="cuda")
+    params = T.compute_params(master, cfg)
+    del master
+    _, prompts, _ = serving_prompts(cfg.vocab_size)
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    ref_ctx = ExecutionContext(target=H100, backend="torch")
+    allowance = logit_allowance(cfg.n_layers)
+
+    def serve(paged, camp):
+        eng = rebuild_probed_engine(cfg=cfg, params=params, max_len=512,
+                                    batch_size=4, ctx=ctx, block_size=16,
+                                    paged=paged)
+        reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+        scope = (fj.activate(camp) if camp is not None
+                 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        with ops.record_dispatch() as log, scope:
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        off = [d for d in log if d.degraded or d.chosen != "cuda"]
+        if off or ops.quarantined():
+            fail(f"faults serve: decisions {off[:3]} off cuda or degraded, "
+                 f"quarantine {ops.quarantined()}")
+        return eng, reqs, wall
+
+    def clean_serve(paged, first=None):
+        """A fault-free serve: every request "length" with 32 tokens, and
+        the tokens of ``first`` (an earlier clean serve) bit for bit.
+        Returns the requests and their tok/s."""
+        _, reqs, wall = serve(paged, None)
+        for r, f in zip(reqs, first or reqs):
+            if (r.finish_reason != "length" or len(r.out_tokens) != 32
+                    or not np.array_equal(r.out_tokens, f.out_tokens)):
+                fail(f"faults {name}: a clean request finished "
+                     f"{r.finish_reason!r} with {len(r.out_tokens)} tokens, "
+                     "or not those of the first clean serve")
+        return reqs, sum(len(r.out_tokens) for r in reqs) / wall
+
+    summary = {"sites": set(), "seeds": {}, "kv_diffs": [], "held": 0,
+               "throughput": {}}
+    zero_counts()
+    for name, paged in (("paged", True), ("contiguous", False)):
+        clean, tok_s = clean_serve(paged)
+        # tok/s at rate 0.05: three faulted serves (the same schedule) in
+        # turns with three more clean ones, compared by their medians
+        clean_tok_s, faulted_tok_s, completions = [tok_s], [], []
+        runs = [(0, 0.2), (1, 0.2), (2, 0.2)] + [(0, 0.05)] * 3
+        extra = 3
+        while runs:
+            seed, rate = runs.pop(0)
+            camp = fj.FaultCampaign(seed=seed, rate=rate, kinds=CHAOS_KINDS)
+            eng, reqs, wall = serve(paged, camp)
+            camp.verify_accounted()
+            st = eng.stats
+            rebuilt = {i for i, r in enumerate(reqs) for p in eng.prefills
+                       if len(p) > len(r.prompt)
+                       and np.array_equal(p[:len(r.prompt)], r.prompt)}
+            exact = all(d["bit_equal"] for d in eng.kv_diffs)
+            held = []
+            for i, (c, f) in enumerate(zip(clean, reqs)):
+                if f.finish_reason is None:
+                    fail(f"faults {name} seed {seed}: request {i} never "
+                         "finished")
+                if f.finish_reason == "error":
+                    same = np.array_equal(f.out_tokens,
+                                          c.out_tokens[:len(f.out_tokens)])
+                else:
+                    same = (f.finish_reason == c.finish_reason
+                            and np.array_equal(f.out_tokens, c.out_tokens))
+                if same:
+                    continue
+                if i in rebuilt and not exact:
+                    held.append(f)  # the rebuild's K/V differ: below
+                else:
+                    why = ("live across a rebuild" if i in rebuilt
+                           else "no rebuild")
+                    fail(f"faults {name} seed {seed} rate {rate}: request "
+                         f"{i} ({f.finish_reason}) is not the clean serve's "
+                         f"({why})")
+            if st.replayed_steps <= 0:
+                fail(f"faults {name} seed {seed}: no graph replayed")
+            done = [r for r in reqs if r.finish_reason not in ("error",
+                                                                "timeout")]
+            completion = len(done) / len(reqs)
+            tok_s = sum(len(r.out_tokens) for r in reqs) / wall
+            by_site = {}
+            for inj in camp.injections:
+                key = f"{inj.site}:{inj.kind}:{inj.resolution}"
+                by_site[key] = by_site.get(key, 0) + 1
+                summary["sites"].add(inj.site)
+            row = {"faults_serve": name, "seed": seed, "rate": rate,
+                   **camp.summary(), "by_site": by_site,
+                   "completion": completion, "tok_per_s": tok_s,
+                   "clean_tok_per_s": statistics.median(clean_tok_s),
+                   "tok_s_over_clean": tok_s
+                   / statistics.median(clean_tok_s),
+                   "rebuilds": st.rebuilds, "graph_resets": st.graph_resets,
+                   "captures": len(st.capture_s),
+                   "replayed_steps": st.replayed_steps,
+                   "warmup_steps": st.warmup_steps,
+                   "kv_rebuild_diffs": eng.kv_diffs,
+                   "requests_live_across_a_rebuild": sorted(rebuilt),
+                   "held_to_the_allowance": len(held),
+                   "finish_reasons": [r.finish_reason for r in reqs]}
+            print(json.dumps(row), flush=True)
+            summary["seeds"].setdefault(name, []).append([seed, rate])
+            summary["kv_diffs"] += eng.kv_diffs
+            summary["held"] += len(held)
+            if rate == 0.05:
+                completions.append(completion)
+                faulted_tok_s.append(tok_s)
+                clean_tok_s.append(clean_serve(paged, clean)[1])
+            if held:
+                decode_check(f"faults {name} seed {seed}", held, cfg, params,
+                             ref_ctx, allowance)
+            if (paged and not runs
+                    and not set(FAULT_SITES) <= summary["sites"]):
+                if extra > 20:
+                    fail(f"faults: sites {sorted(summary['sites'])} after "
+                         f"seeds up to {extra - 1}")
+                runs.append((extra, 0.2))  # until every site has injected
+                extra += 1
+            del eng
+        ratio = (statistics.median(faulted_tok_s)
+                 / statistics.median(clean_tok_s))
+        summary["throughput"][name] = row = {
+            "faults_throughput": name, "rate": 0.05,
+            "completion": completions, "clean_tok_per_s": clean_tok_s,
+            "faulted_tok_per_s": faulted_tok_s, "median_ratio": ratio}
+        print(json.dumps(row), flush=True)
+        if min(completions) < COMPLETION_FLOOR or ratio < TOK_S_FLOOR:
+            fail(f"faults {name} at rate 0.05: completion {completions}, "
+                 f"tok/s {faulted_tok_s} against clean {clean_tok_s}")
+        torch.cuda.empty_cache()
+    launched = {n: KERNELS[n].launches for n in ("flash_attention",
+                                                  "paged_decode")}
+    if min(launched.values()) <= 0:
+        fail(f"faults serve: launches {launched}")
+    summary.update(launches=launched, sites=sorted(summary["sites"]))
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+def faults_phase(gen: torch.Generator) -> None:
+    """Phase 25 (module docstring): fault handling at published widths;
+    the launch counters to 0 before each half and read after it."""
+    from repro_torch import ops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.resilience import faults as fj
+
+    HELD.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zero_counts()
+    rows = conv_fault_checks(gen)
+    conv_launches = {n: KERNELS[n].launches for n in ("conv2d", "matmul")}
+    if min(conv_launches.values()) <= 0:
+        fail(f"faults conv: launches {conv_launches}")
+    serve = serving_fault_checks()
+    ops.clear_quarantine()
+    fj.install(None)
+    if set(serve["sites"]) != set(FAULT_SITES):
+        fail(f"faults: sites injected {serve['sites']}, not all of "
+             f"{FAULT_SITES}")
+    print(json.dumps({
+        "faults_phase": "summary",
+        "words_ratios": {r["faults_conv"]: r["words_ratio"] for r in rows},
+        "ms_ratios": {r["faults_conv"]: r["ms_ratio"] for r in rows},
+        "conv_launches": conv_launches, "serve_launches": serve["launches"],
+        "seeds": serve["seeds"], "sites": serve["sites"],
+        "rebuilds_measured": len(serve["kv_diffs"]),
+        "rebuild_max_abs_kv_diff": max((d["max_abs_diff"]
+                                        for d in serve["kv_diffs"]),
+                                       default=None),
+        "rebuilds_bit_equal": all(d["bit_equal"] for d in serve["kv_diffs"]),
+        "requests_held_to_the_allowance": serve["held"],
+        "tok_s_ratio_at_rate_0.05": {n: r["median_ratio"] for n, r in
+                                     serve["throughput"].items()},
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3665,6 +4209,20 @@ def main() -> None:
         main_out="bf16"), opcode="IMMA")
 
     max_err = {name: 0.0 for name in KERNELS}
+
+    # every phase's decisions, checked at its end: an organic fault must
+    # never pass as a demotion (phase 25 alone plants faults)
+    quiet = contextlib.ExitStack()
+    decisions = quiet.enter_context(ops.record_dispatch())
+
+    def no_quiet_degradation(phases: str) -> None:
+        bad = [d for d in decisions if d.degraded]
+        if bad or ops.quarantined():
+            fail(f"phases {phases}: degraded decisions {bad[:3]}, quarantine "
+                 f"{ops.quarantined()}")
+        print(f"phases {phases}: {len(decisions)} dispatch decisions, none "
+              "degraded; the quarantine table is empty", flush=True)
+        decisions.clear()
 
     def record(name, got, want, what):
         err, allowed = rel_err(got, want)
@@ -3789,6 +4347,8 @@ def main() -> None:
     del a, b, got
     torch.cuda.empty_cache()
 
+    no_quiet_degradation("2-3")
+
     # -- 4. the main path ---------------------------------------------------
     backends = ("cuda", "im2col")
     ctxs = {be: ExecutionContext(target=H100, backend=be) for be in backends}
@@ -3871,6 +4431,8 @@ def main() -> None:
                 < rows[(name, "im2col")]["measured_words"]):
             fail(f"{name}: tiled words not below Im2Col words")
 
+    no_quiet_degradation("4")
+
     # -- 5. kernel, plain version, library call, bound ----------------------
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "library_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}}
@@ -3917,48 +4479,66 @@ def main() -> None:
         del x, w, a, bmat
         torch.cuda.empty_cache()
 
+    no_quiet_degradation("5")
+
     # -- 6.-8. the serving path --------------------------------------------
     attn_kernels, serve = serving_phases(gen, record)
+    no_quiet_degradation("6-8")
 
     # -- 9.-12. the int8 paths ----------------------------------------------
     quant_kernels = quant_phases(gen, record, serve)
+    no_quiet_degradation("9-12")
     split = {k: serve[k] for k in ("contiguous", "contiguous_stats")}
     del serve  # phase 23 rebuilds the model from its seed
     torch.cuda.empty_cache()
 
     # -- 13.-15. the hybrid mamba path ---------------------------------------
     conv1d_kernel = hybrid_phases(gen, record)
+    no_quiet_degradation("13-15")
 
     # -- 16. the static audit of every main-path dispatch --------------------
     audited = audit_phase()
     print(f"audit: {audited} dispatches audited, launched and held to their "
           "access plans", flush=True)
+    no_quiet_degradation("16")
 
     # -- 17. autotune on the card --------------------------------------------
     autotune_phase()
+    no_quiet_degradation("17")
 
     # -- 18. the decode steps as CUDA graphs: replay against eager ----------
     graph_phase()
+    no_quiet_degradation("18")
 
     # -- 19. OLMoE-1B-7B, the MoE FFN at published widths --------------------
     moe_phase()
+    no_quiet_degradation("19")
 
     # -- 20. InternVL2-1B's backbone and its stub frontend's embeddings ------
     vlm_phase()
+    no_quiet_degradation("20")
 
     # -- 21. HuBERT-xLarge trained at published widths and full depth --------
     hd80 = hubert_phase()
+    no_quiet_degradation("21")
 
     # -- 22. a causal LM trained through Trainer; checkpoint and resume ------
     lm_train_phase()
+    no_quiet_degradation("22")
 
     # -- 23. the fused (B, KV, L, 2, hd) KV layout ---------------------------
     fused_phase(split)
+    no_quiet_degradation("23")
 
     # -- 24. xLSTM-1.3B served at published widths and full depth -----------
     xlstm_phase()
+    no_quiet_degradation("24")
+    quiet.close()
 
-    # -- 25. summary --------------------------------------------------------
+    # -- 25. fault handling: campaigns at published widths -------------------
+    faults_phase(gen)
+
+    # -- 26. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),

@@ -264,9 +264,9 @@ def run_mutants() -> int:
 
     escaped = 0
     for name, caught, detail in run_seeded_mutants():
-        tag = {True: "caught", False: "ESCAPED", None: "not ported"}[caught]
+        tag = "caught" if caught else "ESCAPED"
         print(f"mutant {name:22s} {tag}: {detail[:100]}")
-        escaped += caught is False
+        escaped += not caught
     return escaped
 
 
@@ -284,7 +284,7 @@ def main(argv=None) -> int:
         if escaped:
             print(f"verify: {escaped} seeded mutant(s) escaped the auditor")
             return 3
-        print("verify: all ported seeded mutants caught")
+        print("verify: all seeded mutants caught")
         return 0
 
     rc = 0

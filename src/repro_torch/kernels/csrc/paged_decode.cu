@@ -17,7 +17,12 @@
 //    [r spc, (r + 1) spc) of the row. S and spc depend on the shapes only
 //    (slots_per_cta, and kernels/flash_attention.py, paged_launch_config,
 //    which computes the same), never on the lengths: the host reads nothing
-//    from the device and the launch can be captured in a CUDA graph.
+//    from the device and the launch can be captured in a CUDA graph. spc
+//    comes from the caller's table capacity `cap` (>= w), not from w, and
+//    S = ceil(w / spc): a row's slots go to the same ranks, and its
+//    partials merge in the same order, at every w <= cap, so its result
+//    does not depend on the table width (the serving engine's follows its
+//    deepest row, so on which other rows share the batch).
 //  * Dead slots are skipped: a CTA loads no table slot that lies wholly at
 //    or past lengths[b] (such a slot weighs exactly 0 once the row has a
 //    live key). A row of length <= 0 walks all w slots, so that it averages
@@ -549,13 +554,14 @@ paged_decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
 // ---------------------------------------------------------------------------
 
 // Table slots a CTA takes: as many CTAs a (row, kv head) as bring the grid
-// to TARGET_CTAS, at most MAX_SPLIT and at most w, then as few CTAs as take
-// the w slots in shares of that size (paged_launch_config computes the same)
-int slots_per_cta(int B, int KV, int w) {
+// to TARGET_CTAS, at most MAX_SPLIT and at most cap, then as few CTAs as
+// take the cap slots of the table capacity in shares of that size
+// (paged_launch_config computes the same)
+int slots_per_cta(int B, int KV, int cap) {
   const long long units = (long long)B * KV;
   const long long want = (TARGET_CTAS + units - 1) / units;
-  const int s = (int)std::min<long long>(std::min(MAX_SPLIT, w), std::max(1LL, want));
-  return (w + s - 1) / s;
+  const int s = (int)std::min<long long>(std::min(MAX_SPLIT, cap), std::max(1LL, want));
+  return (cap + s - 1) / s;
 }
 
 template <typename T, typename K>
@@ -600,14 +606,15 @@ cudaError_t launch_hd(int dtype, int S, int B, const void* q, const void* kp,
 
 // q (B, KV, g, hd), pools (num_blocks, KV, bs, hd), out like q, one dtype
 // (0 = float32: the FMA kernel, 1 = bfloat16: the tensor-core kernel; every
-// pointer on 16 bytes), contiguous; tables int32 (B, w), lengths int32 (B,).
-// Returns the launch's cudaError_t.
+// pointer on 16 bytes), contiguous; tables int32 (B, w), lengths int32 (B,);
+// cap >= w the table capacity the split is taken from. Returns the launch's
+// cudaError_t.
 extern "C" int repro_paged_decode(
     const void* q, const void* kp, const void* vp, const void* tables,
     const void* lengths, void* out, int dtype, int hd, int B, int KV, int g,
-    int bs, int w, float scale, void* stream) {
+    int bs, int w, int cap, float scale, void* stream) {
   if (B <= 0 || B > 65535 || KV <= 0 || KV > 65535 || g <= 0 || g > G_MAX ||
-      bs <= 0 || w <= 0 || (dtype != 0 && dtype != 1))
+      bs <= 0 || w <= 0 || cap < w || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidConfiguration;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kp) |
        reinterpret_cast<uintptr_t>(vp) | reinterpret_cast<uintptr_t>(out)) & 15)
@@ -617,7 +624,7 @@ extern "C" int repro_paged_decode(
   p.g = g;
   p.bs = bs;
   p.w = w;
-  p.spc = slots_per_cta(B, KV, w);
+  p.spc = slots_per_cta(B, KV, cap);
   p.sl2 = scale * LOG2E;
   const int S = (w + p.spc - 1) / p.spc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

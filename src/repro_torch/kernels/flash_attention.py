@@ -71,6 +71,7 @@ PAGED_KERNEL = CudaKernel("paged_decode.cu", "repro_paged_decode", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # tables, lengths, out
     _c.c_int, _c.c_int,                                  # dtype, hd
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, KV, g, bs, w
+    _c.c_int,                                            # capacity
     _c.c_float, _c.c_void_p,                             # scale, stream
 ])
 # the (hd, block) instances compiled into csrc/flash_attention.cu; every H100
@@ -456,14 +457,20 @@ def paged_decode_plain(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 
 def paged_launch_config(B: int, KV: int, g: int, hd: int, bs: int, w: int,
-                        dtype) -> dict:
+                        dtype, capacity: Optional[int] = None) -> dict:
     """The launch of ``csrc/paged_decode.cu`` for B rows of ``w`` table slots
     of ``bs`` keys, KV kv heads of ``g`` query heads and head dim ``hd``,
     from the shapes alone (never the lengths, so the host reads nothing
-    from the device): ``split`` S, the CTAs of a (row, kv head) cluster;
-    ``slots_per_cta``, the table slots each takes in order (as many CTAs as
-    bring the grid to ``PAGED_TARGET_CTAS``, at most ``PAGED_MAX_SPLIT`` and
-    at most w, then as few as take the w slots in shares of that size);
+    from the device): ``slots_per_cta``, the table slots each CTA of a
+    (row, kv head) cluster takes in order, taken from the table
+    ``capacity`` (the widest table the caller's rows can reach; default
+    w): as many CTAs as bring the grid to ``PAGED_TARGET_CTAS``, at most
+    ``PAGED_MAX_SPLIT`` and at most ``capacity``, then as few as take
+    ``capacity`` slots in shares of that size; ``split`` S, the CTAs that
+    take the w slots in those shares. A row's slots then go to the same
+    CTAs, and its partials merge in the same order, at every w up to the
+    capacity: its result does not depend on the table width, so not on
+    which other rows share a batch;
     ``grid`` (S, KV, B) and ``cluster`` (S, 1, 1); ``ctas``; ``kernel``
     (``"tensor core"`` for bf16, ``"fma"`` for f32); ``warps``,
     ``key_tile``, ``slab`` (the keys of a tile one softmax state takes: a
@@ -471,20 +478,22 @@ def paged_launch_config(B: int, KV: int, g: int, hd: int, bs: int, w: int,
     ``smem`` (dynamic shared-memory bytes, as the source computes them:
     the query rows and the ring's K/V rows, padded to hd + 8 bf16 or hd + 4
     f32, and the FMA kernel's scores and softmax state). Raises
-    ValueError for a shape the kernel does not take, TypeError for another
-    dtype."""
+    ValueError for a shape the kernel does not take (a capacity below w
+    among them), TypeError for another dtype."""
+    cap = w if capacity is None else capacity
     if (hd not in PAGED_HEAD_DIMS or not 1 <= g <= PAGED_MAX_GROUP
-            or min(B, KV, bs, w) < 1 or max(B, KV) > 65535):
+            or min(B, KV, bs, w) < 1 or max(B, KV) > 65535 or cap < w):
         raise ValueError(f"paged_decode_attention takes hd in "
                          f"{PAGED_HEAD_DIMS}, 1 to {PAGED_MAX_GROUP} query "
-                         f"heads per kv head and 1 to 65535 rows and kv "
-                         f"heads, got B={B}, KV={KV}, g={g}, hd={hd}, "
-                         f"bs={bs}, w={w}")
+                         f"heads per kv head, 1 to 65535 rows and kv "
+                         f"heads and a table capacity of at least w, got "
+                         f"B={B}, KV={KV}, g={g}, hd={hd}, bs={bs}, w={w}, "
+                         f"capacity={cap}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"paged_decode_attention takes float32 or bfloat16, "
                         f"not {dtype}")
     want = max(1, -(-PAGED_TARGET_CTAS // (B * KV)))
-    spc = -(-w // min(PAGED_MAX_SPLIT, w, want))
+    spc = -(-cap // min(PAGED_MAX_SPLIT, cap, want))
     split = -(-w // spc)
     rows = PAGED_MAX_GROUP + PAGED_RING * 2 * PAGED_KEY_TILE
     if dtype == torch.bfloat16:
@@ -524,9 +533,11 @@ def paged_cta_keys(length: int, w: int, bs: int, split: int,
 
 def paged_decode_tc_emulate(q: torch.Tensor, kp: torch.Tensor,
                             vp: torch.Tensor, tables: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor,
+                            capacity: Optional[int] = None) -> torch.Tensor:
     """``csrc/paged_decode.cu``'s arithmetic in plain PyTorch, for the CPU
-    tests only: the S CTAs of ``paged_launch_config``, each over its live
+    tests only: the S CTAs of ``paged_launch_config`` (at ``capacity``),
+    each over its live
     keys (:func:`paged_cta_keys`) in key tiles, one online softmax in the
     log2 domain a slab (bf16: each warp's 8 keys of a tile, P rounded to
     bf16 before P V, l summed from the f32 probabilities; f32: the whole
@@ -536,7 +547,7 @@ def paged_decode_tc_emulate(q: torch.Tensor, kp: torch.Tensor,
     KV, bs = kp.shape[1], kp.shape[2]
     w = tables.shape[1]
     g = H // KV
-    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype)
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype, capacity)
     tc = cfg["kernel"] == "tensor core"
     kt, slab = cfg["key_tile"], cfg["slab"]
     sl2 = torch.tensor((1.0 / hd ** 0.5) * LOG2E, dtype=torch.float32)
@@ -600,12 +611,17 @@ def paged_decode_attention(
     vp: torch.Tensor,       # (num_blocks, KV, block_size, hd) - value pool
     tables: torch.Tensor,   # (B, w) int32 - physical block ids per sequence
     lengths: torch.Tensor,  # (B,) int32 - valid cache length per sequence
+    capacity: Optional[int] = None,  # the widest table a row can reach
 ) -> torch.Tensor:
     """Decode attention that reads K/V directly out of the paged pool: each
     sequence moves exactly its own ``w * block_size`` cached keys/values
     once, with no repeated GQA heads and no gathered copy. Query heads are
     grouped per kv head (h = kv * g + i). CUDA tensors run the kernel, CPU
-    tensors :func:`paged_decode_plain`."""
+    tensors :func:`paged_decode_plain`. ``capacity`` (default w) sets the
+    split over table slots (:func:`paged_launch_config`): a caller whose
+    table width varies from call to call (the serving engine's follows its
+    deepest row) passes its table capacity, so that a row's result does not
+    depend on the width."""
     B, H, Lq, hd = q.shape
     if Lq != 1:
         raise ValueError(f"paged decode takes one query per row, got Lq={Lq}")
@@ -619,7 +635,7 @@ def paged_decode_attention(
     if H % KV:
         raise ValueError(f"paged_decode_attention: H={H} query heads do not "
                          f"fold over KV={KV} kv heads")
-    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype)
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, q.dtype, capacity)
     q, kp, vp = _aligned(q), _aligned(kp), _aligned(vp)
     dev = q.device
     tables = tables.to(device=dev, dtype=torch.int32).contiguous()
@@ -633,7 +649,8 @@ def paged_decode_attention(
         PAGED_KERNEL.launch(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), dtype_code(q.dtype), hd, B,
-            KV, g, bs, w, 1.0 / hd ** 0.5, stream,
+            KV, g, bs, w, w if capacity is None else capacity,
+            1.0 / hd ** 0.5, stream,
             tensor_core=cfg["kernel"] == "tensor core", grid=cfg["grid"],
             block=(32 * cfg["warps"],), smem=cfg["smem"],
             cluster=cfg["cluster"])
@@ -890,11 +907,12 @@ def paged_decode_access_plan(B: int, KV: int, g: int, w: int,
                              block_size: int, hd: int, num_blocks: int,
                              p_q: float = 1.0, p_kv: float = 1.0,
                              p_o: float = 1.0, tables=None,
-                             op: str = "attention_decode", lengths=None):
+                             op: str = "attention_decode", lengths=None,
+                             capacity: Optional[int] = None):
     """The :class:`repro_torch.verify.access.KernelAccessPlan` of one paged
-    decode launch, as :func:`paged_launch_config` gives it (bf16 when
-    ``p_q`` is 0.5). The walk: the (S, KV, B) grid's CTAs (rank fastest)
-    with each CTA's key tiles innermost. Counted: the query group once a
+    decode launch, as :func:`paged_launch_config` gives it at ``capacity``
+    (bf16 when ``p_q`` is 0.5). The walk: the (S, KV, B) grid's CTAs
+    (rank fastest) with each CTA's key tiles innermost. Counted: the query group once a
     cluster (rank 0 reads it; the others copy it from rank 0's shared
     memory), K and V of the key tiles each rank walks, read through the
     table (a window of the row's logical keys), the output group once a
@@ -912,7 +930,7 @@ def paged_decode_access_plan(B: int, KV: int, g: int, w: int,
                                            ScratchAlloc, WindowAccess)
 
     bs = block_size
-    cfg = paged_launch_config(B, KV, g, hd, bs, w, _dtype_of(p_q))
+    cfg = paged_launch_config(B, KV, g, hd, bs, w, _dtype_of(p_q), capacity)
     S, spc = cfg["split"], cfg["slots_per_cta"]
     if lengths is None:
         live = np.full(B, w, dtype=np.int64)

@@ -161,6 +161,7 @@ def attention_block(
     ctx: Optional[ExecutionContext] = None,
     attn_mask: Optional[torch.Tensor] = None,  # (B, L) True = real token
     block_tables: Optional[torch.Tensor] = None,  # (B, w): paged-pool tables
+    table_capacity: Optional[int] = None,  # the widest w the tables reach
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
     """Returns (out, cache). With a cache, keys/values are written at
     cache_index (in place) and attention runs over the full cache: ``(k,
@@ -175,7 +176,8 @@ def attention_block(
     ``(kp, ks, vp, vs)`` is the int8 pool: the new K/V rows are quantized
     per (row, kv head) over hd (:func:`_quantize_kv_row`), codes and scales
     land together, and the step reads the pool through
-    ``ops.attention_decode_quant``.
+    ``ops.attention_decode_quant``. ``table_capacity`` (not in the
+    reference) goes to ``ops.attention_decode`` as its ``capacity``.
 
     A scalar ``cache_index`` writes all rows at one offset (lockstep prefill)
     and attends with a scalar tensor ``q_offset`` (``dynamic_q_offset``); a
@@ -237,7 +239,8 @@ def attention_block(
         kp[blk, :, off] = k[:, :, 0, :].to(kp.dtype)
         vp[blk, :, off] = v[:, :, 0, :].to(vp.dtype)
         o = ops.attention_decode(q.to(cd), kp, vp, block_tables,
-                                 (pos + 1).to(torch.int32), ctx=ctx)
+                                 (pos + 1).to(torch.int32), ctx=ctx,
+                                 capacity=table_capacity)
         return project_out(o), (kp, vp)
     if cache is not None:
         # the fused layout, one (B, KV, Lmax, 2, hd) leaf: K and V land in

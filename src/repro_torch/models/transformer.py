@@ -289,6 +289,7 @@ def hidden_forward(
     attn_mask: Optional[torch.Tensor] = None,  # (B, L) True = real token
     positions: Optional[torch.Tensor] = None,  # (L,) or (B, L)
     block_tables: Optional[torch.Tensor] = None,  # (B, w) paged tables
+    table_capacity: Optional[int] = None,  # the widest w the tables reach
     decode: bool = False,
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
@@ -299,8 +300,10 @@ def hidden_forward(
     A ``block_tables`` tensor marks ``cache`` as a paged pool
     (``init_paged_cache`` layout): decode-only, one query per row, keys
     read through the table by the paged decode kernel (bf16 pool) or the
-    int8-pool decode (``quantized=True`` pool). ``cache`` is updated
-    in place and returned.
+    int8-pool decode (``quantized=True`` pool); ``table_capacity`` (not in
+    the reference) is the widest table width its rows can reach, which
+    the paged decode kernel takes its split from (``ops.attention_decode``'s
+    ``capacity``). ``cache`` is updated in place and returned.
 
     ``cache_index`` may be a scalar (all rows at one depth: lockstep
     prefill) or a (B,) tensor (each row at its own depth: continuous-batching
@@ -348,7 +351,7 @@ def hidden_forward(
         def run(x_, unit=unit, r=r, choices=choices):
             return _unit_forward(unit, x_, r, cfg, positions, cache,
                                  cache_index, ctx, attn_mask, block_tables,
-                                 decode, n_groups, choices)
+                                 table_capacity, decode, n_groups, choices)
 
         if remat and torch.is_grad_enabled():
             x, a = checkpoint_lib.checkpoint(run, x, use_reentrant=False)
@@ -360,8 +363,9 @@ def hidden_forward(
 
 
 def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
-                  cache_index, ctx, attn_mask, block_tables, decode: bool,
-                  n_groups: int, choices) -> Tuple[torch.Tensor, torch.Tensor]:
+                  cache_index, ctx, attn_mask, block_tables, table_capacity,
+                  decode: bool, n_groups: int,
+                  choices) -> Tuple[torch.Tensor, torch.Tensor]:
     """Repeat r's pattern unit; returns (x, the unit's MoE aux loss).
     ``choices`` holds the unit's MoE blocks' expert choices, in order."""
     cd = dtype_of(cfg.compute_dtype)
@@ -373,7 +377,7 @@ def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
         bc = None if cache is None else cache[f"b{i}"]
         if kind == "attn":
             out = _attention(blk, h, cfg, positions, bc, r, cache_index,
-                             ctx, attn_mask, block_tables)
+                             ctx, attn_mask, block_tables, table_capacity)
         else:
             _, names, _, block, decode_step = _RECURRENT[kind]
             state = None if bc is None else tuple(bc[n][r] for n in names)
@@ -398,7 +402,7 @@ def _unit_forward(unit, x, r: int, cfg: ModelConfig, positions, cache,
 
 
 def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
-               ctx, attn_mask, block_tables) -> torch.Tensor:
+               ctx, attn_mask, block_tables, table_capacity) -> torch.Tensor:
     """One attention block over repeat r's slice of its cache leaves
     (contiguous ``k``/``v`` or fused ``kv``, the paged pool, or the int8
     pool)."""
@@ -412,7 +416,8 @@ def _attention(blk: Block, h, cfg, positions, bc, r: int, cache_index,
     out, _ = attention_block(blk.core, h, cfg, positions,
                              cache=layer_cache, cache_index=cache_index,
                              ctx=ctx, attn_mask=attn_mask,
-                             block_tables=block_tables if paged else None)
+                             block_tables=block_tables if paged else None,
+                             table_capacity=table_capacity)
     return out
 
 
@@ -427,6 +432,7 @@ def forward(
     attn_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,
+    table_capacity: Optional[int] = None,
     decode: bool = False,
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
@@ -436,7 +442,8 @@ def forward(
     x, cache, aux = hidden_forward(
         params, cfg, tokens=tokens, embeds=embeds, cache=cache,
         cache_index=cache_index, ctx=ctx, attn_mask=attn_mask,
-        positions=positions, block_tables=block_tables, decode=decode,
+        positions=positions, block_tables=block_tables,
+        table_capacity=table_capacity, decode=decode,
         n_groups=n_groups, expert_choices=expert_choices, remat=remat)
     logits = lm_logits(params.head, x, dtype_of(cfg.compute_dtype))
     return logits, cache, aux

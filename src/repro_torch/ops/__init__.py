@@ -17,7 +17,10 @@ Backends (``repro_torch.ops.registry``): ``torch`` (aten oracles),
 ``cuda`` (the hand-written kernels) and ``im2col`` (the paper's baseline
 conv). A call a backend cannot serve falls back to ``torch`` only under
 ``device="cpu"``; on the card it raises. ``REPRO_TORCH_BACKEND=torch|cuda|im2col`` selects one
-from the environment.
+from the environment. A runtime ``TransientFault`` quarantines the entry
+and demotes the call (a ``cuda`` conv to ``im2col``; on the card never to
+``torch``), re-priced in its decision (``degraded``/``fault``);
+``REPRO_FAULTS`` or ``resilience.activate`` plant such faults.
 """
 
 from .context import (  # noqa: F401
@@ -28,11 +31,14 @@ from .context import (  # noqa: F401
     env_backend,
 )
 from .dispatch import (  # noqa: F401
+    MAX_RUNTIME_ATTEMPTS,
+    QUARANTINE_PROBE_AFTER,
     DispatchDecision,
     attention,
     attention_decode,
     attention_decode_quant,
     attention_needs,
+    clear_quarantine,
     conv1d_causal,
     conv2d,
     conv2d_q,
@@ -40,8 +46,11 @@ from .dispatch import (  # noqa: F401
     explain,
     matmul,
     matmul_q,
+    quarantined,
     record_dispatch,
     resolve,
+    set_fault_hook,
+    traced,
 )
 from .registry import (  # noqa: F401
     Backend,

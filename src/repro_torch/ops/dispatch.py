@@ -1,7 +1,5 @@
 """The dispatcher: resolve each op call to (ExecutionPlan, backend kernel).
-The counterpart of ``repro.ops.dispatch``, without its runtime-fault layer
-(quarantine, ``degrade_to``, fault injection), which is not ported yet: an
-entry that raises propagates.
+The counterpart of ``repro.ops.dispatch``, with its runtime-fault layer.
 
 ``resolve(op, ctx, ...)`` takes the requested backend's entry when its
 declared capabilities (dtype, and the call features ``needs`` such as
@@ -23,6 +21,28 @@ Observability:
   * ``capture_decisions()``      - the decisions of a CUDA graph's capture,
                                    kept out of those logs; each replay adds
                                    them with ``credit_decisions``.
+
+Runtime-failure fallback (``repro_torch.resilience``): capability
+resolution only proves an entry *claims* to serve the call. When the chosen
+entry actually raises a ``TransientFault`` at execution, ``dispatch_call``
+quarantines the failing ``(op, backend, shape-key)``, re-resolves (an entry
+may name an instrumented ``degrade_to`` backend so the demotion stays
+priced), and retries — the resulting decision records ``degraded=True`` +
+the fault name, with ``measured_words``/``bound_ratio`` re-priced for the
+backend that actually served the call. A quarantined combination is probed
+again after ``QUARANTINE_PROBE_AFTER`` dispatches. ``FatalFault`` and every
+error outside the taxonomy (a CUDA wrapper's failed launch among them)
+propagate. Where the next backend is taken from differs from the reference
+by device: a ``device="cpu"`` context takes the entry's ``degrade_to``, else
+the backend's ``fallback``, as the reference takes ``xla``; a
+``device="cuda"`` context takes ``degrade_to`` or nothing, never aten, and
+with nothing retries in place. The ``REPRO_FAULTS`` env knob installs a
+seeded ``resilience.FaultCampaign`` at the first dispatch.
+
+The reference's fault hook stands down under ``jax.jit`` tracing. The
+port's counterpart is :func:`traced`, a scope the engine's compiled steps
+and the trainer's step run in, and a CUDA graph's capture: there the hook
+makes no draw and no finiteness check; the quarantine still applies.
 """
 
 from __future__ import annotations
@@ -30,12 +50,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import numbers
-from typing import Any, List, Optional, Tuple
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.resilience.errors import TransientFault
+
 from .context import ExecutionContext, default_context
 from .registry import Backend, OpEntry, dtype_name, get_backend
+
+MAX_FALLBACK_DEPTH = 4  # registry misconfiguration guard, not a real limit
+# runtime-fallback executor: per-call bound on demote/retry attempts
+MAX_RUNTIME_ATTEMPTS = 4
+# a quarantined (op, backend, shape-key) is probed again on the Nth dispatch
+QUARANTINE_PROBE_AFTER = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +90,15 @@ class DispatchDecision:
     and every ring schedule is hazard-free; so when this field is set it
     *equals* ``measured_words``. ``audit_report`` keeps the auditor's whole
     report (issued words, the words the counter does not charge, the
-    shortfall), which the reference's decision does not carry."""
+    shortfall), which the reference's decision does not carry.
+
+    ``degraded``/``fault`` record *runtime* demotion: a backend is
+    quarantined after actually raising the named ``TransientFault``
+    (``"KernelLaunchError"``, ``"NumericFault"``, ...), so the call was
+    served by another backend than capabilities alone required —
+    ``measured_words``/``bound_ratio`` are re-priced for the backend that
+    ran, making the communication cost of degradation visible in
+    ``ops.explain``."""
 
     op: str
     requested: str
@@ -73,6 +110,8 @@ class DispatchDecision:
     audited: Optional[float] = None
     audit_report: Optional[Any] = dataclasses.field(default=None,
                                                     compare=False, repr=False)
+    degraded: bool = False
+    fault: Optional[str] = None
 
     @property
     def fell_back(self) -> bool:
@@ -92,7 +131,11 @@ class DispatchDecision:
         return self.measured_words / max(lb, 1.0)
 
     def why(self) -> str:
-        if not self.fell_back:
+        if self.degraded:
+            msg = (f"{self.op}: runtime {self.fault} quarantined the "
+                   f"primary backend; degraded from {self.requested!r} to "
+                   f"{self.chosen!r} (words re-priced)")
+        elif not self.fell_back:
             msg = f"{self.op}: ran on requested backend {self.chosen!r}"
         else:
             msg = (f"{self.op}: {self.requested!r} lacks "
@@ -175,30 +218,150 @@ def _lacks(backend: Backend, op: str, dtype: Optional[str],
     return entry, entry.caps.missing(dtype=dtype, needs=needs)
 
 
+# ---------------------------------------------------------------------------
+# Runtime-failure state: the quarantine table and the fault-injection hook.
+# ---------------------------------------------------------------------------
+
+# (op, backend, shape-key) -> {"fault": taxonomy class name, "probe_in": N}.
+# Populated by dispatch_call when an entry raises a TransientFault; consulted
+# by _resolve_entry so subsequent calls demote past the failing backend.
+# probe_in decrements only on executing dispatches; at zero the entry is
+# removed and the primary backend is probed again.
+_QUARANTINE: Dict[Tuple[str, str, Any], Dict[str, Any]] = {}
+
+_FAULT_HOOK: Optional[Any] = None  # resilience.faults.DispatchFaultHook
+_ENV_FAULTS_CHECKED = False
+_TRACED = 0  # depth of active traced() scopes
+
+
+def set_fault_hook(hook) -> None:
+    """Install/remove the campaign dispatch hook (``resilience.faults``)."""
+    global _FAULT_HOOK
+    _FAULT_HOOK = hook
+
+
+def _ensure_env_faults() -> None:
+    """First-dispatch check of the ``REPRO_FAULTS`` env knob."""
+    global _ENV_FAULTS_CHECKED
+    if _ENV_FAULTS_CHECKED:
+        return
+    _ENV_FAULTS_CHECKED = True
+    if os.environ.get("REPRO_FAULTS"):
+        from repro_torch.resilience.faults import install_env_campaign
+
+        install_env_campaign()
+
+
+def quarantined() -> Dict[Tuple[str, str, Any], Dict[str, Any]]:
+    """A snapshot of the quarantine table (introspection/tests)."""
+    return {k: dict(v) for k, v in _QUARANTINE.items()}
+
+
+def clear_quarantine() -> None:
+    """Forget every runtime quarantine (benchmarks reset between runs)."""
+    _QUARANTINE.clear()
+
+
+@contextlib.contextmanager
+def traced():
+    """The port's counterpart of running under ``jax.jit`` tracing: while
+    active, dispatches run as the reference's do inside a jitted function,
+    the fault hook making no draw and no finiteness check (the quarantine
+    still applies). The engine's compiled steps, the decode graphs and the
+    trainer's step run inside it; a CUDA graph's capture counts as inside
+    it too."""
+    global _TRACED
+    _TRACED += 1
+    try:
+        yield
+    finally:
+        _TRACED -= 1
+
+
+def _is_tracing() -> bool:
+    return _TRACED > 0 or (torch.cuda.is_initialized()
+                           and torch.cuda.is_current_stream_capturing())
+
+
+def _freeze_kw(v):
+    """A hashable, deterministic stand-in for one spec kwarg value; None for
+    ambient objects that don't shape the quarantine."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, tuple):
+        return tuple(_freeze_kw(x) for x in v)
+    if isinstance(v, torch.dtype):
+        return dtype_name(v)
+    return None
+
+
+def _shape_key(needs: Tuple[str, ...], spec_args: Optional[tuple],
+               spec_kw: Optional[dict]):
+    """The quarantine granularity: a kernel that faults on one launch
+    geometry is demoted for that geometry only, not for the whole op."""
+    if spec_args is None:
+        return (needs,)
+    arrs = tuple((tuple(getattr(a, "shape", ())),
+                  dtype_name(a.dtype) if hasattr(a, "dtype") else "")
+                 for a in spec_args)
+    kws = tuple((k, _freeze_kw(v))
+                for k, v in sorted((spec_kw or {}).items()))
+    return (needs, arrs, kws)
+
+
+def _on_card(ctx: ExecutionContext) -> bool:
+    return torch.device(ctx.device).type == "cuda"
+
+
+def _demote_to(entry: OpEntry, backend: Backend,
+               on_card: bool) -> Optional[str]:
+    """The backend a faulting entry demotes to: its ``degrade_to``, else
+    (on the CPU only) its backend's ``fallback``; None = retry in place."""
+    if entry.degrade_to is not None:
+        return entry.degrade_to
+    return None if on_card else backend.fallback
+
+
 def _resolve_entry(op: str, ctx: ExecutionContext, dtype: Optional[str],
-                   needs: Tuple[str, ...]) -> Tuple[OpEntry, DispatchDecision]:
+                   needs: Tuple[str, ...], shape_key: Any = None,
+                   probe: bool = False) -> Tuple[OpEntry, DispatchDecision]:
     requested = ctx.resolved_backend()
-    backend = get_backend(requested)
-    entry, lacks = _lacks(backend, op, dtype, needs)
-    if not lacks:
-        return entry, DispatchDecision(op=op, requested=requested,
-                                       chosen=requested)
-    if torch.device(ctx.device).type == "cuda":
-        raise NotImplementedError(
-            f"{op}: backend {requested!r} lacks {', '.join(lacks)}; on the "
-            f"card no aten op stands in for its kernel")
-    if backend.fallback is not None:
-        entry, more = _lacks(get_backend(backend.fallback), op, dtype,
-                             needs)
-        if not more:
+    on_card = _on_card(ctx)
+    name: Optional[str] = requested
+    missing: Tuple[str, ...] = ()
+    degraded = False
+    fault: Optional[str] = None
+    for _ in range(MAX_FALLBACK_DEPTH):
+        if name is None:
+            break
+        backend = get_backend(name)
+        entry, lacks = _lacks(backend, op, dtype, needs)
+        if not lacks:
+            q = _QUARANTINE.get((op, name, shape_key))
+            if q is not None and probe:
+                q["probe_in"] -= 1
+                if q["probe_in"] <= 0:  # probe the primary again
+                    del _QUARANTINE[(op, name, shape_key)]
+                    q = None
+            nxt = _demote_to(entry, backend, on_card)
+            if q is not None and nxt is not None:
+                missing = missing + (f"fault:{q['fault']}",)
+                degraded, fault = True, q["fault"]
+                name = nxt
+                continue
             return entry, DispatchDecision(op=op, requested=requested,
-                                           chosen=backend.fallback,
-                                           missing=lacks)
-        lacks = lacks + more
+                                           chosen=name, missing=missing,
+                                           degraded=degraded, fault=fault)
+        if on_card:
+            raise NotImplementedError(
+                f"{op}: backend {name!r} lacks {', '.join(lacks)}; on the "
+                f"card no aten op stands in for its kernel")
+        missing = missing + lacks
+        name = backend.fallback
     raise NotImplementedError(
         f"no registered backend can serve op {op!r} (requested "
         f"{requested!r}, dtype={dtype}, call features {needs}; missing: "
-        f"{lacks})")
+        f"{missing})")
 
 
 def _attach_plan_and_words(entry: OpEntry, decision: DispatchDecision,
@@ -259,7 +422,10 @@ def resolve(op: str, ctx: Optional[ExecutionContext] = None,
     """Capability-resolve one call; resolve the entry's plan and measured
     HBM-word counter if it declares them. ``audit=True`` also runs the
     ``repro_torch.verify`` static auditor against the chosen entry's access
-    plan (raising on any mismatch or hazard). Records the decision."""
+    plan (raising on any mismatch or hazard). Quarantine-aware (a runtime-
+    quarantined backend is skipped, the decision marked ``degraded``) but
+    never consumes quarantine probes — only executing dispatches do.
+    Records the decision."""
     entry, decision = _explain_entry(op, ctx, dtype, needs, spec_args,
                                      spec_kw, plan, audit)
     _publish(decision)
@@ -270,7 +436,10 @@ def _explain_entry(op, ctx=None, dtype=None, needs=(), spec_args=None,
                    spec_kw=None, plan=None, audit=False
                    ) -> Tuple[OpEntry, DispatchDecision]:
     ctx = default_context() if ctx is None else ctx
-    entry, decision = _resolve_entry(op, ctx, _dtype(dtype), tuple(needs))
+    needs = tuple(needs)
+    entry, decision = _resolve_entry(
+        op, ctx, _dtype(dtype), needs,
+        shape_key=_shape_key(needs, spec_args, spec_kw))
     decision = _attach_plan_and_words(entry, decision, ctx, spec_args,
                                       spec_kw, plan=plan)
     return entry, _maybe_audit(entry, decision, ctx, spec_args, spec_kw,
@@ -299,17 +468,57 @@ def dispatch_call(op: str, ctx: ExecutionContext, dtype: Optional[str],
                   call_args: Optional[tuple] = None,
                   call_kw: Optional[dict] = None,
                   plan: Optional[Any] = None):
-    """Resolve AND execute one op call. ``plan=`` forces an explicit
-    ExecutionPlan onto the chosen entry. The decision lands in
-    ``record_dispatch`` logs once the entry has returned."""
+    """Resolve AND execute one op call with runtime-failure fallback.
+    ``plan=`` forces an explicit ExecutionPlan onto the chosen entry.
+
+    The public op wrappers funnel through here: resolve (quarantine-aware,
+    consuming probes), price the plan/words, run the entry — through the
+    fault-injection hook when a campaign is active — and on a
+    ``TransientFault`` quarantine the failing ``(op, backend, shape-key)``
+    and re-resolve. An entry with somewhere to demote to (module
+    docstring) demotes; otherwise it retries in place, at most
+    ``MAX_RUNTIME_ATTEMPTS`` executions in all. ``FatalFault`` (and
+    anything not in the taxonomy) propagates. The decision lands in
+    ``record_dispatch`` logs only for the execution that served the
+    call."""
+    _ensure_env_faults()
     spec_kw = spec_kw or {}
     call_args = spec_args if call_args is None else call_args
     call_kw = dict(spec_kw) if call_kw is None else call_kw
-    entry, decision = _explain_entry(op, ctx, dtype, needs, spec_args,
-                                     spec_kw, plan)
-    out = entry.fn(ctx, decision.plan, *call_args, **call_kw)
-    _publish(decision)
-    return out
+    needs = tuple(needs)
+    key = _shape_key(needs, spec_args, spec_kw)
+    on_card = _on_card(ctx)
+    last_fault: Optional[TransientFault] = None
+    for _ in range(MAX_RUNTIME_ATTEMPTS):
+        entry, decision = _resolve_entry(op, ctx, _dtype(dtype), needs,
+                                         shape_key=key, probe=True)
+        decision = _attach_plan_and_words(entry, decision, ctx, spec_args,
+                                          spec_kw, plan=plan)
+
+        def runner(entry=entry, decision=decision):
+            return entry.fn(ctx, decision.plan, *call_args, **call_kw)
+
+        hook = _FAULT_HOOK
+        try:
+            if hook is not None:
+                out = hook.run(op, decision.chosen, runner,
+                               tracing=_is_tracing())
+            else:
+                out = runner()
+        except TransientFault as e:
+            last_fault = e
+            nxt = _demote_to(entry, get_backend(decision.chosen), on_card)
+            inj = getattr(e, "injection", None)
+            if inj is not None and inj.resolution is None:
+                inj.resolution = "degraded" if nxt is not None else "retried"
+            if nxt is not None:
+                _QUARANTINE[(op, decision.chosen, key)] = {
+                    "fault": type(e).__name__,
+                    "probe_in": QUARANTINE_PROBE_AFTER}
+            continue  # re-resolve: demote past the quarantine, or retry
+        _publish(decision)
+        return out
+    raise last_fault
 
 
 # ---------------------------------------------------------------------------
@@ -415,18 +624,26 @@ def attention(q, k, v, causal: bool = True, q_offset=0, key_mask=None,
 
 
 def attention_decode(q, kp, vp, tables, lengths,
-                     ctx: Optional[ExecutionContext] = None):
+                     ctx: Optional[ExecutionContext] = None,
+                     capacity: Optional[int] = None):
     """One paged decode step: ``q`` is (B, H, 1, hd), ``kp``/``vp`` the
     shared (num_blocks, KV, block_size, hd) pools, ``tables`` the (B, w)
     int32 physical-block ids backing each row's logical positions, and
     ``lengths`` the (B,) valid cache lengths (current token included).
 
     The ``cuda`` entry follows the tables inside the kernel (no gathered
-    copy); the ``torch`` entry gathers to a contiguous view first."""
+    copy); the ``torch`` entry gathers to a contiguous view first.
+    ``capacity`` (not in the reference) is the widest table the caller's
+    rows can reach, default w: the kernel takes its split over table slots
+    from it, so that a row's result does not depend on w
+    (``kernels.flash_attention.paged_launch_config``); the words charged
+    do not depend on it."""
     ctx = default_context() if ctx is None else ctx
     _check_device("attention_decode", ctx, q, kp, vp)
     return dispatch_call("attention_decode", ctx, q.dtype, (),
-                         (q, kp, vp, tables, lengths))
+                         (q, kp, vp, tables, lengths),
+                         spec_kw=(None if capacity is None
+                                  else {"capacity": capacity}))
 
 
 def attention_decode_quant(q, kp, ks, vp, vs, tables, lengths,

@@ -122,6 +122,11 @@ class OpEntry:
     # must reproduce words_fn exactly. None = not statically auditable (the
     # aten entries).
     access_plan_fn: Optional[Callable] = None
+    # runtime-fault demotion target (repro_torch.ops.dispatch): the backend
+    # a TransientFault from this entry degrades the call to, ahead of the
+    # backend's CPU-only fallback; the one way off a kernel on the card.
+    # None = the fallback on the CPU, a retry in place on the card.
+    degrade_to: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,10 +233,12 @@ def _torch_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
                            key_mask=key_mask)
 
 
-def _torch_attention_decode(ctx, plan, q, kp, vp, tables, lengths):
+def _torch_attention_decode(ctx, plan, q, kp, vp, tables, lengths,
+                            capacity=None):
     """The counterpart of ``xla_attention_decode``: gather each row's blocks
     (a copy of the live cache) and attend in f32; the paged kernel's plain
-    version computes exactly that."""
+    version computes exactly that (``capacity`` shapes only the kernel's
+    split)."""
     return paged_decode_plain(q, kp, vp, tables, lengths)
 
 
@@ -449,12 +456,14 @@ def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
         q, k, v)
 
 
-def _cuda_attention_decode(ctx, plan, q, kp, vp, tables, lengths):
-    """Paged decode on the block-table-walking kernel; backward recomputes
-    through the gathered aten version."""
+def _cuda_attention_decode(ctx, plan, q, kp, vp, tables, lengths,
+                           capacity=None):
+    """Paged decode on the block-table-walking kernel, its split over the
+    table ``capacity``; backward recomputes through the gathered aten
+    version."""
     return _with_aten_grad(
         lambda q_, kp_, vp_: paged_decode_attention(q_, kp_, vp_, tables,
-                                                    lengths),
+                                                    lengths, capacity),
         lambda q_, kp_, vp_: paged_decode_plain(q_, kp_, vp_, tables,
                                                 lengths), q, kp, vp)
 
@@ -553,7 +562,7 @@ def _host_ints(t):
 
 
 def _cuda_attention_decode_access(ctx, plan, q, kp, vp, tables, lengths,
-                                  **kw):
+                                  capacity=None, **kw):
     # concrete lengths and tables when the call has them (the kernel skips
     # dead slots); meta tensors model every slot live
     B, H, _, hd = q.shape
@@ -563,7 +572,7 @@ def _cuda_attention_decode_access(ctx, plan, q, kp, vp, tables, lengths,
     return paged_decode_access_plan(
         B, KV, H // KV, tables.shape[1], bs, hd, num_blocks=kp.shape[0],
         p_q=p_io, p_kv=p_kv, p_o=p_io, tables=_host_ints(tables),
-        lengths=_host_ints(lengths))
+        lengths=_host_ints(lengths), capacity=capacity)
 
 
 def _cuda_conv2d_q_access(ctx, plan, x, w, scale=None, stride=(1, 1),
@@ -585,9 +594,13 @@ register_backend(Backend(
         "matmul": OpEntry(_cuda_matmul, spec_fn=_matmul_plan_spec,
                           words_fn=_cuda_matmul_words,
                           access_plan_fn=_cuda_matmul_access),
+        # runtime faults demote to the instrumented Im2Col baseline (not
+        # to aten, which the card never falls back to) so the 2.5-4.0x
+        # words cost of degradation stays measured
         "conv2d": OpEntry(_cuda_conv2d, spec_fn=_conv2d_plan_spec,
                           words_fn=_cuda_conv2d_words,
-                          access_plan_fn=_cuda_conv2d_access),
+                          access_plan_fn=_cuda_conv2d_access,
+                          degrade_to="im2col"),
         "conv1d_causal": OpEntry(_cuda_conv1d, words_fn=_cuda_conv1d_words,
                                  access_plan_fn=_cuda_conv1d_access),
         "attention": OpEntry(

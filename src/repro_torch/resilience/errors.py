@@ -1,14 +1,13 @@
 """Structured runtime-failure taxonomy for dispatch, serving, and the mesh
-(a copy of ``repro.resilience.errors``; the fault-injection campaigns of
-``repro.resilience.faults`` are not ported yet).
+(a copy of ``repro.resilience.errors``).
 
 Every runtime failure in the execution stack is either **transient** (retry
 or demote to a cheaper backend and keep serving) or **fatal** (no amount of
 retrying helps; surface it). The split is the contract the graceful-
 degradation machinery is built on:
 
-  * the reference's ``repro.ops.dispatch`` catches :class:`TransientFault`
-    from a kernel entry, quarantines the failing ``(op, backend, shape-key)``, and
+  * ``repro_torch.ops.dispatch`` catches :class:`TransientFault` from a
+    kernel entry, quarantines the failing ``(op, backend, shape-key)``, and
     re-dispatches down the fallback chain with the degradation re-priced
     (``DispatchDecision.degraded``/``fault``);
   * ``serving.Engine`` catches transients at admission/decode and converts
@@ -21,7 +20,7 @@ that catch ``RuntimeError`` keep working; ``serving.kv.BlockOOM`` is
 reclassified as a :class:`TransientFault` subclass for the same reason.
 
 Faults carry structured context: ``op``/``backend`` name the failing
-dispatch, ``injection`` points at the :class:`repro.resilience.faults.
+dispatch, ``injection`` points at the :class:`repro_torch.resilience.faults.
 Injection` record when a campaign planted the fault (None for organic
 failures), and free-form keyword ``diagnostics`` (pool occupancy, shape
 keys, deadlines) ride along for the operator instead of being baked into

@@ -31,17 +31,33 @@ The reference compiles its steps with ``jax.jit``; the port replays each
 decode step as a CUDA graph (``serving.graphs``: after one eager warm-up
 step, one graph per table width of a paged pool, one for a contiguous
 cache), its inputs copied into static buffers, and runs prefill, insert and
-sampling eagerly. Its resilience behaviour is kept where it needs
-no fault-injection campaign: bounded admission retries around a non-finite
-prefill, the NaN-row guard with idempotent decode retries, the
-``kv.check()`` pool rebuild from host-side request state, per-request
-deadlines and the stall backstop. The campaign sites wait for
-``resilience.faults`` (ROADMAP queue 1, item 11).
+sampling eagerly. Those steps run inside ``ops.traced()``, the port's
+counterpart of the reference's jitted steps: a fault campaign's dispatch
+hook makes no draw there, so a campaign draws at the engine's sites alone,
+in the reference's order, and gives the reference's schedule.
+
+Graceful degradation (``repro_torch.resilience``), as the reference's:
+transient faults at the host scheduling sites never poison the lockstep
+batch. Admission-time faults retry with bounded backoff and then fail only
+the one request (``finish_reason="error"``); a NaN-logit guard in the
+sample step fails only the affected rows after idempotent decode retries
+(a retry replays the step's graph on the same buffers, which rewrites the
+same cache positions with the same values); an injected pool starvation
+rides the normal backpressure path; a ``kv.check()`` integrity fault
+triggers a full pool rebuild from host-side request state (prompts +
+accepted tokens, re-prefilled; the decode graphs, which wrote the old
+pool, are dropped and captured again). Per-request ``deadline_s`` adds
+``finish_reason="timeout"``. The active
+:func:`repro_torch.resilience.faults.active_campaign`, read when ``serve``
+starts, is consulted at the ``admit/*``, ``decode/*`` and ``finish/*``
+sites, and the pool is checked every round while one is active (every 256
+rounds otherwise).
 
 ``stats`` holds the last ``serve``'s host-clock times: each admission's
 prefill (prefill, cache landing and first token) and each decode step, both
-ending in a device read of the sampled tokens; and how its decode steps
-ran: warm-up steps, replays, graphs and their capture seconds.
+ending in a device read of the sampled tokens; how its decode steps ran:
+warm-up steps, replays, graphs and their capture seconds; and its pool
+rebuilds and the graph resets they made.
 """
 
 from __future__ import annotations
@@ -57,9 +73,10 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import _quantize_kv_row
 from repro_torch.models.config import ModelConfig
-from repro_torch.ops import ExecutionContext
+from repro_torch.ops import ExecutionContext, traced
 from repro_torch.plan import H100, HardwareTarget
 from repro_torch.resilience import errors as flt
+from repro_torch.resilience import faults as fj
 
 from . import kv
 from .graphs import DecodeGraphs
@@ -110,8 +127,9 @@ class ServeStats:
     prefill and per lockstep decode step (a capture's seconds are in its
     step's). How the decode steps ran (``serving.graphs``): eager warm-up
     steps and graph replays on the card, eager steps on the CPU, the
-    graphs captured (their keys: table widths, or None) and each capture's
-    host seconds."""
+    graphs captured since the last pool rebuild (their keys: table widths,
+    or None) and each capture's host seconds; the pool rebuilds and the
+    graph resets (one a rebuild)."""
 
     prefill_s: List[float] = dataclasses.field(default_factory=list)
     decode_s: List[float] = dataclasses.field(default_factory=list)
@@ -120,6 +138,8 @@ class ServeStats:
     eager_steps: int = 0
     graphs: List[Optional[int]] = dataclasses.field(default_factory=list)
     capture_s: List[float] = dataclasses.field(default_factory=list)
+    rebuilds: int = 0
+    graph_resets: int = 0
 
 
 def plan_batch_size(cfg: ModelConfig, max_len: int, target: HardwareTarget,
@@ -248,23 +268,32 @@ class Engine:
         bucket-padded with the pad tail masked out; returns the f32 logits
         of the real last token (1, V) and the cache row."""
         cache = T.init_cache(self.cfg, 1, self.max_len, device=self.device)
-        x, cache, _ = T.hidden_forward(
-            self.params, self.cfg,
-            tokens=torch.as_tensor(tokens, device=self.device),
-            cache=cache, cache_index=0,
-            attn_mask=torch.as_tensor(mask, device=self.device), ctx=self.ctx)
-        logits = T.lm_logits(self.params.head, x[:, last],
-                             getattr(torch, self.cfg.compute_dtype))
+        with traced():
+            x, cache, _ = T.hidden_forward(
+                self.params, self.cfg,
+                tokens=torch.as_tensor(tokens, device=self.device),
+                cache=cache, cache_index=0,
+                attn_mask=torch.as_tensor(mask, device=self.device),
+                ctx=self.ctx)
+            logits = T.lm_logits(self.params.head, x[:, last],
+                                 getattr(torch, self.cfg.compute_dtype))
         return logits, cache
 
     def _decode_forward(self, tok: torch.Tensor, idx: torch.Tensor,
                         tables: Optional[torch.Tensor], cache):
         """The lockstep decode step over the pool (``serving.graphs``'
         step function): one token a row, written at ``idx``, through the
-        block ``tables`` of a paged pool; the f32 logits (B, V)."""
-        logits, _, _ = T.forward(
-            self.params, self.cfg, tokens=tok, cache=cache, cache_index=idx,
-            ctx=self.ctx, block_tables=tables, decode=True)
+        block ``tables`` of a paged pool; the f32 logits (B, V). The
+        tables' width follows the deepest row, so the paged decode kernel
+        takes its split from the table capacity, ``max_len`` over the
+        block size: a row's logits do not depend on which rows share the
+        batch."""
+        cap = None if tables is None else -(-self.max_len // self.block_size)
+        with traced():
+            logits, _, _ = T.forward(
+                self.params, self.cfg, tokens=tok, cache=cache,
+                cache_index=idx, ctx=self.ctx, block_tables=tables,
+                table_capacity=cap, decode=True)
         return logits[:, -1]
 
     def decode_graphs(self, cache) -> DecodeGraphs:
@@ -282,19 +311,21 @@ class Engine:
         bs = self.block_size
         nt = len(blocks)
         ids = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
-        for u, leaves in pool.items():
-            for src, dst, sdst in (("k", "kp", "ks"), ("v", "vp", "vs")):
-                r = row[u][src]  # (R, 1, KV, max_len, hd)
-                R, _, KV, L, hd = r.shape
-                rb = r[:, 0, :, :min(nt * bs, L)]
-                if nt * bs > L:  # max_len below a whole block: zero-pad
-                    rb = torch.nn.functional.pad(rb, (0, 0, 0, nt * bs - L))
-                rb = rb.reshape(R, KV, nt, bs, hd).transpose(1, 2)
-                if self.kv_quant:
-                    leaves[dst][:, ids], leaves[sdst][:, ids] = \
-                        _quantize_kv_row(rb)
-                else:
-                    leaves[dst][:, ids] = rb.to(leaves[dst].dtype)
+        with traced():
+            for u, leaves in pool.items():
+                for src, dst, sdst in (("k", "kp", "ks"), ("v", "vp", "vs")):
+                    r = row[u][src]  # (R, 1, KV, max_len, hd)
+                    R, _, KV, L, hd = r.shape
+                    rb = r[:, 0, :, :min(nt * bs, L)]
+                    if nt * bs > L:  # max_len below a whole block: zero-pad
+                        rb = torch.nn.functional.pad(rb,
+                                                     (0, 0, 0, nt * bs - L))
+                    rb = rb.reshape(R, KV, nt, bs, hd).transpose(1, 2)
+                    if self.kv_quant:
+                        leaves[dst][:, ids], leaves[sdst][:, ids] = \
+                            _quantize_kv_row(rb)
+                    else:
+                        leaves[dst][:, ids] = rb.to(leaves[dst].dtype)
 
     def _sample(self, logits: torch.Tensor, seeds: np.ndarray,
                 steps: np.ndarray, temps: np.ndarray):
@@ -302,16 +333,18 @@ class Engine:
         from a generator seeded by (engine seed, seeds[i], steps[i]). Also
         returns the per-row non-finite flag (the numeric guard); flagged rows
         sample from zeroed logits and are never recorded."""
-        bad = ~torch.isfinite(logits).all(dim=-1)
-        safe = torch.where(bad[:, None], torch.zeros_like(logits), logits)
-        toks = safe.argmax(dim=-1)
-        for i in np.flatnonzero(temps > 0.0):
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(_sample_seed(self.seed, int(seeds[i]),
-                                         int(steps[i])))
-            probs = torch.softmax(safe[i] / max(float(temps[i]), 1e-6), -1)
-            toks[i] = torch.multinomial(probs, 1, generator=gen)[0]
-        return toks.cpu().numpy().astype(np.int32), bad.cpu().numpy()
+        with traced():
+            bad = ~torch.isfinite(logits).all(dim=-1)
+            safe = torch.where(bad[:, None], torch.zeros_like(logits), logits)
+            toks = safe.argmax(dim=-1)
+            for i in np.flatnonzero(temps > 0.0):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(_sample_seed(self.seed, int(seeds[i]),
+                                             int(steps[i])))
+                probs = torch.softmax(safe[i] / max(float(temps[i]), 1e-6),
+                                      -1)
+                toks[i] = torch.multinomial(probs, 1, generator=gen)[0]
+            return toks.cpu().numpy().astype(np.int32), bad.cpu().numpy()
 
     # -- scheduling policy ----------------------------------------------------
     def _admission_open(self, slots: List[Optional[_Slot]]) -> bool:
@@ -335,6 +368,7 @@ class Engine:
                 raise ValueError("rng_seed must fit in int32")
             if r.deadline_s is not None and r.deadline_s <= 0:
                 raise ValueError("deadline_s must be positive")
+        camp = fj.active_campaign()
         self.stats = stats = ServeStats()
         queue: Deque[Tuple[int, Request]] = collections.deque(
             enumerate(requests))
@@ -359,7 +393,7 @@ class Engine:
 
         def finish(s: int, reason: str) -> None:
             """Close slot s with ``reason``, keeping its generated tokens,
-            and release its blocks."""
+            and release its blocks (the ``finish/*`` campaign site)."""
             slot = slots[s]
             r = slot.request
             r.out_tokens = np.asarray(slot.generated, np.int32)
@@ -367,6 +401,10 @@ class Engine:
             slots[s] = None
             tok[s], temps[s] = 0, 0.0  # dead row decodes greedily into void
             if self.paged:
+                if camp is not None:
+                    inj = camp.draw("finish/pool", kinds=("pool",))
+                    if inj is not None:  # repaired at the next check/rebuild
+                        camp.corrupt_allocator(alloc, inj)
                 for bid in slot_blocks[s]:
                     alloc.free(bid)  # shared prefixes -> refcount decrements
                 slot_blocks[s] = []
@@ -430,6 +468,7 @@ class Engine:
             every live slot re-reserves its block budget (prefix sharing
             intact, in slot order) and re-prefills exactly the tokens already
             written to the cache (``prompt + generated[:pos - plen]``)."""
+            stats.rebuilds += 1
             new_alloc = kv.BlockAllocator(self.num_blocks)
             new_cache = T.init_paged_cache(self.cfg, self.num_blocks, bs,
                                            quantized=self.kv_quant,
@@ -469,17 +508,41 @@ class Engine:
 
         def admit_prefill(prompt: np.ndarray):
             """Batch-1 prefill with bounded retry-with-backoff around the
-            finite-logits guard. Returns ``(logits, cache_row)``, or None
-            once ``admission_retries`` retries are exhausted — the caller
-            then fails that one request, nobody else."""
+            transient-fault sites (``admit/launch`` raises, ``admit/numeric``
+            poisons a copy of the logits, plus the always-on finite-logits
+            guard). Returns ``(logits, cache_row)``, or None once
+            ``admission_retries`` retries are exhausted — the caller then
+            fails that one request, nobody else."""
             tokens, mask = bucket_inputs(prompt)
             for attempt in range(self.admission_retries + 1):
-                logits1, row = self._prefill(tokens, mask, len(prompt) - 1)
-                if bool(torch.isfinite(logits1).all()):
-                    return logits1, row
-                if attempt < self.admission_retries:
-                    time.sleep(min(self.retry_backoff_s * (2 ** attempt),
-                                   0.05))
+                num_inj = None
+                try:
+                    if camp is not None:
+                        inj = camp.draw("admit/launch",
+                                        kinds=("launch", "dma"), op="prefill")
+                        if inj is not None:
+                            raise camp.fault_for(inj, op="prefill",
+                                                 backend=self.ctx.backend)
+                    logits1, row = self._prefill(tokens, mask,
+                                                 len(prompt) - 1)
+                    if camp is not None:
+                        num_inj = camp.draw("admit/numeric",
+                                            kinds=("numeric",), op="prefill")
+                        if num_inj is not None:
+                            logits1 = camp.corrupt_output(logits1, num_inj)
+                    if not bool(torch.isfinite(logits1).all()):
+                        raise flt.NumericFault("non-finite prefill logits",
+                                               op="prefill",
+                                               injection=num_inj)
+                except flt.TransientFault as e:
+                    last = attempt == self.admission_retries
+                    if camp is not None:
+                        camp.resolve(e, "row_failed" if last else "retried")
+                    if not last:
+                        time.sleep(min(self.retry_backoff_s * (2 ** attempt),
+                                       0.05))
+                    continue
+                return logits1, row
             return None
 
         rounds = 0
@@ -494,13 +557,20 @@ class Engine:
                         and slot.request.deadline_s is not None
                         and now - slot.t0 >= slot.request.deadline_s):
                     finish(s, "timeout")
-            # -- pool integrity, periodically: a tripped invariant rebuilds
-            # pool + allocator from host state
-            if self.paged and rounds % 256 == 0:
+            # -- pool integrity: check every round under a campaign (finish
+            # may have just corrupted the allocator), periodically otherwise;
+            # a tripped invariant rebuilds pool + allocator from host state
+            if self.paged and (camp is not None or rounds % 256 == 0):
+                if camp is not None:
+                    inj = camp.draw("decode/pool", kinds=("pool",))
+                    if inj is not None:
+                        camp.corrupt_allocator(alloc, inj)
                 try:
                     alloc.check()
                 except flt.PoolIntegrityFault:
                     alloc, cache = rebuild_pool()
+                    if camp is not None:
+                        camp.resolve_kind("pool", "rebuilt")
             # -- admission: prefill queued requests into freed slots --------
             admitted = 0
             if queue and self._admission_open(slots):
@@ -513,6 +583,13 @@ class Engine:
                     # cache write at plen + k - 2 <= max_len - 1
                     budget = min(r.max_new_tokens, self.max_len - plen + 1)
                     if self.paged:
+                        if camp is not None:
+                            inj = camp.draw("admit/oom", kinds=("oom",))
+                            if inj is not None:
+                                # injected pool starvation rides the normal
+                                # backpressure path: the request just waits
+                                camp.resolve(inj, "backpressure")
+                                break
                         blocks = reserve(r, budget)
                         if blocks is None:
                             if not any(x is not None for x in slots):
@@ -522,6 +599,8 @@ class Engine:
                                     # a corrupted allocator can fake
                                     # exhaustion: repair, retry next round
                                     alloc, cache = rebuild_pool()
+                                    if camp is not None:
+                                        camp.resolve_kind("pool", "rebuilt")
                                     break
                                 raise flt.AdmissionImpossible(
                                     f"paged KV pool of {self.num_blocks} "
@@ -606,11 +685,22 @@ class Engine:
                 key = steps_run.load(tok, idx)
             for attempt in range(self.numeric_retries + 1):
                 logits = steps_run.run(key)
+                num_inj = None
+                if camp is not None:
+                    num_inj = camp.draw("decode/numeric",
+                                        kinds=("numeric",), op="decode")
+                    if num_inj is not None:  # a poisoned copy of the logits
+                        logits = camp.corrupt_rows(logits, active, num_inj)
                 nxt, bad = self._sample(logits, seeds, steps, temps)
                 bad_rows = [s for s in active if bad[s]]
                 if not bad_rows:
+                    if camp is not None and num_inj is not None:
+                        camp.resolve(num_inj, "retried")  # unreachable guard
                     break
-                if attempt == self.numeric_retries:
+                last = attempt == self.numeric_retries
+                if camp is not None and num_inj is not None:
+                    camp.resolve(num_inj, "row_failed" if last else "retried")
+                if last:
                     # persistent NaN on these rows: fail them alone, keep
                     # their generated-so-far tokens, never record this step
                     for s in bad_rows:
@@ -623,11 +713,17 @@ class Engine:
                 pos[s] += 1
                 record(s, int(nxt[s]))
             stats.decode_s.append(time.perf_counter() - t0)
+        if camp is not None:
+            # the pool dies with the loop: any still-latent corruption from a
+            # last-round finish is discarded wholesale — the degenerate
+            # rebuild — so the accounting never shows a swallowed fault
+            camp.resolve_kind("pool", "rebuilt")
         stats.warmup_steps = steps_run.warmups
         stats.replayed_steps = steps_run.replays
         stats.eager_steps = steps_run.eager_steps
         stats.graphs = steps_run.graphs
         stats.capture_s = list(steps_run.capture_s)
+        stats.graph_resets = steps_run.resets
         return requests
 
 

@@ -31,7 +31,12 @@ sampled tokens is the one device read a step makes.
 On the CPU (``device="cpu"``, the tests) CUDA graphs do not exist: the same
 runner calls the step eagerly on the same static buffers, so a stale table
 or index is wrong there too. Nothing turns the graphs off on the card, as
-nothing turns off the reference's ``jit``.
+nothing turns off the reference's ``jit``, not even a fault campaign: the
+step runs inside ``ops.dispatch.traced()`` (warm-up, capture and the CPU's
+eager steps; a replay dispatches nothing), where the campaign's dispatch
+hook stands down as the reference's does under ``jit``, so no fault is ever
+captured into a graph. A pool rebuild drops the graphs (:meth:`reset`) and
+the next steps capture again.
 """
 
 from __future__ import annotations
@@ -68,8 +73,9 @@ class DecodeGraphs:
 
     Counters: ``warmups`` (eager warm-up steps on the card), ``replays``,
     ``eager_steps`` (steps run eagerly on the CPU), ``capture_s`` (host
-    seconds of each capture) and ``graphs`` (the captured keys: table
-    widths, or None for a contiguous cache)."""
+    seconds of each capture), ``graphs`` (the captured keys: table widths,
+    or None for a contiguous cache; since the last reset) and ``resets``
+    (:meth:`reset` calls)."""
 
     def __init__(self, forward: StepForward, cache, batch_size: int,
                  device):
@@ -91,6 +97,7 @@ class DecodeGraphs:
         self.warmups = 0
         self.replays = 0
         self.eager_steps = 0
+        self.resets = 0
         self.capture_s: List[float] = []
 
     @property
@@ -129,15 +136,21 @@ class DecodeGraphs:
 
     def reset(self, cache) -> None:
         """A new cache (the pool rebuilt): the graphs, which write the old
-        one, are dropped, and the next steps capture again."""
+        one, are dropped, and the next steps capture again, into a fresh
+        memory pool: dropping a pool's last graph releases the pool, and a
+        capture into a released pool fails."""
         self.cache = cache
         self._graphs.clear()
+        if self.on_card:
+            self._pool = torch.cuda.graph_pool_handle()
         self.tables_changed()
+        self.resets += 1
 
     # -- steps ----------------------------------------------------------------
     def _forward(self, key: Optional[int]) -> torch.Tensor:
         tables = None if key is None else self.tables[key]
-        return self.forward(self.tok, self.idx, tables, self.cache)
+        with dispatch.traced():
+            return self.forward(self.tok, self.idx, tables, self.cache)
 
     @contextlib.contextmanager
     def _on_stream(self):

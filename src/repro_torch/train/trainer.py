@@ -39,7 +39,7 @@ from repro_torch.convert import (named_from_tree, transformer_from_jax,
 from repro_torch.data.pipeline import DataConfig, make_source
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.ops import ExecutionContext, default_context
+from repro_torch.ops import ExecutionContext, default_context, traced
 
 from . import checkpoint as ckpt
 from .optimizer import AdamWConfig, AdamWState, apply_updates, init_state
@@ -109,7 +109,9 @@ def make_train_step(
     ``batch`` a dict of tensors on the parameters' device; ``metrics``
     ``loss`` (the total, with the MoE aux term; a device scalar),
     ``grad_norm`` and ``lr``. Microbatching splits the batch's leading dim
-    and averages the gradients."""
+    and averages the gradients. The step runs inside ``ops.traced()``, as
+    the reference jits it: a fault campaign's dispatch hook stands down
+    there."""
 
     def loss_for(params, batch):
         return T.loss_fn(params, model_cfg, batch,
@@ -120,6 +122,10 @@ def make_train_step(
                          loss_chunks=train_cfg.loss_chunks)
 
     def train_step(params, opt_state: AdamWState, batch):
+        with traced():
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state: AdamWState, batch):
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None

@@ -20,19 +20,19 @@ metadata and asserts the static checks catch it:
   * ``cluster_sync_dropped`` removes paged decode's second
     ``cluster.sync``: rank 0 reads the other CTAs' partials before they
     are fenced (H7).
-  * ``fault_swallowed``   (not ported) a handler that eats an injected
-    fault; it needs ``resilience/faults.py``, which the port does not have
-    yet, so it is reported as not ported, never as caught.
+  * ``fault_swallowed``   a handler that catches an injected
+    ``NumericFault`` and stamps no resolution; the campaign's accounting
+    (``FaultCampaign.unresolved``) must report it.
 
 ``run_seeded_mutants()`` returns ``(name, caught, detail)`` triples;
-``scripts/verify_torch.py --mutants`` fails unless every ported mutant is
+``scripts/verify_torch.py --mutants`` fails unless every mutant is
 caught.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -40,7 +40,6 @@ from . import audit as _audit
 from . import hazards as hz
 from .access import KernelAccessPlan, WindowAccess
 
-NOT_PORTED = "not ported"
 
 
 def _meta(shape, dtype):
@@ -172,20 +171,41 @@ def cluster_sync_dropped() -> Tuple[bool, str]:
     return caught, "; ".join(str(h) for h in found[:2]) or "not detected"
 
 
-MUTANTS: Tuple[Tuple[str, Optional[Callable[[], Tuple[bool, str]]]], ...] = (
+def fault_swallowed() -> Tuple[bool, str]:
+    """A fault handler that catches an injected NumericFault and silently
+    swallows it — the recovery bug the resolution accounting exists for.
+    Every legitimate handler stamps ``Injection.resolution`` (retried /
+    row_failed / degraded / ...); this one stamps nothing, so the campaign
+    must report the injection as unresolved."""
+    from repro_torch.resilience.errors import NumericFault
+    from repro_torch.resilience.faults import FaultCampaign
+
+    camp = FaultCampaign(seed=0, rate=1.0, kinds=("numeric",), max_faults=1)
+    inj = camp.draw("dispatch/conv2d", op="conv2d")
+    if inj is None:
+        return False, "a rate-1.0 campaign failed to inject"
+    try:
+        raise camp.fault_for(inj, op="conv2d", backend="cuda")
+    except NumericFault:
+        pass  # the mutant: no resolve(), no retry, no row failure
+    leaks = camp.unresolved()
+    caught = bool(leaks)
+    return caught, (f"{len(leaks)} unresolved injection(s): "
+                    f"{leaks[0].kind} at {leaks[0].site}" if caught
+                    else "not detected")
+
+
+MUTANTS: Tuple[Tuple[str, Callable[[], Tuple[bool, str]]], ...] = (
     ("halo_off_by_one", halo_off_by_one),
     ("dropped_dma_wait", dropped_dma_wait),
     ("same_slot_prefetch", same_slot_prefetch),
     ("scale_applied_twice", scale_applied_twice),
     ("ring_barrier_dropped", ring_barrier_dropped),
     ("cluster_sync_dropped", cluster_sync_dropped),
-    # needs repro_torch.resilience.faults (ROADMAP queue 1, item 11)
-    ("fault_swallowed", None),
+    ("fault_swallowed", fault_swallowed),
 )
 
 
-def run_seeded_mutants() -> List[Tuple[str, Optional[bool], str]]:
-    """``(name, caught, detail)`` per mutant; ``caught`` is None for a
-    mutant that is not ported."""
-    return [(name, None, NOT_PORTED) if fn is None else (name, *fn())
-            for name, fn in MUTANTS]
+def run_seeded_mutants() -> List[Tuple[str, bool, str]]:
+    """``(name, caught, detail)`` per mutant."""
+    return [(name, *fn()) for name, fn in MUTANTS]

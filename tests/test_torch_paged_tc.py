@@ -176,10 +176,79 @@ def test_launch_config_at_the_serving_shapes():
 
 
 def test_launch_config_reads_no_lengths():
-    """The split follows the shapes alone: the host reads no length from
-    the device, and the launch can be captured in a CUDA graph."""
+    """The split follows the shapes alone (and the caller's table
+    capacity, an int): the host reads no length from the device, and the
+    launch can be captured in a CUDA graph."""
     params = list(inspect.signature(paged_launch_config).parameters)
-    assert params == ["B", "KV", "g", "hd", "bs", "w", "dtype"]
+    assert params == ["B", "KV", "g", "hd", "bs", "w", "dtype", "capacity"]
+
+
+def test_launch_config_takes_its_split_from_the_capacity():
+    """The serving engine's launch at Qwen2.5-3B's decode (B 4, KV 2,
+    capacity 512 / 16 = 32): 4 slots a CTA at every width, so w 5, 12, 13
+    and 32 take 2, 3, 4 and 8 CTAs (at capacity w, phase 8's w 13 takes 7
+    of 2 slots); every slot still goes to one CTA, in order, and S <= 8."""
+    bf16 = torch.bfloat16
+    got = [paged_launch_config(4, 2, 8, 128, 16, w, bf16, capacity=32)
+           for w in (5, 12, 13, 32)]
+    assert [(c["split"], c["slots_per_cta"], c["ctas"]) for c in got] == \
+        [(2, 4, 16), (3, 4, 24), (4, 4, 32), (8, 4, 64)]
+    assert paged_launch_config(4, 2, 8, 128, 16, 13, bf16, capacity=13) == \
+        paged_launch_config(4, 2, 8, 128, 16, 13, bf16)
+    for B, KV, cap in CONFIG_SHAPES:
+        spc = None
+        for w in sorted({1, (cap + 1) // 2, cap}):
+            cfg = paged_launch_config(B, KV, 8, 128, 16, w, bf16,
+                                      capacity=cap)
+            spc = spc or cfg["slots_per_cta"]
+            assert cfg["slots_per_cta"] == spc  # not a function of w
+            assert cfg["split"] == -(-w // spc) <= PAGED_MAX_SPLIT
+    with pytest.raises(ValueError, match="capacity"):
+        paged_launch_config(4, 2, 8, 128, 16, 13, bf16, capacity=12)
+
+
+def _width_row(dt, length, cap, seed=5):
+    """Qwen2.5-3B's decode shapes (B 4, KV 2, g 8, hd 128, blocks of 16)
+    with row 0 at ``length`` and rows 1-3 at 41, 1 and 0 keys; each row's
+    blocks distinct, ``cap`` slots of table a row."""
+    rng = np.random.default_rng(seed)
+    B, KV, g, hd, bs = 4, 2, 8, 128, 16
+    nb = 1 + B * cap
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (nb, KV, bs, hd)).astype(np.float32)).to(tdt) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal(
+        (B, KV * g, 1, hd)).astype(np.float32)).to(tdt)
+    tables = torch.from_numpy((1 + rng.permutation(nb - 1)[:B * cap])
+                              .reshape(B, cap).astype(np.int32))
+    lengths = torch.tensor([length, 41, 1, 0], dtype=torch.int32)
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_row_result_does_not_depend_on_the_table_width(dt):
+    """A row of 70 keys (5 live slots) at every table width from 5 to the
+    engine's capacity (max_len 512 / 16 = 32): bit-equal outputs when the
+    launch takes its split from the capacity, as the engine's does. Without
+    it (capacity = w) the split, and so the order of the row's merges,
+    follows w: the row is bit-equal at w 5 and 8 (one slot a CTA) and not
+    at every w of 2 and 3 slots a CTA."""
+    cap = 32
+    q, kp, vp, tables, lengths = _width_row(dt, 70, cap)
+    outs = {w: paged_decode_tc_emulate(q, kp, vp, tables[:, :w].contiguous(),
+                                       lengths, capacity=cap)[0]
+            for w in range(5, cap + 1)}
+    for w, out in outs.items():
+        assert torch.equal(out, outs[5]), w
+    torch.testing.assert_close(
+        outs[5].float(),
+        paged_decode_plain(q, kp, vp, tables[:, :5], lengths)[0].float(),
+        rtol=0, atol=TOL[dt] * 4)
+    # the fault this pins: the split from w
+    at = {w: paged_decode_tc_emulate(q, kp, vp, tables[:, :w].contiguous(),
+                                     lengths)[0] for w in (5, 8, 12, 16, 24)}
+    assert torch.equal(at[5], at[8])
+    assert not all(torch.equal(at[5], at[w]) for w in (12, 16, 24))
 
 
 def test_launch_config_raises_on_shapes_it_does_not_take():
@@ -235,6 +304,36 @@ def test_issued_words_at_most_the_counter(p):
             dead = sum(w - paged_live_slots(int(n), w, bs) for n in lengths)
             assert got <= full
             assert got == full - 2.0 * p * KV * dead * bs * hd - dead
+
+
+def test_engine_capacity_launch_audits_clean():
+    """The engine's call (``ops.attention_decode(..., capacity=32)``, as
+    the paged Qwen engine makes it at phase 8's lengths) audits clean: its
+    access plan takes the capacity's split (4 CTAs of 4 slots at w 13),
+    counts exactly the counter's words (which the capacity does not move)
+    and issues the same words as the launch at capacity w."""
+    from repro_torch import ops
+    from repro_torch.plan import H100
+
+    ctx = ops.ExecutionContext(target=H100, backend="cuda", device="cpu")
+    B, KV, g, w, bs, hd = 4, 2, 8, 13, 16, 128
+    nb = 1 + B * w
+    q = torch.zeros((B, KV * g, 1, hd), dtype=torch.bfloat16)
+    pool = torch.zeros((nb, KV, bs, hd), dtype=torch.bfloat16)
+    tables = torch.arange(1, nb, dtype=torch.int32).reshape(B, w)
+    lengths = torch.tensor([205, 151, 120, 41], dtype=torch.int32)
+    args = (q, pool, pool, tables, lengths)
+    at = {cap: ops.explain("attention_decode", ctx, dtype=q.dtype,
+                           spec_args=args, spec_kw=kw, audit=True)
+          for cap, kw in ((32, {"capacity": 32}), (w, None))}
+    assert at[32].audit_report.launch.grid == (4, KV, B)
+    assert at[w].audit_report.launch.grid == (7, KV, B)
+    for d in at.values():
+        assert d.audit_report.ok and d.audited == d.measured_words
+    assert at[32].measured_words == at[w].measured_words
+    assert (at[32].audit_report.issued_words
+            == at[w].audit_report.issued_words)
+    assert at[32].audit_report.shortfall == at[w].audit_report.shortfall > 0
 
 
 # -- the source and the wrapper share the launch constants -------------------

@@ -249,6 +249,7 @@ def _on_fake_card(monkeypatch, runner):
                         lambda device=None: _FakeStream())
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     runner.on_card, runner._stream = True, _FakeStream()
 
 
@@ -285,7 +286,10 @@ def test_replays_credit_what_eager_steps_count(monkeypatch):
         outs = []
         for i, (w, t) in enumerate(schedule):
             if i == rebuild_at:
+                pool = runner._pool
                 runner.reset({"state": runner.cache["state"].clone()})
+                # the dropped graphs released their pool: a fresh one
+                assert runner._pool is not pool or not runner.on_card
             key = runner.load(np.full(B, t + 1), np.arange(B), tables, w)
             outs.append(runner.run(key).clone())
         return outs, runner.cache["state"]
@@ -374,6 +378,28 @@ def test_moe_replayed_step_equals_eager_step_on_the_card():
         res = graphs.check_replay(eng, *graphs.probe_inputs(eng, seed=2))
         assert res["logits_equal"] and res["leaves_equal"], (paged, res)
         assert res["finite"] and res["written_leaves"] > 0, (paged, res)
+
+
+@pytest.mark.cuda
+def test_capture_after_a_reset_on_the_card():
+    """A pool rebuild drops the graphs (``reset``); the next step captures
+    again, into a fresh memory pool (the dropped graphs released theirs),
+    and equals an eager step bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    for name, eng in _card_engines().items():
+        cache, tok, idx, tables, width = graphs.probe_inputs(eng, seed=3)
+        run = eng.decode_graphs(graphs._clone(cache))
+        key = run.load(tok, idx, tables, width)
+        run.run(key)  # the warm-up
+        run.run(key)  # a capture and its replay
+        run.reset(graphs._clone(cache))
+        key = run.load(tok, idx, tables, width)
+        got = run.run(key).clone()  # captured again, then replayed
+        assert run.resets == 1 and len(run.capture_s) == 2, name
+        ref = eng.decode_graphs(graphs._clone(cache))
+        want = ref.eager(ref.load(tok, idx, tables, width))
+        assert torch.equal(got, want), name
 
 
 _DEVICE_READ = """

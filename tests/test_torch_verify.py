@@ -366,13 +366,7 @@ def test_im2col_gemm_padded_k_step_is_a_shortfall(h100_rows):
 
 @pytest.mark.parametrize("name", [n for n, _ in mutants.MUTANTS])
 def test_seeded_mutants(name):
-    fn = dict(mutants.MUTANTS)[name]
-    if name == "fault_swallowed":
-        assert fn is None
-        assert ("fault_swallowed", None, mutants.NOT_PORTED) in \
-            mutants.run_seeded_mutants()
-        return
-    caught, detail = fn()
+    caught, detail = dict(mutants.MUTANTS)[name]()
     assert caught, detail
 
 
@@ -473,8 +467,9 @@ def test_script_exits_clean(args):
                          timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     if args == ["--mutants"]:
-        assert "fault_swallowed" in out.stdout and "not ported" in \
+        assert "fault_swallowed" in out.stdout and "not ported" not in \
             out.stdout and "ESCAPED" not in out.stdout
+        assert out.stdout.count(" caught: ") == len(mutants.MUTANTS) == 7
 
 
 def test_explain_stamps_the_audit():

@@ -69,10 +69,11 @@ def _conv1d(B, L, D=16384, K=4, tiles=None, offset=0):
                               target=H100)
 
 
-def _paged(lengths, w=13, dtype=0.5):
+def _paged(lengths, w=13, dtype=0.5, capacity=None):
     return paged_decode_access_plan(len(lengths), 2, 8, w, 16, 128,
                                     1 + len(lengths) * w, dtype, dtype,
-                                    dtype, lengths=lengths)
+                                    dtype, lengths=lengths,
+                                    capacity=capacity)
 
 
 CASES = {
@@ -140,6 +141,10 @@ CASES = {
     "paged/length 0": lambda: _paged((0, 7, 100, 0), w=25),
     "paged/w 1": lambda: _paged((16,), w=1),
     "paged/f32": lambda: _paged((205, 151, 120, 41), dtype=1.0),
+    # the serving engine's launch: its split from the table capacity
+    # (max_len 512 / 16 = 32: 4 slots, 2 key tiles a CTA), 4 of 8 ranks
+    "paged/engine capacity": lambda: _paged((205, 151, 120, 41),
+                                            capacity=32),
 }
 PLAIN = {"conv1d/2-byte"}  # its ring is written by stores, not copies
 
