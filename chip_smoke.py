@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Seven paths. The conv path is the paper's experiment: the five ResNet-50
+Nine paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -35,11 +35,15 @@ d_model 2048, 4 heads of hd 512, chunk 256, vocab 50304) through the
 contiguous engine; its blocks are aten (no kernel, as the reference's call
 no Pallas kernel). Qwen2.5-3B is also served with the fused (B, KV, L, 2,
 hd) KV leaf. The fault-handling path (``repro_torch.resilience``) runs
-seeded fault campaigns through the conv path and the two Qwen engines.
-Phases, each fatal on failure (from phase 3 to phase 24 each phase's
-dispatch decisions are recorded, and it fails if one of them was degraded
-or the quarantine table is not empty at its end: an organic fault never
-passes as a demotion):
+seeded fault campaigns through the conv path and the two Qwen engines. The
+distributed path is the paper's §4.2: ResNet-50's conv1 and conv2_x at
+batch 1000 through ``ops.conv2d_dist`` (``repro_torch.distributed``'s
+halo-exchange conv) on an in-process mesh of 8 shards on the card, and
+conv2_x over 4 ranks of a gloo process group sharing the card.
+Phases, each fatal on failure (from phase 3 to phase 24, and in phase
+26, each phase's dispatch decisions are recorded, and it fails if one of
+them was degraded or the quarantine table is not empty at its end: an
+organic fault never passes as a demotion):
 
   1. device: a CUDA device is required; name, power limit and versions;
   2. build: all seven kernels, one nvcc per source (six), started together;
@@ -377,9 +381,56 @@ passes as a demotion):
      instead. One line a campaign (summary, injections by site, kind and
      resolution, completion, tok/s, rebuilds, graph resets, captures, the
      rebuilds' K/V differences) and a summary line;
- 26. the ``kernels`` JSON line (the flash entry lists its compiled
-     instances and the hd-80 timing), the card's name and power limit,
-     and the last line ``{"ok": true, "device": {...}}``.
+ 26. the distributed conv (``repro_torch.distributed``), inside
+     ``ops.record_dispatch()`` and fatal if a decision was degraded.
+     (a) ResNet-50's conv1 and conv2_x at batch 1000 (phase 4's bf16
+     inputs, f32 out) through ``ops.conv2d_dist`` on a ``cuda`` context
+     whose target is ``H100.from_mesh(mesh)``, on a ``LocalConvMesh`` of
+     P = 8 shards on the card, and through ``distributed.allgather_conv``,
+     the naive baseline, on each of three grids: the parallel LP's (fatal
+     unless it is the reference's {"N": 8}) and the reference bench's
+     probes {"hO": 4, "wO": 2} and {"cI": 2, "hO": 2, "wO": 2}; the
+     launch counters set to 0 just before each run and read just after:
+     fatal unless every one of the 8 shard-local ``conv2d`` decisions is
+     ``cuda``, not degraded and without a parallel section, and all 8
+     launches are tensor-core launches; every device's counted wire words
+     (by kind: shifts, psum, all-gathers) must equal ``ops.explain``'s
+     ``measured_words``, the counters and the reference's word table
+     (``DIST_WORDS``) exactly, the combined Thm 2.2/2.3 bound at 2^20
+     words the reference's; the single-device ``cuda`` conv and both
+     outputs must agree with the plain version (``conv2d_plain``, whole
+     batch, same inputs) within phase 3's f32 tolerance, and both outputs
+     with the single-device conv too (each line says whether bit for
+     bit); the halo conv must move fewer words
+     than the all-gather on the LP grid and on {"hO": 4, "wO": 2} (on the
+     cI probe of conv1 it moves more, 216.5e6 against 94.2e6: printed,
+     not gated). One ``{"dist_conv": ...}`` line a (layer, grid) with the
+     words, the plan's own parallel bound at the H100's M_eff, and the
+     CUDA-event ms of the halo conv, the all-gather conv and the
+     single-device conv (the shards run in turn on one card: what the
+     decomposition costs one card, not a speedup). (b) Phase 16's audit
+     of one shard-local dispatch a (layer, grid), on a window of the
+     shard's exact shape (conv1's {"hO": 4, "wO": 2}: (1000, 3, 63, 121)
+     under a 7 x 7 stride-2 filter): audited clean, launched as its
+     access plan says, on the tensor cores, within phase 3's f32
+     tolerance of the plain version on that window, the uncounted words
+     only the window runs' overhang; one ``{"dist_audit": ...}`` line
+     each with the shard conv's ms. (c) conv2_x cut to batch 64 through 4 gloo
+     ranks (``GroupConvMesh``; each rank this script with ``--dist-rank``,
+     a process of its own, started after phase 2's build, its shard on
+     ``cuda:0`` and its conv on ``conv2d_tc_kernel``, one launch a grid),
+     joined under ``GROUP_TIMEOUT`` (a hung rank is killed, and fails the
+     phase): {"hO": 2, "wO": 2} bit-equal to the in-process mesh, {"cI":
+     2, "hO": 2} within 1e-4 (gloo's sum order), both within phase 3's
+     f32 tolerance of the plain version, every rank's counted words equal
+     to the counter's; one ``{"dist_group": ...}`` line a grid and a
+     summary line. A ``{"cycle_check": ...}`` line after every phase
+     gives the card memory that only reference cycles held (a collection
+     frees it; ``flag`` where not 0), fatal after (a)-(b) and after (c);
+ 27. the ``kernels`` JSON line (the flash entry lists its compiled
+     instances and the hd-80 timing; the conv entry its phase-26 shard
+     launches), the card's name and power limit, and the last line
+     ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
@@ -440,6 +491,7 @@ needed more than the allowance.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -545,6 +597,22 @@ def zero_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.tensor_core_launches = 0
+
+
+def cycle_check(phases: str, fatal: bool = False) -> None:
+    """Card memory that only reference cycles still held after some
+    phases: memory the garbage collector would free at some later moment,
+    so that the next phase may run out. Printed after every phase (a
+    ``flag`` where it is not 0); fatal where ``fatal`` (phase 26's own)."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    held = before - torch.cuda.memory_allocated()
+    print(json.dumps({"cycle_check": phases,
+                      "card_gb_held_by_cycles": held / 1e9,
+                      "flag": held > 0}), flush=True)
+    if held > 0 and fatal:
+        fail(f"phases {phases}: {held / 1e9} GB of card memory held only by "
+             "reference cycles")
 
 
 def flash_on_tensor_cores(run: str) -> int:
@@ -2308,6 +2376,16 @@ def hybrid_phases(gen: torch.Generator, record) -> dict:
                       "F.conv1d (groups=D)"}
 
 
+def overhang_bound(s, t, p, run):
+    """Words of run - 1 elements for every window row of every CTA: the
+    most the window runs' overhang can add to a conv launch of shape ``s``
+    and tiles ``t`` at ``p`` words an element (phases 16 and 26)."""
+    h_in = (t[3] - 1) * s.sh + s.h_F
+    rows = (-(-s.N // t[0]) * t[0] * s.c_I * h_in * -(-s.h_O // t[3])
+            * -(-s.w_O // t[4]) * -(-s.c_O // t[2]))
+    return p * (run - 1) * rows
+
+
 def audit_phase() -> int:
     """Phase 16 (module docstring): every main-path dispatch, on the
     operands the earlier phases left in ``HELD``, audited by
@@ -2375,13 +2453,6 @@ def audit_phase() -> int:
 
     def ctas(got):
         return got["grid"][0] * got["grid"][1] * got["grid"][2]
-
-    def overhang_bound(s, t, p, run):
-        # words of run - 1 elements for every window row of every CTA
-        h_in = (t[3] - 1) * s.sh + s.h_F
-        rows = (-(-s.N // t[0]) * t[0] * s.c_I * h_in * -(-s.h_O // t[3])
-                * -(-s.w_O // t[4]) * -(-s.c_O // t[2]))
-        return p * (run - 1) * rows
 
     for name, s in layers.items():
         x, w = HELD["conv"][name]
@@ -4109,6 +4180,432 @@ def faults_phase(gen: torch.Generator) -> None:
         "seconds": time.perf_counter() - t0}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the paper's §4.2 distributed conv (repro_torch.distributed)
+# ---------------------------------------------------------------------------
+
+# the fig3 shapes of the reference's distributed bench, at P = 8: its LP
+# grid and its two probe grids
+DIST_LAYERS = ("conv1", "conv2_x")
+DIST_P = 8
+DIST_PROBES = ({"hO": 4, "wO": 2}, {"cI": 2, "hO": 2, "wO": 2})
+# (halo, psum, comm, all-gather) words a device, bf16 input: the
+# reference's counters on these shapes and grids (shape-only)
+DIST_WORDS = {
+    ("conv1", "lp"): (0, 0, 0, 69_431_250),
+    ("conv1", "probe0"): (1_342_500, 0, 1_342_500, 70_644_000),
+    ("conv1", "probe1"): (1_185_000, 215_296_000, 216_481_000, 94_195_136),
+    ("conv2_x", "lp"): (0, 0, 0, 94_192_000),
+    ("conv2_x", "probe0"): (2_944_000, 0, 2_944_000, 97_440_000),
+    ("conv2_x", "probe1"): (1_920_000, 53_824_000, 55_744_000, 94_201_216),
+}
+# the combined Thm 2.2/2.3 bound a device at M = 2^20 words, P = 8
+DIST_BOUND_2_20 = {"conv1": 2_018_848, "conv2_x": 2_606_848}
+# (c): the process-group route, 4 gloo ranks sharing the card
+GROUP_GRIDS = ({"hO": 2, "wO": 2}, {"cI": 2, "hO": 2})
+GROUP_BATCH = 64
+GROUP_RANKS = 4
+GROUP_TIMEOUT = 300  # seconds for the ranks to finish
+
+
+def dist_grids(s) -> list:
+    """(tag, ParallelBlocking) of phase 26: the LP's grid at P = 8 (fatal
+    unless it is the reference's {"N": 8}) and the two probes."""
+    from repro_torch.core.parallel_tiling import (ParallelBlocking,
+                                                  optimize_parallel_blocking)
+    from repro_torch.distributed import DIST_AXES
+
+    lp = optimize_parallel_blocking(s, DIST_P, restrict_axes=DIST_AXES)
+    grid = {k: v for k, v in lp.grid.items() if v > 1}
+    if grid != {"N": DIST_P}:
+        fail(f"dist: the LP chose {grid} for {s}, the reference {{'N': 8}}: "
+             "a parity fault")
+    return [("lp", lp)] + [(f"probe{i}", ParallelBlocking.from_grid(s, g))
+                           for i, g in enumerate(DIST_PROBES)]
+
+
+def dist_shard_audit(name: str, geom, s, ctx) -> dict:
+    """Phase 26 (b): phase 16's audit of one shard-local dispatch, on a
+    window of the shard's exact shape: audited clean, launched as planned,
+    the uncounted words only the window runs' overhang."""
+    from repro_torch import ops
+    from repro_torch.core.conv_model import ConvShape
+    from repro_torch.kernels import KERNELS, conv2d_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b_cI = geom.cIp // geom.grid[1]
+    xw = torch.randn((geom.bN, b_cI, geom.h_ext, geom.w_ext), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    wb = torch.randn((s.c_O, b_cI, s.h_F, s.w_F), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    stride = (s.sh, s.sw)
+    d = ops.explain("conv2d", ctx, dtype=xw.dtype, spec_args=(xw, wb),
+                    spec_kw={"stride": stride, "out_dtype": torch.float32},
+                    audit=True)
+    rep = d.audit_report
+    if not rep.ok or d.audited != d.measured_words:
+        fail(f"dist audit {name}: {rep.problems} {rep.hazards}")
+    k = KERNELS["conv2d"]
+    k.last_launch = None
+    tc = k.tensor_core_launches
+    y = ops.conv2d(xw, wb, stride, ctx=ctx, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err, allowed = rel_err(y, conv2d_plain(xw, wb, stride))
+    if not err <= allowed:
+        fail(f"dist audit {name}: the shard window's launch is {err} from "
+             f"the plain version, allowed {allowed}")
+    del y
+    got, plan = k.last_launch, rep.launch
+    want = {"grid": plan.grid, "block": plan.block, "smem": plan.smem_bytes,
+            "cluster": plan.cluster}
+    if got != want or k.tensor_core_launches != tc + 1:
+        fail(f"dist audit {name}: launched {got} (tensor core: "
+             f"{k.tensor_core_launches - tc}), the access plan says {want}")
+    local = ConvShape(N=geom.bN, c_I=b_cI, c_O=s.c_O, h_O=geom.bh,
+                      w_O=geom.bw, h_F=s.h_F, w_F=s.w_F, sh=s.sh, sw=s.sw)
+    uncounted = {n: v for n, v in rep.uncounted.items() if v}
+    over = uncounted.pop("input run overhang", 0.0)
+    bound = overhang_bound(local, d.plan.tiles, 0.5, 8)
+    if uncounted or rep.shortfall or not 0 <= over <= bound:
+        fail(f"dist audit {name}: uncounted {uncounted}, shortfall "
+             f"{rep.shortfall}, overhang {over} (at most {bound})")
+    shard_ms = median_ms(lambda: ops.conv2d(xw, wb, stride, ctx=ctx,
+                                            out_dtype=torch.float32))
+    line = {"dist_audit": name, "window": list(xw.shape),
+            "filter": list(wb.shape), "tiles": list(d.plan.tiles),
+            "kernel": plan.kernel, "grid": list(got["grid"]),
+            "block": list(got["block"]), "smem_bytes": got["smem"],
+            "counted_words": rep.counted_words,
+            "measured_words": d.measured_words,
+            "issued_words": rep.issued_words, "overhang_words": over,
+            "bound_ratio": d.bound_ratio, "hazards": len(rep.hazards),
+            "max_abs_err_vs_plain": err, "allowed": allowed,
+            "shard_conv_ms": shard_ms,
+            "shard_conv_ms_x_P": shard_ms * DIST_P,
+            "timing_note": "CUDA events, one shard's conv a call (phase 5's "
+                           "median); x P: the kernels' share of a "
+                           "distributed conv", "card": smi()}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def dist_in_process(gen: torch.Generator, card: str) -> tuple:
+    """Phase 26 (a) and (b) (module docstring): the counters set to 0 just
+    before each distributed conv and read just after. Returns the total
+    shard launches and the audits' count."""
+    from repro_torch import distributed as td
+    from repro_torch import ops
+    from repro_torch.core.bounds import combined_parallel_bound
+    from repro_torch.core.conv_model import BF16_ACC32, resnet50_layers
+    from repro_torch.distributed import DistConvGeometry
+    from repro_torch.kernels import KERNELS, conv2d_plain
+    from repro_torch.launch import make_conv_mesh
+    from repro_torch.plan import H100, HardwareTarget
+
+    layers = resnet50_layers(BATCH)
+    k = KERNELS["conv2d"]
+    single_ctx = ops.ExecutionContext(target=H100, backend="cuda")
+    shard_launches = audits = 0
+    for name in DIST_LAYERS:
+        i = list(layers).index(name)
+        s = layers[name].with_precision(BF16_ACC32)
+        x, w = layer_inputs(gen, i, s)
+        stride = (s.sh, s.sw)
+        ref = ops.conv2d(x, w, stride, ctx=single_ctx,
+                         out_dtype=torch.float32)
+        # the plain version on the same inputs, whole batch: the kernel's
+        # single-device and shard launches are each held against it
+        plain = conv2d_plain(x, w, stride)
+        ref_err, ref_allowed = rel_err(ref, plain)
+        if not ref_err <= ref_allowed:
+            fail(f"dist {name}: the single-device cuda conv is {ref_err} "
+                 f"from the plain version, allowed {ref_allowed}")
+        torch.cuda.synchronize()
+        bound_2_20 = combined_parallel_bound(s, DIST_P, 2.0 ** 20)
+        if bound_2_20 != DIST_BOUND_2_20[name]:
+            fail(f"dist {name}: bound at 2^20 {bound_2_20}, the reference's "
+                 f"{DIST_BOUND_2_20[name]}")
+        single_ms = median_ms(lambda: ops.conv2d(
+            x, w, stride, ctx=single_ctx, out_dtype=torch.float32))
+        for tag, pb in dist_grids(s):
+            grid = {a: v for a, v in pb.grid.items() if v > 1}
+            label = f"{name} {json.dumps(grid)}"
+            geom = DistConvGeometry.from_shape(s, pb)
+            halo_w, psum_w, comm_w, ag_w = DIST_WORDS[name, tag]
+            runs = {}
+            for kind, fn in (("halo", td.halo_conv),
+                             ("allgather", td.allgather_conv)):
+                mesh = make_conv_mesh(pb)
+                ctx = ops.ExecutionContext(
+                    target=HardwareTarget.from_mesh(mesh), backend="cuda")
+                zero_counts()
+                with ops.record_dispatch() as log:
+                    if kind == "halo":
+                        out = ops.conv2d_dist(x, w, stride, blocking=pb,
+                                              mesh=mesh, ctx=ctx,
+                                              out_dtype=torch.float32)
+                    else:
+                        out = fn(x, w, stride, blocking=pb, mesh=mesh,
+                                 ctx=ctx, local_backend="cuda",
+                                 out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                launches, tc = k.launches, k.tensor_core_launches
+                local = [d for d in log if d.op == "conv2d"]
+                if (len(local) != DIST_P or launches != DIST_P
+                        or tc != DIST_P or any(
+                            d.chosen != "cuda" or d.degraded
+                            or d.plan.parallel is not None for d in local)):
+                    fail(f"dist {kind} {label}: {len(local)} shard "
+                         f"decisions ({[(d.chosen, d.degraded) for d in local]}"
+                         f"), {launches} launches, {tc} on the tensor cores; "
+                         f"want {DIST_P} of each on cuda")
+                shard_launches += launches
+                if kind == "halo":
+                    (dd,) = [d for d in log if d.op == "conv2d_dist"]
+                    if dd.chosen != "cuda" or dd.degraded:
+                        fail(f"dist halo {label}: decision {dd}")
+                    d = ops.explain("conv2d_dist", ctx, dtype=x.dtype,
+                                    spec_args=(x, w),
+                                    spec_kw={"stride": stride,
+                                             "out_dtype": torch.float32,
+                                             "blocking": pb, "mesh": mesh})
+                    want = {"shift": halo_w, "psum": psum_w,
+                            "all_gather": 0}
+                    words = d.measured_words
+                    if (words != comm_w or dd.measured_words != comm_w
+                            or td.conv2d_dist_comm_words(x, w, stride, pb)
+                            != comm_w):
+                        fail(f"dist halo {label}: explain {words}, the "
+                             f"table {comm_w}")
+                else:
+                    want = {"shift": 0, "psum": 0, "all_gather": ag_w}
+                    words = td.allgather_comm_words(x, w, stride, pb)
+                    if words != ag_w:
+                        fail(f"dist allgather {label}: counter {words}, the "
+                             f"table {ag_w}")
+                for dev in range(DIST_P):
+                    if mesh.wire[dev] != want:
+                        fail(f"dist {kind} {label}: device {dev} counted "
+                             f"{mesh.wire[dev]}, the counters give {want}")
+                err, allowed = rel_err(out, ref)
+                if not err <= allowed:
+                    fail(f"dist {kind} {label}: error {err} against the "
+                         f"single-device cuda conv, allowed {allowed}")
+                plain_err, plain_allowed = rel_err(out, plain)
+                if not plain_err <= plain_allowed:
+                    fail(f"dist {kind} {label}: error {plain_err} against "
+                         f"the plain version, allowed {plain_allowed}")
+                runs[kind] = {"words": words, "max_abs_err": err,
+                              "allowed": allowed,
+                              "max_abs_err_vs_plain": plain_err,
+                              "allowed_vs_plain": plain_allowed,
+                              "bit_equal": bool(torch.equal(out, ref)),
+                              "launches": launches,
+                              "tensor_core_launches": tc}
+                del out
+                if kind == "halo":
+                    plan_bound = d.lower_bound
+                    runs[kind]["ms"] = median_ms(lambda: ops.conv2d_dist(
+                        x, w, stride, blocking=pb, mesh=mesh, ctx=ctx,
+                        out_dtype=torch.float32))
+                else:
+                    runs[kind]["ms"] = median_ms(lambda: fn(
+                        x, w, stride, blocking=pb, mesh=mesh, ctx=ctx,
+                        local_backend="cuda", out_dtype=torch.float32))
+                torch.cuda.empty_cache()
+            fewer = runs["halo"]["words"] < runs["allgather"]["words"]
+            if tag in ("lp", "probe0") and not fewer:
+                fail(f"dist {label}: the halo conv moves "
+                     f"{runs['halo']['words']} words, the all-gather "
+                     f"{runs['allgather']['words']}")
+            print(json.dumps({
+                "dist_conv": name, "grid": grid, "tag": tag, "P": DIST_P,
+                "halo_words": geom.halo_words(0.5),
+                "psum_words": geom.psum_words(1.0),
+                "comm_words": runs["halo"]["words"],
+                "allgather_words": runs["allgather"]["words"],
+                "halo_fewer_than_allgather": fewer,
+                "plan_parallel_lower_bound_at_H100_M_eff": plan_bound,
+                "combined_bound_at_2^20": bound_2_20,
+                "comm_over_bound_at_2^20": runs["halo"]["words"]
+                / max(bound_2_20, 1.0),
+                "halo": runs["halo"], "allgather": runs["allgather"],
+                "single_device_ms": single_ms,
+                "single_device_max_abs_err_vs_plain": ref_err,
+                "timing_note": "CUDA events a call; the 8 shards run in "
+                               "turn on one card, so this is what the "
+                               "decomposition costs one card, not a speedup",
+                "card": card}), flush=True)
+            lctx = ops.ExecutionContext(target=H100, backend="cuda")
+            dist_shard_audit(label, geom, s, lctx)
+            audits += 1
+        del x, w, ref, plain
+        torch.cuda.empty_cache()
+    return shard_launches, audits
+
+
+def dist_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 26 (c): join the gloo group through the file
+    store, run each of ``GROUP_GRIDS`` through ``ops.conv2d_dist`` on a
+    ``GroupConvMesh`` with this rank's shard on ``cuda:0`` (the shard conv
+    on ``conv2d_tc_kernel``), and save its output block, its wire counts,
+    its launches and its decisions."""
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import make_conv_mesh
+    from repro_torch.plan import HardwareTarget
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(outdir, "store"),
+        world_size=GROUP_RANKS, rank=rank)
+    data = torch.load(os.path.join(outdir, "inputs.pt"))
+    x, w = data["x"].to("cuda"), data["w"].to("cuda")
+    k = KERNELS["conv2d"]
+    res = {}
+    for i, grid in enumerate(GROUP_GRIDS):
+        mesh = make_conv_mesh(grid, group=dist.group.WORLD)
+        ctx = ops.ExecutionContext(target=HardwareTarget.from_mesh(mesh),
+                                   backend="cuda")
+        zero_counts()
+        with ops.record_dispatch() as log:
+            y = ops.conv2d_dist(x, w, blocking=grid, mesh=mesh, ctx=ctx,
+                                out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        res[i] = {"y": y.cpu(), "device": y.device.type,
+                  "wire": mesh.wire[rank],
+                  "launches": k.launches, "tc": k.tensor_core_launches,
+                  "decisions": [(d.op, d.chosen, d.degraded) for d in log]}
+    torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def dist_group(gen: torch.Generator, card: str) -> int:
+    """Phase 26 (c): conv2_x cut to batch 64 through 4 gloo ranks, each a
+    process of its own sharing the card; the ranks are joined under
+    ``GROUP_TIMEOUT`` and killed if one hangs. Returns their launches."""
+    import tempfile
+
+    from repro_torch import distributed as td
+    from repro_torch import ops
+    from repro_torch.core.conv_model import BF16_ACC32, resnet50_layers
+    from repro_torch.kernels import conv2d_plain
+    from repro_torch.launch import make_conv_mesh
+    from repro_torch.plan import HardwareTarget
+
+    layers = resnet50_layers(BATCH)
+    s = layers["conv2_x"].with_precision(BF16_ACC32)
+    x, w = layer_inputs(gen, list(layers).index("conv2_x"), s)
+    x = x[:GROUP_BATCH].contiguous()
+    outdir = tempfile.mkdtemp(prefix="dist_group_")
+    torch.save({"x": x.cpu(), "w": w.cpu()}, os.path.join(outdir,
+                                                          "inputs.pt"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+         str(r), outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(GROUP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = GROUP_TIMEOUT - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"dist group: a rank did not finish in {GROUP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        fail("dist group: rank exit codes "
+             f"{[p.returncode for p in procs]}:\n" + "\n".join(logs)[-4000:])
+    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+             for r in range(GROUP_RANKS)]
+    plain = conv2d_plain(x, w)
+    launches = 0
+    for i, grid in enumerate(GROUP_GRIDS):
+        mesh = make_conv_mesh(grid)
+        ctx = ops.ExecutionContext(target=HardwareTarget.from_mesh(mesh),
+                                   backend="cuda")
+        want = td.halo_conv(x, w, blocking=grid, mesh=mesh, ctx=ctx,
+                            out_dtype=torch.float32, full_output=True)
+        got = mesh.assemble({r: ranks[r][i]["y"].to("cuda")
+                             for r in range(GROUP_RANKS)}, td.halo.OUT_SPEC)
+        words = td.conv2d_dist_comm_words(x, w, blocking=grid)
+        for r in range(GROUP_RANKS):
+            rec = ranks[r][i]
+            if (sum(rec["wire"].values()) != words
+                    or rec["wire"] != mesh.wire[r]):
+                fail(f"dist group {grid}: rank {r} counted {rec['wire']}, "
+                     f"the counter {words}, the in-process mesh "
+                     f"{mesh.wire[r]}")
+            if rec["device"] != "cuda":
+                fail(f"dist group {grid}: rank {r}'s output left the card "
+                     f"({rec['device']})")
+            if rec["launches"] != 1 or rec["tc"] != 1 or any(
+                    d[0] == "conv2d" and (d[1] != "cuda" or d[2])
+                    for d in rec["decisions"]):
+                fail(f"dist group {grid}: rank {r} launches "
+                     f"{rec['launches']} ({rec['tc']} tensor core), "
+                     f"decisions {rec['decisions']}")
+            launches += rec["launches"]
+        if "cI" in grid:
+            err, allowed = rel_err(got, want)
+            ok = err <= allowed
+        else:
+            err, allowed = (got - want).abs().max().item(), 0.0
+            ok = bool(torch.equal(got, want))
+        if not ok:
+            fail(f"dist group {grid}: error {err} against the in-process "
+                 f"mesh, allowed {allowed}")
+        valid = tuple(slice(0, n) for n in plain.shape)  # got is padded
+        plain_err, plain_allowed = rel_err(got[valid], plain)
+        if not plain_err <= plain_allowed:
+            fail(f"dist group {grid}: error {plain_err} against the plain "
+                 f"version, allowed {plain_allowed}")
+        print(json.dumps({
+            "dist_group": "conv2_x", "batch": GROUP_BATCH, "grid": grid,
+            "ranks": GROUP_RANKS, "backend": "gloo, staged through host",
+            "bit_equal_to_in_process": bool(torch.equal(got, want)),
+            "max_abs_err": err, "allowed": allowed,
+            "max_abs_err_vs_plain": plain_err,
+            "allowed_vs_plain": plain_allowed, "words_per_rank": words,
+            "launches_per_rank": [ranks[r][i]["launches"]
+                                  for r in range(GROUP_RANKS)],
+            "seconds_all_ranks": seconds, "card": card}), flush=True)
+    return launches
+
+
+def dist_phase(gen: torch.Generator) -> dict:
+    """Phase 26 (module docstring): the §4.2 distributed conv at full width
+    on an in-process mesh, its shard dispatches audited, and the
+    process-group route over 4 gloo ranks. Fatal on any failure."""
+    # the memory the full-width runs start from (cycle_check("25") has
+    # reported what the earlier phases left in reference cycles)
+    torch.cuda.empty_cache()
+    print(json.dumps({"dist_phase": "start",
+                      "allocated_gb": torch.cuda.memory_allocated() / 1e9}),
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    card = smi()
+    t0 = time.perf_counter()
+    shard_launches, audits = dist_in_process(gen, card)
+    cycle_check("26 (a)-(b)", fatal=True)
+    group_launches = dist_group(gen, card)
+    cycle_check("26 (c)", fatal=True)
+    summary = {"dist_phase": "summary", "shard_launches": shard_launches,
+               "shard_audits": audits,
+               "group_rank_launches": group_launches,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "seconds": time.perf_counter() - t0, "card": card}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4223,6 +4720,7 @@ def main() -> None:
         print(f"phases {phases}: {len(decisions)} dispatch decisions, none "
               "degraded; the quarantine table is empty", flush=True)
         decisions.clear()
+        cycle_check(phases)
 
     def record(name, got, want, what):
         err, allowed = rel_err(got, want)
@@ -4537,8 +5035,16 @@ def main() -> None:
 
     # -- 25. fault handling: campaigns at published widths -------------------
     faults_phase(gen)
+    cycle_check("25")
 
-    # -- 26. summary --------------------------------------------------------
+    # -- 26. the paper's §4.2 distributed conv -------------------------------
+    quiet = contextlib.ExitStack()
+    decisions = quiet.enter_context(ops.record_dispatch())
+    dist = dist_phase(gen)
+    no_quiet_degradation("26")
+    quiet.close()
+
+    # -- 27. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -4563,6 +5069,10 @@ def main() -> None:
             "shapes": "sum over the five ResNet-50 layers at batch 1000"})
     for k in kernels:
         k["tensor_core_launches"] = main_tc[k["name"]]
+    # phase 26: the distributed conv's shard launches, all on the tensor
+    # cores (in process; the process-group ranks' counted in their own)
+    kernels[0]["dist_shard_launches"] = dist["shard_launches"]
+    kernels[0]["dist_group_rank_launches"] = dist["group_rank_launches"]
     kernels[0]["library_note"] = CONV_LIBRARY_NOTE
     kernels[1]["library_note"] = ("torch.matmul on the bf16 operands writes "
                                   "bf16, half the kernel's f32 output bytes")
@@ -4582,4 +5092,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:  # phase 26 (c) starts its ranks so
+        dist_rank_main(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

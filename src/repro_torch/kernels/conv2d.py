@@ -389,6 +389,43 @@ def conv2d(
     return _launch(x, w, (sh, sw), out_dtype, t)
 
 
+def check_shard_window(H: int, W: int, h_F: int, w_F: int, sh: int,
+                       sw: int) -> None:
+    """Raise ``ValueError`` unless an (H, W) shard window is exact: the
+    windows ``repro_torch.distributed`` builds are exact by construction, so
+    an inexact one means halo rows were mis-exchanged upstream."""
+    if not exact_window(H, W, h_F, w_F, sh, sw):
+        raise ValueError(
+            f"shard-local conv window ({H}, {W}) is not exact for filter "
+            f"({h_F}, {w_F}) stride ({sh}, {sw}): halo rows were "
+            "mis-exchanged upstream")
+
+
+def conv2d_shard(
+    x: torch.Tensor,  # (bN, b_cI, (b_hO-1)*sh + h_F, (b_wO-1)*sw + w_F)
+    w: torch.Tensor,  # (c_O, b_cI, h_F, w_F)
+    stride: Tuple[int, int] = (1, 1),
+    out_dtype=torch.float32,
+    ctx=None,
+    plan: Optional[ExecutionPlan] = None,
+) -> torch.Tensor:
+    """The kernel on one shard's exact halo window: the same kernel as
+    :func:`conv2d` (``conv2d_tc_kernel`` for bf16 on the card), but the
+    input must be an exact window, the shape each shard assembles after
+    its halo exchanges. Plans resolve for the *local* shape.
+
+    It keeps the reference's public name and contract. The distributed
+    conv does not call it: as in the reference, its shard body makes the
+    same check (:func:`check_shard_window`) and then goes through
+    ``ops.conv2d``, so the dispatcher's plan, counters and fault handling
+    see every shard."""
+    _, _, H, W = x.shape
+    _, _, h_F, w_F = w.shape
+    check_shard_window(H, W, h_F, w_F, *stride)
+    return conv2d(x, w, stride=stride, out_dtype=out_dtype, ctx=ctx,
+                  plan=plan)
+
+
 def conv2d_hbm_words(
     x,  # tensor (meta tensors work), (N, c_I, H, W)
     w,  # tensor, (c_O, c_I, h_F, w_F)

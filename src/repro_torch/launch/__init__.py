@@ -1,1 +1,3 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""Entry points of the port (``python -m repro_torch.launch.serve``) and
+the conv mesh (``make_conv_mesh``)."""
+from .mesh import make_conv_mesh  # noqa: F401

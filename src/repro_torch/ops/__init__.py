@@ -1,7 +1,11 @@
 """``repro_torch.ops`` — backend-registry op dispatch (ExecutionContext ->
 Backend -> kernel), the counterpart of ``repro.ops`` for conv2d, matmul,
 attention, attention_decode, the int8 ops conv2d_q, matmul_q and
-attention_decode_quant, and conv1d_causal.
+attention_decode_quant, conv1d_causal, and the distributed conv
+conv2d_dist (``repro_torch.distributed``'s halo-exchange conv, whose
+backend choice selects the shard-local kernel; its decision's
+``measured_words`` are inter-device words against the plan's Thm 2.2/2.3
+bound).
 
     from repro_torch import ops
     from repro_torch.ops import ExecutionContext
@@ -41,6 +45,7 @@ from .dispatch import (  # noqa: F401
     clear_quarantine,
     conv1d_causal,
     conv2d,
+    conv2d_dist,
     conv2d_q,
     dispatch_call,
     explain,

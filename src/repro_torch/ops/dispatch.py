@@ -76,10 +76,12 @@ class DispatchDecision:
     the (CPU-only) fallback; ``plan`` the ExecutionPlan the chosen entry consumed
     (None for aten entries); ``plan_source`` ``"explicit"``, ``"tuned"``
     (the measured autotuner's stored winner) or ``"analytic"``;
-    ``measured_words`` the HBM words (32-bit) the chosen
+    ``measured_words`` the words (32-bit) the chosen
     kernel's launch geometry moves for this call (None when the entry is not
-    instrumented), reported via ``bound_ratio`` against the plan's Thm 2.1
-    ``lower_bound``.
+    instrumented): HBM words for single-device ops, *inter-device* words per
+    device for the distributed ops, reported via ``bound_ratio`` against the
+    matching bound: the plan's Thm 2.1 ``lower_bound``, or the plan's
+    ``parallel`` section's Thm 2.2/2.3 bound for ``*_dist`` ops.
 
     ``audited`` is the static auditor's independent word count (set only
     when the call resolved with ``audit=True``): ``repro_torch.verify``
@@ -119,8 +121,15 @@ class DispatchDecision:
 
     @property
     def lower_bound(self) -> Optional[float]:
-        """The Thm 2.1 bound ``measured_words`` is compared against."""
-        return None if self.plan is None else self.plan.lower_bound
+        """The bound ``measured_words`` is compared against: Thm 2.2/2.3
+        (per-processor) for distributed ops, Thm 2.1 otherwise."""
+        if self.plan is None:
+            return None
+        if self.op.endswith("_dist"):
+            if self.plan.parallel is None:
+                return None  # planned for a single-device target
+            return self.plan.parallel.lower_bound
+        return self.plan.lower_bound
 
     @property
     def bound_ratio(self) -> Optional[float]:
@@ -148,7 +157,8 @@ class DispatchDecision:
                         f"{tuned.source}, winner {tuned.winner_seconds:.2e}s "
                         f"vs analytic)")
         if self.measured_words is not None:
-            msg += f"; measured {self.measured_words:.3e} HBM words"
+            kind = ("inter-device" if self.op.endswith("_dist") else "HBM")
+            msg += f"; measured {self.measured_words:.3e} {kind} words"
             if self.bound_ratio is not None:
                 msg += (f" = {self.bound_ratio:.2f}x the "
                         f"{self.lower_bound:.3e}-word lower bound")
@@ -553,6 +563,25 @@ def conv2d(x, w, stride=(1, 1), ctx: Optional[ExecutionContext] = None,
     return dispatch_call("conv2d", ctx, x.dtype, (), (x, w),
                          spec_kw={"stride": tuple(stride),
                                   "out_dtype": out_dtype})
+
+
+def conv2d_dist(x, w, stride=(1, 1), blocking=None, mesh=None,
+                ctx: Optional[ExecutionContext] = None, out_dtype=None):
+    """Distributed halo-exchange conv2d over a conv mesh (paper §4.2).
+
+    ``blocking`` is the ``ParallelBlocking`` processor grid (LP-chosen when
+    omitted) and ``mesh`` the matching ``repro_torch.distributed`` mesh
+    (``launch.make_conv_mesh(blocking)``, in process, when omitted). The backend picks the *shard-local* kernel (``cuda`` = the
+    hand-written conv); the decision's ``measured_words`` are the
+    per-device inter-device words (halo + psum), ratioed against the plan's
+    Thm 2.2/2.3 parallel bound."""
+    ctx = default_context() if ctx is None else ctx
+    _check_device("conv2d_dist", ctx, x, w)
+    out_dtype = out_dtype or ctx.acc_dtype
+    return dispatch_call(
+        "conv2d_dist", ctx, x.dtype, (), (x, w),
+        spec_kw={"stride": tuple(stride), "out_dtype": out_dtype,
+                 "blocking": blocking, "mesh": mesh})
 
 
 def conv1d_causal(x, w, ctx: Optional[ExecutionContext] = None):

@@ -1,7 +1,8 @@
 """Backend registry: named backends, per-op entries, declared capabilities
 (the counterpart of ``repro.ops.registry`` for conv2d, matmul, attention,
 attention_decode, the int8 ops conv2d_q, matmul_q and
-attention_decode_quant, and the mamba short conv conv1d_causal).
+attention_decode_quant, the mamba short conv conv1d_causal, and the
+distributed halo-exchange conv conv2d_dist).
 
 Each entry's :class:`OpCapabilities` declares its accepted dtypes and the
 optional call features (``ATTN_FLAGS``) it serves. Three backends ship:
@@ -315,6 +316,37 @@ def _attention_decode_quant_plan_spec(q, kp, ks, vp, vs, tables, lengths,
                          prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_io))
 
 
+# -- conv2d_dist: the distributed halo-exchange conv (repro_torch.distributed)
+#
+# One op, registered on both backends: the backend picks which kernel serves
+# the *shard-local* conv on each shard (torch -> the aten oracle, cuda -> the
+# hand-written conv). The entry's words_fn measures *inter-device* words
+# (halo shift + cI psum volume per device, from the same geometry the
+# execution runs); DispatchDecision.bound_ratio divides them by the plan's
+# Thm 2.2/2.3 ``parallel`` bound instead of the single-device Thm 2.1 bound.
+# Imports are lazy: repro_torch.distributed dispatches back through
+# repro_torch.ops for the shard-local conv.
+
+def _dist_entry(local_backend: str):
+    def run(ctx, plan, x, w, stride=(1, 1), out_dtype=torch.float32,
+            blocking=None, mesh=None):
+        from repro_torch.distributed.halo import halo_conv
+
+        return halo_conv(x, w, stride=stride, blocking=blocking, mesh=mesh,
+                         ctx=ctx, local_backend=local_backend,
+                         out_dtype=out_dtype)
+    return run
+
+
+def _conv2d_dist_words(ctx, plan, x, w, stride=(1, 1), out_dtype=None,
+                       blocking=None, mesh=None, **kw):
+    from repro_torch.distributed.halo import conv2d_dist_comm_words
+
+    return conv2d_dist_comm_words(x, w, stride=stride, blocking=blocking,
+                                  out_dtype=out_dtype or ctx.acc_dtype,
+                                  mesh=mesh)
+
+
 _INT8 = OpCapabilities(dtypes=("int8",), accum_dtype="float32")
 _ANY_F32_ACC = OpCapabilities(dtypes=("*",), accum_dtype="float32")
 
@@ -337,6 +369,10 @@ register_backend(Backend(
                             spec_fn=_conv2d_q_plan_spec),
         "matmul_q": OpEntry(_torch_matmul_q, _ANY_F32_ACC,
                             spec_fn=_matmul_q_plan_spec),
+        "conv2d_dist": OpEntry(_dist_entry("torch"),
+                               OpCapabilities(dtypes=("*",)),
+                               spec_fn=_conv2d_plan_spec,
+                               words_fn=_conv2d_dist_words),
     },
 ))
 
@@ -620,6 +656,12 @@ register_backend(Backend(
                             spec_fn=_matmul_q_plan_spec,
                             words_fn=_cuda_matmul_q_words,
                             access_plan_fn=_cuda_matmul_q_access),
+        # no access plan: the call is P shard-local conv2d dispatches, each
+        # audited as a conv2d of its own; no degrade_to: on the card a fault
+        # retries in place (nothing of the backend's serves the shards)
+        "conv2d_dist": OpEntry(_dist_entry("cuda"),
+                               spec_fn=_conv2d_plan_spec,
+                               words_fn=_conv2d_dist_words),
     },
 ))
 

@@ -1,16 +1,17 @@
 """The planning front door: ``Planner(target).plan(op) -> ExecutionPlan``.
 
-One discipline for the whole package (paper §3.2 eq. 6, §5): solve the
+One discipline for the whole package (paper §3.2 eq. 6, §4.2, §5): solve the
 HBL-derived blocking LP against the target's memory-hierarchy model, refine to
-integers, then lower the solution to kernel tile/grid shapes.
+integers, then lower the solution to (a) kernel tile/grid shapes and (b) for
+targets with mesh axes, a mesh ``ShardingPlan`` and, on conv plans, the §4.2
+``ParallelSection`` that ``repro_torch.distributed`` executes.
 
 :class:`Planner` is the single public entry point: ``.plan(op)`` resolves
 through :func:`resolve_plan` (explicit > tuned > analytic), ``.autotune(op)``
 runs the measured frontier search of :mod:`repro_torch.plan.autotune`, and
 ``Planner.cache`` (a process-wide :class:`PlanCache`) saves/loads the
-memoized plans and the autotuner's tuning records. Targets with mesh axes
-(the reference's sharding leg) raise ``NotImplementedError``. Attention ops
-take the closed-form leg (:func:`_plan_attention`), as in the reference.
+memoized plans and the autotuner's tuning records. Attention ops take the
+closed-form leg (:func:`_plan_attention`), as in the reference.
 
 Plans are memoized process-wide, keyed on the (op, target) value pair. The
 LP, the integer refinement and the tile lowering are the reference's, line
@@ -24,8 +25,11 @@ import json
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
-from repro_torch.core.bounds import attention_bound, single_processor_bound
+from repro_torch.core.bounds import (attention_bound, combined_parallel_bound,
+                                     single_processor_bound)
 from repro_torch.core.conv_model import ConvShape, Precision, ceil_div, round_up
+from repro_torch.core.parallel_tiling import optimize_parallel_blocking
+from repro_torch.core.sharding_opt import ShardingPlan, plan_conv_sharding
 from repro_torch.core.tiling import (Blocking, attention_block_size,
                                      conv_kernel_footprints,
                                      fit_conv_kernel_tiles, matmul_blocking,
@@ -55,6 +59,40 @@ def _plan_dtypes(prec: Precision) -> Tuple[Tuple[str, str], ...]:
             ("filter", _width_dtype(prec.p_F)),
             ("output", _width_dtype(prec.p_O)),
             ("accum", "float32"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelSection:
+    """The distributed leg of a multi-device conv plan (paper §4.2).
+
+    ``grid`` is the integer processor grid the parallel LP chose (sorted
+    (axis, procs) pairs over the distributable axes, procs > 1 only),
+    ``comm_words`` the blocking model's predicted per-processor network
+    words, and ``lower_bound`` the combined Thm 2.2/2.3 per-processor bound
+    at the target's effective local capacity. ``repro_torch.distributed``
+    runs exactly this grid on a conv mesh; ``DispatchDecision.bound_ratio``
+    for the ``conv2d_dist`` op divides measured inter-device words by this
+    bound."""
+
+    grid: Tuple[Tuple[str, int], ...]
+    P: int
+    comm_words: float
+    lower_bound: float
+
+    @property
+    def grid_dict(self) -> Dict[str, int]:
+        return dict(self.grid)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"grid": [list(kv) for kv in self.grid], "P": self.P,
+                "comm_words": self.comm_words,
+                "lower_bound": self.lower_bound}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ParallelSection":
+        return cls(grid=tuple((str(k), int(v)) for k, v in d["grid"]),
+                   P=int(d["P"]), comm_words=float(d["comm_words"]),
+                   lower_bound=float(d["lower_bound"]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +129,10 @@ class ExecutionPlan:
     input rows), (bm, bn, bk) for matmul — and ``blocking`` the full 9-axis
     integer LP solution it was collapsed from. ``grid`` is the launch grid
     over the padded problem, in the reference's axis order (conv:
-    (N, c_O, h_O, w_O, c_I) tiles; matmul: (m, n, k)). The reference's
-    multi-device fields (``sharding``, ``parallel``) are absent: the port
-    plans single-device targets only, and writes them as null.
+    (N, c_O, h_O, w_O, c_I) tiles; matmul: (m, n, k)). ``sharding`` is
+    present iff the target has mesh axes; conv plans for such targets also
+    carry ``parallel``, the §4.2 processor grid and predicted per-processor
+    words that ``repro_torch.distributed`` executes.
     """
 
     op: OpSpec
@@ -104,6 +143,8 @@ class ExecutionPlan:
     comm_volume: float  # modeled slow<->fast words moved
     lower_bound: float  # Thm 2.1 bound at the target's effective capacity
     efficiency: float  # comm_volume / lower_bound
+    sharding: Optional[ShardingPlan] = None
+    parallel: Optional[ParallelSection] = None
     dtypes: Tuple[Tuple[str, str], ...] = ()
     tuned: Optional[TunedSection] = None
 
@@ -153,7 +194,7 @@ class ExecutionPlan:
 
     # -- (de)serialization ----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
-        return {
+        d: Dict[str, Any] = {
             "version": PLAN_FORMAT_VERSION,
             "op": self.op.to_dict(),
             "target": self.target.to_dict(),
@@ -164,10 +205,20 @@ class ExecutionPlan:
             "lower_bound": self.lower_bound,
             "efficiency": self.efficiency,
             "sharding": None,
-            "parallel": None,
+            "parallel": (None if self.parallel is None
+                         else self.parallel.to_dict()),
             "dtypes": [list(kv) for kv in self.dtypes],
             "tuned": None if self.tuned is None else self.tuned.to_dict(),
         }
+        if self.sharding is not None:
+            s = self.sharding
+            d["sharding"] = {
+                "binding": dict(s.binding),
+                "mesh_axes": [list(ax) for ax in s.mesh_axes],
+                "comm_per_processor": s.comm_per_processor,
+                "grid": dict(s.grid),
+            }
+        return d
 
     def to_json(self, indent: Optional[int] = None) -> str:
         return json.dumps(self.to_dict(), indent=indent)
@@ -177,16 +228,24 @@ class ExecutionPlan:
         if d.get("version", 1) > PLAN_FORMAT_VERSION:
             raise ValueError(f"plan format {d['version']} is newer than "
                              f"supported {PLAN_FORMAT_VERSION}")
-        if d.get("sharding") is not None or d.get("parallel") is not None:
-            raise NotImplementedError(
-                "multi-device plans (sharding / parallel sections) need the "
-                "multi-device planner, which repro_torch does not have yet")
         if d.get("version", 1) < 2 and d["op"].get("kind") == "conv":
             # v1 conv plans: 3-tuple tiles, (nN, n_cO, n_cI) grid. Upgrade to
             # the spatial-blocked form with spatial kept whole.
             op = d["op"]
             d = dict(d, tiles=list(d["tiles"]) + [op["h_O"], op["w_O"]],
                      grid=[d["grid"][0], d["grid"][1], 1, 1, d["grid"][2]])
+        sharding = None
+        if d.get("sharding") is not None:
+            s = d["sharding"]
+            sharding = ShardingPlan(
+                binding=dict(s["binding"]),
+                mesh_axes=tuple((str(n), int(sz)) for n, sz in s["mesh_axes"]),
+                comm_per_processor=float(s["comm_per_processor"]),
+                grid={k: int(v) for k, v in s["grid"].items()},
+            )
+        parallel = None
+        if d.get("parallel") is not None:  # absent in v1/v2 dumps
+            parallel = ParallelSection.from_dict(d["parallel"])
         tuned = None
         if d.get("tuned") is not None:
             tuned = TunedSection.from_dict(d["tuned"])
@@ -199,6 +258,8 @@ class ExecutionPlan:
             comm_volume=float(d["comm_volume"]),
             lower_bound=float(d["lower_bound"]),
             efficiency=float(d["efficiency"]),
+            sharding=sharding,
+            parallel=parallel,
             dtypes=tuple((str(k), str(v)) for k, v in d.get("dtypes", [])),
             tuned=tuned,
         )
@@ -302,11 +363,32 @@ def _plan_conv(op: ConvSpec, target: HardwareTarget) -> ExecutionPlan:
             ceil_div(op.c_I, tiles[1]))
     vol = blk.comm_volume()
     lb = single_processor_bound(shape, mem.M_eff).value
+    sharding = None
+    parallel = None
+    if target.mesh_axes:
+        sharding = plan_conv_sharding(shape, target.mesh_axes)
+        parallel = _parallel_section(shape, target.n_devices, mem.M_eff)
     return ExecutionPlan(
         op=op, target=target, blocking=tuple(sorted(blk.b.items())),
         tiles=tiles, grid=grid, comm_volume=vol, lower_bound=lb,
-        efficiency=vol / max(lb, 1.0),
+        efficiency=vol / max(lb, 1.0), sharding=sharding, parallel=parallel,
         dtypes=_plan_dtypes(op.prec or target.precision))
+
+
+def _parallel_section(shape: ConvShape, P: int, M_eff: float
+                      ) -> ParallelSection:
+    """The §4.2 leg of a multi-device conv plan: the parallel LP's integer
+    grid restricted to the axes ``repro_torch.distributed`` can run, its
+    modeled per-processor words, and the combined Thm 2.2/2.3 bound."""
+    # local import keeps repro_torch.plan importable without the package
+    from repro_torch.distributed.geometry import DIST_AXES
+
+    pb = optimize_parallel_blocking(shape, P, restrict_axes=DIST_AXES)
+    return ParallelSection(
+        grid=tuple(sorted((k, v) for k, v in pb.grid.items() if v > 1)),
+        P=pb.P,
+        comm_words=pb.comm_per_processor(),
+        lower_bound=combined_parallel_bound(shape, P, M_eff))
 
 
 def _fit_matmul_tiles(tiles: Tuple[int, int, int], prec, mem,
@@ -367,10 +449,15 @@ def _plan_matmul(op: MatmulSpec, target: HardwareTarget) -> ExecutionPlan:
     shape = op.to_shape(target.precision)
     vol = blk.comm_volume()
     lb = single_processor_bound(shape, mem.M_eff).value
+    sharding = None
+    if target.mesh_axes:
+        sharding = plan_conv_sharding(shape, target.mesh_axes,
+                                      shardable=("N", "cI", "cO"))
     return ExecutionPlan(
         op=op, target=target, blocking=tuple(sorted(blk.b.items())),
         tiles=tiles, grid=grid, comm_volume=vol, lower_bound=lb,
-        efficiency=vol / max(lb, 1.0), dtypes=_plan_dtypes(prec))
+        efficiency=vol / max(lb, 1.0), sharding=sharding,
+        dtypes=_plan_dtypes(prec))
 
 
 def _plan_attention(op: AttentionSpec, target: HardwareTarget) -> ExecutionPlan:
@@ -461,10 +548,6 @@ def analytic_plan(op: Union[OpSpec, ConvShape],
     """Solve the blocking LP for one (op, target) pair. Memoized: repeated
     calls with an equal pair return the identical ExecutionPlan object."""
     op = as_op_spec(op)
-    if target.mesh_axes:
-        raise NotImplementedError(
-            f"target {target.name!r} has mesh axes {target.mesh_axes}; "
-            "repro_torch plans single-device targets only")
     key = (op, target)
     with _CACHE_LOCK:
         cached = _CACHE.get(key)

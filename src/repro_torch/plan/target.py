@@ -81,6 +81,14 @@ class HardwareTarget:
         return dataclasses.replace(
             self, mesh_axes=tuple((str(n), int(s)) for n, s in axes))
 
+    @classmethod
+    def from_mesh(cls, mesh: Any, base: Optional["HardwareTarget"] = None
+                  ) -> "HardwareTarget":
+        """Target whose mesh_axes mirror a conv mesh's axes and sizes
+        (``repro_torch.distributed.ConvMesh``; default base ``H100``)."""
+        base = base or H100
+        return base.with_mesh(tuple(zip(mesh.axis_names, mesh.sizes)))
+
     def with_precision(self, prec: Precision) -> "HardwareTarget":
         return dataclasses.replace(self, precision=prec)
 

@@ -50,7 +50,9 @@ def test_import_loads_no_jax():
             "repro_torch.serving, repro_torch.resilience, "
             "repro_torch.launch.serve, repro_torch.analysis.roofline, "
             "repro_torch.analysis.timing, repro_torch.plan.autotune, "
-            "repro_torch.data, repro_torch.train, repro_torch.launch.train; "
+            "repro_torch.data, repro_torch.train, repro_torch.launch.train, "
+            "repro_torch.distributed, repro_torch.launch.mesh, "
+            "repro_torch.core.hbl, repro_torch.core.algorithms; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")

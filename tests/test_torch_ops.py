@@ -187,8 +187,9 @@ def test_context_rules():
     assert tops.backends() == ("cuda", "im2col", "torch")
     assert tops.registered_ops() == ("attention", "attention_decode",
                                      "attention_decode_quant",
-                                     "conv1d_causal", "conv2d", "conv2d_q",
-                                     "matmul", "matmul_q")
+                                     "conv1d_causal", "conv2d",
+                                     "conv2d_dist", "conv2d_q", "matmul",
+                                     "matmul_q")
 
 
 def test_backend_env_knob(monkeypatch):

@@ -1,6 +1,6 @@
 """repro_torch.plan against repro.plan: equal plans for every preset on the
 paper's layers and their Im2Col GEMMs, plan JSON crossing both ways, and the
-port's own rules (H100 default, the autotuner on the CPU, no mesh targets)."""
+port's own rules (H100 default, the autotuner on the CPU)."""
 
 import json
 
@@ -148,9 +148,10 @@ def test_port_defaults_and_limits():
         assert src == "tuned" and p.tuned is not None
     finally:
         tp.Planner.cache.clear()
-    with pytest.raises(NotImplementedError):
-        tp.Planner(tp.H100.with_mesh([("data", 4)])).plan(
-            tp.MatmulSpec(64, 64, 64))
+    # a mesh target plans its sharding (the reference's mesh leg)
+    meshed = tp.Planner(tp.H100.with_mesh([("data", 4)])).plan(
+        tp.MatmulSpec(64, 64, 64))
+    assert meshed.sharding is not None and meshed.parallel is None
     ep = tp.Planner().plan(tp.ConvSpec(N=2, c_I=64, c_O=64, w_O=56, h_O=56,
                                        w_F=3, h_F=3))
     fp = ep.kernel_footprints()

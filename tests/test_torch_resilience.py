@@ -5,8 +5,8 @@ degradation to Im2Col, the probe back to the primary, the card's rule that
 a fault never demotes to aten), the port's counterpart of tracing
 (``ops.traced()``), graceful degradation in the serving engine (retries,
 per-row failure, backpressure, pool rebuild, deadlines) and the
-``fault_swallowed`` mutant; the mirror of tests/test_resilience.py, without
-its distributed case (the halo conv is not ported).
+``fault_swallowed`` mutant, and a fault in the distributed halo conv
+re-dispatched; the mirror of tests/test_resilience.py.
 
 Parity runs: the engines serve the stablelm smoke config in f32 with the
 reference's parameters carried over, ``batch_size=2`` and ``max_len=32``,
@@ -559,6 +559,73 @@ def test_card_never_demotes_to_torch(monkeypatch, stub_backends):
         _matmul_on(cpu)
     assert [(d.chosen, d.degraded) for d in log] == [("torch", True)]
     assert camp.summary()["resolutions"] == {"degraded": 1}
+
+
+# ---------------------------------------------------------------------------
+# Distributed: shard fault re-dispatches through the torch leg
+# ---------------------------------------------------------------------------
+
+def test_dist_shard_fault_redispatches_through_torch():
+    """The reference's ``test_dist_shard_fault_redispatches_through_xla``
+    under the port's rules: on a device="cpu" context a launch fault on the
+    ``cuda`` ``conv2d_dist`` demotes to the backend's fallback, ``torch``,
+    as the reference's ``pallas`` entry demotes to ``xla``: one injection
+    resolved "degraded", the quarantine keyed ("conv2d_dist", "cuda"), the
+    output within 1e-5 of the reference's. On the card the entry names no
+    ``degrade_to``, so a fault there retries in place and never reaches
+    aten."""
+    from repro.core.conv_model import ConvShape as JShape
+    from repro.core.parallel_tiling import ParallelBlocking as JBlocking
+    from repro_torch.core.conv_model import ConvShape
+    from repro_torch.core.parallel_tiling import ParallelBlocking
+    from repro_torch.ops import dispatch
+
+    rng = np.random.default_rng(0)
+    xn = rng.standard_normal((2, 4, 18, 18)).astype(np.float32)
+    wn = rng.standard_normal((4, 4, 3, 3)).astype(np.float32)
+    kw = dict(N=2, c_I=4, c_O=4, h_O=16, w_O=16, h_F=3, w_F=3, sh=1, sw=1)
+    jpb = JBlocking.from_grid(JShape(**kw), {})  # 1-device smoke grid
+    tpb = ParallelBlocking.from_grid(ConvShape(**kw), {})
+    jx, jw = jnp.asarray(xn), jnp.asarray(wn)
+    jxla = jops.ExecutionContext(target=jp.TPU_V5E, backend="xla")
+    jpallas = jops.ExecutionContext(target=jp.TPU_V5E, backend="pallas",
+                                    interpret=True)
+    want = np.asarray(jops.conv2d_dist(jx, jw, stride=(1, 1), blocking=jpb,
+                                       ctx=jxla, out_dtype=jnp.float32))
+    camp_kw = dict(seed=0, rate=1.0, kinds=("launch",), ops=("conv2d_dist",),
+                   max_faults=1)
+    jcamp = jfj.FaultCampaign(**camp_kw)
+    with jfj.activate(jcamp):
+        jgot = np.asarray(jops.conv2d_dist(jx, jw, stride=(1, 1),
+                                           blocking=jpb, ctx=jpallas,
+                                           out_dtype=jnp.float32))
+    camp = fj.FaultCampaign(**camp_kw)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    with fj.activate(camp), ops.record_dispatch() as log:
+        got = ops.conv2d_dist(x, w, stride=(1, 1), blocking=tpb, ctx=CUDA,
+                              out_dtype=torch.float32)
+    camp.verify_accounted()
+    assert camp.summary()["resolutions"] == jcamp.summary()["resolutions"] \
+        == {"degraded": 1}
+    assert [r[:5] for r in _records(camp)] == \
+        [r[:5] for r in _records(jcamp)]
+    dist = [d for d in log if d.op == "conv2d_dist"]
+    assert [(d.chosen, d.degraded, d.fault) for d in dist] == \
+        [("torch", True, "KernelLaunchError")]
+    # the torch leg's shard ran aten: no conv2d decision left torch
+    assert {d.chosen for d in log if d.op == "conv2d"} == {"torch"}
+    (key,) = ops.quarantined()
+    (jkey,) = jops.quarantined()
+    assert key[:2] == ("conv2d_dist", "cuda")
+    assert jkey[:2] == ("conv2d_dist", "pallas")  # xla leg served the call
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), jgot, rtol=1e-5, atol=1e-5)
+    # the card's rule: nothing to demote to, so a fault retries in place
+    cuda = registry.get_backend("cuda")
+    entry = cuda.ops["conv2d_dist"]
+    assert entry.degrade_to is None
+    assert dispatch._demote_to(entry, cuda, on_card=True) is None
+    assert dispatch._demote_to(entry, cuda, on_card=False) == "torch"
 
 
 # ---------------------------------------------------------------------------
