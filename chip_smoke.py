@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine paths. The conv path is the paper's experiment: the five ResNet-50
+Ten paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -39,7 +39,10 @@ seeded fault campaigns through the conv path and the two Qwen engines. The
 distributed path is the paper's §4.2: ResNet-50's conv1 and conv2_x at
 batch 1000 through ``ops.conv2d_dist`` (``repro_torch.distributed``'s
 halo-exchange conv) on an in-process mesh of 8 shards on the card, and
-conv2_x over 4 ranks of a gloo process group sharing the card.
+conv2_x over 4 ranks of a gloo process group sharing the card. The
+language-model mesh path trains the Qwen2.5-3B cut on a (data 2, model 2)
+DTensor mesh of 4 gloo ranks sharing the card and dry-runs production
+cells on a fake process group.
 Phases, each fatal on failure (from phase 3 to phase 24, and in phase
 26, each phase's dispatch decisions are recorded, and it fails if one of
 them was degraded or the quarantine table is not empty at its end: an
@@ -427,10 +430,33 @@ organic fault never passes as a demotion):
      summary line. A ``{"cycle_check": ...}`` line after every phase
      gives the card memory that only reference cycles held (a collection
      frees it; ``flag`` where not 0), fatal after (a)-(b) and after (c);
- 27. the ``kernels`` JSON line (the flash entry lists its compiled
-     instances and the hd-80 timing; the conv entry its phase-26 shard
-     launches), the card's name and power limit, and the last line
-     ``{"ok": true, "device": {...}}``.
+ 27. the language-model mesh. (a) Qwen2.5-3B at published widths cut to
+     8 layers (phase 22's cut, B 4, L 512, seed 0), 2 AdamW steps (lr
+     1e-3) through ``launch/train.py`` on one card, then through
+     ``launch/train.py --mesh 2,2`` on 4 gloo ranks sharing the card (each
+     this script with ``--mesh-rank``, ``torchrun``'s environment, joined
+     under ``MESH_TIMEOUT``): every rank's losses within 1e-2 relative of
+     the single-device run's and within ``MESH_LOSS_TIGHT`` (1e-4), which a
+     run that did not update fails (the no-update control: the
+     single-device run's first parameters on the second batch, fatal if it
+     reads inside the bound), its parameters within 2 x lr x steps of
+     them, its AdamW first moments (0.09 g1 + 0.1 g2 after two steps: the
+     gradients of both steps) within ``MESH_MOMENT_TOL`` of the
+     single-device run's relative to each leaf's largest |value| (no
+     update reads 1, a wrong sign 2), its 16 flash launches all on the
+     tensor cores, its wire bytes
+     by kind each step and its argument bytes equal to
+     ``dryrun.count_train_step``'s count of the same step on a fake group
+     of 4, and the single-device checkpoint restored onto the mesh with
+     ``shardings=`` and gathered back over a CPU mesh bit for bit. (b)
+     Beside it, in a process of its own (``--dryrun``, no card memory):
+     the dry run of Qwen2.5-3B's cells on (16, 16), its ``train_4k`` on
+     (2, 16, 16) and InternVL2-1B's ``train_4k``; one ``{"dryrun": ...}``
+     line a cell with its host seconds, and the report's tables;
+ 28. the ``kernels`` JSON line (the flash entry lists its compiled
+     instances, the hd-80 timing and phase 27's rank launches; the conv
+     entry its phase-26 shard launches), the card's name and power limit,
+     and the last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
@@ -4606,6 +4632,393 @@ def dist_phase(gen: torch.Generator) -> dict:
     return summary
 
 
+MESH_SHAPE = (2, 2)  # (data, model): one KV head, 8 query heads a rank
+MESH_RANKS = 4
+MESH_STEPS = 2
+MESH_LR = 1e-3
+MESH_TIMEOUT = 600  # seconds for the ranks to finish
+# the losses' tight bound: a step moves the loss by about 1e-3 relative,
+# the mesh's bf16 partial sums move it by about 1e-5
+MESH_LOSS_TIGHT = 1e-4
+# the first moments' bound relative to each leaf's largest |value|: the
+# bf16 forward and backward split over the mesh move every kind of leaf by
+# 1.1e-2 to 3.6e-2 (NVIDIA H100 80GB HBM3, 700.00 W); no update reads 1
+MESH_MOMENT_TOL = 1e-1
+DRYRUN_TIMEOUT = 600  # seconds for phase 27 (b)'s process
+# phase 27 (b): Qwen2.5-3B's cells on (16, 16), its train_4k on (2, 16, 16),
+# and InternVL2-1B's train_4k (the reference test's own cell)
+DRYRUN_CELLS = ([("qwen2_5_3b", s, False) for s in ("train_4k",
+                                                     "prefill_32k",
+                                                     "decode_32k")]
+                + [("qwen2_5_3b", "train_4k", True),
+                   ("internvl2_1b", "train_4k", False)])
+
+
+def mesh_train_argv() -> list:
+    """Phase 27 (a)'s ``launch/train.py`` arguments: phase 22's cut of
+    Qwen2.5-3B (published widths, 8 layers), B 4, L 512, its seed (the
+    launcher's, 0 = ``SEED``)."""
+    return ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--batch",
+            "4", "--seq", "512", "--steps", str(MESH_STEPS), "--lr",
+            str(MESH_LR), "--device", "cuda",
+            "--backend", "cuda"]
+
+
+def mesh_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 27 (a), started as ``torchrun`` would start it
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): the
+    launcher's mesh run (``launch.train.train``, its report in ``outdir``),
+    then its parameters against the single-device run's (this device's
+    chunk of each) and the single-device checkpoint restored onto the mesh
+    with ``shardings=`` and gathered back over a CPU mesh of the same
+    ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.convert import tree_from_named
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import shardings_for
+
+    flash = KERNELS["flash_attention"]
+    flash.launches = flash.tensor_core_launches = 0
+    trainer, hist = launch_train.train(mesh_train_argv() + [
+        "--mesh", ",".join(map(str, MESH_SHAPE))])
+    report = {"rank": rank, "loss": hist["loss"],
+              "step_time": hist["step_time"],
+              "collectives": trainer.collectives,
+              "flash_launches": flash.launches,
+              "flash_tensor_core_launches": flash.tensor_core_launches,
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 1e9,
+              "argument_bytes": argument_bytes(
+                  (trainer.params, trainer.opt_state,
+                   trainer.place_batch(trainer.source.batch(0))))}
+    mesh, cfg = trainer.mesh, trainer.model_cfg
+    specs = shardings_for(cfg, mesh)
+    want = torch.load(os.path.join(outdir, "single_params.pt"), mmap=True)
+    worst, over = 0.0, []
+    for name, p in trainer.params.named_parameters():
+        chunk = want[name][specs[name].local_slices(p.shape)]
+        err = (p.to_local().detach().cpu() - chunk).abs().max().item()
+        worst = max(worst, err)
+        if not err <= 2 * MESH_LR * MESH_STEPS:
+            over.append((name, err))
+    # the first moments: this device's chunk of each against the
+    # single-device run's, relative to the chunk's largest |value|
+    want = torch.load(os.path.join(outdir, "single_m.pt"), mmap=True)
+    moments = {}
+    for name, m in trainer.opt_state.m.items():
+        chunk = want[name][specs[name].local_slices(m.shape)]
+        scale = chunk.abs().max().item()
+        err = (m.to_local().detach().cpu() - chunk).abs().max().item()
+        moments[name] = (err / scale if scale else
+                         (0.0 if err == 0 else math.inf))
+    top = max(moments, key=moments.get)
+    del trainer, want
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        meta = T.Transformer(cfg)
+    template = {"params": tree_from_named(dict(meta.named_parameters()))}
+    tree = {"params": shd.stacked_param_specs(cfg)}
+    directory = os.path.join(outdir, "ckpt")
+    placed, _ = ckpt.restore(directory, template, device="cuda",
+                             shardings=shd.shardings(mesh, tree))
+    plain, _ = ckpt.restore(directory, template, device="cpu")
+    cpu_mesh = make_host_mesh(*MESH_SHAPE, device_type="cpu")
+    equal, sharded = True, 0
+    for (key, a), (_, b) in zip(ckpt._flatten_with_paths(placed),
+                                ckpt._flatten_with_paths(plain)):
+        local = a.to_local()
+        sharded += tuple(local.shape) != tuple(a.shape)
+        whole = DTensor.from_local(local.cpu(), cpu_mesh, a.placements,
+                                   run_check=False, shape=a.shape,
+                                   stride=a.stride()).full_tensor()
+        equal = equal and bool(torch.equal(whole, b))
+    with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
+        json.dump(dict(report, param_max_abs_err=worst,
+                       params_over=over[:5],
+                       moment_max_rel_err=moments[top],
+                       moment_worst_leaf=top, restore_bit_equal=equal,
+                       restored_sharded_leaves=sharded,
+                       local_device=str(local.device)), f)
+    dist.destroy_process_group()
+
+
+def dryrun_main() -> None:
+    """Phase 27 (b) in a process of its own (``--dryrun``): each cell of
+    ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell`` on a fake group
+    (no card memory), one ``{"dryrun": ...}`` line a cell with its host
+    seconds, then the report's two tables."""
+    from repro_torch.analysis import report
+    from repro_torch.launch import dryrun
+
+    recs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                              verbose=False)
+        recs.append(rec)
+        print(json.dumps({
+            "dryrun": arch, "shape": shape, "mesh": rec["mesh"],
+            "n_layers": rec["n_layers"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "hlo_flops": rec["hlo_flops"], "hlo_bytes": rec["hlo_bytes"],
+            "collectives": rec["collectives"],
+            "collective_calls": rec["collective_calls"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "collective_s": rec["collective_s"],
+            "dominant": rec["dominant"], "mfu": rec["mfu"],
+            "host_s": time.perf_counter() - t0,
+            "torch": rec["torch"]}), flush=True)
+    print(report.dryrun_table(recs), flush=True)
+    for mesh in ("16x16", "2x16x16"):
+        print(report.roofline_table(recs, mesh=mesh), flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase() -> dict:
+    """Phase 27 (module docstring): the mesh trainer over 4 gloo ranks
+    sharing the card against the single-device trainer and the dry run's
+    count, and the dry run of production cells in a process of its own
+    beside it. Fatal on any failure; the single-device run's files are
+    removed at the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                            "--dryrun"], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    outdir = tempfile.mkdtemp(prefix="mesh_train_")
+    try:
+        row = mesh_train_gates(cfg, outdir)
+    except BaseException:  # a failed gate exits: stop the dry run too
+        dry.kill()
+        dry.wait()
+        raise
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    # (b): the dry run's process
+    try:
+        out = dry.communicate(timeout=max(
+            DRYRUN_TIMEOUT - (time.perf_counter() - t_phase), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        dry.kill()
+        dry.wait()
+        fail(f"dry run: not done in {DRYRUN_TIMEOUT} s")
+    lines = [x for x in out.splitlines() if not x.startswith("[rank")
+             and "Warning" not in x and "warn(" not in x]
+    print("\n".join(lines), flush=True)
+    cells = [x for x in lines if x.startswith('{"dryrun"')]
+    if dry.returncode != 0 or len(cells) != len(DRYRUN_CELLS):
+        fail(f"dry run: exit code {dry.returncode}, {len(cells)} of "
+             f"{len(DRYRUN_CELLS)} cells:\n" + out[-4000:])
+    summary = {"mesh_phase": "summary",
+               "rank_flash_launches": sum(row["rank_flash_launches"]),
+               "dry_run_cells": len(cells),
+               "seconds": time.perf_counter() - t_phase, "card": row["card"]}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def no_update_loss(cfg, ctx) -> tuple:
+    """The single-device trainer's loss at its first parameters (the
+    launcher's seed) on its first and on its second batch: the first
+    reproduces the run's first loss; the second is the loss of a run that
+    did not update at its second step, the control of the losses' tight
+    bound."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainConfig
+
+    tc = TrainConfig(ctx=ctx)
+    params = T.init_params(cfg, seed=tc.seed, device="cuda")
+    source = make_source(DataConfig(batch_size=4, seq_len=512,
+                                    vocab_size=cfg.vocab_size))
+    out = []
+    with torch.no_grad():
+        for step in (0, 1):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in source.batch(step).items()}
+            total, _ = T.loss_fn(params, cfg, batch, ctx=ctx,
+                                 aux_weight=tc.aux_weight,
+                                 loss_chunks=tc.loss_chunks)
+            out.append(float(total))
+    del params
+    torch.cuda.empty_cache()
+    return out[0], out[1]
+
+
+def mesh_train_gates(cfg, outdir: str) -> dict:
+    """Phase 27 (a): the single-device run (its parameters, first moments
+    and checkpoint written to ``outdir``), the no-update control, the
+    dry run's count, then the 4 ranks, and every gate; returns the
+    phase's row."""
+    from repro_torch.convert import transformer_tree
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig
+
+    card = smi()
+    at_start, control = no_update_loss(
+        cfg, ExecutionContext(target=H100, backend="cuda", device="cuda"))
+    # the single-device run: the same launcher, the same arguments
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k = KERNELS["flash_attention"]
+    k.launches = k.tensor_core_launches = 0
+    trainer, single = launch_train.train(mesh_train_argv())
+    single_launches = (k.launches, k.tensor_core_launches)
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.save({n: p.detach().cpu() for n, p in
+                trainer.params.named_parameters()},
+               os.path.join(outdir, "single_params.pt"))
+    torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()},
+               os.path.join(outdir, "single_m.pt"))
+    ckpt.save(os.path.join(outdir, "ckpt"), MESH_STEPS,
+              {"params": transformer_tree(trainer.params)})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry run's count of the same step under the same placements
+    count = dryrun.count_train_step(
+        cfg, MESH_SHAPE, {"tokens": torch.empty((4, 512), dtype=torch.int32,
+                                                device="meta")},
+        TrainConfig(n_groups=MESH_RANKS))
+    t0 = time.perf_counter()
+    env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               LOCAL_RANK="0")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), outdir], env=dict(env, RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = MESH_TIMEOUT - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"mesh train: a rank did not finish in {MESH_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        fail("mesh train: rank exit codes "
+             f"{[p.returncode for p in procs]}:\n" + "\n".join(logs)[-6000:])
+    checks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(outdir, f"checks{r}.json")) as f:
+            checks.append(json.load(f))
+    bound = 2 * MESH_LR * MESH_STEPS
+    rel = [abs(a - b) / abs(b) for c in checks
+           for a, b in zip(c["loss"], single["loss"])]
+    control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
+    row = {"mesh_train": cfg.name, "layers": cfg.n_layers,
+           "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+           "ranks": MESH_RANKS, "backend": "gloo, one card",
+           "batch": [4, 512], "steps": MESH_STEPS,
+           "single_losses": single["loss"],
+           "rank_losses": [c["loss"] for c in checks],
+           "loss_max_rel_err": max(rel), "loss_bound": MESH_LOSS_TIGHT,
+           "no_update_loss": control, "no_update_loss_rel_err": control_rel,
+           "first_loss_recomputed": at_start,
+           "single_step_s": single["step_time"],
+           "rank_step_s": [c["step_time"] for c in checks],
+           "param_max_abs_err": max(c["param_max_abs_err"] for c in checks),
+           "param_bound": bound,
+           "moment_max_rel_err": max(c["moment_max_rel_err"]
+                                     for c in checks),
+           "moment_worst_leaf": max(checks, key=lambda c: c[
+               "moment_max_rel_err"])["moment_worst_leaf"],
+           "moment_bound": MESH_MOMENT_TOL,
+           "wire_bytes_per_step": checks[0]["collectives"][0],
+           "dry_run_wire_bytes": count["collectives"],
+           "dry_run_calls": count["calls"],
+           "argument_bytes": [c["argument_bytes"] for c in checks],
+           "dry_run_argument_bytes": count["argument_bytes"],
+           "rank_flash_launches": [c["flash_launches"] for c in checks],
+           "rank_tensor_core_launches": [c["flash_tensor_core_launches"]
+                                         for c in checks],
+           "single_flash_launches": single_launches[0],
+           "restore_bit_equal": [c["restore_bit_equal"] for c in checks],
+           "rank_max_memory_allocated_gb": [
+               c["max_memory_allocated_gb"] for c in checks],
+           "single_max_memory_allocated_gb": single_peak,
+           "ranks_seconds": seconds, "card": card}
+    print(json.dumps(row), flush=True)
+    if not max(rel) <= 1e-2 or any(len(c["loss"]) != MESH_STEPS
+                                   for c in checks):
+        fail(f"mesh train: losses {row['rank_losses']} vs "
+             f"{single['loss']}")
+    if not abs(at_start - single["loss"][0]) <= \
+            MESH_LOSS_TIGHT * abs(single["loss"][0]):
+        fail(f"mesh train: the control's first loss {at_start} is not the "
+             f"single-device run's {single['loss'][0]}")
+    if not control_rel > MESH_LOSS_TIGHT:
+        fail(f"mesh train: a run that did not update reads {control_rel}, "
+             f"inside the losses' bound {MESH_LOSS_TIGHT}")
+    if not max(rel) <= MESH_LOSS_TIGHT:
+        fail(f"mesh train: losses {row['rank_losses']} vs "
+             f"{single['loss']}: {max(rel)} relative, above "
+             f"{MESH_LOSS_TIGHT}")
+    if not row["param_max_abs_err"] <= bound:
+        fail(f"mesh train: parameters {[c['params_over'] for c in checks]} "
+             f"off the single-device run's by more than {bound}")
+    if not row["moment_max_rel_err"] <= MESH_MOMENT_TOL:
+        fail(f"mesh train: first moments off the single-device run's by "
+             f"{row['moment_max_rel_err']} of the leaf's largest |value| "
+             f"({row['moment_worst_leaf']}), above {MESH_MOMENT_TOL}")
+    want = cfg.n_layers * MESH_STEPS
+    if not single_launches[0] == want == single_launches[1]:
+        fail(f"mesh train: the single-device run launched flash "
+             f"{single_launches}, expected {want}")
+    for c in checks:
+        if not (c["flash_launches"] == want
+                == c["flash_tensor_core_launches"]):
+            fail(f"mesh train: rank {c['rank']} launched flash "
+                 f"{c['flash_launches']} times "
+                 f"({c['flash_tensor_core_launches']} on the tensor "
+                 f"cores), expected {want}")
+        if any(step != count["collectives"] for step in c["collectives"]):
+            fail(f"mesh train: rank {c['rank']} wire bytes "
+                 f"{c['collectives']} vs the dry run's "
+                 f"{count['collectives']}")
+        if c["argument_bytes"] != count["argument_bytes"]:
+            fail(f"mesh train: rank {c['rank']} argument bytes "
+                 f"{c['argument_bytes']} vs the dry run's "
+                 f"{count['argument_bytes']}")
+    if not all(c["restore_bit_equal"] and c["restored_sharded_leaves"] > 0
+               and c["local_device"].startswith("cuda") for c in checks):
+        fail(f"mesh train: checkpoint restore onto the mesh {checks}")
+    return row
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5044,7 +5457,11 @@ def main() -> None:
     no_quiet_degradation("26")
     quiet.close()
 
-    # -- 27. summary --------------------------------------------------------
+    # -- 27. the language-model mesh: the mesh trainer and the dry run -------
+    mesh = mesh_phase()
+    cycle_check("27")
+
+    # -- 28. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -5082,7 +5499,8 @@ def main() -> None:
                  max_abs_err=max_err[k["name"]])
     from repro_torch.kernels.flash_attention import flash_tc_instances
     attn_kernels[0].update(
-        instances=[list(i) for i in flash_tc_instances()], hd80=hd80)
+        instances=[list(i) for i in flash_tc_instances()], hd80=hd80,
+        mesh_train_rank_launches=mesh["rank_flash_launches"])
     kernels += attn_kernels + quant_kernels + [conv1d_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
@@ -5094,5 +5512,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:  # phase 26 (c) starts its ranks so
         dist_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--mesh-rank"]:  # and phase 27 (a) its ranks
+        mesh_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--dryrun"]:  # and phase 27 (b) its dry run
+        dryrun_main()
     else:
         main()

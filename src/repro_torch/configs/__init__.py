@@ -11,6 +11,9 @@ and SMOKE (reduced, runs on the CPU).
 ``NOT_PORTED`` names an architecture of the reference that waits for blocks
 of a later slice (none now); asking for one raises ``NotImplementedError``
 naming its ROADMAP item.
+
+``SKIPS``, ``cells`` and ``all_cells`` are the reference's dry-run cells:
+every (arch, shape) pair of ``LM_SHAPES`` but the skipped ones.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.models.config import ModelConfig, reduced
+from repro_torch.models.config import (LM_SHAPES, ModelConfig, ShapeSpec,
+                                       reduced)
 
 ARCH_IDS: List[str] = [
     "qwen2_5_3b",
@@ -32,6 +36,21 @@ ARCH_IDS: List[str] = [
     "hubert_xlarge",
     "xlstm_1_3b",
 ]
+
+# shape cells skipped per arch: long_500k needs sub-quadratic attention;
+# encoder-only models have no decode step
+SKIPS: Dict[str, List[str]] = {
+    "qwen2_5_3b": ["long_500k"],
+    "stablelm_1_6b": ["long_500k"],
+    "phi3_medium_14b": ["long_500k"],
+    "minitron_8b": ["long_500k"],
+    "phi3_5_moe_42b": ["long_500k"],
+    "olmoe_1b_7b": ["long_500k"],
+    "xlstm_1_3b": [],
+    "hubert_xlarge": ["decode_32k", "long_500k"],
+    "internvl2_1b": ["long_500k"],
+    "jamba_1_5_large": [],
+}
 
 # the reference's architectures that wait for blocks of a later slice
 NOT_PORTED: Dict[str, str] = {}
@@ -53,3 +72,11 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke(arch: str) -> ModelConfig:
     mod = _module(arch)
     return getattr(mod, "SMOKE", None) or reduced(mod.CONFIG)
+
+
+def cells(arch: str) -> List[ShapeSpec]:
+    return [s for n, s in LM_SHAPES.items() if n not in SKIPS[arch]]
+
+
+def all_cells() -> List[tuple]:
+    return [(a, s) for a in ARCH_IDS for s in cells(a)]

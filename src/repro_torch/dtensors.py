@@ -1,0 +1,305 @@
+"""What the ops, the cost counter and the trainer need of a device mesh,
+independent of any model: DTensor (``torch.distributed.tensor``) helpers
+below ``ops`` and ``analysis`` (the model's own layout hooks are
+``models.spmd``).
+
+* :func:`is_dtensor` / :func:`is_dtensor_type`, and :func:`tensors`, the
+  tensor leaves of a tree.
+* :func:`relayout`: a redistribution whose backward brings the gradient to
+  the input's layout (a Partial one replicated).
+* :func:`local_attention`: the attention kernel sees raw pointers, so it
+  runs on each device's local shards through ``local_map``, heads sharded
+  on ``model`` (K/V heads expanded to the query heads where the KV heads
+  do not divide the axis). Over K/V sharded along their sequence with
+  fewer query rows than key rows (a decode step on a sequence-sharded
+  cache), :func:`sequence_parallel_attention` merges the shards' outputs
+  in aten, GSPMD's flash-decode pattern: the flash kernels return no row
+  statistics to merge, so only the ``torch`` backend off the card takes
+  it (the dry run included); the ``cuda`` backend, or shards on the card,
+  raise ``NotImplementedError``.
+* :func:`gloo_guard`: ``GLOO_CUDA_COLLECTIVES`` is what gloo runs on CUDA
+  tensors (torch 2.11 on the H100 machine: all-reduce, reduce-scatter,
+  all-to-all and broadcast; its all-gather does not return); the guard
+  raises, naming the collective, before any other is issued on a gloo
+  group with card tensors.
+
+Importing this module touches no process group and no device; DTensor's
+class is imported at the first call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+
+GLOO_CUDA_COLLECTIVES = ("all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute")
+BATCH_AXES = ("pod", "data")
+
+_DTENSOR = []  # the DTensor class, imported at the first call
+
+
+def _dtensor_class():
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+
+        _DTENSOR.append(DTensor)
+    return _DTENSOR[0]
+
+
+def is_dtensor(t) -> bool:
+    return isinstance(t, _dtensor_class())
+
+
+def is_dtensor_type(cls) -> bool:
+    return issubclass(cls, _dtensor_class())
+
+
+def tensors(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a tree of lists, tuples and dicts, in order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in tensors(x)]
+    return []
+
+
+class _Relayout(torch.autograd.Function):
+    """``t.redistribute(mesh, placements)`` whose gradient is brought to
+    ``t``'s placements, a Partial one replicated. A redistribution is the
+    identity on the global value, so any layout of the gradient is right;
+    DTensor's own backward keeps a Partial gradient Partial along the
+    residual stream, and its backward matmuls then gather the other
+    operand. Brought to the input's layout here, at each row-parallel
+    output, the backward's reductions are Megatron's: one all-reduce a
+    block (with sequence parallelism, the all-gather partner of the
+    forward's reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, placements):
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.mesh = mesh
+        ctx.back = tuple(Replicate() if isinstance(p, Partial) else p
+                         for p in t.placements)
+        return t.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.back:
+            grad = grad.redistribute(ctx.mesh, ctx.back)
+        return grad, None, None
+
+
+def relayout(t, mesh, placements):
+    """``t`` redistributed to ``placements`` (no-op if it has them)."""
+    if tuple(t.placements) == tuple(placements):
+        return t
+    return _Relayout.apply(t, mesh, tuple(placements))
+
+
+def sharding_dims(t, dim: int) -> Tuple[int, ...]:
+    """The mesh dims sharding ``t``'s dim ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(i for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim % t.ndim == dim)
+
+
+def shard_ids(t, dim: int, mesh_dims):
+    """Each device's ids along ``t``'s dim ``dim`` (a chunk of arange,
+    sharded like that dim over ``mesh_dims``; no wire)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    return distribute_tensor(
+        torch.arange(t.shape[dim], device=t.to_local().device),
+        t.device_mesh, tuple(Shard(0) if i in mesh_dims else Replicate()
+                             for i in range(t.device_mesh.ndim)),
+        src_data_rank=None)
+
+
+def stacked_placements(pl, dims):
+    """The placements of a per-device partial stacked on a new leading
+    dim: sharded there over the mesh dims ``dims``, ``pl`` (shifted one
+    dim) elsewhere."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(Shard(0) if i in dims else
+                 (Shard(p.dim + 1) if isinstance(p, Shard) else p)
+                 for i, p in enumerate(pl))
+
+
+def sum_partials(parts, mesh, placements):
+    """The per-device partials (stacked on dim 0) summed, in
+    ``placements``: one all-reduce over the stacking dims. Summed by
+    DTensor's own ops (not a Partial ``local_map`` output), the gradient
+    of each partial is exact on every torch version."""
+    return relayout(parts.sum(dim=0), mesh, placements)
+
+
+def _head_placements(q, n_heads: int):
+    """The placements attention runs in: batch on the axes sharding q's
+    dim 0, heads on ``model`` where they divide it, the rest replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    out = []
+    model = [i for i, n in enumerate(mesh.mesh_dim_names)
+             if n not in BATCH_AXES]
+    heads_ok = n_heads % math.prod(mesh.size(i) for i in model) == 0
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim % q.ndim == 0:
+            out.append(Shard(0))
+        elif i in model and heads_ok:
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _as_dtensor(t, mesh, placements):
+    """A plain tensor (the same on every device) as a DTensor, each device
+    keeping its chunk; a DTensor redistributed."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if is_dtensor(t):
+        return t.redistribute(mesh, placements)
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def local_attention(fn, q, k, v, key_mask=None, causal: bool = True,
+                    q_offset=0, backend: str = "cuda"):
+    """``fn(q, k, v, key_mask)`` on each device's local shards
+    (``local_map``): q, k, v (B, H|KV, L, hd) in :func:`_head_placements`;
+    K/V heads that do not divide the axis are gathered and repeated up to
+    the query heads (their ``g`` copies are local), so each shard's
+    grouping is H/KV's. K/V sharded along their sequence (a cache) are
+    gathered, or, where the queries' rows are fewer than the keys' (a
+    decode step), take :func:`sequence_parallel_attention` (``causal`` and
+    ``q_offset`` are ``fn``'s): its three all-reduces move q-sized rows,
+    the gather K/V. That merge runs in aten, not through ``fn``: only
+    ``backend`` ``"torch"`` with shards off the card takes it; else it
+    raises ``NotImplementedError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, KV = q.shape[1], k.shape[1]
+    if sharding_dims(k, 2) and q.shape[2] * H < k.shape[2] * KV:
+        # fewer query rows than key rows (decode): merge the shards'
+        # outputs; else (prefill) gather K/V, as GSPMD chooses
+        if backend != "torch" or k.to_local().is_cuda:
+            raise NotImplementedError(
+                f"attention over K/V sharded along their sequence on the "
+                f"{backend!r} backend ({k.to_local().device}): the "
+                "sequence-parallel merge needs each shard's row max and "
+                "sum, which no attention kernel returns; it runs on the "
+                "'torch' backend off the card only")
+        return sequence_parallel_attention(q, k, v, causal, q_offset,
+                                           key_mask)
+    pl = _head_placements(q, H)
+    kv_pl = _head_placements(k, KV) if KV != H else pl
+    if kv_pl != pl:
+        # gather K/V heads, repeat each to its g query heads, then keep this
+        # device's heads (a local chunk)
+        rep = tuple(Replicate() if p == Shard(1) else p for p in pl)
+        k = k.redistribute(mesh, rep).repeat_interleave(H // KV, dim=1)
+        v = v.redistribute(mesh, rep).repeat_interleave(H // KV, dim=1)
+    if key_mask is not None:
+        key_mask = _as_dtensor(key_mask, mesh, tuple(
+            Replicate() if p == Shard(1) else p for p in pl))
+        run = local_map(fn, out_placements=(pl,),
+                        in_placements=(pl, pl, pl, key_mask.placements),
+                        device_mesh=mesh, redistribute_inputs=True)
+        return run(q, k, v, key_mask)
+    run = local_map(lambda a, b, c: fn(a, b, c, None), out_placements=(pl,),
+                    in_placements=(pl, pl, pl), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(q, k, v)
+
+
+def sequence_parallel_attention(q, k, v, causal: bool = True, q_offset=0,
+                                key_mask=None):
+    """GQA attention over K/V sharded along their sequence (dim 2): the
+    flash-decode pattern GSPMD makes of the reference's attention over a
+    sequence-sharded cache. Each device attends its queries (whole along
+    the sequence axes) to the keys it holds and keeps the unnormalized
+    output, the row max and the row sum (``local_map``); three all-reduces
+    over the sequence axes (a max, then two sums) merge them. In aten, as
+    the reference's XLA attention is partitioned: the flash kernels return
+    no row statistics to merge. Masked logits take the finite -1e30, so a
+    shard with no valid key weighs 0."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.flash_attention import NEG_INF
+
+    mesh = q.device_mesh
+    seq = sharding_dims(k, 2)
+    batch = sharding_dims(k, 0)
+    B, H, Lq, hd = q.shape
+    KV = k.shape[1]
+    q_pl = tuple(Shard(0) if i in batch else Replicate()
+                 for i in range(mesh.ndim))
+    kv_pl = tuple(Shard(0) if i in batch else Shard(2) if i in seq
+                  else Replicate() for i in range(mesh.ndim))
+    pos = shard_ids(k, 2, seq)  # each device's key positions
+    if key_mask is None:
+        key_mask = torch.ones((B, k.shape[2]), dtype=torch.bool,
+                              device=k.to_local().device)
+    mask_pl = tuple(Shard(0) if i in batch else Shard(1) if i in seq
+                    else Replicate() for i in range(mesh.ndim))
+    key_mask = _as_dtensor(key_mask, mesh, mask_pl)
+    qpos = torch.arange(Lq, device=k.to_local().device)
+    if torch.is_tensor(q_offset) and q_offset.ndim:
+        raise NotImplementedError("per-row q_offset over a sequence-sharded "
+                                  "cache")
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+
+    def local(q_, k_, v_, pos_, km_):
+        b = q_.shape[0]
+        qg = q_.reshape(b, KV, H // KV, Lq, hd).float()
+        logits = torch.einsum("bkgqd,bkld->bkgql", qg, k_.float()) * \
+            scale.to(q_.device)
+        keep = km_.to(torch.bool)[:, None, None, None, :]
+        if causal:
+            at = (qpos + q_offset).to(pos_.device)
+            keep = keep & (pos_[None, :] <= at[:, None])[None, None, None]
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        o = torch.einsum("bkgql,bkld->bkgqd", p, v_.float())
+        return (o.reshape(b, H, Lq, hd)[None], m.reshape(b, H, Lq, 1)[None],
+                p.sum(dim=-1).reshape(b, H, Lq, 1)[None])
+
+    stacked = stacked_placements(q_pl, seq)
+    o, m, l_ = local_map(
+        local, out_placements=(stacked, stacked, stacked),
+        in_placements=(q_pl, kv_pl, kv_pl, pos.placements, mask_pl),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos, key_mask)
+    top = relayout(m.amax(dim=0), mesh, q_pl)  # all-reduce (max)
+    w = torch.exp(m - top)
+    num = sum_partials(o * w, mesh, q_pl)
+    den = sum_partials(l_ * w, mesh, q_pl)
+    return (num / den).to(q.dtype)
+
+
+def gloo_guard(kind: str, func, args) -> None:
+    """Raise before a collective that gloo cannot run on CUDA tensors is
+    issued on a gloo group (``analysis.roofline.CostMode``'s ``check`` in
+    the mesh trainer): no collective is staged through the host
+    silently."""
+    import torch.distributed as dist
+
+    if kind in GLOO_CUDA_COLLECTIVES or not dist.is_initialized():
+        return
+    if dist.get_backend() != "gloo":
+        return
+    if any(t.is_cuda for t in tensors(args)):
+        raise NotImplementedError(
+            f"gloo cannot run {kind} ({func}) on CUDA tensors; it runs "
+            f"{', '.join(GLOO_CUDA_COLLECTIVES)} there")

@@ -1,14 +1,57 @@
-"""Conv mesh construction: the port of ``repro.launch.mesh``'s
-``make_conv_mesh``.
+"""Mesh construction: the port of ``repro.launch.mesh``.
 
-A function, not a module-level constant: importing this module touches no
-device and no process group. The reference's ``make_production_mesh`` and
-``make_host_mesh`` come with the dry run; its ``fake_devices`` (an XLA flag
-for host devices) has no PyTorch meaning: a
-:class:`~repro_torch.distributed.LocalConvMesh` takes its place.
+Functions, not module-level constants: importing this module touches no
+device and no process group. ``make_production_mesh`` and
+``make_host_mesh`` build a ``torch.distributed.device_mesh.DeviceMesh``
+with the reference's axis names over the current default process group
+(a real one for the mesh trainer, a fake one for the dry run,
+``repro_torch.launch.dryrun``), whose world size must equal the mesh's
+size. The reference's ``fake_devices`` (an XLA flag for host devices) has
+no PyTorch meaning: a fake process group takes its place for the dry run
+and a :class:`~repro_torch.distributed.LocalConvMesh` for the conv mesh.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
+                 device_type: Optional[str]):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
+    """Single pod: 256 devices as (data=16, model=16). Multi-pod: 2 pods x
+    256 devices as (pod=2, data=16, model=16); the pod axis is the outer
+    data-parallel axis. ``device_type`` defaults to ``"cuda"`` where a card
+    is visible, else ``"cpu"`` (the dry run passes ``"cpu"``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device_type)
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   device_type: Optional[str] = None):
+    """A small (data, model) mesh over the default group's ranks (tests,
+    the mesh trainer)."""
+    return _device_mesh((data, model), ("data", "model"), device_type)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or of a JAX-like mesh
+    (``axis_names`` and ``devices``)."""
+    names: Sequence[str] = getattr(mesh, "mesh_dim_names", None) or \
+        mesh.axis_names
+    shape = (tuple(mesh.shape) if hasattr(mesh, "mesh_dim_names")
+             else tuple(mesh.devices.shape))
+    return dict(zip(names, shape))
 
 
 def make_conv_mesh(blocking, group=None):

@@ -23,8 +23,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch import ops
+from repro_torch import dtensors, ops
 from repro_torch.ops import ExecutionContext
+
+from . import spmd
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -103,11 +105,12 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    xc = x.to(compute_dtype)
+    xc = spmd.gather_rows(x.to(compute_dtype))
     g = xc @ p.w_gate.to(compute_dtype)
     u = xc @ p.w_up.to(compute_dtype)
     h = F.silu(g.float()).to(compute_dtype) * u
-    return (h @ p.w_down.to(compute_dtype)).to(x.dtype)
+    # on a mesh the row-parallel product is Partial: reduced to x's layout
+    return spmd.like((h @ p.w_down.to(compute_dtype)).to(x.dtype), x)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +192,7 @@ def attention_block(
     B, L, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = dtype_of(cfg.compute_dtype)
-    xc = x.to(cd)
+    xc = spmd.gather_rows(x.to(cd))
 
     q = xc @ p.wq.to(cd)
     k = xc @ p.wk.to(cd)
@@ -198,6 +201,10 @@ def attention_block(
         q = q + p.bq.to(cd)
         k = k + p.bk.to(cd)
         v = v + p.bv.to(cd)
+    # on a mesh: columns gathered where the heads do not divide their axes
+    q = spmd.split_heads(q, H)
+    k = spmd.split_heads(k, KV)
+    v = spmd.split_heads(v, KV)
     q = q.reshape(B, L, H, hd).transpose(1, 2)
     k = k.reshape(B, L, KV, hd).transpose(1, 2)
     v = v.reshape(B, L, KV, hd).transpose(1, 2)
@@ -207,8 +214,8 @@ def attention_block(
     start, rows = _write_index(cache_index, x.device)
 
     def project_out(o):
-        o = o.transpose(1, 2).reshape(B, L, H * hd)
-        return (o @ p.wo.to(cd)).to(x.dtype)
+        o = spmd.rows_like(o.transpose(1, 2).reshape(B, L, H * hd), p.wo)
+        return spmd.like((o @ p.wo.to(cd)).to(x.dtype), x)
 
     if block_tables is not None:
         if L != 1:
@@ -255,7 +262,10 @@ def attention_block(
             q_offset = rows
         else:
             for c, u in zip(cache, new):
-                c[:, :, start:start + L] = u.to(c.dtype)
+                if dtensors.is_dtensor(c):  # each shard writes its positions
+                    spmd.cache_write(c, u, start)
+                else:
+                    c[:, :, start:start + L] = u.to(c.dtype)
             # a tensor scalar: the in-cache call, as the reference's traced
             # offset (filled on the device, no host copy)
             q_offset = torch.full((), start, dtype=torch.int32,
@@ -322,6 +332,8 @@ def _expand_key_mask(attn_mask, start: Optional[int], rows, L: int, Lk: int,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           compute_dtype) -> torch.Tensor:
+    if dtensors.is_dtensor(table):  # vocabulary-parallel lookup
+        return spmd.embed_lookup(table, tokens, compute_dtype)
     return table[tokens.long()].to(compute_dtype)
 
 

@@ -144,8 +144,8 @@ def moe_block(
     if cfg.moe_shard_hints:
         raise NotImplementedError(
             "moe_shard_hints pins the dispatch layout to the mesh axes "
-            "'data'/'model', and repro_torch has no mesh yet (ROADMAP queue "
-            "1, item 13)")
+            "'data'/'model'; the MoE block has not run on a DTensor mesh "
+            "yet (ROADMAP queue 1, item 13's leftovers)")
     B, L, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     cd = dtype_of(cfg.compute_dtype)

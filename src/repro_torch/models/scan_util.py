@@ -6,9 +6,11 @@ along axis 0 and returns ``(carry, ys)``, each leaf of ``ys`` the step
 outputs stacked on a new axis 0. ``xs`` and the step outputs are a tensor,
 ``None`` or a tuple or list of them (nested as deep as needed).
 
-The reference's ``unroll_scans`` switch exists for its dry run's XLA cost
-analysis (a rolled loop body is counted once); eager PyTorch has no rolled
-form, so it is ported with the dry run (ROADMAP queue 1, item 13).
+The reference's ``unroll_scans`` switch (``REPRO_UNROLL_SCANS``) exists
+for its dry run's XLA cost analysis, which counts a rolled loop body once.
+The port's loops are Python loops, always unrolled: every step runs, and
+the dry run (``repro_torch.launch.dryrun``) records every step's ops.
+:func:`unroll_scans` says so and reads no switch.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ def _rebuild(tree: Any, leaves) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(_rebuild(t, leaves) for t in tree)
     return next(leaves)
+
+
+def unroll_scans() -> bool:
+    """True: the port's scans always run unrolled (module docstring)."""
+    return True
 
 
 def scan(f: Callable[[Any, Any], Tuple[Any, Any]], init: Any, xs: Any,

@@ -40,10 +40,11 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint as checkpoint_lib
 
+from repro_torch import dtensors
 from repro_torch.ops import ExecutionContext
 
 from . import moe as moe_lib
-from . import ssm, xlstm
+from . import spmd, ssm, xlstm
 from .config import ModelConfig
 from .layers import (MLP, Attention, attention_block, dtype_of, embed,
                      lm_logits, mlp, rms_norm, truncated_normal_)
@@ -294,6 +295,7 @@ def hidden_forward(
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
     remat: bool = False,
+    act_spec=None,  # sharding.P of the (B, L, D) activations on a mesh
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Backbone only: returns (final-norm hidden states, cache, aux).
 
@@ -325,7 +327,23 @@ def hidden_forward(
     frontend's (B, L, D) output) enters in place of the token embedding.
     ``remat`` recomputes each repeat's unit in the backward pass (module
     docstring); it is for the cache-less training forward and raises with a
-    cache, whose in-place writes a recompute would repeat."""
+    cache, whose in-place writes a recompute would repeat.
+
+    On a device mesh (parameters, inputs and cache DTensors placed by
+    ``models.sharding``) the same function runs with DTensor issuing the
+    collectives (``models.spmd``); ``act_spec`` redistributes the residual
+    stream after the embedding and after every unit, as the reference's
+    ``with_sharding_constraint``."""
+    with spmd.replicate_plain(params.head):
+        return _hidden_forward(
+            params, cfg, tokens, embeds, cache, cache_index, ctx, attn_mask,
+            positions, block_tables, table_capacity, decode, n_groups,
+            expert_choices, remat, act_spec)
+
+
+def _hidden_forward(params, cfg, tokens, embeds, cache, cache_index, ctx,
+                    attn_mask, positions, block_tables, table_capacity,
+                    decode, n_groups, expert_choices, remat, act_spec):
     if remat and cache is not None:
         raise NotImplementedError(
             "remat recomputes a unit in the backward pass; a cache's in-place "
@@ -337,6 +355,7 @@ def hidden_forward(
         raise ValueError(f"{cfg.name} has no embedding table: pass embeds=")
     else:
         x = embed(params.embed, tokens, cd)
+    x = spmd.constrain(x, act_spec)
     L = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache_index is None:
@@ -357,6 +376,7 @@ def hidden_forward(
             x, a = checkpoint_lib.checkpoint(run, x, use_reentrant=False)
         else:
             x, a = run(x)
+        x = spmd.constrain(x, act_spec)
         aux = aux + a
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, cache, aux
@@ -437,6 +457,7 @@ def forward(
     n_groups: int = 1,
     expert_choices: Optional[Sequence[torch.Tensor]] = None,
     remat: bool = False,
+    act_spec=None,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss)."""
     x, cache, aux = hidden_forward(
@@ -444,8 +465,11 @@ def forward(
         cache_index=cache_index, ctx=ctx, attn_mask=attn_mask,
         positions=positions, block_tables=block_tables,
         table_capacity=table_capacity, decode=decode,
-        n_groups=n_groups, expert_choices=expert_choices, remat=remat)
-    logits = lm_logits(params.head, x, dtype_of(cfg.compute_dtype))
+        n_groups=n_groups, expert_choices=expert_choices, remat=remat,
+        act_spec=act_spec)
+    with spmd.replicate_plain(params.head):
+        logits = lm_logits(params.head, spmd.gather_rows(x),
+                           dtype_of(cfg.compute_dtype))
     return logits, cache, aux
 
 
@@ -454,7 +478,10 @@ def forward(
 # ---------------------------------------------------------------------------
 
 def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """logsumexp(logits) - logits[target] per position, in f32."""
+    """logsumexp(logits) - logits[target] per position, in f32 (on
+    vocabulary-sharded DTensor logits: ``spmd.token_nll``)."""
+    if dtensors.is_dtensor(logits):
+        return spmd.token_nll(logits, targets)
     lg = logits.float()
     logz = torch.logsumexp(lg, dim=-1)
     true_logit = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
@@ -464,13 +491,17 @@ def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def next_token_loss(logits: torch.Tensor,
                     tokens: torch.Tensor) -> torch.Tensor:
     """Causal LM shift-by-one cross entropy, mean over (B, L-1)."""
-    return _token_nll(logits[:, :-1], tokens[:, 1:]).mean()
+    return _mean(_token_nll(logits[:, :-1], tokens[:, 1:]))
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    return spmd.mean(t) if dtensors.is_dtensor(t) else t.mean()
 
 
 def classification_loss(logits: torch.Tensor,
                         labels: torch.Tensor) -> torch.Tensor:
     """Per-frame classification (encoder models)."""
-    return _token_nll(logits, labels).mean()
+    return _mean(_token_nll(logits, labels))
 
 
 def chunked_next_token_loss(params: Transformer, cfg: ModelConfig,
@@ -480,12 +511,13 @@ def chunked_next_token_loss(params: Transformer, cfg: ModelConfig,
     sequence is split into ``n_chunks``, each chunk's logits are computed,
     reduced, and recomputed in the backward pass
     (``torch.utils.checkpoint``). Essential when V ~ 150k."""
+    x = spmd.gather_rows(x)  # on a mesh: the sequence whole
     B, L, D = x.shape
     xs, tg = x[:, :-1], tokens[:, 1:].long()
     pad = (-xs.shape[1]) % n_chunks
-    if pad:
-        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
-        tg = torch.nn.functional.pad(tg, (0, pad), value=-1)
+    if pad:  # spmd.pad: F.pad, shard by shard on a mesh
+        xs = spmd.pad(xs, (0, 0, 0, pad))
+        tg = spmd.pad(tg, (0, pad), value=-1)
     c = xs.shape[1] // n_chunks
     cd = dtype_of(cfg.compute_dtype)
 
@@ -515,23 +547,26 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     """(loss + aux_weight * aux, (loss, aux)) of one batch: ``tokens`` (a
     causal LM's next-token loss, chunked when ``loss_chunks > 1``) or
     ``embeds`` with ``labels`` (the encoder's per-frame classification).
-    ``act_spec`` (a sharding of the activations) is not ported (ROADMAP
-    queue 1, item 13)."""
-    if act_spec is not None:
-        raise NotImplementedError(
-            "act_spec (sequence-parallel activations) is not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 13)")
+    ``act_spec`` (a ``sharding.P``) constrains the activations on a mesh
+    (:func:`hidden_forward`)."""
+    with spmd.replicate_plain(params.head):
+        return _loss_fn(params, cfg, batch, n_groups, ctx, remat,
+                        aux_weight, loss_chunks, act_spec)
+
+
+def _loss_fn(params, cfg, batch, n_groups, ctx, remat, aux_weight,
+             loss_chunks, act_spec):
     if loss_chunks > 1 and cfg.causal and "tokens" in batch:
         x, _, aux = hidden_forward(
             params, cfg, tokens=batch.get("tokens"),
             embeds=batch.get("embeds"), n_groups=n_groups, ctx=ctx,
-            remat=remat)
+            remat=remat, act_spec=act_spec)
         loss = chunked_next_token_loss(params, cfg, x, batch["tokens"],
                                        loss_chunks)
         return loss + aux_weight * aux, (loss, aux)
     logits, _, aux = forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-        n_groups=n_groups, ctx=ctx, remat=remat)
+        n_groups=n_groups, ctx=ctx, remat=remat, act_spec=act_spec)
     if cfg.causal and "tokens" in batch:
         loss = next_token_loss(logits, batch["tokens"])
     else:

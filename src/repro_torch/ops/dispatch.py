@@ -55,6 +55,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import dtensors
 from repro_torch.resilience.errors import TransientFault
 
 from .context import ExecutionContext, default_context
@@ -643,8 +644,23 @@ def attention(q, k, v, causal: bool = True, q_offset=0, key_mask=None,
     (train/prefill), a tensor scalar (lockstep in-cache calls), or a (B,)
     tensor (continuous-batching decode, every slot at its own depth).
     ``key_mask`` is an optional (B, Lk) validity mask over the keys (padded
-    prefill). The ``cuda`` entry serves all three call features."""
+    prefill). The ``cuda`` entry serves all three call features.
+
+    On DTensors (a model on a device mesh) the call runs on each device's
+    local shards, heads sharded on ``model``
+    (``repro_torch.dtensors.local_attention``): the chosen backend sees
+    plain tensors, on the card its kernel. A decode step over K/V sharded
+    along their sequence runs only on the ``torch`` backend off the card
+    (the shards' merge needs row statistics no kernel returns); elsewhere
+    it raises ``NotImplementedError``."""
     ctx = default_context() if ctx is None else ctx
+    if dtensors.is_dtensor(q):
+        return dtensors.local_attention(
+            lambda q_, k_, v_, m_: attention(q_, k_, v_, causal=causal,
+                                             q_offset=q_offset, key_mask=m_,
+                                             ctx=ctx), q, k, v, key_mask,
+            causal=causal, q_offset=q_offset,
+            backend=ctx.resolved_backend())
     _check_device("attention", ctx, q, k, v)
     return dispatch_call("attention", ctx, q.dtype,
                          attention_needs(q_offset, key_mask), (q, k, v),

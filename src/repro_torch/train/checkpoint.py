@@ -19,8 +19,10 @@ torch's, no ``ml_dtypes``).
 
 The write goes to ``step_X.tmp`` and is committed by ``os.replace``; a
 directory without ``.complete`` is never restored. ``restore`` places the
-leaves on one ``device``; the reference's ``shardings`` (elastic restore
-onto a mesh) are not ported (ROADMAP queue 1, item 13).
+leaves on one ``device``, or with ``shardings`` (a tree of
+``models.sharding.NamedSharding`` matching the template) onto whatever
+mesh those reference (elastic restart): every rank reads the full leaf
+and keeps its own chunk, so nothing goes over the wire.
 """
 
 from __future__ import annotations
@@ -144,10 +146,14 @@ def _to_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(directory: str, template: Tree, step: Optional[int] = None,
-            device=None) -> Tuple[Tree, dict]:
-    """Restore into the structure of ``template`` (a tree of tensors): each
-    leaf a tensor of the template leaf's dtype on ``device`` (default: the
-    template leaf's). Returns (tree, the manifest's ``extra``)."""
+            device=None, shardings: Optional[Tree] = None
+            ) -> Tuple[Tree, dict]:
+    """Restore into the structure of ``template`` (a tree of tensors or
+    meta tensors): each leaf a tensor of the template leaf's dtype on
+    ``device`` (default: the template leaf's), or with ``shardings`` a
+    DTensor placed by the matching ``NamedSharding`` (on ``device``, which
+    must be the mesh's device type). Returns (tree, the manifest's
+    ``extra``)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -163,10 +169,17 @@ def restore(directory: str, template: Tree, step: Optional[int] = None,
     missing = [k for k, _ in flat if k not in by_key]
     if missing:
         raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
+    places = None
+    if shardings is not None:
+        places = [s for _, s in _flatten_with_paths(shardings)]
+        if len(places) != len(flat):
+            raise ValueError(f"{len(places)} shardings for {len(flat)} "
+                             "leaves")
     leaves = []
-    for k, t in flat:
+    for j, (k, t) in enumerate(flat):
         i, dt = by_key[k]
         a = _to_tensor(data[f"a{i}"], dt)
-        leaves.append(a.to(device=t.device if device is None else device,
-                           dtype=t.dtype))
+        a = a.to(device=t.device if device is None else device,
+                 dtype=t.dtype)
+        leaves.append(a if places is None else places[j].place(a))
     return _unflatten(template, leaves), manifest["extra"]

@@ -14,8 +14,10 @@ is (repeats, D) and decays, while ``final_norm`` does not (ROADMAP queue 3,
 "Known reference faults"). The port holds those leaves per layer at ndim 1
 and does not decay them. With ``weight_decay=0`` the two updates are equal.
 
-The reference's ``opt_state_specs`` (ZeRO-1 shardings) is not ported
-(ROADMAP queue 1, item 13).
+On a device mesh the parameters, gradients and moments are DTensors of
+equal placements (:func:`opt_state_specs`: the moments inherit their
+parameter's spec) and the update is local to each shard; only the global
+norm crosses devices (one all-reduce a leaf whose squares are Partial).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import math
 from typing import Dict, Iterable, Mapping, NamedTuple, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +73,12 @@ def schedule(cfg: AdamWConfig, step) -> float:
 
 def global_norm(tree: Union[Mapping[str, torch.Tensor],
                             Iterable[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (a device scalar)."""
+    """sqrt of the sum of squares of every leaf, in f32 (a device scalar;
+    a DTensor leaf's sum is made whole first)."""
     leaves = list(tree.values()) if isinstance(tree, Mapping) else list(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
+    sq = (torch.sum(torch.square(t.float())) for t in leaves)
+    return torch.sqrt(sum(s.full_tensor() if hasattr(s, "full_tensor")
+                          else s for s in sq))
 
 
 def apply_updates(params: torch.nn.Module,
@@ -84,13 +90,15 @@ def apply_updates(params: torch.nn.Module,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    step = int(state.step) + 1
     b1, b2 = cfg.betas
+    # host reads of the step: outside a fake mode (the dry run's step is
+    # a real tensor; a no-op otherwise)
+    with unset_fake_temporarily():
+        step = int(state.step) + 1
+        # the bias corrections in f32, as the reference computes them
+        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** step)
+        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** step)
     lr = schedule(cfg, step)
-    # the bias corrections in f32, as the reference computes them
-    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** step
-    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** step
-    bc1, bc2 = float(bc1), float(bc2)
     with torch.no_grad():
         for name, p in params.named_parameters():
             g = grads[name].float() * scale
@@ -103,5 +111,16 @@ def apply_updates(params: torch.nn.Module,
             if decay:
                 upd = upd + decay * pf
             p.copy_((pf - lr * upd).to(p.dtype))
-        state.step.fill_(step)
+        with unset_fake_temporarily():
+            state.step.fill_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_specs(param_specs):
+    """Optimizer-state PartitionSpecs: moments inherit their parameter's
+    spec (ZeRO-1: states live sharded; the update stays local), the step
+    is replicated. ``param_specs`` is ``models.sharding.param_specs``'s
+    ``{name: P}``."""
+    from repro_torch.models.sharding import P
+
+    return AdamWState(step=P(), m=dict(param_specs), v=dict(param_specs))

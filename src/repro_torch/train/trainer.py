@@ -1,6 +1,6 @@
 """Training loop: the step (gradient accumulation, optional int8 gradient
 compression, AdamW), skip-on-non-finite-loss, checkpointing (the port of
-``repro.train.trainer``) on one device.
+``repro.train.trainer``) on one device or on a device mesh.
 
 The reference jits its step with the parameters and optimizer state
 donated; the port runs the step eagerly: ``loss.backward()`` gives the
@@ -19,13 +19,26 @@ the reference's does.
 per *reference* leaf: all repeats' tensors of one ``layers.*`` name share
 the scale the reference computes over its stacked (repeats, ...) leaf.
 
-``TrainConfig.act_spec`` (sequence-parallel activations) and the
-``Trainer``'s ``mesh`` are not ported (ROADMAP queue 1, item 13);
-``n_groups`` is kept for the signature and reaches the MoE blocks.
+On a mesh (``Trainer(..., mesh=)``, a ``DeviceMesh`` with the axes
+``data`` and ``model``) the parameters and moments are DTensors placed by
+``models.sharding.param_specs`` (each device keeps its chunk of the same
+seeded values: nothing goes over the wire), each batch is placed with
+its batch dim on the data axes, and the same step runs: DTensor issues
+the forward's and backward's collectives (``models.spmd``). The
+gradients of parameters replicated over the data axes come back Partial
+over them, as GSPMD's do before its reduction: the step reduces each one
+to its parameter's placements (an all-reduce), and every collective of a
+step is counted (``Trainer.collectives``, by
+``analysis.roofline.CostMode``; on a gloo group with card tensors a
+collective gloo cannot run there raises before it is issued).
+``TrainConfig.act_spec`` (a ``sharding.P`` of the (B, L, D) activations)
+redistributes the residual stream, as the reference's sharding
+constraint does. ``n_groups`` reaches the MoE blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import re
@@ -33,10 +46,15 @@ import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.analysis.roofline import CostMode, collective_bytes
+from repro_torch import dtensors
 from repro_torch.convert import (named_from_tree, transformer_from_jax,
-                                 transformer_tree, tree_from_named)
+                                 tree_from_named)
 from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.models import sharding as shd
+from repro_torch.models import spmd
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.ops import ExecutionContext, default_context, traced
@@ -62,13 +80,7 @@ class TrainConfig:
     aux_weight: float = 0.01
     seed: int = 0
     loss_chunks: int = 0  # >1: chunked cross-entropy (big-vocab memory)
-    act_spec: Any = None  # not ported: must stay None
-
-    def __post_init__(self):
-        if self.act_spec is not None:
-            raise NotImplementedError(
-                "act_spec (sequence-parallel activations) is not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 13)")
+    act_spec: Any = None  # activation sharding.P (sequence parallelism)
 
 
 def reference_leaf(name: str) -> str:
@@ -119,10 +131,12 @@ def make_train_step(
                          ctx=train_cfg.ctx,
                          remat=train_cfg.remat,
                          aux_weight=train_cfg.aux_weight,
-                         loss_chunks=train_cfg.loss_chunks)
+                         loss_chunks=train_cfg.loss_chunks,
+                         act_spec=train_cfg.act_spec)
 
     def train_step(params, opt_state: AdamWState, batch):
-        with traced():
+        # on a mesh, plain tensors act as replicated, backward included
+        with traced(), spmd.replicate_plain(params.head):
             return step(params, opt_state, batch)
 
     def step(params, opt_state: AdamWState, batch):
@@ -141,12 +155,17 @@ def make_train_step(
             total, _ = loss_for(params, batch)
             total.backward()
             loss = total.detach()
-        if not bool(torch.isfinite(loss)):
+        if dtensors.is_dtensor(loss):  # the replicated value (an all-reduce)
+            loss = loss.full_tensor()
+        if not is_fake(loss) and not bool(torch.isfinite(loss)):
             for p in named.values():
                 p.grad = None
             raise FloatingPointError(f"non-finite loss {float(loss)}")
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in named.items()}
+        # on a mesh: Partial gradients reduced to their parameters'
+        # placements (GSPMD's data-parallel reduction)
+        grads = {n: spmd.like(g, named[n]) for n, g in grads.items()}
         for p in named.values():
             p.grad = None
         if train_cfg.compress_grads:
@@ -159,8 +178,9 @@ def make_train_step(
 
 
 class Trainer:
-    """The training loop on one device: ``train_cfg.ctx``'s (the card by
-    default: without a GPU and without a CPU context it raises)."""
+    """The training loop on ``train_cfg.ctx``'s device (the card by default:
+    without a GPU and without a CPU context it raises), or on ``mesh`` (a
+    ``DeviceMesh`` over that device type; module docstring)."""
 
     def __init__(
         self,
@@ -170,17 +190,15 @@ class Trainer:
         data_cfg: DataConfig,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported to repro_torch yet (ROADMAP "
-                "queue 1, item 13)")
         if train_cfg.ctx is None:
             train_cfg = dataclasses.replace(train_cfg, ctx=default_context())
         self.model_cfg, self.opt_cfg, self.train_cfg = model_cfg, opt_cfg, train_cfg
         self.data_cfg = data_cfg
+        self.mesh = mesh
         self.device = torch.device(train_cfg.ctx.device)
         self.source = make_source(data_cfg)
         self.skipped_steps = 0
+        self.collectives: list = []  # a mesh step's wire bytes by kind
         self.step_fn = make_train_step(model_cfg, opt_cfg, train_cfg)
 
     # -- state ---------------------------------------------------------------
@@ -189,30 +207,71 @@ class Trainer:
                                     device=self.device)
         self.opt_state = init_state(self.params)
         self.start_step = 0
+        if self.mesh is not None:
+            self._place()
+
+    def _place(self) -> None:
+        """Parameters and moments onto the mesh (each device keeps its
+        chunk of the full values it holds: no wire)."""
+        specs = shardings_for(self.model_cfg, self.mesh)
+        with torch.no_grad():
+            for name, p in list(self.params.named_parameters()):
+                mod, leaf = _owner(self.params, name)
+                mod._parameters[leaf] = torch.nn.Parameter(
+                    specs[name].place(p.detach()))
+        st = self.opt_state
+        self.opt_state = AdamWState(
+            st.step, {n: specs[n].place(t) for n, t in st.m.items()},
+            {n: specs[n].place(t) for n, t in st.v.items()})
+
+    def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A host batch on the device; on a mesh, its batch dim on the data
+        axes (each device keeps its rows)."""
+        out = {k: torch.as_tensor(v, device=self.device)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        ba = shd.batch_axes(self.mesh)
+        return {k: shd.NamedSharding(
+            self.mesh, shd.P(ba, *([None] * (v.ndim - 1)))).place(v)
+            for k, v in out.items()}
 
     def state_tree(self) -> dict:
         """``{"params": ..., "opt": (step, m, v)}`` as the reference's trees
-        (``layers`` stacked): what a checkpoint holds."""
+        (``layers`` stacked): what a checkpoint holds. On a mesh each leaf
+        is gathered (an all-gather under the gloo guard)."""
         st = self.opt_state
-        return {"params": transformer_tree(self.params),
-                "opt": (st.step, tree_from_named(st.m), tree_from_named(st.v))}
+        named = dict(self.params.named_parameters())
+        m, v = st.m, st.v
+        if self.mesh is not None:
+            with CostMode(counts_only=True, check=dtensors.gloo_guard):
+                named, m, v = (_gathered(t) for t in (named, m, v))
+        return {"params": tree_from_named(named),
+                "opt": (st.step, tree_from_named(m), tree_from_named(v))}
 
     def resume_or_init(self):
         tc = self.train_cfg
-        self.init(tc.seed)
-        if tc.ckpt_dir:
-            latest = ckpt.latest_step(tc.ckpt_dir)
-            if latest is not None:
-                restored, _ = ckpt.restore(tc.ckpt_dir, self.state_tree(),
-                                           step=latest, device=self.device)
-                self.params = transformer_from_jax(
-                    restored["params"], self.model_cfg, self.device)
-                step, m, v = restored["opt"]
-                self.opt_state = AdamWState(
-                    step, named_from_tree(m, self.model_cfg, self.device),
-                    named_from_tree(v, self.model_cfg, self.device))
-                self.start_step = latest
-                log.info("resumed from step %d", latest)
+        mesh, self.mesh = self.mesh, None  # restore whole, then place
+        try:
+            self.init(tc.seed)
+            if tc.ckpt_dir:
+                latest = ckpt.latest_step(tc.ckpt_dir)
+                if latest is not None:
+                    restored, _ = ckpt.restore(tc.ckpt_dir, self.state_tree(),
+                                               step=latest,
+                                               device=self.device)
+                    self.params = transformer_from_jax(
+                        restored["params"], self.model_cfg, self.device)
+                    step, m, v = restored["opt"]
+                    self.opt_state = AdamWState(
+                        step, named_from_tree(m, self.model_cfg, self.device),
+                        named_from_tree(v, self.model_cfg, self.device))
+                    self.start_step = latest
+                    log.info("resumed from step %d", latest)
+        finally:
+            self.mesh = mesh
+        if mesh is not None:
+            self._place()
 
     # -- loop ----------------------------------------------------------------
     def run(self) -> Dict[str, list]:
@@ -223,18 +282,22 @@ class Trainer:
             self.resume_or_init()
         history = {"loss": [], "step_time": [], "step": []}
         for step in range(self.start_step, tc.steps):
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in self.source.batch(step).items()}
+            batch = self.place_batch(self.source.batch(step))
             t0 = time.time()
+            count = CostMode(counts_only=True, check=dtensors.gloo_guard)
             try:
-                self.params, self.opt_state, metrics = self.step_fn(
-                    self.params, self.opt_state, batch)
+                with (count if self.mesh is not None
+                      else contextlib.nullcontext()):
+                    self.params, self.opt_state, metrics = self.step_fn(
+                        self.params, self.opt_state, batch)
                 loss = float(metrics["loss"])
             except FloatingPointError as e:  # bad step: skip, keep state
                 self.skipped_steps += 1
                 log.warning("skipping step %d: %s", step, e)
                 continue
             dt = time.time() - t0
+            if self.mesh is not None:
+                self.collectives.append(collective_bytes(count.collectives))
             history["loss"].append(loss)
             history["step_time"].append(dt)
             history["step"].append(step)
@@ -245,3 +308,20 @@ class Trainer:
                           extra={"skipped": self.skipped_steps},
                           keep=tc.keep_ckpts)
         return history
+
+
+def shardings_for(cfg: ModelConfig, mesh) -> Dict[str, "shd.NamedSharding"]:
+    """``{parameter name: NamedSharding}`` of ``cfg`` on ``mesh`` (the
+    moments share their parameter's)."""
+    return shd.shardings(mesh, shd.param_specs(cfg))
+
+
+def _owner(module: torch.nn.Module, name: str):
+    """(the module holding parameter ``name``, its leaf name)."""
+    path, _, leaf = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), leaf
+
+
+def _gathered(named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {n: (t.full_tensor() if dtensors.is_dtensor(t) else t).detach()
+            for n, t in named.items()}

@@ -3,7 +3,8 @@ chip_smoke.py, scripts/verify_torch.py and scripts/autotune_torch.py,
 imports jax, ``ml_dtypes`` or the JAX package ``repro`` (only the tests
 import both), and
 importing repro_torch (the time model and the autotuner too) loads no jax
-module."""
+module; importing the mesh and dry-run modules sets up no process
+group."""
 
 import ast
 import os
@@ -52,10 +53,30 @@ def test_import_loads_no_jax():
             "repro_torch.analysis.timing, repro_torch.plan.autotune, "
             "repro_torch.data, repro_torch.train, repro_torch.launch.train, "
             "repro_torch.distributed, repro_torch.launch.mesh, "
-            "repro_torch.core.hbl, repro_torch.core.algorithms; "
+            "repro_torch.core.hbl, repro_torch.core.algorithms, "
+            "repro_torch.models.sharding, repro_torch.models.spmd, "
+            "repro_torch.dtensors, repro_torch.launch.specs, repro_torch.launch.dryrun, "
+            "repro_torch.analysis.report; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_mesh_modules_import_touches_no_group_or_device():
+    """Importing the mesh, sharding, spec and dry-run modules sets up no
+    process group and initializes no card (the dry run's fake group and a
+    mesh trainer's gloo group come with their calls)."""
+    code = ("import sys, torch, torch.distributed as dist, "
+            "repro_torch.launch.mesh, repro_torch.models.sharding, "
+            "repro_torch.models.spmd, repro_torch.dtensors, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.analysis.report, "
+            "repro_torch.train.trainer; "
+            "bad = [dist.is_initialized(), torch.cuda.is_initialized()]; "
+            "print(bad); sys.exit(1 if any(bad) else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -272,8 +272,14 @@ def test_loss_fn_chunks_and_aux_are_the_reference():
             dense, _ = T.loss_fn(model, tcfg, {"tokens": torch.from_numpy(
                 nb["tokens"])}, ctx=CPU)
             assert float(ttot) == pytest.approx(float(dense), abs=1e-5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        T.loss_fn(model, tcfg, {}, act_spec=object())
+    # act_spec constrains DTensor activations on a mesh; on one device's
+    # plain tensors it changes nothing
+    from repro_torch.models.sharding import P
+    tb = {"tokens": torch.from_numpy(nb["tokens"])}
+    plain, _ = T.loss_fn(model, tcfg, tb, ctx=CPU)
+    constrained, _ = T.loss_fn(model, tcfg, tb, ctx=CPU,
+                               act_spec=P("data", "model", None))
+    assert float(constrained) == float(plain)
 
 
 # -- one training step a smoke config ----------------------------------------
@@ -571,13 +577,16 @@ def test_checkpoints_cross_packages_bit_for_bit(tmp_path):
 
 # -- the launchers --------------------------------------------------------------
 
-def test_launch_train_runs_on_the_cpu_and_refuses_a_mesh():
+def test_launch_train_runs_on_the_cpu_and_refuses_a_mesh(monkeypatch):
     from repro_torch.launch import train as launch_train
 
     hist = launch_train.main(["--arch", "stablelm_1_6b", "--smoke",
                               "--device", "cpu", "--steps", "3"])
     assert len(hist["loss"]) == 3 and np.isfinite(hist["loss"]).all()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh needs its ranks: torchrun's environment, one rank a device
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="torchrun's environment"):
         launch_train.main(["--arch", "stablelm_1_6b", "--smoke", "--device",
                            "cpu", "--mesh", "1,1"])
 
