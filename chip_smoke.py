@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten paths. The conv path is the paper's experiment: the five ResNet-50
+Eleven paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -42,7 +42,10 @@ halo-exchange conv) on an in-process mesh of 8 shards on the card, and
 conv2_x over 4 ranks of a gloo process group sharing the card. The
 language-model mesh path trains the Qwen2.5-3B cut on a (data 2, model 2)
 DTensor mesh of 4 gloo ranks sharing the card and dry-runs production
-cells on a fake process group.
+cells on a fake process group. The MoE mesh path trains OLMoE-1B-7B at
+its published widths cut to 2 layers on the same mesh, its expert FFN
+resharded between groups and experts by all-to-alls (the reference's
+``moe_shard_hints``).
 Phases, each fatal on failure (from phase 3 to phase 24, and in phase
 26, each phase's dispatch decisions are recorded, and it fails if one of
 them was degraded or the quarantine table is not empty at its end: an
@@ -451,12 +454,35 @@ organic fault never passes as a demotion):
      ``shardings=`` and gathered back over a CPU mesh bit for bit. (b)
      Beside it, in a process of its own (``--dryrun``, no card memory):
      the dry run of Qwen2.5-3B's cells on (16, 16), its ``train_4k`` on
-     (2, 16, 16) and InternVL2-1B's ``train_4k``; one ``{"dryrun": ...}``
-     line a cell with its host seconds, and the report's tables;
- 28. the ``kernels`` JSON line (the flash entry lists its compiled
-     instances, the hd-80 timing and phase 27's rank launches; the conv
-     entry its phase-26 shard launches), the card's name and power limit,
-     and the last line ``{"ok": true, "device": {...}}``.
+     (2, 16, 16), InternVL2-1B's ``train_4k``, and at full depth on (16,
+     16) OLMoE-1B-7B's ``train_4k`` with ``moe_shard_hints`` and its
+     ``decode_32k``, and Phi-3.5-MoE's ``train_4k`` with the hints (fatal
+     unless each cell with the hints counts all-to-alls); one
+     ``{"dryrun": ...}`` line a cell with its host seconds, and the
+     report's tables;
+ 28. the MoE FFN on the mesh: OLMoE-1B-7B at published widths (d_model
+     2048, 16 heads over 16 KV heads, 64 experts top 8 of d_ff 1024, vocab
+     50304) cut to 2 layers (1.05 B f32 parameters), B 4, L 512, seed 0,
+     2 AdamW steps (lr 1e-3) through ``launch/train.py --moe-shard-hints
+     --moe-groups 4`` on one card, then with ``--mesh 2,2`` on 4 gloo
+     ranks sharing the card (each this script with ``--moe-rank``; 8 query
+     heads and 32 experts a rank; the dispatch's groups one a rank, each
+     G <-> E reshard an all-to-all), under phase 27 (a)'s gates (losses
+     within 1e-2 and ``MESH_LOSS_TIGHT`` beside the no-update control at
+     the same 4 groups, first moments within ``MESH_MOMENT_TOL``,
+     parameters within 2 x lr x steps, 4 flash launches a rank all on the
+     tensor cores, wire bytes by kind each step and argument bytes equal
+     to ``dryrun.count_train_step``'s), fatal unless every rank's every
+     step holds all-to-alls; each forward's routing is recorded on both
+     sides (``moe.record_routing``) and the (token, k) choices that differ
+     on each rank's groups, the kept masks that differ, the drops and the
+     single run's smallest k-th to (k+1)-th probability gap are printed
+     beside the gates (a near-tie that bf16 noise breaks otherwise on the
+     mesh sends a token to another expert);
+ 29. the ``kernels`` JSON line (the flash entry lists its compiled
+     instances, the hd-80 timing and phases 27's and 28's rank launches;
+     the conv entry its phase-26 shard launches), the card's name and
+     power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
@@ -4644,14 +4670,32 @@ MESH_LOSS_TIGHT = 1e-4
 # bf16 forward and backward split over the mesh move every kind of leaf by
 # 1.1e-2 to 3.6e-2 (NVIDIA H100 80GB HBM3, 700.00 W); no update reads 1
 MESH_MOMENT_TOL = 1e-1
+# phase 28's bound for the MoE FFN's leaves (router and experts), where a
+# (token, k) choice that bf16 noise flips on the mesh moves that token's
+# whole contribution between two experts: 0.149 on the card (w_up of layer
+# 1, 2.5-3.6% of its choices flipped; NVIDIA H100 80GB HBM3, 700.00 W);
+# no update reads 1, a wrong sign 2
+MOE_MOMENT_TOL = 0.5
 DRYRUN_TIMEOUT = 600  # seconds for phase 27 (b)'s process
-# phase 27 (b): Qwen2.5-3B's cells on (16, 16), its train_4k on (2, 16, 16),
-# and InternVL2-1B's train_4k (the reference test's own cell)
-DRYRUN_CELLS = ([("qwen2_5_3b", s, False) for s in ("train_4k",
-                                                     "prefill_32k",
-                                                     "decode_32k")]
-                + [("qwen2_5_3b", "train_4k", True),
-                   ("internvl2_1b", "train_4k", False)])
+# phase 27 (b): (arch, shape, multi-pod, overrides): Qwen2.5-3B's cells on
+# (16, 16), its train_4k on (2, 16, 16), InternVL2-1B's train_4k (the
+# reference test's own cell), and the MoE cells: OLMoE-1B-7B's train_4k
+# with the shard hints and its decode_32k, Phi-3.5-MoE's train_4k with the
+# hints
+MOE_HINTS = {"moe_shard_hints": True}
+DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
+                                                           "prefill_32k",
+                                                           "decode_32k")]
+                + [("qwen2_5_3b", "train_4k", True, None),
+                   ("internvl2_1b", "train_4k", False, None),
+                   ("olmoe_1b_7b", "train_4k", False, MOE_HINTS),
+                   ("olmoe_1b_7b", "decode_32k", False, None),
+                   ("phi3_5_moe_42b", "train_4k", False, MOE_HINTS)])
+# phase 28: OLMoE-1B-7B at published widths cut to 2 layers, its MoE
+# dispatch in 4 groups (gcd(4 x 512 tokens, 4 ranks)) on the mesh and on
+# one card alike
+MOE_MESH_LAYERS = 2
+MOE_MESH_GROUPS = MESH_RANKS
 
 
 def mesh_train_argv() -> list:
@@ -4664,32 +4708,44 @@ def mesh_train_argv() -> list:
             "--backend", "cuda"]
 
 
-def mesh_rank_main(rank: int, outdir: str) -> None:
-    """One rank of phase 27 (a), started as ``torchrun`` would start it
-    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): the
-    launcher's mesh run (``launch.train.train``, its report in ``outdir``),
-    then its parameters against the single-device run's (this device's
-    chunk of each) and the single-device checkpoint restored onto the mesh
-    with ``shardings=`` and gathered back over a CPU mesh of the same
-    ranks."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
+def moe_mesh_argv() -> list:
+    """Phase 28's ``launch/train.py`` arguments: OLMoE-1B-7B at published
+    widths cut to ``MOE_MESH_LAYERS`` layers, B 4, L 512, the MoE shard
+    hints on (a no-op on one card) and ``MOE_MESH_GROUPS`` dispatch groups
+    on one card as on the mesh."""
+    return ["--arch", MOE_ARCH, "--layers", str(MOE_MESH_LAYERS), "--batch",
+            "4", "--seq", "512", "--steps", str(MESH_STEPS), "--lr",
+            str(MESH_LR), "--device", "cuda", "--backend", "cuda",
+            "--moe-shard-hints", "--moe-groups", str(MOE_MESH_GROUPS)]
 
-    from repro_torch.convert import tree_from_named
+
+MESH_PHASES = {  # phase: (the launcher's arguments, the ranks' flag)
+    "27": (mesh_train_argv, "--mesh-rank"),
+    "28": (moe_mesh_argv, "--moe-rank")}
+
+
+def mesh_rank_report(phase: str, outdir: str):
+    """One rank of phase 27 (a) or 28, started as ``torchrun`` would start
+    it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): the
+    launcher's mesh run (``launch.train.train``) with the flash counts set
+    to 0 just before and (phase 28) every MoE call's routing recorded;
+    then this device's chunk of each parameter and first moment against
+    the single-device run's files in ``outdir``. Returns (the report, the
+    trainer, the routing log)."""
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.dryrun import argument_bytes
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import sharding as shd
-    from repro_torch.models import transformer as T
-    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.models import moe
     from repro_torch.train.trainer import shardings_for
 
+    argv = MESH_PHASES[phase][0]() + ["--mesh",
+                                      ",".join(map(str, MESH_SHAPE))]
     flash = KERNELS["flash_attention"]
     flash.launches = flash.tensor_core_launches = 0
-    trainer, hist = launch_train.train(mesh_train_argv() + [
-        "--mesh", ",".join(map(str, MESH_SHAPE))])
-    report = {"rank": rank, "loss": hist["loss"],
+    with (moe.record_routing() if phase == "28"
+          else contextlib.nullcontext([])) as routing:
+        trainer, hist = launch_train.train(argv)
+    report = {"rank": int(os.environ["RANK"]), "loss": hist["loss"],
               "step_time": hist["step_time"],
               "collectives": trainer.collectives,
               "flash_launches": flash.launches,
@@ -4699,8 +4755,7 @@ def mesh_rank_main(rank: int, outdir: str) -> None:
               "argument_bytes": argument_bytes(
                   (trainer.params, trainer.opt_state,
                    trainer.place_batch(trainer.source.batch(0))))}
-    mesh, cfg = trainer.mesh, trainer.model_cfg
-    specs = shardings_for(cfg, mesh)
+    specs = shardings_for(trainer.model_cfg, trainer.mesh)
     want = torch.load(os.path.join(outdir, "single_params.pt"), mmap=True)
     worst, over = 0.0, []
     for name, p in trainer.params.named_parameters():
@@ -4719,8 +4774,28 @@ def mesh_rank_main(rank: int, outdir: str) -> None:
         err = (m.to_local().detach().cpu() - chunk).abs().max().item()
         moments[name] = (err / scale if scale else
                          (0.0 if err == 0 else math.inf))
-    top = max(moments, key=moments.get)
-    del trainer, want
+    report.update(param_max_abs_err=worst, params_over=over[:5],
+                  moment_rel_err=moments, memory_allocated_gb_after=(
+                      torch.cuda.memory_allocated() / 1e9))
+    return report, trainer, routing
+
+
+def mesh_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 27 (a): :func:`mesh_rank_report`, then the
+    single-device checkpoint restored onto the mesh with ``shardings=``
+    and gathered back over a CPU mesh of the same ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.convert import tree_from_named
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+
+    report, trainer, _ = mesh_rank_report("27", outdir)
+    mesh, cfg = trainer.mesh, trainer.model_cfg
+    del trainer
     torch.cuda.empty_cache()
     with torch.device("meta"):
         meta = T.Transformer(cfg)
@@ -4741,12 +4816,38 @@ def mesh_rank_main(rank: int, outdir: str) -> None:
                                    stride=a.stride()).full_tensor()
         equal = equal and bool(torch.equal(whole, b))
     with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
-        json.dump(dict(report, param_max_abs_err=worst,
-                       params_over=over[:5],
-                       moment_max_rel_err=moments[top],
-                       moment_worst_leaf=top, restore_bit_equal=equal,
+        json.dump(dict(report, restore_bit_equal=equal,
                        restored_sharded_leaves=sharded,
                        local_device=str(local.device)), f)
+    dist.destroy_process_group()
+
+
+def moe_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 28: :func:`mesh_rank_report` with the routing
+    recorded, then each forward's expert choices on this device's groups
+    against the single-device run's choices for the same groups (the
+    hints put G's 4 groups one a device over (``data``, ``model``))."""
+    import torch.distributed as dist
+
+    from repro_torch.models import sharding as shd
+
+    report, trainer, log = mesh_rank_report("28", outdir)
+    device = next(trainer.params.parameters()).to_local().device
+    want = torch.load(os.path.join(outdir, "single_routing.pt"))
+    groups = shd.NamedSharding(trainer.mesh, shd.P(("data", "model")))
+    rows = []
+    for i, (r, w) in enumerate(zip(log, want)):
+        sl = groups.local_slices((w["gate_idx"].shape[0],))[0]
+        idx, kept = r.gate_idx.cpu(), r.kept.cpu()
+        rows.append({"forward": i, "groups": [sl.start, sl.stop],
+                     "routing_flips": int((idx != w["gate_idx"][sl]).sum()),
+                     "routing_choices": idx.numel(),
+                     "kept_differ": int((kept != w["kept"][sl]).sum()),
+                     "dropped": int((kept == 0).sum()),
+                     "single_dropped": int((w["kept"][sl] == 0).sum())})
+    with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
+        json.dump(dict(report, routing=rows, forwards=len(log),
+                       local_device=str(device)), f)
     dist.destroy_process_group()
 
 
@@ -4759,14 +4860,16 @@ def dryrun_main() -> None:
     from repro_torch.launch import dryrun
 
     recs = []
-    for arch, shape, multi_pod in DRYRUN_CELLS:
+    for arch, shape, multi_pod, overrides in DRYRUN_CELLS:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
-                              verbose=False)
+                              verbose=False, overrides=overrides,
+                              variant="hints" if overrides else "base")
         recs.append(rec)
         print(json.dumps({
             "dryrun": arch, "shape": shape, "mesh": rec["mesh"],
-            "n_layers": rec["n_layers"],
+            "overrides": overrides, "n_layers": rec["n_layers"],
+            "n_groups": rec["n_groups"],
             "bytes_per_device": rec["bytes_per_device"],
             "hlo_flops": rec["hlo_flops"], "hlo_bytes": rec["hlo_bytes"],
             "collectives": rec["collectives"],
@@ -4808,7 +4911,7 @@ def mesh_phase() -> dict:
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     outdir = tempfile.mkdtemp(prefix="mesh_train_")
     try:
-        row = mesh_train_gates(cfg, outdir)
+        row = mesh_train_gates(cfg, outdir, "27")
     except BaseException:  # a failed gate exits: stop the dry run too
         dry.kill()
         dry.wait()
@@ -4830,6 +4933,12 @@ def mesh_phase() -> dict:
     if dry.returncode != 0 or len(cells) != len(DRYRUN_CELLS):
         fail(f"dry run: exit code {dry.returncode}, {len(cells)} of "
              f"{len(DRYRUN_CELLS)} cells:\n" + out[-4000:])
+    moe_cells = [json.loads(x) for x in cells
+                 if json.loads(x)["overrides"] == MOE_HINTS]
+    if not moe_cells or any(c["collective_calls"].get("all-to-all", 0) <= 0
+                            for c in moe_cells):
+        fail(f"dry run: a MoE cell with the hints issued no all-to-all: "
+             f"{[c['collective_calls'] for c in moe_cells]}")
     summary = {"mesh_phase": "summary",
                "rank_flash_launches": sum(row["rank_flash_launches"]),
                "dry_run_cells": len(cells),
@@ -4838,7 +4947,7 @@ def mesh_phase() -> dict:
     return summary
 
 
-def no_update_loss(cfg, ctx) -> tuple:
+def no_update_loss(cfg, ctx, n_groups: int = 1) -> tuple:
     """The single-device trainer's loss at its first parameters (the
     launcher's seed) on its first and on its second batch: the first
     reproduces the run's first loss; the second is the loss of a run that
@@ -4858,6 +4967,7 @@ def no_update_loss(cfg, ctx) -> tuple:
             batch = {k: torch.as_tensor(v, device="cuda")
                      for k, v in source.batch(step).items()}
             total, _ = T.loss_fn(params, cfg, batch, ctx=ctx,
+                                 n_groups=n_groups,
                                  aux_weight=tc.aux_weight,
                                  loss_chunks=tc.loss_chunks)
             out.append(float(total))
@@ -4866,29 +4976,36 @@ def no_update_loss(cfg, ctx) -> tuple:
     return out[0], out[1]
 
 
-def mesh_train_gates(cfg, outdir: str) -> dict:
-    """Phase 27 (a): the single-device run (its parameters, first moments
-    and checkpoint written to ``outdir``), the no-update control, the
-    dry run's count, then the 4 ranks, and every gate; returns the
-    phase's row."""
+def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
+    """Phase 27 (a) or 28: the single-device run (its parameters and first
+    moments written to ``outdir``; phase 27 its checkpoint, phase 28 its
+    routing), the no-update control, the dry run's count, then the 4
+    ranks, and every gate; returns the phase's row."""
     from repro_torch.convert import transformer_tree
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
     from repro_torch.ops import ExecutionContext
     from repro_torch.plan import H100
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.trainer import TrainConfig
 
+    argv_fn, flag = MESH_PHASES[phase]
+    moe_phase_ = phase == "28"
+    groups = MOE_MESH_GROUPS if moe_phase_ else 1
     card = smi()
     at_start, control = no_update_loss(
-        cfg, ExecutionContext(target=H100, backend="cuda", device="cuda"))
+        cfg, ExecutionContext(target=H100, backend="cuda", device="cuda"),
+        groups)
     # the single-device run: the same launcher, the same arguments
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k = KERNELS["flash_attention"]
     k.launches = k.tensor_core_launches = 0
-    trainer, single = launch_train.train(mesh_train_argv())
+    with (moe.record_routing() if moe_phase_
+          else contextlib.nullcontext([])) as routing:
+        trainer, single = launch_train.train(argv_fn())
     single_launches = (k.launches, k.tensor_core_launches)
     single_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.save({n: p.detach().cpu() for n, p in
@@ -4896,9 +5013,17 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
                os.path.join(outdir, "single_params.pt"))
     torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()},
                os.path.join(outdir, "single_m.pt"))
-    ckpt.save(os.path.join(outdir, "ckpt"), MESH_STEPS,
-              {"params": transformer_tree(trainer.params)})
-    del trainer
+    if moe_phase_:
+        torch.save([{"gate_idx": r.gate_idx.cpu(), "kept": r.kept.cpu()}
+                    for r in routing],
+                   os.path.join(outdir, "single_routing.pt"))
+        gaps = [(lambda v: (v[..., -2] - v[..., -1]).min().item())(
+            torch.topk(r.probs, cfg.experts_per_token + 1, dim=-1).values)
+            for r in routing]
+    else:
+        ckpt.save(os.path.join(outdir, "ckpt"), MESH_STEPS,
+                  {"params": transformer_tree(trainer.params)})
+    del trainer, routing
     gc.collect()
     torch.cuda.empty_cache()
     # the dry run's count of the same step under the same placements
@@ -4911,8 +5036,8 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                LOCAL_RANK="0")
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-         str(r), outdir], env=dict(env, RANK=str(r)),
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         outdir], env=dict(env, RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(MESH_RANKS)]
     logs = []
@@ -4938,11 +5063,24 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
     bound = 2 * MESH_LR * MESH_STEPS
     rel = [abs(a - b) / abs(b) for c in checks
            for a, b in zip(c["loss"], single["loss"])]
+    # the first moments' worst leaf, over every leaf and (phase 28) apart
+    # for the MoE FFN's leaves, which the routing's flips move
+    moments = {}
+    for c in checks:
+        for name, err in c["moment_rel_err"].items():
+            moments[name] = max(moments.get(name, 0.0), err)
+    routed = {n for n in moments if moe_phase_ and ".ffn." in n}
+    gated = {n: (MOE_MOMENT_TOL if n in routed else MESH_MOMENT_TOL)
+             for n in moments}
+    top = max(moments, key=lambda n: moments[n] / gated[n])
+    rest = [n for n in moments if n not in routed]
+    top_rest = max(rest, key=moments.get)
     control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
-    row = {"mesh_train": cfg.name, "layers": cfg.n_layers,
+    row = {"mesh_train": cfg.name, "phase": phase, "layers": cfg.n_layers,
            "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
            "ranks": MESH_RANKS, "backend": "gloo, one card",
-           "batch": [4, 512], "steps": MESH_STEPS,
+           "batch": [4, 512], "steps": MESH_STEPS, "n_groups": groups,
+           "moe_shard_hints": cfg.moe_shard_hints,
            "single_losses": single["loss"],
            "rank_losses": [c["loss"] for c in checks],
            "loss_max_rel_err": max(rel), "loss_bound": MESH_LOSS_TIGHT,
@@ -4952,10 +5090,8 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
            "rank_step_s": [c["step_time"] for c in checks],
            "param_max_abs_err": max(c["param_max_abs_err"] for c in checks),
            "param_bound": bound,
-           "moment_max_rel_err": max(c["moment_max_rel_err"]
-                                     for c in checks),
-           "moment_worst_leaf": max(checks, key=lambda c: c[
-               "moment_max_rel_err"])["moment_worst_leaf"],
+           "moment_max_rel_err": moments[top_rest],
+           "moment_worst_leaf": top_rest,
            "moment_bound": MESH_MOMENT_TOL,
            "wire_bytes_per_step": checks[0]["collectives"][0],
            "dry_run_wire_bytes": count["collectives"],
@@ -4966,11 +5102,39 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
            "rank_tensor_core_launches": [c["flash_tensor_core_launches"]
                                          for c in checks],
            "single_flash_launches": single_launches[0],
-           "restore_bit_equal": [c["restore_bit_equal"] for c in checks],
            "rank_max_memory_allocated_gb": [
                c["max_memory_allocated_gb"] for c in checks],
            "single_max_memory_allocated_gb": single_peak,
            "ranks_seconds": seconds, "card": card}
+    if moe_phase_:
+        flips = [[f["routing_flips"] for f in c["routing"]] for c in checks]
+        worst_routed = max(routed, key=moments.get)
+        by_kind = {}
+        for n, err in moments.items():
+            kind = n.rsplit(".", 1)[-1]
+            by_kind[kind] = max(by_kind.get(kind, 0.0), err)
+        row.update(
+            routed_moment_max_rel_err=moments[worst_routed],
+            routed_moment_worst_leaf=worst_routed,
+            routed_moment_bound=MOE_MOMENT_TOL,
+            moment_max_rel_err_by_kind=by_kind,
+            rank_memory_allocated_gb_after=[
+                c["memory_allocated_gb_after"] for c in checks],
+            routing_flips_by_forward=[sum(x) for x in zip(*flips)],
+            routing_choices_by_forward=[
+                sum(f["routing_choices"] for f in fs) for fs in
+                zip(*[c["routing"] for c in checks])],
+            kept_differ_by_forward=[
+                sum(f["kept_differ"] for f in fs) for fs in
+                zip(*[c["routing"] for c in checks])],
+            dropped_by_forward=[sum(f["dropped"] for f in fs) for fs in
+                                zip(*[c["routing"] for c in checks])],
+            single_dropped_by_forward=[
+                sum(f["single_dropped"] for f in fs) for fs in
+                zip(*[c["routing"] for c in checks])],
+            single_min_topk_gap_by_forward=gaps)
+    else:
+        row["restore_bit_equal"] = [c["restore_bit_equal"] for c in checks]
     print(json.dumps(row), flush=True)
     if not max(rel) <= 1e-2 or any(len(c["loss"]) != MESH_STEPS
                                    for c in checks):
@@ -4990,10 +5154,10 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
     if not row["param_max_abs_err"] <= bound:
         fail(f"mesh train: parameters {[c['params_over'] for c in checks]} "
              f"off the single-device run's by more than {bound}")
-    if not row["moment_max_rel_err"] <= MESH_MOMENT_TOL:
+    if not moments[top] <= gated[top]:
         fail(f"mesh train: first moments off the single-device run's by "
-             f"{row['moment_max_rel_err']} of the leaf's largest |value| "
-             f"({row['moment_worst_leaf']}), above {MESH_MOMENT_TOL}")
+             f"{moments[top]} of the leaf's largest |value| ({top}), above "
+             f"{gated[top]}")
     want = cfg.n_layers * MESH_STEPS
     if not single_launches[0] == want == single_launches[1]:
         fail(f"mesh train: the single-device run launched flash "
@@ -5013,10 +5177,50 @@ def mesh_train_gates(cfg, outdir: str) -> dict:
             fail(f"mesh train: rank {c['rank']} argument bytes "
                  f"{c['argument_bytes']} vs the dry run's "
                  f"{count['argument_bytes']}")
-    if not all(c["restore_bit_equal"] and c["restored_sharded_leaves"] > 0
-               and c["local_device"].startswith("cuda") for c in checks):
+        if not c["local_device"].startswith("cuda"):
+            fail(f"mesh train: rank {c['rank']} ran on {c['local_device']}")
+    if moe_phase_:
+        for c in checks:
+            if not all(step["all-to-all"] > 0 for step in c["collectives"]):
+                fail(f"moe mesh: rank {c['rank']} issued no all-to-all: "
+                     f"{c['collectives']}")
+            if c["forwards"] != cfg.n_layers * MESH_STEPS:
+                fail(f"moe mesh: rank {c['rank']} recorded {c['forwards']} "
+                     "MoE calls")
+    elif not all(c["restore_bit_equal"] and c["restored_sharded_leaves"] > 0
+                 for c in checks):
         fail(f"mesh train: checkpoint restore onto the mesh {checks}")
     return row
+
+
+def moe_mesh_phase() -> dict:
+    """Phase 28 (module docstring): OLMoE-1B-7B cut to
+    ``MOE_MESH_LAYERS`` layers through the mesh trainer with the MoE shard
+    hints over 4 gloo ranks sharing the card, against the single-device
+    trainer at the same dispatch groups and the dry run's count. Fatal on
+    any failure; the single-device run's files are removed at the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_MESH_LAYERS,
+                              moe_shard_hints=True)
+    outdir = tempfile.mkdtemp(prefix="moe_mesh_")
+    try:
+        row = mesh_train_gates(cfg, outdir, "28")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    summary = {"moe_mesh_phase": "summary",
+               "rank_flash_launches": sum(row["rank_flash_launches"]),
+               "all_to_all_calls_per_step": row["dry_run_calls"][
+                   "all-to-all"],
+               "routing_flips_by_forward": row["routing_flips_by_forward"],
+               "seconds": time.perf_counter() - t_phase, "card": row["card"]}
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 def main() -> None:
@@ -5461,7 +5665,11 @@ def main() -> None:
     mesh = mesh_phase()
     cycle_check("27")
 
-    # -- 28. summary --------------------------------------------------------
+    # -- 28. the MoE FFN on the mesh: OLMoE through the shard hints ----------
+    moe_mesh = moe_mesh_phase()
+    cycle_check("28")
+
+    # -- 29. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -5500,7 +5708,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_tc_instances
     attn_kernels[0].update(
         instances=[list(i) for i in flash_tc_instances()], hd80=hd80,
-        mesh_train_rank_launches=mesh["rank_flash_launches"])
+        mesh_train_rank_launches=mesh["rank_flash_launches"],
+        moe_mesh_rank_launches=moe_mesh["rank_flash_launches"])
     kernels += attn_kernels + quant_kernels + [conv1d_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
@@ -5516,5 +5725,7 @@ if __name__ == "__main__":
         mesh_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--dryrun"]:  # and phase 27 (b) its dry run
         dryrun_main()
+    elif sys.argv[1:2] == ["--moe-rank"]:  # and phase 28 its ranks
+        moe_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -7,6 +7,14 @@ below ``ops`` and ``analysis`` (the model's own layout hooks are
   tensor leaves of a tree.
 * :func:`relayout`: a redistribution whose backward brings the gradient to
   the input's layout (a Partial one replicated).
+* :func:`reshard`: a layout reached by moves gloo runs on card tensors,
+  each an autograd function: :func:`all_to_all` moves a mesh dim's
+  sharding to another tensor dim (one all-to-all each way; DTensor's own
+  shard-to-shard move all-gathers on a CPU mesh), :func:`chunk` shards a
+  replicated dim in place (its gradient summed by an all-reduce where
+  DTensor's would all-gather it), :func:`gather` makes a sharded dim
+  whole as a sum of zero-padded chunks (one all-reduce); each on dims
+  that split evenly.
 * :func:`local_attention`: the attention kernel sees raw pointers, so it
   runs on each device's local shards through ``local_map``, heads sharded
   on ``model`` (K/V heads expanded to the query heads where the KV heads
@@ -30,7 +38,7 @@ class is imported at the first call.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -102,12 +110,215 @@ def relayout(t, mesh, placements):
     return _Relayout.apply(t, mesh, tuple(placements))
 
 
+def _from_local(local, t, placements):
+    """``local`` as a DTensor of ``t``'s mesh, global shape and stride in
+    ``placements`` (no wire); ``t`` a DTensor or a (mesh, shape, stride)
+    triple."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, shape, stride = ((t.device_mesh, t.shape, t.stride())
+                           if is_dtensor(t) else t)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _moved(placements, mesh_dim: int, p) -> tuple:
+    out = list(placements)
+    out[mesh_dim] = p
+    return tuple(out)
+
+
+def _check_inner(t, mesh_dim: int, dims) -> None:
+    """``mesh_dim`` must be (or become) the innermost mesh dim sharding
+    each of ``dims``, each split evenly: a move along it then splits or
+    joins equal chunks of each device's local extent, in the peers'
+    order."""
+    for d in dims:
+        mesh_dims = set(sharding_dims(t, d)) | {mesh_dim}
+        if max(mesh_dims) != mesh_dim:
+            raise ValueError(f"{t.placements}: mesh dim {mesh_dim} is not "
+                             f"the innermost sharding dim {d}")
+        n = math.prod(t.device_mesh.size(i) for i in mesh_dims)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"evenly over {n} devices")
+
+
+def _exchange(t, mesh_dim: int, src: int, dst: int):
+    """The all-to-all of :class:`_AllToAll`: each device splits its local
+    ``dst`` extent into one chunk a peer along ``mesh_dim`` and joins the
+    chunks it receives along ``src``, in the peers' order."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    n = t.device_mesh.size(mesh_dim)
+    x = t.to_local().movedim(dst, 0).contiguous()
+    splits = [x.shape[0] // n] * n
+    y = funcol.all_to_all_single(x, splits, splits,
+                                 (t.device_mesh, mesh_dim))
+    at = src + 1 if src < dst else src  # src's index after the movedim
+    out = torch.cat(torch.chunk(y, n, dim=0), dim=at).movedim(0, dst)
+    return _from_local(out.contiguous(), t,
+                       _moved(t.placements, mesh_dim, Shard(dst)))
+
+
+class _AllToAll(torch.autograd.Function):
+    """Mesh dim ``mesh_dim``'s sharding of ``t`` moved from tensor dim
+    ``src`` to ``dst`` by one all-to-all along it; the gradient comes back
+    by the inverse one."""
+
+    @staticmethod
+    def forward(ctx, t, mesh_dim, src, dst):
+        out = _exchange(t, mesh_dim, src, dst)
+        ctx.args = (mesh_dim, src, dst, tuple(out.placements))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh_dim, src, dst, placements = ctx.args
+        if tuple(grad.placements) != placements:
+            grad = grad.redistribute(grad.device_mesh, placements)
+        return _exchange(grad, mesh_dim, dst, src), None, None, None
+
+
+def all_to_all(t, mesh_dim: int, dst: int):
+    """``t`` (sharded along some dim by mesh dim ``mesh_dim``) with that
+    mesh dim sharding tensor dim ``dst`` instead: one all-to-all, which
+    gloo runs on card tensors (DTensor's own shard-to-shard move gathers
+    on a CPU mesh instead). ``mesh_dim`` must be the innermost mesh dim
+    sharding either dim."""
+    src = sharded_dim(t, mesh_dim)
+    if src is None:
+        raise ValueError(f"{t.placements}: mesh dim {mesh_dim} shards no "
+                         "dim")
+    if src == dst:
+        return t
+    _check_inner(t, mesh_dim, (src, dst))
+    return _AllToAll.apply(t, mesh_dim, src, dst)
+
+
+def _pad_to_outer(local, t, mesh_dim: int, dim: int):
+    """This device's chunk ``local`` of ``dim`` placed at its offset in
+    zeros of the extent before ``mesh_dim`` split it."""
+    n = local.shape[dim]
+    at = t.device_mesh.get_local_rank(mesh_dim) * n
+    widths = [0, 0] * (local.ndim - dim - 1) + [
+        at, (t.device_mesh.size(mesh_dim) - 1) * n - at]
+    return torch.nn.functional.pad(local, widths)
+
+
+def _sum_of_padded(t, mesh_dim: int, dim: int, placements):
+    """``t`` (sharded along ``dim`` by ``mesh_dim``) whole along it: each
+    device's chunk zero-padded, summed by one all-reduce, in
+    ``placements`` (replicated at ``mesh_dim``)."""
+    from torch.distributed.tensor import Partial
+
+    padded = _pad_to_outer(t.to_local(), t, mesh_dim, dim)
+    meta = (t.device_mesh, t.shape, t.stride())
+    part = _from_local(padded, meta, _moved(placements, mesh_dim, Partial()))
+    return part.redistribute(t.device_mesh, placements)
+
+
+class _Chunk(torch.autograd.Function):
+    """Replicated along ``mesh_dim`` -> sharded along tensor dim ``dim``
+    there: each device keeps its chunk (no wire). The gradient comes back
+    zero-padded to the whole dim and summed by one all-reduce, where
+    DTensor's backward would all-gather it (which gloo cannot run on card
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh_dim, dim):
+        from torch.distributed.tensor import Shard
+
+        out = t.redistribute(t.device_mesh,
+                             _moved(t.placements, mesh_dim, Shard(dim)))
+        ctx.args = (mesh_dim, dim, tuple(t.placements), tuple(out.placements))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh_dim, dim, back, placements = ctx.args
+        if tuple(grad.placements) != placements:
+            grad = grad.redistribute(grad.device_mesh, placements)
+        return _sum_of_padded(grad, mesh_dim, dim, back), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Sharded along tensor dim ``dim`` by ``mesh_dim`` -> replicated there,
+    as a sum of zero-padded chunks (one all-reduce: gloo cannot all-gather
+    card tensors); the gradient is each device's chunk of it (no wire)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh_dim, dim):
+        from torch.distributed.tensor import Replicate
+
+        want = _moved(t.placements, mesh_dim, Replicate())
+        ctx.args = (mesh_dim, dim, tuple(t.placements), want)
+        return _sum_of_padded(t, mesh_dim, dim, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh_dim, dim, back, placements = ctx.args
+        if tuple(grad.placements) != placements:
+            grad = grad.redistribute(grad.device_mesh, placements)
+        return grad.redistribute(grad.device_mesh, back), None, None
+
+
+def chunk(t, mesh_dim: int, dim: int):
+    """``t`` (replicated along mesh dim ``mesh_dim``) sharded along tensor
+    dim ``dim`` there, each device keeping its chunk; the gradient is
+    all-reduced, not gathered (:class:`_Chunk`). ``mesh_dim`` must become
+    the innermost mesh dim sharding ``dim``."""
+    _check_inner(t, mesh_dim, (dim,))
+    return _Chunk.apply(t, mesh_dim, dim)
+
+
+def gather(t, mesh_dim: int):
+    """``t`` replicated along mesh dim ``mesh_dim``, which shards it: a
+    sum of zero-padded chunks, one all-reduce (:class:`_Gather`); the
+    inverse of :func:`chunk`. ``mesh_dim`` must be the innermost mesh dim
+    sharding that dim."""
+    dim = sharded_dim(t, mesh_dim)
+    _check_inner(t, mesh_dim, (dim,))
+    return _Gather.apply(t, mesh_dim, dim)
+
+
+def reshard(t, placements):
+    """``t`` brought to ``placements`` one mesh dim at a time, by moves gloo
+    runs on card tensors: a replicated dim becomes sharded in place
+    (:func:`chunk`: no wire, its gradient all-reduced), a dim's sharding
+    moves to another tensor dim by one all-to-all (:func:`all_to_all`), a
+    sharded dim becomes whole by one all-reduce of zero-padded chunks
+    (:func:`gather`), a Partial sum by one all-reduce."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    for i, p in enumerate(placements):
+        have = t.placements[i]
+        if have == p:
+            continue
+        if isinstance(p, Shard) and have == Replicate():
+            t = chunk(t, i, p.dim)
+        elif isinstance(p, Shard) and isinstance(have, Shard):
+            t = all_to_all(t, i, p.dim)
+        elif p == Replicate() and isinstance(have, Shard):
+            t = gather(t, i)
+    return relayout(t, t.device_mesh, placements)
+
+
 def sharding_dims(t, dim: int) -> Tuple[int, ...]:
     """The mesh dims sharding ``t``'s dim ``dim``."""
     from torch.distributed.tensor import Shard
 
     return tuple(i for i, p in enumerate(t.placements)
                  if isinstance(p, Shard) and p.dim % t.ndim == dim)
+
+
+def sharded_dim(t, mesh_dim: int) -> Optional[int]:
+    """The tensor dim mesh dim ``mesh_dim`` shards (None if none)."""
+    from torch.distributed.tensor import Shard
+
+    p = t.placements[mesh_dim]
+    return p.dim % t.ndim if isinstance(p, Shard) else None
 
 
 def shard_ids(t, dim: int, mesh_dims):
@@ -161,7 +372,7 @@ def _head_placements(q, n_heads: int):
     return tuple(out)
 
 
-def _as_dtensor(t, mesh, placements):
+def as_dtensor(t, mesh, placements):
     """A plain tensor (the same on every device) as a DTensor, each device
     keeping its chunk; a DTensor redistributed."""
     from torch.distributed.tensor import distribute_tensor
@@ -210,7 +421,7 @@ def local_attention(fn, q, k, v, key_mask=None, causal: bool = True,
         k = k.redistribute(mesh, rep).repeat_interleave(H // KV, dim=1)
         v = v.redistribute(mesh, rep).repeat_interleave(H // KV, dim=1)
     if key_mask is not None:
-        key_mask = _as_dtensor(key_mask, mesh, tuple(
+        key_mask = as_dtensor(key_mask, mesh, tuple(
             Replicate() if p == Shard(1) else p for p in pl))
         run = local_map(fn, out_placements=(pl,),
                         in_placements=(pl, pl, pl, key_mask.placements),
@@ -253,7 +464,7 @@ def sequence_parallel_attention(q, k, v, causal: bool = True, q_offset=0,
                               device=k.to_local().device)
     mask_pl = tuple(Shard(0) if i in batch else Shard(1) if i in seq
                     else Replicate() for i in range(mesh.ndim))
-    key_mask = _as_dtensor(key_mask, mesh, mask_pl)
+    key_mask = as_dtensor(key_mask, mesh, mask_pl)
     qpos = torch.arange(Lq, device=k.to_local().device)
     if torch.is_tensor(q_offset) and q_offset.ndim:
         raise NotImplementedError("per-row q_offset over a sequence-sharded "

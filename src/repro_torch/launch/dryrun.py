@@ -429,6 +429,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         param_dtype: str      "float32" (default) | "bfloat16" train params
         chunk_size: int       recurrent-block chunk length
         moe_groups: int       MoE dispatch group count
+        moe_shard_hints: bool pin the MoE dispatch layout (the G <-> E
+                              reshard an all-to-all each way)
         cache_seq_axis: str   "model" (default) | "none" decode KV layout
         _n_layers: int        depth cut
     With ``mesh=None`` a fake group of 256 (512 with ``multi_pod``) ranks

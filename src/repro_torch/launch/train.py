@@ -23,7 +23,10 @@ model):
 The group is gloo: the ranks may share one card, where NCCL cannot put two
 ranks (``--device cuda``: each rank's tensors on ``cuda:LOCAL_RANK`` modulo
 the visible cards). ``n_groups`` is gcd(batch x seq, world size), as in the
-reference. ``--layers N`` cuts the depth. :func:`train` returns the
+reference, unless ``--moe-groups`` sets it (a single-device run held
+against a mesh run takes the mesh's); ``--moe-shard-hints`` pins the MoE
+dispatch layout on the mesh (``cfg.moe_shard_hints``; both are the dry
+run's overrides). ``--layers N`` cuts the depth. :func:`train` returns the
 ``Trainer`` with the group still up: its ``collectives`` hold each step's
 counted wire bytes by kind.
 """
@@ -81,6 +84,12 @@ def train(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--moe-shard-hints", action="store_true",
+                    help="pin the MoE dispatch layout on the mesh "
+                         "(cfg.moe_shard_hints, the dry run's override)")
+    ap.add_argument("--moe-groups", type=int, default=None,
+                    help="MoE dispatch groups (the dry run's moe_groups; "
+                         "default gcd(batch x seq, world size))")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -103,6 +112,8 @@ def train(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.moe_shard_hints:
+        cfg = dataclasses.replace(cfg, moe_shard_hints=True)
     dcfg = DataConfig(batch_size=args.batch, seq_len=args.seq,
                       vocab_size=cfg.vocab_size, path=args.data)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -112,8 +123,8 @@ def train(argv=None):
                        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                        remat=args.remat, ctx=ctx,
                        compress_grads=args.compress_grads,
-                       n_groups=max(1, math.gcd(args.batch * args.seq,
-                                                world)))
+                       n_groups=args.moe_groups or max(
+                           1, math.gcd(args.batch * args.seq, world)))
     trainer = Trainer(cfg, ocfg, tcfg, dcfg, mesh=mesh)
     hist = trainer.run()
     if hist["loss"]:

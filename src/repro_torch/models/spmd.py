@@ -32,6 +32,10 @@ choose for it, each a no-op on a plain tensor:
 * :func:`cache_write`: a K/V write into a cache sharded along its
   sequence: each shard writes the positions it holds. :func:`pad` pads
   shard by shard.
+* :func:`reshard`: a ``with_sharding_constraint`` that GSPMD would meet
+  by all-to-all (the MoE dispatch's ``moe_shard_hints``), by moves gloo
+  runs on card tensors (``dtensors.reshard``); :func:`replicated` a
+  Partial scalar all-reduced.
 
 The helpers that do not depend on the model (``is_dtensor``, the
 attention on local shards, the gloo guard) are ``repro_torch.dtensors``.
@@ -86,6 +90,31 @@ def constrain(x, spec):
     from .sharding import placements
 
     return relayout(x, x.device_mesh, placements(x.device_mesh, spec))
+
+
+def reshard(x, spec):
+    """``x`` brought to ``spec`` by moves gloo runs on card tensors
+    (``dtensors.reshard``): the counterpart of ``with_sharding_constraint``
+    where GSPMD reshards by all-to-all (the MoE dispatch's G <-> E). A dim
+    takes the longest prefix of its spec's axes that splits it evenly (one
+    decode step of 128 tokens on 256 devices is one group: it stays
+    whole), where GSPMD would pad. A no-op without a spec or on a plain
+    tensor."""
+    if spec is None or not is_dtensor(x):
+        return x
+    from repro_torch.dtensors import reshard as to
+
+    from .sharding import P, mesh_axis_sizes, placements
+
+    sizes = mesh_axis_sizes(x.device_mesh)
+    even = []
+    for n, entry in zip(x.shape, spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        while axes and n % math.prod(sizes[a] for a in axes):
+            axes = axes[:-1]
+        even.append(axes or None)
+    return to(x, placements(x.device_mesh, P(*even)))
 
 
 def gather_rows(x):
@@ -229,6 +258,16 @@ def token_nll(logits, targets):
                       device_mesh=mesh, redistribute_inputs=True)(
         lg, targets, ids)
     return logz - sum_partials(parts, mesh, rows)
+
+
+def replicated(t):
+    """``t`` replicated on every mesh dim (a Partial sum all-reduced); a
+    no-op on a plain tensor."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return relayout(t, t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
 
 
 def mean(t):

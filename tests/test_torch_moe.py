@@ -188,14 +188,6 @@ def test_overflow_position_gives_a_zero_one_hot_row():
     assert got[0, 2].sum() == 0 and got[1, 0].sum() == 0
 
 
-def test_moe_shard_hints_raise():
-    _, tcfg = _tiny(moe_shard_hints=True)
-    with torch.device("meta"):
-        block = M.MoE(tcfg)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        M.moe_block(block, torch.zeros((1, 4, 16), device="meta"), tcfg)
-
-
 def test_leaves_and_init():
     """The reference's leaf shapes and dtypes (router f32 whatever the
     parameter dtype), and the reference's std."""
