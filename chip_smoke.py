@@ -45,7 +45,10 @@ DTensor mesh of 4 gloo ranks sharing the card and dry-runs production
 cells on a fake process group. The MoE mesh path trains OLMoE-1B-7B at
 its published widths cut to 2 layers on the same mesh, its expert FFN
 resharded between groups and experts by all-to-alls (the reference's
-``moe_shard_hints``).
+``moe_shard_hints``). The mamba mesh path trains Jamba-1.5's mamba block
+at its published widths (one block and its dense SwiGLU FFN) on a (data
+1, model 4) mesh of 4 gloo ranks sharing the card, each rank's conv1d
+kernel on its quarter of the channels.
 Phases, each fatal on failure (from phase 3 to phase 24, and in phase
 26, each phase's dispatch decisions are recorded, and it fails if one of
 them was degraded or the quarantine table is not empty at its end: an
@@ -456,8 +459,10 @@ organic fault never passes as a demotion):
      the dry run of Qwen2.5-3B's cells on (16, 16), its ``train_4k`` on
      (2, 16, 16), InternVL2-1B's ``train_4k``, and at full depth on (16,
      16) OLMoE-1B-7B's ``train_4k`` with ``moe_shard_hints`` and its
-     ``decode_32k``, and Phi-3.5-MoE's ``train_4k`` with the hints (fatal
-     unless each cell with the hints counts all-to-alls); one
+     ``decode_32k``, Phi-3.5-MoE's ``train_4k`` with the hints (fatal
+     unless each cell with the hints counts all-to-alls), and Jamba-1.5's
+     four cells, ``train_4k`` and ``prefill_32k`` extrapolated from R = 1
+     and 2 to its 9 repeats (fatal otherwise); one
      ``{"dryrun": ...}`` line a cell with its host seconds, and the
      report's tables;
  28. the MoE FFN on the mesh: OLMoE-1B-7B at published widths (d_model
@@ -479,10 +484,31 @@ organic fault never passes as a demotion):
      single run's smallest k-th to (k+1)-th probability gap are printed
      beside the gates (a near-tie that bf16 noise breaks otherwise on the
      mesh sends a token to another expert);
- 29. the ``kernels`` JSON line (the flash entry lists its compiled
+ 29. the mamba block on the mesh: Jamba-1.5 at published widths (d_model
+     8192, d_inner 16384, 128 heads of 128, state 16, conv kernel 4, d_ff
+     24576, vocab 65536) cut to one mamba block and its dense SwiGLU FFN
+     (``dataclasses.replace(cfg, pattern=("mamba",), n_layers=1,
+     n_experts=0)``: 2,083,086,720 f32 parameters), B 4, L 512 (two
+     256-token chunks), seed 0, 2 AdamW steps (lr 1e-3, the launcher's
+     schedule) through ``Trainer`` on one card, then ``Trainer(mesh=)`` on
+     a (data 1, model 4) mesh of 4 gloo ranks sharing the card (each this
+     script with ``--mamba-rank``; a quarter of every ``model``-sharded
+     leaf a rank, placed as it is made), under phase 27 (a)'s gates on
+     losses (beside the no-update control), parameters and first moments,
+     plus: every rank's wire bytes by kind each step and its argument
+     bytes equal to ``dryrun.count_train_step``'s, 2 ``conv1d_ring_kernel``
+     launches a rank (one a forward) and 2 on one card, each rank's first
+     local launch (its (4, 512, 4096) channels) equal to its plain
+     version on the same inputs (``conv1d_causal_plain``, the kernel's
+     order of taps: expected error 0) and within one bf16 rounding of
+     the aten oracle (``conv1d_causal_ref``); a step's seconds, GB a rank
+     after the run and at peak, and each kind of leaf's worst error
+     (mamba, FFN, embedding and head, norms) printed;
+ 30. the ``kernels`` JSON line (the flash entry lists its compiled
      instances, the hd-80 timing and phases 27's and 28's rank launches;
-     the conv entry its phase-26 shard launches), the card's name and
-     power limit, and the last line ``{"ok": true, "device": {...}}``.
+     the conv entry its phase-26 shard launches; the conv1d entry phase
+     29's rank launches), the card's name and power limit, and the last
+     line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
 output agrees when max|kernel - plain| <= tol * max(1, max|plain|), with tol
@@ -4681,7 +4707,7 @@ DRYRUN_TIMEOUT = 600  # seconds for phase 27 (b)'s process
 # (16, 16), its train_4k on (2, 16, 16), InternVL2-1B's train_4k (the
 # reference test's own cell), and the MoE cells: OLMoE-1B-7B's train_4k
 # with the shard hints and its decode_32k, Phi-3.5-MoE's train_4k with the
-# hints
+# hints; and Jamba-1.5's four cells (mamba on the mesh)
 MOE_HINTS = {"moe_shard_hints": True}
 DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
                                                            "prefill_32k",
@@ -4690,12 +4716,20 @@ DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
                    ("internvl2_1b", "train_4k", False, None),
                    ("olmoe_1b_7b", "train_4k", False, MOE_HINTS),
                    ("olmoe_1b_7b", "decode_32k", False, None),
-                   ("phi3_5_moe_42b", "train_4k", False, MOE_HINTS)])
+                   ("phi3_5_moe_42b", "train_4k", False, MOE_HINTS)]
+                + [(HYBRID_ARCH, s, False, None) for s in (
+                    "train_4k", "prefill_32k", "decode_32k", "long_500k")])
+# Jamba-1.5's recurrent cells that the dry run extrapolates in repeats
+EXTRAPOLATED_CELLS = ("train_4k", "prefill_32k")
 # phase 28: OLMoE-1B-7B at published widths cut to 2 layers, its MoE
 # dispatch in 4 groups (gcd(4 x 512 tokens, 4 ranks)) on the mesh and on
 # one card alike
 MOE_MESH_LAYERS = 2
 MOE_MESH_GROUPS = MESH_RANKS
+# phase 29: Jamba-1.5's mamba block and its dense FFN at published widths
+# on (data 1, model 4): a quarter of every model-sharded leaf a rank (on
+# (2, 2) each rank would hold half, 17-20 GB, 70-80 GB for the four)
+MAMBA_MESH_SHAPE = (1, 4)
 
 
 def mesh_train_argv() -> list:
@@ -4736,7 +4770,6 @@ def mesh_rank_report(phase: str, outdir: str):
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.models import moe
-    from repro_torch.train.trainer import shardings_for
 
     argv = MESH_PHASES[phase][0]() + ["--mesh",
                                       ",".join(map(str, MESH_SHAPE))]
@@ -4755,13 +4788,27 @@ def mesh_rank_report(phase: str, outdir: str):
               "argument_bytes": argument_bytes(
                   (trainer.params, trainer.opt_state,
                    trainer.place_batch(trainer.source.batch(0))))}
+    report.update(chunk_errors(trainer, outdir),
+                  memory_allocated_gb_after=(
+                      torch.cuda.memory_allocated() / 1e9))
+    return report, trainer, routing
+
+
+def chunk_errors(trainer, outdir: str) -> dict:
+    """This device's chunk of each parameter and AdamW first moment of a
+    mesh trainer against the single-device run's files in ``outdir``: the
+    parameters' largest error (and those over 2 x lr x steps), each
+    parameter's own, and each first moment's relative to its chunk's
+    largest |value|."""
+    from repro_torch.train.trainer import shardings_for
+
     specs = shardings_for(trainer.model_cfg, trainer.mesh)
     want = torch.load(os.path.join(outdir, "single_params.pt"), mmap=True)
-    worst, over = 0.0, []
+    params, over = {}, []
     for name, p in trainer.params.named_parameters():
         chunk = want[name][specs[name].local_slices(p.shape)]
         err = (p.to_local().detach().cpu() - chunk).abs().max().item()
-        worst = max(worst, err)
+        params[name] = err
         if not err <= 2 * MESH_LR * MESH_STEPS:
             over.append((name, err))
     # the first moments: this device's chunk of each against the
@@ -4774,10 +4821,8 @@ def mesh_rank_report(phase: str, outdir: str):
         err = (m.to_local().detach().cpu() - chunk).abs().max().item()
         moments[name] = (err / scale if scale else
                          (0.0 if err == 0 else math.inf))
-    report.update(param_max_abs_err=worst, params_over=over[:5],
-                  moment_rel_err=moments, memory_allocated_gb_after=(
-                      torch.cuda.memory_allocated() / 1e9))
-    return report, trainer, routing
+    return {"param_max_abs_err": max(params.values()), "param_abs_err":
+            params, "params_over": over[:5], "moment_rel_err": moments}
 
 
 def mesh_rank_main(rank: int, outdir: str) -> None:
@@ -4871,6 +4916,7 @@ def dryrun_main() -> None:
             "overrides": overrides, "n_layers": rec["n_layers"],
             "n_groups": rec["n_groups"],
             "bytes_per_device": rec["bytes_per_device"],
+            "extrapolated": rec.get("extrapolated"),
             "hlo_flops": rec["hlo_flops"], "hlo_bytes": rec["hlo_bytes"],
             "collectives": rec["collectives"],
             "collective_calls": rec["collective_calls"],
@@ -4939,6 +4985,12 @@ def mesh_phase() -> dict:
                             for c in moe_cells):
         fail(f"dry run: a MoE cell with the hints issued no all-to-all: "
              f"{[c['collective_calls'] for c in moe_cells]}")
+    ext = [json.loads(x) for x in cells if json.loads(x)["dryrun"]
+           == HYBRID_ARCH and json.loads(x)["shape"] in EXTRAPOLATED_CELLS]
+    if len(ext) != len(EXTRAPOLATED_CELLS) or any(
+            c["extrapolated"] != "R=1,2 -> R=9" for c in ext):
+        fail(f"dry run: Jamba-1.5's recurrent cells not extrapolated to "
+             f"its 9 repeats: {[c['extrapolated'] for c in ext]}")
     summary = {"mesh_phase": "summary",
                "rank_flash_launches": sum(row["rank_flash_launches"]),
                "dry_run_cells": len(cells),
@@ -5219,6 +5271,301 @@ def moe_mesh_phase() -> dict:
                    "all-to-all"],
                "routing_flips_by_forward": row["routing_flips_by_forward"],
                "seconds": time.perf_counter() - t_phase, "card": row["card"]}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def mamba_mesh_cfg():
+    """Phase 29's cut of Jamba-1.5: one mamba block and its dense SwiGLU
+    FFN (pattern position 1's form) at published widths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(HYBRID_ARCH), pattern=("mamba",),
+                               n_layers=1, n_experts=0)
+
+
+def mamba_trainer(cfg, mesh=None):
+    """Phase 29's ``Trainer``: B 4, L 512, ``MESH_STEPS`` AdamW steps at
+    ``MESH_LR`` with the launcher's schedule, the ``cuda`` backend, seed
+    0; on ``mesh`` if given."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ctx = ExecutionContext(target=H100, backend="cuda", device="cuda")
+    return Trainer(cfg, AdamWConfig(lr=MESH_LR, warmup_steps=5,
+                                    total_steps=MESH_STEPS),
+                   TrainConfig(steps=MESH_STEPS, ctx=ctx, log_every=0),
+                   DataConfig(batch_size=4, seq_len=512,
+                              vocab_size=cfg.vocab_size), mesh=mesh)
+
+
+@contextlib.contextmanager
+def first_conv1d_launch():
+    """Inside the ``with``: the conv1d kernel's first launch through the
+    dispatcher's ``cuda`` entry, its inputs and output kept (copies, taken
+    after the launch: no launch added)."""
+    from repro_torch.ops import registry
+
+    seen = {}
+    launch = registry._conv1d_cuda
+
+    def keep(x, w, **kw):
+        out = launch(x, w, **kw)
+        if not seen:
+            seen.update(x=x.detach().clone(), w=w.detach().clone(),
+                        out=out.detach().clone())
+        return out
+
+    registry._conv1d_cuda = keep
+    try:
+        yield seen
+    finally:
+        registry._conv1d_cuda = launch
+
+
+def leaf_kind(name: str) -> str:
+    """Phase 29's kinds of leaf: the mamba block's, the FFN's, the
+    embedding and head, the norms."""
+    if ".core." in name:
+        return "mamba"
+    if ".ffn." in name:
+        return "ffn"
+    return "embed_head" if name in ("embed", "head") else "norm"
+
+
+def mamba_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 29: the mesh trainer on (``MAMBA_MESH_SHAPE``)
+    over gloo (``RANK`` and the rest of ``torchrun``'s environment), the
+    conv1d counts set to 0 just before its run and read just after, its
+    first local conv1d launch kept, then its chunks against the
+    single-device run's files in ``outdir``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import KERNELS, conv1d_causal_plain
+    from repro_torch.kernels.ref import conv1d_causal_ref
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=MESH_RANKS)
+    mesh = make_host_mesh(*MAMBA_MESH_SHAPE, device_type="cuda")
+    trainer = mamba_trainer(mamba_mesh_cfg(), mesh)
+    k = KERNELS["conv1d_causal"]
+    torch.cuda.reset_peak_memory_stats()
+    k.launches = 0
+    with first_conv1d_launch() as first:
+        hist = trainer.run()
+    launches = k.launches
+    out = first["out"].float()
+    # the plain version adds the taps in the kernel's order (expected
+    # error 0); the aten oracle in its own, before the bf16 cast
+    err = (out - conv1d_causal_plain(first["x"], first["w"]).float()
+           ).abs().max().item()
+    want = conv1d_causal_ref(first["x"], first["w"]).float()
+    oracle = ((out - want).abs().max() / want.abs().max().clamp(min=1.0)
+              ).item()
+    report = {"rank": rank, "loss": hist["loss"],
+              "step_time": hist["step_time"],
+              "collectives": trainer.collectives,
+              "conv1d_launches": launches,
+              "first_launch": {"x": list(first["x"].shape),
+                               "w": list(first["w"].shape),
+                               "dtype": str(first["x"].dtype),
+                               "max_abs_err": err,
+                               "oracle_rel_err": oracle},
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 1e9,
+              "memory_allocated_gb_after":
+                  torch.cuda.memory_allocated() / 1e9,
+              "argument_bytes": argument_bytes(
+                  (trainer.params, trainer.opt_state,
+                   trainer.place_batch(trainer.source.batch(0)))),
+              "local_device": str(next(trainer.params.parameters())
+                                  .to_local().device)}
+    report.update(chunk_errors(trainer, outdir))
+    with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def mamba_mesh_phase() -> dict:
+    """Phase 29 (module docstring): Jamba-1.5's mamba block through the
+    mesh trainer over 4 gloo ranks sharing the card, against the
+    single-device trainer and the dry run's count. Fatal on any failure;
+    the single-device run's files are removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.trainer import TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = mamba_mesh_cfg()
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in T.Transformer(cfg).parameters())
+    card = smi()
+    outdir = tempfile.mkdtemp(prefix="mamba_mesh_")
+    try:
+        at_start, control = no_update_loss(
+            cfg, ExecutionContext(target=H100, backend="cuda",
+                                  device="cuda"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k = KERNELS["conv1d_causal"]
+        k.launches = 0
+        trainer = mamba_trainer(cfg)
+        single = trainer.run()
+        single_launches = k.launches
+        single_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.save({n: p.detach().cpu() for n, p in
+                    trainer.params.named_parameters()},
+                   os.path.join(outdir, "single_params.pt"))
+        torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()},
+                   os.path.join(outdir, "single_m.pt"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        count = dryrun.count_train_step(
+            cfg, MAMBA_MESH_SHAPE, {"tokens": torch.empty(
+                (4, 512), dtype=torch.int32, device="meta")}, TrainConfig())
+        t0 = time.perf_counter()
+        env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   LOCAL_RANK="0")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mamba-rank",
+             str(r), outdir], env=dict(env, RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                left = MESH_TIMEOUT - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(left, 1.0))[0])
+        except subprocess.TimeoutExpired:
+            fail(f"mamba mesh: a rank did not finish in {MESH_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            fail("mamba mesh: rank exit codes "
+                 f"{[p.returncode for p in procs]}:\n"
+                 + "\n".join(logs)[-6000:])
+        checks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, f"checks{r}.json")) as f:
+                checks.append(json.load(f))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    bound = 2 * MESH_LR * MESH_STEPS
+    rel = [abs(a - b) / abs(b) for c in checks
+           for a, b in zip(c["loss"], single["loss"])]
+    moments, params = {}, {}
+    for c in checks:
+        for name, err in c["moment_rel_err"].items():
+            moments[name] = max(moments.get(name, 0.0), err)
+        for name, err in c["param_abs_err"].items():
+            params[name] = max(params.get(name, 0.0), err)
+    top = max(moments, key=moments.get)
+    by_kind = {}
+    for name in moments:
+        m, p = by_kind.setdefault(leaf_kind(name), [0.0, 0.0])
+        by_kind[leaf_kind(name)] = [max(m, moments[name]),
+                                    max(p, params[name])]
+    control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
+    row = {"mamba_mesh_train": cfg.name, "phase": "29",
+           "pattern": list(cfg.pattern), "layers": cfg.n_layers,
+           "parameters": n_params,
+           "mesh": {"data": MAMBA_MESH_SHAPE[0],
+                    "model": MAMBA_MESH_SHAPE[1]},
+           "ranks": MESH_RANKS, "backend": "gloo, one card",
+           "batch": [4, 512], "steps": MESH_STEPS,
+           "single_losses": single["loss"],
+           "rank_losses": [c["loss"] for c in checks],
+           "loss_max_rel_err": max(rel), "loss_bound": MESH_LOSS_TIGHT,
+           "no_update_loss": control, "no_update_loss_rel_err": control_rel,
+           "first_loss_recomputed": at_start,
+           "single_step_s": single["step_time"],
+           "rank_step_s": [c["step_time"] for c in checks],
+           "param_max_abs_err": max(params.values()), "param_bound": bound,
+           "moment_max_rel_err": moments[top], "moment_worst_leaf": top,
+           "moment_bound": MESH_MOMENT_TOL,
+           "worst_by_kind_moment_rel_param_abs": by_kind,
+           "wire_bytes_per_step": checks[0]["collectives"][0],
+           "dry_run_wire_bytes": count["collectives"],
+           "dry_run_calls": count["calls"],
+           "argument_bytes": [c["argument_bytes"] for c in checks],
+           "dry_run_argument_bytes": count["argument_bytes"],
+           "single_conv1d_launches": single_launches,
+           "rank_conv1d_launches": [c["conv1d_launches"] for c in checks],
+           "rank_first_launch": [c["first_launch"] for c in checks],
+           "rank_max_memory_allocated_gb": [
+               c["max_memory_allocated_gb"] for c in checks],
+           "rank_memory_allocated_gb_after": [
+               c["memory_allocated_gb_after"] for c in checks],
+           "single_max_memory_allocated_gb": single_peak,
+           "ranks_seconds": seconds, "card": card}
+    print(json.dumps(row), flush=True)
+    if not max(rel) <= 1e-2 or any(len(c["loss"]) != MESH_STEPS
+                                   for c in checks):
+        fail(f"mamba mesh: losses {row['rank_losses']} vs {single['loss']}")
+    if not abs(at_start - single["loss"][0]) <= \
+            MESH_LOSS_TIGHT * abs(single["loss"][0]):
+        fail(f"mamba mesh: the control's first loss {at_start} is not the "
+             f"single-device run's {single['loss'][0]}")
+    if not control_rel > MESH_LOSS_TIGHT:
+        fail(f"mamba mesh: a run that did not update reads {control_rel}, "
+             f"inside the losses' bound {MESH_LOSS_TIGHT}")
+    if not max(rel) <= MESH_LOSS_TIGHT:
+        fail(f"mamba mesh: losses {row['rank_losses']} vs {single['loss']}: "
+             f"{max(rel)} relative, above {MESH_LOSS_TIGHT}")
+    if not row["param_max_abs_err"] <= bound:
+        fail(f"mamba mesh: parameters {[c['params_over'] for c in checks]} "
+             f"off the single-device run's by more than {bound}")
+    if not moments[top] <= MESH_MOMENT_TOL:
+        fail(f"mamba mesh: first moments off the single-device run's by "
+             f"{moments[top]} of the leaf's largest |value| ({top}), above "
+             f"{MESH_MOMENT_TOL}")
+    want = cfg.n_layers * MESH_STEPS  # one launch a forward
+    if single_launches != want:
+        fail(f"mamba mesh: the single-device run launched conv1d "
+             f"{single_launches} times, expected {want}")
+    for c in checks:
+        if c["conv1d_launches"] != want:
+            fail(f"mamba mesh: rank {c['rank']} launched conv1d "
+                 f"{c['conv1d_launches']} times, expected {want}")
+        if c["first_launch"]["max_abs_err"] != 0.0 or not \
+                c["first_launch"]["oracle_rel_err"] <= TOL[torch.bfloat16]:
+            fail(f"mamba mesh: rank {c['rank']}'s conv1d launch "
+                 f"{c['first_launch']} differs from its plain version (or "
+                 "from the aten oracle past one bf16 rounding)")
+        if any(step != count["collectives"] for step in c["collectives"]):
+            fail(f"mamba mesh: rank {c['rank']} wire bytes "
+                 f"{c['collectives']} vs the dry run's "
+                 f"{count['collectives']}")
+        if c["argument_bytes"] != count["argument_bytes"]:
+            fail(f"mamba mesh: rank {c['rank']} argument bytes "
+                 f"{c['argument_bytes']} vs the dry run's "
+                 f"{count['argument_bytes']}")
+        if not c["local_device"].startswith("cuda"):
+            fail(f"mamba mesh: rank {c['rank']} ran on {c['local_device']}")
+    summary = {"mamba_mesh_phase": "summary",
+               "rank_conv1d_launches": sum(row["rank_conv1d_launches"]),
+               "all_to_all_calls_per_step": count["calls"].get(
+                   "all-to-all", 0),
+               "seconds": time.perf_counter() - t_phase, "card": card}
     print(json.dumps(summary), flush=True)
     return summary
 
@@ -5669,7 +6016,11 @@ def main() -> None:
     moe_mesh = moe_mesh_phase()
     cycle_check("28")
 
-    # -- 29. summary --------------------------------------------------------
+    # -- 29. the mamba block on the mesh: Jamba-1.5's, at published widths -
+    mamba_mesh = mamba_mesh_phase()
+    cycle_check("29")
+
+    # -- 30. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -5710,6 +6061,8 @@ def main() -> None:
         instances=[list(i) for i in flash_tc_instances()], hd80=hd80,
         mesh_train_rank_launches=mesh["rank_flash_launches"],
         moe_mesh_rank_launches=moe_mesh["rank_flash_launches"])
+    conv1d_kernel["mamba_mesh_rank_launches"] = mamba_mesh[
+        "rank_conv1d_launches"]
     kernels += attn_kernels + quant_kernels + [conv1d_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
@@ -5727,5 +6080,7 @@ if __name__ == "__main__":
         dryrun_main()
     elif sys.argv[1:2] == ["--moe-rank"]:  # and phase 28 its ranks
         moe_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--mamba-rank"]:  # and phase 29 its ranks
+        mamba_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -15,6 +15,12 @@ below ``ops`` and ``analysis`` (the model's own layout hooks are
   DTensor's would all-gather it), :func:`gather` makes a sharded dim
   whole as a sum of zero-padded chunks (one all-reduce); each on dims
   that split evenly.
+* :func:`split_columns`: a column-parallel projection's output cut into
+  equal column blocks each sharded as the whole was (the mamba block's x/z
+  split): one all-to-all with uneven splits, where slicing would gather.
+* :func:`local_channels`: a depthwise op (the mamba block's short conv)
+  on each device's channels through ``local_map``, the filter's gradient
+  a Partial sum over the rows' mesh dims.
 * :func:`local_attention`: the attention kernel sees raw pointers, so it
   runs on each device's local shards through ``local_map``, heads sharded
   on ``model`` (K/V heads expanded to the query heads where the KV heads
@@ -303,6 +309,131 @@ def reshard(t, placements):
         elif p == Replicate() and isinstance(have, Shard):
             t = gather(t, i)
     return relayout(t, t.device_mesh, placements)
+
+
+def _piece_order(rank: int, m: int, parts: int):
+    """The exchange of :func:`split_columns` seen from device ``rank`` of
+    ``m``: its local chunk is ``parts`` pieces, global piece p = rank x
+    parts + q, and piece p goes to device p % m as part p // m. Returns
+    (the local pieces sorted by destination, the pieces sent to each
+    device, the pieces received from each device)."""
+    order = sorted(range(parts), key=lambda q: (rank * parts + q) % m)
+    send = [0] * m
+    for q in order:
+        send[(rank * parts + q) % m] += 1
+    recv = [0] * m
+    for h in range(parts):
+        recv[(h * m + rank) // parts] += 1
+    return order, send, recv
+
+
+def _columns_exchange(local, group, rank: int, m: int, parts: int,
+                      inverse: bool):
+    """One all-to-all (uneven splits) of :func:`split_columns` on this
+    device's local tensors: forward, the local (..., n/m) chunk in, its
+    ``parts`` parts' (..., n/(parts m)) chunks out; ``inverse``, the
+    parts' chunks in (a list), the local chunk out."""
+    from torch.distributed import _functional_collectives as funcol
+
+    order, send, recv = _piece_order(rank, m, parts)
+    if inverse:
+        send, recv = recv, send
+        x = torch.stack([g.movedim(-1, 0) for g in local])  # (parts, u, ...)
+    else:
+        x = local.movedim(-1, 0)
+        x = x.reshape(parts, x.shape[0] // parts, *x.shape[1:])
+        x = x[order]  # the pieces sorted by destination
+    u = x.shape[1]
+    y = funcol.all_to_all_single(x.reshape(parts * u, *x.shape[2:])
+                                 .contiguous(), [r * u for r in recv],
+                                 [s * u for s in send], group)
+    y = y.reshape(parts, u, *y.shape[1:])
+    if inverse:  # the pieces came back sorted by destination: undo it
+        back = torch.empty_like(y)
+        back[order] = y
+        return back.reshape(parts * u, *y.shape[2:]).movedim(0, -1) \
+            .contiguous()
+    return [y[h].movedim(0, -1).contiguous() for h in range(parts)]
+
+
+class _SplitColumns(torch.autograd.Function):
+    """:func:`split_columns` on a DTensor whose last dim one mesh dim
+    shards; the gradient comes back by the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, t, mesh_dim, parts):
+        mesh = t.device_mesh
+        m, rank = mesh.size(mesh_dim), mesh.get_local_rank(mesh_dim)
+        chunks = _columns_exchange(t.to_local(), (mesh, mesh_dim), rank, m,
+                                   parts, inverse=False)
+        shape = (*t.shape[:-1], t.shape[-1] // parts)
+        stride = torch.empty(shape, device="meta").stride()
+        ctx.args = (mesh_dim, parts, tuple(t.placements), tuple(t.shape),
+                    t.stride())
+        return tuple(_from_local(c, (mesh, shape, stride), t.placements)
+                     for c in chunks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh_dim, parts, placements, shape, stride = ctx.args
+        mesh = next(g for g in grads if g is not None).device_mesh
+        m, rank = mesh.size(mesh_dim), mesh.get_local_rank(mesh_dim)
+        local = [None if g is None else (
+            g if tuple(g.placements) == placements
+            else g.redistribute(mesh, placements)).to_local() for g in grads]
+        like = next(g for g in local if g is not None)
+        local = [torch.zeros_like(like) if g is None else g for g in local]
+        whole = _columns_exchange(local, (mesh, mesh_dim), rank, m, parts,
+                                  inverse=True)
+        return (_from_local(whole, (mesh, torch.Size(shape), stride),
+                            placements), None, None)
+
+
+def split_columns(t, parts: int):
+    """``t`` (..., n) cut into ``parts`` equal column blocks, each (...,
+    n / parts) sharded along its last dim as ``t`` is: the x/z split of a
+    column-parallel projection. Where one mesh dim (m devices) shards the
+    last dim, a device's chunk holds pieces of other devices' blocks, so
+    the blocks are made by one all-to-all along it (uneven splits: each
+    device keeps the pieces that are its own and sends the others; gloo
+    runs it on card tensors, where slicing the DTensor would all-gather);
+    n must split into parts x m equal pieces. Unsharded, each device
+    slices its own copy."""
+    n = t.shape[-1]
+    dims = sharding_dims(t, t.ndim - 1)
+    if not dims:
+        w = n // parts
+        return tuple(t[..., i * w:(i + 1) * w] for i in range(parts))
+    if len(dims) > 1:
+        raise ValueError(f"{t.placements}: the columns are split over "
+                         f"several mesh dims {dims}")
+    m = t.device_mesh.size(dims[0])
+    if n % (parts * m):
+        raise ValueError(f"{n} columns do not split evenly into {parts} "
+                         f"blocks over {m} devices")
+    return _SplitColumns.apply(t, dims[0], parts)
+
+
+def local_channels(fn, x, w):
+    """``fn(x, w)`` on each device's channels (``local_map``): ``x``
+    (..., C) and ``w`` (K, C) sharded alike along C (a depthwise filter),
+    x's other dims as they lie; the result in ``x``'s placements. ``w``'s
+    gradient is a Partial sum over the mesh dims sharding x's other dims
+    (each device's rows add theirs)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    cdims = sharding_dims(x, x.ndim - 1)
+    w_pl = tuple(Shard(1) if i in cdims else Replicate()
+                 for i in range(mesh.ndim))
+    w_grad = tuple(Shard(1) if i in cdims else
+                   Partial() if isinstance(p, Shard) else Replicate()
+                   for i, p in enumerate(x.placements))
+    return local_map(fn, out_placements=(tuple(x.placements),),
+                     in_placements=(tuple(x.placements), w_pl),
+                     in_grad_placements=(tuple(x.placements), w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w)
 
 
 def sharding_dims(t, dim: int) -> Tuple[int, ...]:

@@ -349,8 +349,11 @@ def moe_block(
     Tg = T // G
     C = capacity(cfg, Tg)
     hints = cfg.moe_shard_hints
+    # on a mesh, groups that cut across or join rows need each row whole
+    # (DTensor cannot regroup a sharded sequence; a prefill's groups)
+    xs = spmd.gather_rows(x) if Tg != L else x
     # on a mesh with the hints, the groups over every device
-    xg = spmd.reshard(x.reshape(G, Tg, D), _TOKENS if hints else None)
+    xg = spmd.reshard(xs.reshape(G, Tg, D), _TOKENS if hints else None)
     combine, dispatch, per_group = _routed(xg, p.router, cfg, C, choices)
     combine = spmd.reshard(combine, _GROUPS if hints else None)
     dispatch = spmd.reshard(dispatch, _GROUPS if hints else None)

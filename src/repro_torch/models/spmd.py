@@ -32,6 +32,10 @@ choose for it, each a no-op on a plain tensor:
 * :func:`cache_write`: a K/V write into a cache sharded along its
   sequence: each shard writes the positions it holds. :func:`pad` pads
   shard by shard.
+* :func:`split_columns` / :func:`on_channels`: the mamba block's x/z
+  split of its in-projection (``dtensors.split_columns``: one all-to-all
+  where slicing a sharded dim would gather) and its short conv on each
+  device's channels (``dtensors.local_channels``).
 * :func:`reshard`: a ``with_sharding_constraint`` that GSPMD would meet
   by all-to-all (the MoE dispatch's ``moe_shard_hints``), by moves gloo
   runs on card tensors (``dtensors.reshard``); :func:`replicated` a
@@ -115,6 +119,29 @@ def reshard(x, spec):
             axes = axes[:-1]
         even.append(axes or None)
     return to(x, placements(x.device_mesh, P(*even)))
+
+
+def split_columns(t, parts: int):
+    """``t`` (..., n) cut into ``parts`` equal column blocks; on a
+    DTensor each block sharded along its last dim as ``t`` is
+    (``dtensors.split_columns``)."""
+    if is_dtensor(t):
+        from repro_torch.dtensors import split_columns as split
+
+        return split(t, parts)
+    w = t.shape[-1] // parts
+    return tuple(t[..., i * w:(i + 1) * w] for i in range(parts))
+
+
+def on_channels(fn, x, w):
+    """``fn(x, w)``, a depthwise op over ``x`` (..., C) with a (K, C)
+    filter; on DTensors, on each device's channels
+    (``dtensors.local_channels``)."""
+    if not is_dtensor(x):
+        return fn(x, w)
+    from repro_torch.dtensors import local_channels
+
+    return local_channels(fn, x, w)
 
 
 def gather_rows(x):

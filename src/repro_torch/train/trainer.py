@@ -203,26 +203,34 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init(self, seed: int = 0):
-        self.params = T.init_params(self.model_cfg, seed=seed,
-                                    device=self.device)
+        """Seeded parameters and zero moments. On a mesh each parameter is
+        placed as it is made (each device keeps its chunk, the whole
+        tensor is dropped before the next is made) and the moments are
+        made on the placed leaves: no device ever holds the whole model or
+        a whole moment, and the values are those of one device's
+        ``init_params`` with the same seed, bit for bit."""
+        with (contextlib.nullcontext() if self.mesh is None
+              else placed_as_made(self.model_cfg, self.mesh)):
+            self.params = T.init_params(self.model_cfg, seed=seed,
+                                        device=self.device)
         self.opt_state = init_state(self.params)
         self.start_step = 0
-        if self.mesh is not None:
-            self._place()
 
     def _place(self) -> None:
-        """Parameters and moments onto the mesh (each device keeps its
-        chunk of the full values it holds: no wire)."""
+        """Whole parameters and moments (a restored checkpoint) onto the
+        mesh, leaf by leaf: each device keeps its chunk (no wire), and each
+        whole tensor is released once placed."""
         specs = shardings_for(self.model_cfg, self.mesh)
         with torch.no_grad():
-            for name, p in list(self.params.named_parameters()):
+            for name in [n for n, _ in self.params.named_parameters()]:
                 mod, leaf = _owner(self.params, name)
                 mod._parameters[leaf] = torch.nn.Parameter(
-                    specs[name].place(p.detach()))
+                    _own_chunk(specs[name].place(
+                        mod._parameters[leaf].detach())))
         st = self.opt_state
-        self.opt_state = AdamWState(
-            st.step, {n: specs[n].place(t) for n, t in st.m.items()},
-            {n: specs[n].place(t) for n, t in st.v.items()})
+        for tree in (st.m, st.v):
+            for n in list(tree):
+                tree[n] = _own_chunk(specs[n].place(tree[n]))
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch on the device; on a mesh, its batch dim on the data
@@ -251,23 +259,23 @@ class Trainer:
 
     def resume_or_init(self):
         tc = self.train_cfg
+        latest = ckpt.latest_step(tc.ckpt_dir) if tc.ckpt_dir else None
+        if latest is None:  # on a mesh: placed as made (:meth:`init`)
+            self.init(tc.seed)
+            return
         mesh, self.mesh = self.mesh, None  # restore whole, then place
         try:
             self.init(tc.seed)
-            if tc.ckpt_dir:
-                latest = ckpt.latest_step(tc.ckpt_dir)
-                if latest is not None:
-                    restored, _ = ckpt.restore(tc.ckpt_dir, self.state_tree(),
-                                               step=latest,
-                                               device=self.device)
-                    self.params = transformer_from_jax(
-                        restored["params"], self.model_cfg, self.device)
-                    step, m, v = restored["opt"]
-                    self.opt_state = AdamWState(
-                        step, named_from_tree(m, self.model_cfg, self.device),
-                        named_from_tree(v, self.model_cfg, self.device))
-                    self.start_step = latest
-                    log.info("resumed from step %d", latest)
+            restored, _ = ckpt.restore(tc.ckpt_dir, self.state_tree(),
+                                       step=latest, device=self.device)
+            self.params = transformer_from_jax(
+                restored["params"], self.model_cfg, self.device)
+            step, m, v = restored["opt"]
+            self.opt_state = AdamWState(
+                step, named_from_tree(m, self.model_cfg, self.device),
+                named_from_tree(v, self.model_cfg, self.device))
+            self.start_step = latest
+            log.info("resumed from step %d", latest)
         finally:
             self.mesh = mesh
         if mesh is not None:
@@ -314,6 +322,65 @@ def shardings_for(cfg: ModelConfig, mesh) -> Dict[str, "shd.NamedSharding"]:
     """``{parameter name: NamedSharding}`` of ``cfg`` on ``mesh`` (the
     moments share their parameter's)."""
     return shd.shardings(mesh, shd.param_specs(cfg))
+
+
+def _own_chunk(t):
+    """A placed DTensor whose local chunk owns its memory: a chunk that is
+    a view of the whole tensor (a split along dim 0) would keep the whole
+    alive; it is copied."""
+    local = t.to_local()
+    if local.untyped_storage().nbytes() <= local.numel() * \
+            local.element_size():
+        return t
+    return dtensors._from_local(local.clone(), t, t.placements)
+
+
+def registration_order(cfg: ModelConfig) -> list:
+    """The parameter names of ``Transformer(cfg)`` in the order its
+    constructor registers them (each block's leaves before its parent's
+    later ones; built on the meta device)."""
+    from torch.nn.modules.module import \
+        register_module_parameter_registration_hook
+
+    seen = []
+    handle = register_module_parameter_registration_hook(
+        lambda module, leaf, p: seen.append((module, leaf)))
+    try:
+        with torch.device("meta"):
+            model = T.Transformer(cfg)
+    finally:
+        handle.remove()
+    prefix = {id(m): name for name, m in model.named_modules()}
+    return [f"{prefix[id(m)]}.{leaf}".lstrip(".") for m, leaf in seen]
+
+
+@contextlib.contextmanager
+def placed_as_made(cfg: ModelConfig, mesh):
+    """Inside the ``with``, each parameter that a ``Transformer(cfg)``
+    registers is placed on ``mesh`` by ``param_specs`` as soon as it is
+    made (``torch.nn``'s parameter registration hook): the module holds
+    the placed leaf, and the whole tensor is dropped. Build one
+    ``Transformer`` inside."""
+    from torch.nn.modules.module import \
+        register_module_parameter_registration_hook
+
+    specs = shardings_for(cfg, mesh)
+    names = iter(registration_order(cfg))
+
+    def place(module, leaf, p):
+        name = next(names)
+        if name.rsplit(".", 1)[-1] != leaf:
+            raise AssertionError(f"registered {leaf!r} where {name!r} "
+                                 "was expected")
+        with torch.no_grad():
+            return torch.nn.Parameter(_own_chunk(
+                specs[name].place(p.detach())))
+
+    handle = register_module_parameter_registration_hook(place)
+    try:
+        yield
+    finally:
+        handle.remove()
 
 
 def _owner(module: torch.nn.Module, name: str):
