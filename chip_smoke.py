@@ -48,7 +48,10 @@ resharded between groups and experts by all-to-alls (the reference's
 ``moe_shard_hints``). The mamba mesh path trains Jamba-1.5's mamba block
 at its published widths (one block and its dense SwiGLU FFN) on a (data
 1, model 4) mesh of 4 gloo ranks sharing the card, each rank's conv1d
-kernel on its quarter of the channels.
+kernel on its quarter of the channels. The xLSTM mesh path trains
+xLSTM-1.3B at its published widths cut to two (mLSTM, sLSTM) units on the
+same (data 1, model 4) mesh, one mLSTM head and 512 sLSTM channels a
+rank, and saves a checkpoint from the ranks.
 Phases, each fatal on failure (from phase 3 to phase 24, and in phase
 26, each phase's dispatch decisions are recorded, and it fails if one of
 them was degraded or the quarantine table is not empty at its end: an
@@ -437,7 +440,7 @@ organic fault never passes as a demotion):
      gives the card memory that only reference cycles held (a collection
      frees it; ``flag`` where not 0), fatal after (a)-(b) and after (c);
  27. the language-model mesh. (a) Qwen2.5-3B at published widths cut to
-     8 layers (phase 22's cut, B 4, L 512, seed 0), 2 AdamW steps (lr
+     ``MESH_TRAIN_LAYERS`` = 4 layers (B 4, L 512, seed 0), 2 AdamW steps (lr
      1e-3) through ``launch/train.py`` on one card, then through
      ``launch/train.py --mesh 2,2`` on 4 gloo ranks sharing the card (each
      this script with ``--mesh-rank``, ``torchrun``'s environment, joined
@@ -449,22 +452,24 @@ organic fault never passes as a demotion):
      them, its AdamW first moments (0.09 g1 + 0.1 g2 after two steps: the
      gradients of both steps) within ``MESH_MOMENT_TOL`` of the
      single-device run's relative to each leaf's largest |value| (no
-     update reads 1, a wrong sign 2), its 16 flash launches all on the
+     update reads 1, a wrong sign 2), its 8 flash launches all on the
      tensor cores, its wire bytes
      by kind each step and its argument bytes equal to
      ``dryrun.count_train_step``'s count of the same step on a fake group
      of 4, and the single-device checkpoint restored onto the mesh with
      ``shardings=`` and gathered back over a CPU mesh bit for bit. (b)
-     Beside it, in a process of its own (``--dryrun``, no card memory):
+     In a process of its own (``--dryrun``, no card memory), started
+     with phase 27 so that its host work runs beside phases 27-30, and
+     read after phase 30 (fatal past ``DRYRUN_TIMEOUT`` from its start):
      the dry run of Qwen2.5-3B's cells on (16, 16), its ``train_4k`` on
      (2, 16, 16), InternVL2-1B's ``train_4k``, and at full depth on (16,
      16) OLMoE-1B-7B's ``train_4k`` with ``moe_shard_hints`` and its
      ``decode_32k``, Phi-3.5-MoE's ``train_4k`` with the hints (fatal
      unless each cell with the hints counts all-to-alls), and Jamba-1.5's
-     four cells, ``train_4k`` and ``prefill_32k`` extrapolated from R = 1
-     and 2 to its 9 repeats (fatal otherwise); one
-     ``{"dryrun": ...}`` line a cell with its host seconds, and the
-     report's tables;
+     four cells and xLSTM-1.3B's, ``train_4k`` and ``prefill_32k``
+     extrapolated from R = 1 and 2 to the model's repeats (Jamba's 9,
+     xLSTM's 24; fatal otherwise); one ``{"dryrun": ...}`` line a cell
+     with its host seconds, and the report's tables;
  28. the MoE FFN on the mesh: OLMoE-1B-7B at published widths (d_model
      2048, 16 heads over 16 KV heads, 64 experts top 8 of d_ff 1024, vocab
      50304) cut to 2 layers (1.05 B f32 parameters), B 4, L 512, seed 0,
@@ -504,7 +509,29 @@ organic fault never passes as a demotion):
      the aten oracle (``conv1d_causal_ref``); a step's seconds, GB a rank
      after the run and at peak, and each kind of leaf's worst error
      (mamba, FFN, embedding and head, norms) printed;
- 30. the ``kernels`` JSON line (the flash entry lists its compiled
+ 30. the xLSTM blocks on the mesh: xLSTM-1.3B at published widths
+     (d_model 2048, 4 heads of hd 512, chunk 256, vocab 50304) cut to
+     ``XLSTM_MESH_LAYERS`` = 4 layers, two (mLSTM, sLSTM) units
+     (282,126,352 f32 parameters), computed in f32 (in bf16 re-associated
+     partial sums alone move its first moments by up to half their
+     largest value: ``scripts/xlstm_mesh_bf16.py``), B 4, L 512, seed 0,
+     2 AdamW steps
+     (lr 1e-3, the launcher's schedule) through ``Trainer`` on one card,
+     then ``Trainer(mesh=)`` on a (data 1, model 4) mesh of 4 gloo ranks
+     sharing the card (each this script with ``--xlstm-rank``; one mLSTM
+     head and 512 sLSTM channels a rank), under phase 29's gates (losses
+     beside the no-update control, parameters, first moments, wire and
+     argument bytes equal to ``dryrun.count_train_step``'s), each kind
+     of leaf's worst error printed (mLSTM, sLSTM, embedding and head,
+     norms); the hand-written kernels' launches on the ranks and on one
+     card by kind (the blocks dispatch none: every count 0, fatal
+     otherwise). Then the ranks save a checkpoint
+     (``Trainer.save_checkpoint``: each leaf made whole by all-reduces,
+     rank 0 writes), fatal if any all-gather is counted there; rank 0
+     writes a sha256 of each gathered leaf, and the checkpoint restored
+     on the card (``checkpoint.restore``) must match every digest;
+     a step's seconds and GB a rank printed;
+ 31. the ``kernels`` JSON line (the flash entry lists its compiled
      instances, the hd-80 timing and phases 27's and 28's rank launches;
      the conv entry its phase-26 shard launches; the conv1d entry phase
      29's rank launches), the card's name and power limit, and the last
@@ -4702,12 +4729,17 @@ MESH_MOMENT_TOL = 1e-1
 # 1, 2.5-3.6% of its choices flipped; NVIDIA H100 80GB HBM3, 700.00 W);
 # no update reads 1, a wrong sign 2
 MOE_MOMENT_TOL = 0.5
-DRYRUN_TIMEOUT = 600  # seconds for phase 27 (b)'s process
+# seconds for phase 27 (b)'s process, from its start with phase 27
+DRYRUN_TIMEOUT = 900
+# phase 27 (a)'s depth cut of Qwen2.5-3B: half of phase 22's 8 layers
+# (the script's time limit)
+MESH_TRAIN_LAYERS = 4
 # phase 27 (b): (arch, shape, multi-pod, overrides): Qwen2.5-3B's cells on
 # (16, 16), its train_4k on (2, 16, 16), InternVL2-1B's train_4k (the
 # reference test's own cell), and the MoE cells: OLMoE-1B-7B's train_4k
 # with the shard hints and its decode_32k, Phi-3.5-MoE's train_4k with the
-# hints; and Jamba-1.5's four cells (mamba on the mesh)
+# hints; and Jamba-1.5's and xLSTM-1.3B's four cells (recurrent blocks on
+# the mesh)
 MOE_HINTS = {"moe_shard_hints": True}
 DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
                                                            "prefill_32k",
@@ -4717,26 +4749,34 @@ DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
                    ("olmoe_1b_7b", "train_4k", False, MOE_HINTS),
                    ("olmoe_1b_7b", "decode_32k", False, None),
                    ("phi3_5_moe_42b", "train_4k", False, MOE_HINTS)]
-                + [(HYBRID_ARCH, s, False, None) for s in (
-                    "train_4k", "prefill_32k", "decode_32k", "long_500k")])
-# Jamba-1.5's recurrent cells that the dry run extrapolates in repeats
+                + [(arch, s, False, None) for arch in (HYBRID_ARCH,
+                                                       XLSTM_ARCH)
+                   for s in ("train_4k", "prefill_32k", "decode_32k",
+                             "long_500k")])
+# the recurrent cells that the dry run extrapolates in repeats (Jamba-1.5's
+# and xLSTM-1.3B's)
 EXTRAPOLATED_CELLS = ("train_4k", "prefill_32k")
 # phase 28: OLMoE-1B-7B at published widths cut to 2 layers, its MoE
 # dispatch in 4 groups (gcd(4 x 512 tokens, 4 ranks)) on the mesh and on
 # one card alike
 MOE_MESH_LAYERS = 2
 MOE_MESH_GROUPS = MESH_RANKS
-# phase 29: Jamba-1.5's mamba block and its dense FFN at published widths
-# on (data 1, model 4): a quarter of every model-sharded leaf a rank (on
-# (2, 2) each rank would hold half, 17-20 GB, 70-80 GB for the four)
-MAMBA_MESH_SHAPE = (1, 4)
+# phases 29 and 30: Jamba-1.5's mamba block and its dense FFN, and
+# xLSTM-1.3B's two units, at published widths on (data 1, model 4): a
+# quarter of every model-sharded leaf a rank (on (2, 2) each phase-29 rank
+# would hold half, 17-20 GB, 70-80 GB for the four)
+RECURRENT_MESH_SHAPE = (1, 4)
+# phase 30: xLSTM-1.3B at published widths cut to two (mlstm, slstm) units
+# on (data 1, model 4): one mLSTM head and 512 sLSTM channels a rank
+XLSTM_MESH_LAYERS = 4
 
 
 def mesh_train_argv() -> list:
-    """Phase 27 (a)'s ``launch/train.py`` arguments: phase 22's cut of
-    Qwen2.5-3B (published widths, 8 layers), B 4, L 512, its seed (the
-    launcher's, 0 = ``SEED``)."""
-    return ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--batch",
+    """Phase 27 (a)'s ``launch/train.py`` arguments: Qwen2.5-3B at
+    published widths cut to ``MESH_TRAIN_LAYERS`` layers, B 4, L 512, its
+    seed (the launcher's, 0 = ``SEED``)."""
+    return ["--arch", TRAIN_ARCH, "--layers", str(MESH_TRAIN_LAYERS),
+            "--batch",
             "4", "--seq", "512", "--steps", str(MESH_STEPS), "--lr",
             str(MESH_LR), "--device", "cuda",
             "--backend", "cuda"]
@@ -4938,11 +4978,33 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def start_dryrun() -> tuple:
+    """Phase 27 (b)'s process (this script with ``--dryrun``; host work
+    only), started with phase 27 so that it runs beside phases 27-30 (not
+    beside the host-paced timings of the earlier phases): (the process,
+    its output file, its start time). It is stopped at exit if it still
+    runs."""
+    import atexit
+    import tempfile
+
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun"], stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log, time.perf_counter()
+
+
 def mesh_phase() -> dict:
-    """Phase 27 (module docstring): the mesh trainer over 4 gloo ranks
+    """Phase 27 (a) (module docstring): the mesh trainer over 4 gloo ranks
     sharing the card against the single-device trainer and the dry run's
-    count, and the dry run of production cells in a process of its own
-    beside it. Fatal on any failure; the single-device run's files are
+    count. Fatal on any failure; the single-device run's files are
     removed at the end."""
     import dataclasses
     import shutil
@@ -4951,33 +5013,42 @@ def mesh_phase() -> dict:
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
-    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                            "--dryrun"], stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=MESH_TRAIN_LAYERS)
     outdir = tempfile.mkdtemp(prefix="mesh_train_")
     try:
         row = mesh_train_gates(cfg, outdir, "27")
-    except BaseException:  # a failed gate exits: stop the dry run too
-        dry.kill()
-        dry.wait()
-        raise
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    # (b): the dry run's process
+    summary = {"mesh_phase": "summary",
+               "rank_flash_launches": sum(row["rank_flash_launches"]),
+               "seconds": time.perf_counter() - t_phase, "card": row["card"]}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def dryrun_phase(dry: tuple) -> dict:
+    """Phase 27 (b) (module docstring): the dry run's process
+    (:func:`start_dryrun`'s ``dry``), read after phase 30: its lines, and
+    its gates. Fatal on any failure."""
+    from repro_torch.configs import get_config
+
+    proc, log, t_dry = dry
     try:
-        out = dry.communicate(timeout=max(
-            DRYRUN_TIMEOUT - (time.perf_counter() - t_phase), 1.0))[0]
+        proc.wait(timeout=max(
+            DRYRUN_TIMEOUT - (time.perf_counter() - t_dry), 1.0))
     except subprocess.TimeoutExpired:
-        dry.kill()
-        dry.wait()
+        proc.kill()
+        proc.wait()
         fail(f"dry run: not done in {DRYRUN_TIMEOUT} s")
+    log.seek(0)
+    out = log.read()
     lines = [x for x in out.splitlines() if not x.startswith("[rank")
              and "Warning" not in x and "warn(" not in x]
     print("\n".join(lines), flush=True)
     cells = [x for x in lines if x.startswith('{"dryrun"')]
-    if dry.returncode != 0 or len(cells) != len(DRYRUN_CELLS):
-        fail(f"dry run: exit code {dry.returncode}, {len(cells)} of "
+    if proc.returncode != 0 or len(cells) != len(DRYRUN_CELLS):
+        fail(f"dry run: exit code {proc.returncode}, {len(cells)} of "
              f"{len(DRYRUN_CELLS)} cells:\n" + out[-4000:])
     moe_cells = [json.loads(x) for x in cells
                  if json.loads(x)["overrides"] == MOE_HINTS]
@@ -4985,16 +5056,16 @@ def mesh_phase() -> dict:
                             for c in moe_cells):
         fail(f"dry run: a MoE cell with the hints issued no all-to-all: "
              f"{[c['collective_calls'] for c in moe_cells]}")
-    ext = [json.loads(x) for x in cells if json.loads(x)["dryrun"]
-           == HYBRID_ARCH and json.loads(x)["shape"] in EXTRAPOLATED_CELLS]
-    if len(ext) != len(EXTRAPOLATED_CELLS) or any(
-            c["extrapolated"] != "R=1,2 -> R=9" for c in ext):
-        fail(f"dry run: Jamba-1.5's recurrent cells not extrapolated to "
-             f"its 9 repeats: {[c['extrapolated'] for c in ext]}")
-    summary = {"mesh_phase": "summary",
-               "rank_flash_launches": sum(row["rank_flash_launches"]),
-               "dry_run_cells": len(cells),
-               "seconds": time.perf_counter() - t_phase, "card": row["card"]}
+    for arch in (HYBRID_ARCH, XLSTM_ARCH):
+        repeats = get_config(arch).repeats
+        ext = [json.loads(x) for x in cells if json.loads(x)["dryrun"]
+               == arch and json.loads(x)["shape"] in EXTRAPOLATED_CELLS]
+        if len(ext) != len(EXTRAPOLATED_CELLS) or any(
+                c["extrapolated"] != f"R=1,2 -> R={repeats}" for c in ext):
+            fail(f"dry run: {arch}'s recurrent cells not extrapolated to "
+                 f"its {repeats} repeats: {[c['extrapolated'] for c in ext]}")
+    summary = {"dryrun_phase": "summary", "dry_run_cells": len(cells),
+               "seconds_since_start": time.perf_counter() - t_dry}
     print(json.dumps(summary), flush=True)
     return summary
 
@@ -5286,10 +5357,10 @@ def mamba_mesh_cfg():
                                n_layers=1, n_experts=0)
 
 
-def mamba_trainer(cfg, mesh=None):
-    """Phase 29's ``Trainer``: B 4, L 512, ``MESH_STEPS`` AdamW steps at
-    ``MESH_LR`` with the launcher's schedule, the ``cuda`` backend, seed
-    0; on ``mesh`` if given."""
+def recurrent_trainer(cfg, mesh=None):
+    """Phases 29's and 30's ``Trainer``: B 4, L 512, ``MESH_STEPS`` AdamW
+    steps at ``MESH_LR`` with the launcher's schedule, the ``cuda``
+    backend, seed 0; on ``mesh`` if given."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.ops import ExecutionContext
     from repro_torch.plan import H100
@@ -5328,18 +5399,19 @@ def first_conv1d_launch():
         registry._conv1d_cuda = launch
 
 
-def leaf_kind(name: str) -> str:
-    """Phase 29's kinds of leaf: the mamba block's, the FFN's, the
+def leaf_kind(name: str, pattern) -> str:
+    """Phases 29's and 30's kinds of leaf: a block's by its kind in
+    ``pattern`` (``mamba``, ``mlstm``, ``slstm``), the FFN's, the
     embedding and head, the norms."""
     if ".core." in name:
-        return "mamba"
+        return pattern[int(name.split(".")[2][1:])]
     if ".ffn." in name:
         return "ffn"
     return "embed_head" if name in ("embed", "head") else "norm"
 
 
 def mamba_rank_main(rank: int, outdir: str) -> None:
-    """One rank of phase 29: the mesh trainer on (``MAMBA_MESH_SHAPE``)
+    """One rank of phase 29: the mesh trainer on ``RECURRENT_MESH_SHAPE``
     over gloo (``RANK`` and the rest of ``torchrun``'s environment), the
     conv1d counts set to 0 just before its run and read just after, its
     first local conv1d launch kept, then its chunks against the
@@ -5353,8 +5425,8 @@ def mamba_rank_main(rank: int, outdir: str) -> None:
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", rank=rank, world_size=MESH_RANKS)
-    mesh = make_host_mesh(*MAMBA_MESH_SHAPE, device_type="cuda")
-    trainer = mamba_trainer(mamba_mesh_cfg(), mesh)
+    mesh = make_host_mesh(*RECURRENT_MESH_SHAPE, device_type="cuda")
+    trainer = recurrent_trainer(mamba_mesh_cfg(), mesh)
     k = KERNELS["conv1d_causal"]
     torch.cuda.reset_peak_memory_stats()
     k.launches = 0
@@ -5422,7 +5494,7 @@ def mamba_mesh_phase() -> dict:
         torch.cuda.reset_peak_memory_stats()
         k = KERNELS["conv1d_causal"]
         k.launches = 0
-        trainer = mamba_trainer(cfg)
+        trainer = recurrent_trainer(cfg)
         single = trainer.run()
         single_launches = k.launches
         single_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5435,7 +5507,7 @@ def mamba_mesh_phase() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         count = dryrun.count_train_step(
-            cfg, MAMBA_MESH_SHAPE, {"tokens": torch.empty(
+            cfg, RECURRENT_MESH_SHAPE, {"tokens": torch.empty(
                 (4, 512), dtype=torch.int32, device="meta")}, TrainConfig())
         t0 = time.perf_counter()
         env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
@@ -5481,15 +5553,15 @@ def mamba_mesh_phase() -> dict:
     top = max(moments, key=moments.get)
     by_kind = {}
     for name in moments:
-        m, p = by_kind.setdefault(leaf_kind(name), [0.0, 0.0])
-        by_kind[leaf_kind(name)] = [max(m, moments[name]),
+        m, p = by_kind.setdefault(leaf_kind(name, cfg.pattern), [0.0, 0.0])
+        by_kind[leaf_kind(name, cfg.pattern)] = [max(m, moments[name]),
                                     max(p, params[name])]
     control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
     row = {"mamba_mesh_train": cfg.name, "phase": "29",
            "pattern": list(cfg.pattern), "layers": cfg.n_layers,
            "parameters": n_params,
-           "mesh": {"data": MAMBA_MESH_SHAPE[0],
-                    "model": MAMBA_MESH_SHAPE[1]},
+           "mesh": {"data": RECURRENT_MESH_SHAPE[0],
+                    "model": RECURRENT_MESH_SHAPE[1]},
            "ranks": MESH_RANKS, "backend": "gloo, one card",
            "batch": [4, 512], "steps": MESH_STEPS,
            "single_losses": single["loss"],
@@ -5565,6 +5637,301 @@ def mamba_mesh_phase() -> dict:
                "rank_conv1d_launches": sum(row["rank_conv1d_launches"]),
                "all_to_all_calls_per_step": count["calls"].get(
                    "all-to-all", 0),
+               "seconds": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def xlstm_mesh_cfg():
+    """Phase 30's cut of xLSTM-1.3B: ``XLSTM_MESH_LAYERS`` layers (two
+    (mlstm, slstm) units) at published widths, computed in f32: in bf16
+    the mesh's re-associated partial sums alone move xLSTM's first
+    moments past any bound that tells a wrong run from a right one
+    (``scripts/xlstm_mesh_bf16.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(XLSTM_ARCH),
+                               n_layers=XLSTM_MESH_LAYERS,
+                               compute_dtype="float32")
+
+
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launches since :func:`zero_counts`."""
+    from repro_torch.kernels import KERNELS
+
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def leaf_digest(t: torch.Tensor) -> str:
+    """The sha256 of a leaf's bytes on the host."""
+    import hashlib
+
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        .numpy().tobytes()
+    ).hexdigest()
+
+
+def xlstm_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 30: the mesh trainer on ``RECURRENT_MESH_SHAPE``
+    over gloo (``RANK`` and the rest of ``torchrun``'s environment), every
+    kernel's count set to 0 just before its run and read just after; its
+    chunks against the single-device run's files in ``outdir``; then the
+    checkpoint saved from the ranks (``Trainer.save_checkpoint``: rank 0
+    writes it under ``outdir``/ckpt and the sha256 of each gathered
+    leaf)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=MESH_RANKS)
+    mesh = make_host_mesh(*RECURRENT_MESH_SHAPE, device_type="cuda")
+    trainer = recurrent_trainer(xlstm_mesh_cfg(), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    hist = trainer.run()
+    launches = kernel_launches()
+    report = {"rank": rank, "loss": hist["loss"],
+              "step_time": hist["step_time"],
+              "collectives": trainer.collectives,
+              "kernel_launches": launches,
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 1e9,
+              "memory_allocated_gb_after":
+                  torch.cuda.memory_allocated() / 1e9,
+              "argument_bytes": argument_bytes(
+                  (trainer.params, trainer.opt_state,
+                   trainer.place_batch(trainer.source.batch(0)))),
+              "local_device": str(next(trainer.params.parameters())
+                                  .to_local().device)}
+    report.update(chunk_errors(trainer, outdir))
+    trainer.train_cfg.ckpt_dir = os.path.join(outdir, "ckpt")
+    t0 = time.perf_counter()
+    tree = trainer.save_checkpoint(MESH_STEPS)
+    report.update(save_collectives=trainer.state_collectives,
+                  save_s=time.perf_counter() - t0,
+                  save_max_memory_allocated_gb=(
+                      torch.cuda.max_memory_allocated() / 1e9))
+    if rank == 0:
+        report["digests"] = {k: leaf_digest(t) for k, t in
+                             ckpt._flatten_with_paths(tree)}
+    with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def restored_digests(cfg, directory: str) -> dict:
+    """The phase-30 checkpoint restored on the card (the state tree's
+    template on the meta device): the sha256 of each leaf."""
+    from repro_torch.convert import tree_from_named
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+
+    with torch.device("meta"):
+        named = dict(T.Transformer(cfg).named_parameters())
+    f32 = {n: torch.empty(p.shape, dtype=torch.float32, device="meta")
+           for n, p in named.items()}
+    template = {"params": tree_from_named(named),
+                "opt": (torch.zeros((), dtype=torch.int32, device="meta"),
+                        tree_from_named(f32), tree_from_named(f32))}
+    tree, _ = ckpt.restore(directory, template, device="cuda")
+    out = {k: leaf_digest(t) for k, t in ckpt._flatten_with_paths(tree)}
+    del tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_mesh_phase() -> dict:
+    """Phase 30 (module docstring): xLSTM-1.3B's blocks through the mesh
+    trainer over 4 gloo ranks sharing the card, against the single-device
+    trainer and the dry run's count, then a checkpoint saved from the
+    ranks and restored on the card. Fatal on any failure; the files are
+    removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.trainer import TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = xlstm_mesh_cfg()
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in T.Transformer(cfg).parameters())
+    card = smi()
+    outdir = tempfile.mkdtemp(prefix="xlstm_mesh_")
+    try:
+        at_start, control = no_update_loss(
+            cfg, ExecutionContext(target=H100, backend="cuda",
+                                  device="cuda"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = recurrent_trainer(cfg)
+        zero_counts()
+        single = trainer.run()
+        single_launches = kernel_launches()
+        single_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.save({n: p.detach().cpu() for n, p in
+                    trainer.params.named_parameters()},
+                   os.path.join(outdir, "single_params.pt"))
+        torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()},
+                   os.path.join(outdir, "single_m.pt"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        count = dryrun.count_train_step(
+            cfg, RECURRENT_MESH_SHAPE, {"tokens": torch.empty(
+                (4, 512), dtype=torch.int32, device="meta")}, TrainConfig())
+        t0 = time.perf_counter()
+        env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   LOCAL_RANK="0")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--xlstm-rank",
+             str(r), outdir], env=dict(env, RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                left = MESH_TIMEOUT - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(left, 1.0))[0])
+        except subprocess.TimeoutExpired:
+            fail(f"xlstm mesh: a rank did not finish in {MESH_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            fail("xlstm mesh: rank exit codes "
+                 f"{[p.returncode for p in procs]}:\n"
+                 + "\n".join(logs)[-6000:])
+        checks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, f"checks{r}.json")) as f:
+                checks.append(json.load(f))
+        torch.cuda.reset_peak_memory_stats()
+        restored = restored_digests(cfg, os.path.join(outdir, "ckpt"))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    bound = 2 * MESH_LR * MESH_STEPS
+    rel = [abs(a - b) / abs(b) for c in checks
+           for a, b in zip(c["loss"], single["loss"])]
+    moments, params = {}, {}
+    for c in checks:
+        for name, err in c["moment_rel_err"].items():
+            moments[name] = max(moments.get(name, 0.0), err)
+        for name, err in c["param_abs_err"].items():
+            params[name] = max(params.get(name, 0.0), err)
+    top = max(moments, key=moments.get)
+    by_kind = {}
+    for name in moments:
+        kind = leaf_kind(name, cfg.pattern)
+        m, p = by_kind.setdefault(kind, [0.0, 0.0])
+        by_kind[kind] = [max(m, moments[name]), max(p, params[name])]
+    control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
+    digests = checks[0]["digests"]
+    differ = sorted(k for k in digests if restored.get(k) != digests[k])
+    row = {"xlstm_mesh_train": cfg.name, "phase": "30",
+           "pattern": list(cfg.pattern), "layers": cfg.n_layers,
+           "parameters": n_params,
+           "mesh": {"data": RECURRENT_MESH_SHAPE[0],
+                    "model": RECURRENT_MESH_SHAPE[1]},
+           "ranks": MESH_RANKS, "backend": "gloo, one card",
+           "batch": [4, 512], "steps": MESH_STEPS,
+           "single_losses": single["loss"],
+           "rank_losses": [c["loss"] for c in checks],
+           "loss_max_rel_err": max(rel), "loss_bound": MESH_LOSS_TIGHT,
+           "no_update_loss": control, "no_update_loss_rel_err": control_rel,
+           "first_loss_recomputed": at_start,
+           "single_step_s": single["step_time"],
+           "rank_step_s": [c["step_time"] for c in checks],
+           "param_max_abs_err": max(params.values()), "param_bound": bound,
+           "moment_max_rel_err": moments[top], "moment_worst_leaf": top,
+           "moment_bound": MESH_MOMENT_TOL,
+           "worst_by_kind_moment_rel_param_abs": by_kind,
+           "wire_bytes_per_step": checks[0]["collectives"][0],
+           "dry_run_wire_bytes": count["collectives"],
+           "dry_run_calls": count["calls"],
+           "argument_bytes": [c["argument_bytes"] for c in checks],
+           "dry_run_argument_bytes": count["argument_bytes"],
+           "single_kernel_launches": single_launches,
+           "rank_kernel_launches": [c["kernel_launches"] for c in checks],
+           "save_wire_bytes": [c["save_collectives"] for c in checks],
+           "save_s": [c["save_s"] for c in checks],
+           "checkpoint_leaves": len(digests),
+           "restored_leaves_differ": differ[:5],
+           "rank_max_memory_allocated_gb": [
+               c["max_memory_allocated_gb"] for c in checks],
+           "rank_memory_allocated_gb_after": [
+               c["memory_allocated_gb_after"] for c in checks],
+           "rank_save_max_memory_allocated_gb": [
+               c["save_max_memory_allocated_gb"] for c in checks],
+           "single_max_memory_allocated_gb": single_peak,
+           "restore_max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "ranks_seconds": seconds, "card": card}
+    print(json.dumps(row), flush=True)
+    if not max(rel) <= 1e-2 or any(len(c["loss"]) != MESH_STEPS
+                                   for c in checks):
+        fail(f"xlstm mesh: losses {row['rank_losses']} vs {single['loss']}")
+    if not abs(at_start - single["loss"][0]) <= \
+            MESH_LOSS_TIGHT * abs(single["loss"][0]):
+        fail(f"xlstm mesh: the control's first loss {at_start} is not the "
+             f"single-device run's {single['loss'][0]}")
+    if not control_rel > MESH_LOSS_TIGHT:
+        fail(f"xlstm mesh: a run that did not update reads {control_rel}, "
+             f"inside the losses' bound {MESH_LOSS_TIGHT}")
+    if not max(rel) <= MESH_LOSS_TIGHT:
+        fail(f"xlstm mesh: losses {row['rank_losses']} vs {single['loss']}: "
+             f"{max(rel)} relative, above {MESH_LOSS_TIGHT}")
+    if not row["param_max_abs_err"] <= bound:
+        fail(f"xlstm mesh: parameters {[c['params_over'] for c in checks]} "
+             f"off the single-device run's by more than {bound}")
+    if not moments[top] <= MESH_MOMENT_TOL:
+        fail(f"xlstm mesh: first moments off the single-device run's by "
+             f"{moments[top]} of the leaf's largest |value| ({top}), above "
+             f"{MESH_MOMENT_TOL}")
+    # the blocks, the embedding and the loss dispatch no kernel
+    if any(single_launches.values()):
+        fail(f"xlstm mesh: the single-device run launched {single_launches}")
+    for c in checks:
+        if any(c["kernel_launches"].values()):
+            fail(f"xlstm mesh: rank {c['rank']} launched "
+                 f"{c['kernel_launches']}")
+        if any(step != count["collectives"] for step in c["collectives"]):
+            fail(f"xlstm mesh: rank {c['rank']} wire bytes "
+                 f"{c['collectives']} vs the dry run's "
+                 f"{count['collectives']}")
+        if c["argument_bytes"] != count["argument_bytes"]:
+            fail(f"xlstm mesh: rank {c['rank']} argument bytes "
+                 f"{c['argument_bytes']} vs the dry run's "
+                 f"{count['argument_bytes']}")
+        if not c["local_device"].startswith("cuda"):
+            fail(f"xlstm mesh: rank {c['rank']} ran on {c['local_device']}")
+        if c["save_collectives"]["all-gather"] or not \
+                c["save_collectives"]["all-reduce"]:
+            fail(f"xlstm mesh: rank {c['rank']}'s checkpoint save issued "
+                 f"{c['save_collectives']}, not all-reduces only")
+    if not digests or differ or len(restored) != len(digests):
+        fail(f"xlstm mesh: the checkpoint restored on the card differs from "
+             f"rank 0's gathered leaves at {differ[:5]} ({len(restored)} "
+             f"leaves restored, {len(digests)} digests)")
+    summary = {"xlstm_mesh_phase": "summary",
+               "rank_kernel_launches": sum(
+                   sum(c["kernel_launches"].values()) for c in checks),
+               "all_to_all_calls_per_step": count["calls"].get(
+                   "all-to-all", 0),
+               "checkpoint_leaves_bit_equal": len(digests),
                "seconds": time.perf_counter() - t_phase, "card": card}
     print(json.dumps(summary), flush=True)
     return summary
@@ -6009,6 +6376,7 @@ def main() -> None:
     quiet.close()
 
     # -- 27. the language-model mesh: the mesh trainer and the dry run -------
+    dry = start_dryrun()  # (b), on the host beside phases 27-30
     mesh = mesh_phase()
     cycle_check("27")
 
@@ -6020,7 +6388,14 @@ def main() -> None:
     mamba_mesh = mamba_mesh_phase()
     cycle_check("29")
 
-    # -- 30. summary --------------------------------------------------------
+    # -- 30. the xLSTM blocks on the mesh, and a checkpoint from the ranks -
+    xlstm_mesh_phase()
+    cycle_check("30")
+
+    # -- 27 (b). the dry run of production cells, read after phase 30 ------
+    dryrun_phase(dry)
+
+    # -- 31. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -6082,5 +6457,7 @@ if __name__ == "__main__":
         moe_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--mamba-rank"]:  # and phase 29 its ranks
         mamba_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--xlstm-rank"]:  # and phase 30 its ranks
+        xlstm_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -14,7 +14,8 @@ below ``ops`` and ``analysis`` (the model's own layout hooks are
   replicated dim in place (its gradient summed by an all-reduce where
   DTensor's would all-gather it), :func:`gather` makes a sharded dim
   whole as a sum of zero-padded chunks (one all-reduce); each on dims
-  that split evenly.
+  that split evenly. :func:`whole` gathers every sharded dim so (a
+  checkpoint's leaves).
 * :func:`split_columns`: a column-parallel projection's output cut into
   equal column blocks each sharded as the whole was (the mamba block's x/z
   split): one all-to-all with uneven splits, where slicing would gather.
@@ -287,6 +288,20 @@ def gather(t, mesh_dim: int):
     dim = sharded_dim(t, mesh_dim)
     _check_inner(t, mesh_dim, (dim,))
     return _Gather.apply(t, mesh_dim, dim)
+
+
+def whole(t):
+    """``t``'s global value, a plain tensor on every device: gathered over
+    each mesh dim sharding it, innermost first (:func:`gather`: one
+    all-reduce of zero-padded chunks each; dims that split evenly), a
+    Partial sum all-reduced."""
+    from torch.distributed.tensor import Replicate
+
+    for i in reversed(range(t.device_mesh.ndim)):
+        if sharded_dim(t, i) is not None:
+            t = gather(t, i)
+    return relayout(t, t.device_mesh,
+                    (Replicate(),) * t.device_mesh.ndim).to_local()
 
 
 def reshard(t, placements):

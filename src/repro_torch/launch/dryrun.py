@@ -504,7 +504,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             step = build_decode_step(cfg, n_groups)
             args = (params, _place_tree(inputs["cache"], sh["cache"]),
                     _place(inputs["token"], sh["token"]), shape.seq_len - 1)
-        args_b = argument_bytes(args)
+        # only attention reads the decode position: without it the
+        # reference's jit prunes the unread argument (keep_unused=False)
+        args_b = argument_bytes(args[:3] if shape.kind == "decode" and
+                                "attn" not in cfg.pattern else args)
         raw = _drive(step, args, chips)
         out = raw.pop("out")
         if train:  # (params, opt_state, metrics{loss, grad_norm, lr})

@@ -22,6 +22,29 @@ for mLSTM; ``c``, ``n`` for sLSTM) and their einsums. The biases ``b_if`` and
 (``transformer.compute_params`` leaves them in the parameter dtype). No block
 calls a dispatched op: the ``ctx`` argument is carried for the stack's
 uniform signature, as in the reference.
+
+On a device mesh (``x``, the leaves and the state DTensors placed by
+``models.sharding``) the same functions run, as the mamba block does
+(``models.ssm``):
+
+* mLSTM: the sequence made whole (``spmd.gather_rows``); the
+  column-parallel q/k/v products viewed as heads through
+  ``spmd.split_heads`` (gathered where the heads do not divide the model
+  axis: xLSTM-1.3B's 4 heads on a ``model`` of 16 run whole on every
+  device there); the replicated ``w_if``'s gates, whole on every device,
+  chunked to each device's heads (``dtensors.reshard``: no wire); the
+  chunk loop or the decode step on each device's heads (``local_map``,
+  :func:`_on_units`; ``F.logsigmoid`` has no DTensor rule and runs
+  there); C and n on the heads inside and in the cache's placements
+  outside (an all-to-all each way); the row-parallel ``wo``'s Partial
+  product reduced to ``x``'s placements (``spmd.like``).
+* sLSTM: the column-parallel ``w_zifo``/``b_zifo`` pre-activations cut
+  into z/i/f/o each on ``model`` by one all-to-all (``spmd.split_columns``:
+  a device's columns hold pieces of all four blocks), the prefix scan or
+  the decode step on each device's channels over the whole sequence
+  (:func:`_on_units`), (c, n) on ``model``, ``wo`` as mLSTM's.
+
+On plain tensors each of these hooks is a no-op.
 """
 
 from __future__ import annotations
@@ -32,8 +55,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.dtensors import is_dtensor, reshard, sharding_dims
 from repro_torch.ops import ExecutionContext
 
+from . import spmd
 from .layers import _param, dtype_of
 from .scan_util import scan
 
@@ -70,27 +95,82 @@ class MLSTM(nn.Module):
         self.wo = param((D, D))
 
 
-def _mlstm_gates(p: MLSTM, x: torch.Tensor, cfg):
-    """q (scaled by hd^-1/2), k, v (B, L, H, hd) and log i, log f (B, L, H),
-    all f32."""
+def _mlstm_project(p: MLSTM, x: torch.Tensor, cfg):
+    """q, k, v (B, L, D) in the compute dtype and the input and forget gate
+    pre-activations (B, L, H) in f32. On a mesh: the sequence whole, q/k/v
+    columns on ``model`` (gathered where the heads do not divide it), the
+    gates whole on every device (``w_if`` is replicated)."""
     cd = dtype_of(cfg.compute_dtype)
-    B, L, D = x.shape
     H = cfg.n_heads
-    hd = D // H
-    xc = x.to(cd)
-    q = (xc @ p.wq.to(cd)).reshape(B, L, H, hd)
-    k = (xc @ p.wk.to(cd)).reshape(B, L, H, hd)
-    v = (xc @ p.wv.to(cd)).reshape(B, L, H, hd)
+    xc = spmd.gather_rows(x.to(cd))
+    q, k, v = (spmd.split_heads(xc @ w.to(cd), H)
+               for w in (p.wq, p.wk, p.wv))
     gates = (xc @ p.w_if.to(cd)).float() + p.b_if.float()
-    ig, fg = gates[..., :H], gates[..., H:]
+    return q, k, v, gates[..., :H], gates[..., H:]
+
+
+def _mlstm_heads(q, k, v, ig, fg, hd: int):
+    """The head view of :func:`_mlstm_project`'s outputs over the heads
+    they hold: q (scaled by hd^-1/2), k, v (B, L, h, hd) and log i, log f
+    (B, L, h), all f32."""
+    B, L = q.shape[:2]
+    h = q.shape[-1] // hd
+    q, k, v = (a.reshape(B, L, h, hd).float() for a in (q, k, v))
     logi = torch.clamp(ig, -_EXP_CLAMP, _EXP_CLAMP)  # log of exp input gate
     logf = F.logsigmoid(fg)  # forget in (0, 1)
-    return q.float() * hd ** -0.5, k.float(), v.float(), logi, logf
+    return q * hd ** -0.5, k, v, logi, logf
 
 
-def _project_out(p, h: torch.Tensor, cfg, out_dtype) -> torch.Tensor:
+def _mlstm_gates(p: MLSTM, x: torch.Tensor, cfg):
+    """q (scaled by hd^-1/2), k, v (B, L, H, hd) and log i, log f (B, L, H),
+    all f32 (one device)."""
+    return _mlstm_heads(*_mlstm_project(p, x, cfg), cfg.d_model // cfg.n_heads)
+
+
+def _project_out(p, h: torch.Tensor, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The out-projection in ``x``'s dtype; on a mesh its Partial product
+    (``wo`` is row-parallel) reduced to ``x``'s placements."""
     cd = dtype_of(cfg.compute_dtype)
-    return (h.to(cd) @ p.wo.to(cd)).to(out_dtype)
+    return spmd.like((h.to(cd) @ p.wo.to(cd)).to(x.dtype), x)
+
+
+def _on_units(fn, rows, state, **kw):
+    """``fn(*rows, *state, **kw)`` -> (out, *new state): the recurrence on
+    ``rows`` (B, L, n), whose last dim holds the units (mLSTM's heads,
+    sLSTM's channels), from ``state`` (each (B, units, ...)) or from zeros
+    (``state`` None). On a mesh, on each device's units (``local_map``):
+    every row tensor and the state brought to ``rows[0]``'s batch and unit
+    placements by ``dtensors.reshard`` (a replicated one chunked, no wire;
+    the state's units moved to dim 1 by an all-to-all), the output in
+    those placements, the new state in ``state``'s (batch and units as
+    ``rows[0]``'s where ``state`` is None)."""
+    if not is_dtensor(rows[0]):
+        return fn(*rows, *(state or (None, None)), **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = rows[0].device_mesh
+    udims, bdims = sharding_dims(rows[0], 2), sharding_dims(rows[0], 0)
+
+    def pl(unit_dim):
+        return tuple(Shard(unit_dim) if i in udims else Shard(0)
+                     if i in bdims else Replicate() for i in range(mesh.ndim))
+
+    args = [reshard(t, pl(2)) for t in rows]
+    if state is not None:
+        args += [reshard(t, pl(1)) for t in state]
+
+    def local(*a):
+        n = len(rows)
+        return fn(*a[:n], *(a[n:] or (None, None)), **kw)
+
+    out, *new = local_map(
+        local, out_placements=(pl(2), pl(1), pl(1)),
+        in_placements=tuple(t.placements for t in args), device_mesh=mesh,
+        redistribute_inputs=True)(*args)
+    if state is not None:
+        new = [reshard(t, s.placements) for t, s in zip(new, state)]
+    return (out, *new)
 
 
 def _mlstm_chunk(carry: State, inp) -> Tuple[State, torch.Tensor]:
@@ -125,25 +205,15 @@ def _mlstm_chunk(carry: State, inp) -> Tuple[State, torch.Tensor]:
     return (C_new, n_new), h
 
 
-def mlstm_block(
-    p: MLSTM,
-    x: torch.Tensor,  # (B, L, D)
-    cfg,
-    state: Optional[State] = None,  # C (B, H, hd, hd), n (B, H, hd)
-    ctx: Optional[ExecutionContext] = None,
-) -> Tuple[torch.Tensor, Optional[State]]:
-    """Full-sequence (prefill) mLSTM block in the chunkwise-dual form. The
-    sequence is padded to whole chunks with zeros in q, k, v, log i and log
-    f: a padded step has f = i = 1 and k = v = 0, so the state at the last
-    chunk's end is the state at L. With a ``state``, the scan starts from it
-    and the new state is returned."""
-    del ctx  # no dispatched kernel in the chunkwise-dual form
-    B, L, D = x.shape
-    H = cfg.n_heads
-    hd = D // H
-    q, k, v, logi, logf = _mlstm_gates(p, x, cfg)
-
-    c = min(cfg.chunk_size, L)
+def _mlstm_scan(q, k, v, ig, fg, C0, n0, hd: int, c: int):
+    """The chunkwise-dual prefill over the heads of q (B, L, h hd): returns
+    the output (B, L, h hd) and C, n at L, in f32. The sequence is padded
+    to whole chunks with zeros in q, k, v, log i and log f: a padded step
+    has f = i = 1 and k = v = 0, so the state at the last chunk's end is
+    the state at L. ``C0``/``n0`` None: zeros."""
+    q, k, v, logi, logf = _mlstm_heads(q, k, v, ig, fg, hd)
+    B, L, H, _ = q.shape
+    c = min(c, L)
     pad = -L % c
     if pad:
         q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
@@ -153,15 +223,49 @@ def mlstm_block(
     def to_chunks(a):
         return a.reshape(B, nc, c, *a.shape[2:]).transpose(0, 1)
 
-    if state is None:
-        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    else:
-        C0, n0 = (s.float() for s in state)
+    if C0 is None:
+        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
+        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
     (C_last, n_last), hs = scan(
-        _mlstm_chunk, (C0, n0), tuple(map(to_chunks, (q, k, v, logi, logf))))
-    h = hs.transpose(0, 1).reshape(B, nc * c, H, hd)[:, :L].reshape(B, L, D)
-    out = _project_out(p, h, cfg, x.dtype)
+        _mlstm_chunk, (C0.float(), n0.float()),
+        tuple(map(to_chunks, (q, k, v, logi, logf))))
+    h = hs.transpose(0, 1).reshape(B, nc * c, H, hd)[:, :L]
+    return h.reshape(B, L, H * hd), C_last, n_last
+
+
+def _mlstm_step(q, k, v, ig, fg, C_prev, n_prev, hd: int):
+    """One step of the recurrence over the heads of q (B, 1, h hd): the
+    output (B, 1, h hd) and the new C, n, in f32."""
+    q, k, v, logi, logf = _mlstm_heads(q, k, v, ig, fg, hd)
+    B, _, H, _ = q.shape
+    C_prev, n_prev = C_prev.float(), n_prev.float()
+    f = torch.exp(logf[:, 0])  # (B, H)
+    i = torch.exp(logi[:, 0])
+    C_new = (f[:, :, None, None] * C_prev + i[:, :, None, None]
+             * torch.einsum("bhd,bhe->bhde", k[:, 0], v[:, 0]))
+    n_new = f[:, :, None] * n_prev + i[:, :, None] * k[:, 0]
+    num = torch.einsum("bhd,bhde->bhe", q[:, 0], C_new)
+    den = torch.einsum("bhd,bhd->bh", q[:, 0], n_new)[..., None]
+    h = (num / torch.clamp(torch.abs(den), min=1.0)).reshape(B, 1, H * hd)
+    return h, C_new, n_new
+
+
+def mlstm_block(
+    p: MLSTM,
+    x: torch.Tensor,  # (B, L, D)
+    cfg,
+    state: Optional[State] = None,  # C (B, H, hd, hd), n (B, H, hd)
+    ctx: Optional[ExecutionContext] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """Full-sequence (prefill) mLSTM block in the chunkwise-dual form
+    (:func:`_mlstm_scan`). With a ``state``, the scan starts from it and
+    the new state is returned. On a mesh, on each device's heads (module
+    docstring)."""
+    del ctx  # no dispatched kernel in the chunkwise-dual form
+    hd = cfg.d_model // cfg.n_heads
+    h, C_last, n_last = _on_units(_mlstm_scan, _mlstm_project(p, x, cfg),
+                                  state, hd=hd, c=cfg.chunk_size)
+    out = _project_out(p, h, cfg, x)
     new_state = None
     if state is not None:
         new_state = (C_last.to(state[0].dtype), n_last.to(state[1].dtype))
@@ -171,21 +275,12 @@ def mlstm_block(
 def mlstm_decode_step(p: MLSTM, x: torch.Tensor, cfg, state: State,
                       ctx: Optional[ExecutionContext] = None
                       ) -> Tuple[torch.Tensor, State]:
-    """One token a row (x: (B, 1, D)): one step of the recurrence."""
+    """One token a row (x: (B, 1, D)): one step of the recurrence (on a
+    mesh, on each device's heads)."""
     del ctx  # see mlstm_block
-    B = x.shape[0]
-    q, k, v, logi, logf = _mlstm_gates(p, x, cfg)  # L = 1
-    C_prev, n_prev = (s.float() for s in state)
-    f = torch.exp(logf[:, 0])  # (B, H)
-    i = torch.exp(logi[:, 0])
-    C_new = (f[:, :, None, None] * C_prev + i[:, :, None, None]
-             * torch.einsum("bhd,bhe->bhde", k[:, 0], v[:, 0]))
-    n_new = f[:, :, None] * n_prev + i[:, :, None] * k[:, 0]
-    num = torch.einsum("bhd,bhde->bhe", q[:, 0], C_new)
-    den = torch.einsum("bhd,bhd->bh", q[:, 0], n_new)[..., None]
-    h = (num / torch.clamp(torch.abs(den), min=1.0)).reshape(B, 1,
-                                                             cfg.d_model)
-    out = _project_out(p, h, cfg, x.dtype)
+    h, C_new, n_new = _on_units(_mlstm_step, _mlstm_project(p, x, cfg),
+                                state, hd=cfg.d_model // cfg.n_heads)
+    out = _project_out(p, h, cfg, x)
     return out, (C_new.to(state[0].dtype), n_new.to(state[1].dtype))
 
 
@@ -216,7 +311,7 @@ def mlstm_block_ref(p: MLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
         den = torch.einsum("bhd,bhd->bh", q[:, t], n)[..., None]
         hs.append(num / torch.clamp(torch.abs(den), min=1.0))
     h = torch.stack(hs, dim=1).reshape(B, L, D)
-    return _project_out(p, h, cfg, x.dtype)
+    return _project_out(p, h, cfg, x)
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +335,13 @@ class SLSTM(nn.Module):
 
 
 def _slstm_gates(p: SLSTM, x: torch.Tensor, cfg):
-    """tanh(z), sigmoid(i), sigmoid(f), sigmoid(o), each (B, L, D) f32."""
+    """tanh(z), sigmoid(i), sigmoid(f), sigmoid(o), each (B, L, D) f32. On
+    a mesh: the sequence whole, each of the four on ``model`` (module
+    docstring)."""
     cd = dtype_of(cfg.compute_dtype)
-    pre = (x.to(cd) @ p.w_zifo.to(cd)).float() + p.b_zifo.float()
-    z, i, f, o = torch.chunk(pre, 4, dim=-1)
+    xc = spmd.gather_rows(x.to(cd))
+    pre = (xc @ p.w_zifo.to(cd)).float() + p.b_zifo.float()
+    z, i, f, o = spmd.split_columns(pre, 4)
     return torch.tanh(z), torch.sigmoid(i), torch.sigmoid(f), \
         torch.sigmoid(o)
 
@@ -263,6 +361,31 @@ def _prefix_scan(f: torch.Tensor, c: torch.Tensor, n: torch.Tensor):
     return c, n
 
 
+def _slstm_scan(z, i, f, o, c0, n0):
+    """The prefix-scan prefill over the channels of z (B, L, d): the output
+    h (B, L, d) and c, n at L. A start state enters as a virtual step -1
+    holding (1, c0, n0), as in the reference; ``c0``/``n0`` None: none."""
+    fs, cs, ns = f, i * z, i
+    if c0 is not None:
+        c0, n0 = c0.float(), n0.float()
+        fs = torch.cat([torch.ones_like(c0)[:, None], fs], dim=1)
+        cs = torch.cat([c0[:, None], cs], dim=1)
+        ns = torch.cat([n0[:, None], ns], dim=1)
+    cs, ns = _prefix_scan(fs, cs, ns)
+    if c0 is not None:
+        cs, ns = cs[:, 1:], ns[:, 1:]
+    h = o * cs / torch.clamp(torch.abs(ns), min=1.0)
+    return h, cs[:, -1], ns[:, -1]
+
+
+def _slstm_step(z, i, f, o, c_prev, n_prev):
+    """One step of the recurrence over the channels of z (B, 1, d)."""
+    c = f[:, 0] * c_prev.float() + i[:, 0] * z[:, 0]
+    n = f[:, 0] * n_prev.float() + i[:, 0]
+    h = (o[:, 0] * c / torch.clamp(torch.abs(n), min=1.0))[:, None]
+    return h, c, n
+
+
 def slstm_block(
     p: SLSTM,
     x: torch.Tensor,
@@ -270,40 +393,26 @@ def slstm_block(
     state: Optional[State] = None,  # c (B, D), n (B, D)
     ctx: Optional[ExecutionContext] = None,
 ) -> Tuple[torch.Tensor, Optional[State]]:
-    """Full-sequence (prefill) sLSTM block. A ``state`` enters as a virtual
-    step -1 holding (1, c0, n0), as in the reference; the new state is the
-    scan's last position."""
+    """Full-sequence (prefill) sLSTM block (:func:`_slstm_scan`); the new
+    state is the scan's last position. On a mesh, on each device's
+    channels (module docstring)."""
     del ctx  # the prefix-scan form has no dispatched kernel
-    z, i, f, o = _slstm_gates(p, x, cfg)
-    fs, cs, ns = f, i * z, i
-    if state is not None:
-        c0, n0 = (s.float() for s in state)
-        fs = torch.cat([torch.ones_like(c0)[:, None], fs], dim=1)
-        cs = torch.cat([c0[:, None], cs], dim=1)
-        ns = torch.cat([n0[:, None], ns], dim=1)
-    cs, ns = _prefix_scan(fs, cs, ns)
-    if state is not None:
-        cs, ns = cs[:, 1:], ns[:, 1:]
-    h = o * cs / torch.clamp(torch.abs(ns), min=1.0)
-    out = _project_out(p, h, cfg, x.dtype)
+    h, c, n = _on_units(_slstm_scan, _slstm_gates(p, x, cfg), state)
+    out = _project_out(p, h, cfg, x)
     new_state = None
     if state is not None:
-        new_state = (cs[:, -1].to(state[0].dtype),
-                     ns[:, -1].to(state[1].dtype))
+        new_state = (c.to(state[0].dtype), n.to(state[1].dtype))
     return out, new_state
 
 
 def slstm_decode_step(p: SLSTM, x: torch.Tensor, cfg, state: State,
                       ctx: Optional[ExecutionContext] = None
                       ) -> Tuple[torch.Tensor, State]:
-    """One token a row (x: (B, 1, D)): one step of the recurrence."""
+    """One token a row (x: (B, 1, D)): one step of the recurrence (on a
+    mesh, on each device's channels)."""
     del ctx  # see slstm_block
-    z, i, f, o = _slstm_gates(p, x, cfg)  # (B, 1, D)
-    c_prev, n_prev = (s.float() for s in state)
-    c = f[:, 0] * c_prev + i[:, 0] * z[:, 0]
-    n = f[:, 0] * n_prev + i[:, 0]
-    h = (o[:, 0] * c / torch.clamp(torch.abs(n), min=1.0))[:, None]
-    out = _project_out(p, h, cfg, x.dtype)
+    h, c, n = _on_units(_slstm_step, _slstm_gates(p, x, cfg), state)
+    out = _project_out(p, h, cfg, x)
     return out, (c.to(state[0].dtype), n.to(state[1].dtype))
 
 

@@ -199,6 +199,8 @@ class Trainer:
         self.source = make_source(data_cfg)
         self.skipped_steps = 0
         self.collectives: list = []  # a mesh step's wire bytes by kind
+        # the last state_tree's wire bytes by kind on a mesh
+        self.state_collectives: Optional[dict] = None
         self.step_fn = make_train_step(model_cfg, opt_cfg, train_cfg)
 
     # -- state ---------------------------------------------------------------
@@ -247,15 +249,32 @@ class Trainer:
     def state_tree(self) -> dict:
         """``{"params": ..., "opt": (step, m, v)}`` as the reference's trees
         (``layers`` stacked): what a checkpoint holds. On a mesh each leaf
-        is gathered (an all-gather under the gloo guard)."""
+        is made whole on every device by ``dtensors.whole`` (all-reduces of
+        zero-padded chunks: gloo cannot all-gather card tensors), under
+        the gloo guard, and the wire bytes by kind are kept in
+        ``state_collectives``."""
         st = self.opt_state
         named = dict(self.params.named_parameters())
         m, v = st.m, st.v
         if self.mesh is not None:
-            with CostMode(counts_only=True, check=dtensors.gloo_guard):
+            count = CostMode(counts_only=True, check=dtensors.gloo_guard)
+            with count, torch.no_grad():
                 named, m, v = (_gathered(t) for t in (named, m, v))
+            self.state_collectives = collective_bytes(count.collectives)
         return {"params": tree_from_named(named),
                 "opt": (st.step, tree_from_named(m), tree_from_named(v))}
+
+    def save_checkpoint(self, step: int) -> dict:
+        """:meth:`state_tree` committed as ``step`` under ``ckpt_dir``; on
+        a mesh every rank gathers and the mesh's rank 0 alone writes.
+        Returns the tree."""
+        tc = self.train_cfg
+        tree = self.state_tree()
+        if self.mesh is None or self.mesh.get_rank() == 0:
+            ckpt.save(tc.ckpt_dir, step, tree,
+                      extra={"skipped": self.skipped_steps},
+                      keep=tc.keep_ckpts)
+        return tree
 
     def resume_or_init(self):
         tc = self.train_cfg
@@ -312,9 +331,7 @@ class Trainer:
             if tc.log_every and step % tc.log_every == 0:
                 log.info("step %d loss %.4f (%.2fs)", step, loss, dt)
             if tc.ckpt_dir and tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
-                ckpt.save(tc.ckpt_dir, step + 1, self.state_tree(),
-                          extra={"skipped": self.skipped_steps},
-                          keep=tc.keep_ckpts)
+                self.save_checkpoint(step + 1)
         return history
 
 
@@ -390,5 +407,5 @@ def _owner(module: torch.nn.Module, name: str):
 
 
 def _gathered(named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {n: (t.full_tensor() if dtensors.is_dtensor(t) else t).detach()
+    return {n: (dtensors.whole(t) if dtensors.is_dtensor(t) else t).detach()
             for n, t in named.items()}

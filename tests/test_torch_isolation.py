@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch, and none of
-chip_smoke.py, scripts/verify_torch.py and scripts/autotune_torch.py,
-imports jax, ``ml_dtypes`` or the JAX package ``repro`` (only the tests
+chip_smoke.py, scripts/verify_torch.py, scripts/autotune_torch.py and
+scripts/xlstm_mesh_bf16.py, imports jax, ``ml_dtypes`` or the JAX package ``repro`` (only the tests
 import both), and
 importing repro_torch (the time model and the autotuner too) loads no jax
 module; importing the mesh and dry-run modules sets up no process
@@ -17,7 +17,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "verify_torch.py",
-    ROOT / "scripts" / "autotune_torch.py"]
+    ROOT / "scripts" / "autotune_torch.py",
+    ROOT / "scripts" / "xlstm_mesh_bf16.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 

@@ -25,6 +25,20 @@ LAYERS = resnet50_layers(1000)
 BACKENDS = {"torch": "xla", "cuda": "pallas", "im2col": "im2col"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's tests on one torch thread: in the suite's parallel
+    run (six workers on the host's cores) the plain versions' many small
+    parallel regions wait on oversubscribed cores, which took
+    ``test_slice_matches_reference[cuda]`` to 498 s against 3 s alone;
+    on one thread they do not. Inputs, cases and tolerances are
+    unchanged."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jtarget(name):
     return jp.HardwareTarget.from_dict(getattr(tp, name).to_dict())
 

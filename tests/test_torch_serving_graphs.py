@@ -47,6 +47,20 @@ from repro_torch.serving.engine import Engine, Request, WaveEngine
 CPU = tops.ExecutionContext(device="cpu")  # cuda backend: plain versions
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's tests on one torch thread: in the suite's parallel
+    run (six workers on the host's cores) the plain versions' many small
+    parallel regions wait on oversubscribed cores, which took
+    ``..._through_static_buffers[contiguous]`` to 295 s against 4.5 s
+    alone; on one thread they do not. Inputs, cases and tolerances are
+    unchanged."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _smoke(arch, **kw):
     jcfg = dataclasses.replace(jc.get_smoke(arch), compute_dtype="float32",
                                **kw)
