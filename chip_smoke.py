@@ -457,19 +457,26 @@ organic fault never passes as a demotion):
      by kind each step and its argument bytes equal to
      ``dryrun.count_train_step``'s count of the same step on a fake group
      of 4, and the single-device checkpoint restored onto the mesh with
-     ``shardings=`` and gathered back over a CPU mesh bit for bit. (b)
+     ``shardings=`` and gathered back over a CPU mesh bit for bit. Then
+     2 more steps from the same init with ``MESH_OPTIONS`` on
+     (``microbatches=2``, ``compress_grads``, ``remat``), on one card and
+     in the same ranks, under the same gates against one card and the
+     count of that step (flash 32 times a rank: a forward a microbatch,
+     and remat's recomputation); the step s a rank and on one card, plain
+     and with the options, in the summary line. (b)
      In a process of its own (``--dryrun``, no card memory), started
      with phase 27 so that its host work runs beside phases 27-30, and
      read after phase 30 (fatal past ``DRYRUN_TIMEOUT`` from its start):
-     the dry run of Qwen2.5-3B's cells on (16, 16), its ``train_4k`` on
-     (2, 16, 16), InternVL2-1B's ``train_4k``, and at full depth on (16,
-     16) OLMoE-1B-7B's ``train_4k`` with ``moe_shard_hints`` and its
-     ``decode_32k``, Phi-3.5-MoE's ``train_4k`` with the hints (fatal
-     unless each cell with the hints counts all-to-alls), and Jamba-1.5's
-     four cells and xLSTM-1.3B's, ``train_4k`` and ``prefill_32k``
+     the dry run at full depth of 27 of the 31 cells of
+     ``configs.all_cells()`` on (16, 16) (``DRYRUN_LEFT_OUT``: four
+     ``train_4k`` cells) and Qwen2.5-3B's ``train_4k`` on (2, 16, 16),
+     OLMoE-1B-7B's and Phi-3.5-MoE's ``train_4k`` with
+     ``moe_shard_hints`` (fatal unless each counts all-to-alls), and
+     Jamba-1.5's and xLSTM-1.3B's ``train_4k`` and ``prefill_32k``
      extrapolated from R = 1 and 2 to the model's repeats (Jamba's 9,
      xLSTM's 24; fatal otherwise); one ``{"dryrun": ...}`` line a cell
-     with its host seconds, and the report's tables;
+     with its host seconds, the report's tables, and the process's own
+     seconds;
  28. the MoE FFN on the mesh: OLMoE-1B-7B at published widths (d_model
      2048, 16 heads over 16 KV heads, 64 experts top 8 of d_ff 1024, vocab
      50304) cut to 2 layers (1.05 B f32 parameters), B 4, L 512, seed 0,
@@ -4734,25 +4741,34 @@ DRYRUN_TIMEOUT = 900
 # phase 27 (a)'s depth cut of Qwen2.5-3B: half of phase 22's 8 layers
 # (the script's time limit)
 MESH_TRAIN_LAYERS = 4
-# phase 27 (b): (arch, shape, multi-pod, overrides): Qwen2.5-3B's cells on
-# (16, 16), its train_4k on (2, 16, 16), InternVL2-1B's train_4k (the
-# reference test's own cell), and the MoE cells: OLMoE-1B-7B's train_4k
-# with the shard hints and its decode_32k, Phi-3.5-MoE's train_4k with the
-# hints; and Jamba-1.5's and xLSTM-1.3B's four cells (recurrent blocks on
-# the mesh)
+# phase 27 (a)'s second run from the same init: the step's three options
+# (``TrainConfig``), on the ranks and on one card alike
+MESH_OPTIONS = {"microbatches": 2, "compress_grads": True, "remat": True}
+# phase 27 (b): (arch, shape, multi-pod, overrides): the cells of
+# ``configs.all_cells()`` at full depth on (16, 16) but four train_4k cells
+# (their 74 s of host time on the card's host would push the process's read
+# past phase 30: PERF.md §6 records them from a run of
+# ``repro_torch.launch.dryrun``, and Tier-1 pins them on 2 x 2),
+# OLMoE-1B-7B's and Phi-3.5-MoE's train_4k with the MoE shard hints, and
+# Qwen2.5-3B's train_4k on (2, 16, 16)
 MOE_HINTS = {"moe_shard_hints": True}
-DRYRUN_CELLS = ([("qwen2_5_3b", s, False, None) for s in ("train_4k",
-                                                           "prefill_32k",
-                                                           "decode_32k")]
-                + [("qwen2_5_3b", "train_4k", True, None),
-                   ("internvl2_1b", "train_4k", False, None),
-                   ("olmoe_1b_7b", "train_4k", False, MOE_HINTS),
-                   ("olmoe_1b_7b", "decode_32k", False, None),
-                   ("phi3_5_moe_42b", "train_4k", False, MOE_HINTS)]
-                + [(arch, s, False, None) for arch in (HYBRID_ARCH,
-                                                       XLSTM_ARCH)
-                   for s in ("train_4k", "prefill_32k", "decode_32k",
-                             "long_500k")])
+MOE_HINTS_CELLS = (("olmoe_1b_7b", "train_4k"), ("phi3_5_moe_42b", "train_4k"))
+DRYRUN_LEFT_OUT = (("stablelm_1_6b", "train_4k"),
+                   ("phi3_medium_14b", "train_4k"),
+                   ("minitron_8b", "train_4k"), ("hubert_xlarge", "train_4k"))
+
+
+def dryrun_cells() -> list:
+    """Phase 27 (b)'s cells (above)."""
+    from repro_torch.configs import all_cells
+
+    return [(arch, s.name, False,
+             MOE_HINTS if (arch, s.name) in MOE_HINTS_CELLS else None)
+            for arch, s in all_cells()
+            if (arch, s.name) not in DRYRUN_LEFT_OUT] + [
+                ("qwen2_5_3b", "train_4k", True, None)]
+
+
 # the recurrent cells that the dry run extrapolates in repeats (Jamba-1.5's
 # and xLSTM-1.3B's)
 EXTRAPOLATED_CELLS = ("train_4k", "prefill_32k")
@@ -4776,10 +4792,21 @@ def mesh_train_argv() -> list:
     published widths cut to ``MESH_TRAIN_LAYERS`` layers, B 4, L 512, its
     seed (the launcher's, 0 = ``SEED``)."""
     return ["--arch", TRAIN_ARCH, "--layers", str(MESH_TRAIN_LAYERS),
-            "--batch",
-            "4", "--seq", "512", "--steps", str(MESH_STEPS), "--lr",
-            str(MESH_LR), "--device", "cuda",
-            "--backend", "cuda"]
+            "--batch", "4", "--seq", "512", "--steps", str(MESH_STEPS),
+            "--lr", str(MESH_LR), "--device", "cuda", "--backend", "cuda"]
+
+
+def step_options(options: dict) -> tuple:
+    """Of a run with the step options ``options`` (``TrainConfig`` fields,
+    ``MESH_OPTIONS`` or empty for the plain step): (the launcher's flags,
+    the tag of the single-device run's files, flash's forwards a layer
+    and step: one a microbatch, twice with remat's recomputation)."""
+    mb = options.get("microbatches", 1)
+    flags = (["--microbatches", str(mb)] if mb > 1 else []) + \
+        (["--compress-grads"] if options.get("compress_grads") else []) + \
+        (["--remat"] if options.get("remat") else [])
+    return (flags, "_options" if options else "",
+            mb * (2 if options.get("remat") else 1))
 
 
 def moe_mesh_argv() -> list:
@@ -4798,21 +4825,23 @@ MESH_PHASES = {  # phase: (the launcher's arguments, the ranks' flag)
     "28": (moe_mesh_argv, "--moe-rank")}
 
 
-def mesh_rank_report(phase: str, outdir: str):
+def mesh_rank_report(phase: str, outdir: str, options: dict = None):
     """One rank of phase 27 (a) or 28, started as ``torchrun`` would start
     it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): the
-    launcher's mesh run (``launch.train.train``) with the flash counts set
-    to 0 just before and (phase 28) every MoE call's routing recorded;
-    then this device's chunk of each parameter and first moment against
-    the single-device run's files in ``outdir``. Returns (the report, the
+    launcher's mesh run (``launch.train.train``; with the step
+    ``options``, :func:`step_options`) with the flash counts set to 0 just
+    before and (phase 28) every MoE call's routing recorded; then this
+    device's chunk of each parameter and first moment against the
+    single-device run's files in ``outdir``. Returns (the report, the
     trainer, the routing log)."""
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.models import moe
 
-    argv = MESH_PHASES[phase][0]() + ["--mesh",
-                                      ",".join(map(str, MESH_SHAPE))]
+    flags, tag, _ = step_options(options or {})
+    argv = MESH_PHASES[phase][0]() + flags + [
+        "--mesh", ",".join(map(str, MESH_SHAPE))]
     flash = KERNELS["flash_attention"]
     flash.launches = flash.tensor_core_launches = 0
     with (moe.record_routing() if phase == "28"
@@ -4828,22 +4857,30 @@ def mesh_rank_report(phase: str, outdir: str):
               "argument_bytes": argument_bytes(
                   (trainer.params, trainer.opt_state,
                    trainer.place_batch(trainer.source.batch(0))))}
-    report.update(chunk_errors(trainer, outdir),
+    report.update(chunk_errors(trainer, single_files(outdir, tag)),
                   memory_allocated_gb_after=(
                       torch.cuda.memory_allocated() / 1e9))
     return report, trainer, routing
 
 
-def chunk_errors(trainer, outdir: str) -> dict:
+def single_files(outdir: str, tag: str = "") -> tuple:
+    """The single-device run's parameter and first-moment files (``tag``:
+    :func:`step_options`'s)."""
+    return (os.path.join(outdir, f"single_params{tag}.pt"),
+            os.path.join(outdir, f"single_m{tag}.pt"))
+
+
+def chunk_errors(trainer, files: tuple) -> dict:
     """This device's chunk of each parameter and AdamW first moment of a
-    mesh trainer against the single-device run's files in ``outdir``: the
+    mesh trainer against the single-device run's ``files``: the
     parameters' largest error (and those over 2 x lr x steps), each
     parameter's own, and each first moment's relative to its chunk's
     largest |value|."""
     from repro_torch.train.trainer import shardings_for
 
     specs = shardings_for(trainer.model_cfg, trainer.mesh)
-    want = torch.load(os.path.join(outdir, "single_params.pt"), mmap=True)
+    params_file, m_file = files
+    want = torch.load(params_file, mmap=True)
     params, over = {}, []
     for name, p in trainer.params.named_parameters():
         chunk = want[name][specs[name].local_slices(p.shape)]
@@ -4853,7 +4890,7 @@ def chunk_errors(trainer, outdir: str) -> dict:
             over.append((name, err))
     # the first moments: this device's chunk of each against the
     # single-device run's, relative to the chunk's largest |value|
-    want = torch.load(os.path.join(outdir, "single_m.pt"), mmap=True)
+    want = torch.load(m_file, mmap=True)
     moments = {}
     for name, m in trainer.opt_state.m.items():
         chunk = want[name][specs[name].local_slices(m.shape)]
@@ -4868,7 +4905,8 @@ def chunk_errors(trainer, outdir: str) -> dict:
 def mesh_rank_main(rank: int, outdir: str) -> None:
     """One rank of phase 27 (a): :func:`mesh_rank_report`, then the
     single-device checkpoint restored onto the mesh with ``shardings=``
-    and gathered back over a CPU mesh of the same ranks."""
+    and gathered back over a CPU mesh of the same ranks, then the run with
+    ``MESH_OPTIONS`` from the same init (its report under ``options``)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -4900,10 +4938,17 @@ def mesh_rank_main(rank: int, outdir: str) -> None:
                                    run_check=False, shape=a.shape,
                                    stride=a.stride()).full_tensor()
         equal = equal and bool(torch.equal(whole, b))
+    del placed, plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    options, trainer, _ = mesh_rank_report("27", outdir, MESH_OPTIONS)
+    options["local_device"] = str(
+        next(trainer.params.parameters()).to_local().device)
+    del trainer
     with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
         json.dump(dict(report, restore_bit_equal=equal,
                        restored_sharded_leaves=sharded,
-                       local_device=str(local.device)), f)
+                       local_device=str(local.device), options=options), f)
     dist.destroy_process_group()
 
 
@@ -4938,14 +4983,15 @@ def moe_rank_main(rank: int, outdir: str) -> None:
 
 def dryrun_main() -> None:
     """Phase 27 (b) in a process of its own (``--dryrun``): each cell of
-    ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell`` on a fake group
+    :func:`dryrun_cells` through ``launch.dryrun.run_cell`` on a fake group
     (no card memory), one ``{"dryrun": ...}`` line a cell with its host
     seconds, then the report's two tables."""
     from repro_torch.analysis import report
     from repro_torch.launch import dryrun
 
     recs = []
-    for arch, shape, multi_pod, overrides in DRYRUN_CELLS:
+    t_start = time.perf_counter()
+    for arch, shape, multi_pod, overrides in dryrun_cells():
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
                               verbose=False, overrides=overrides,
@@ -4968,6 +5014,8 @@ def dryrun_main() -> None:
     print(report.dryrun_table(recs), flush=True)
     for mesh in ("16x16", "2x16x16"):
         print(report.roofline_table(recs, mesh=mesh), flush=True)
+    print(json.dumps({"dryrun_total_s": time.perf_counter() - t_start}),
+          flush=True)
 
 
 def _free_port() -> int:
@@ -5020,8 +5068,14 @@ def mesh_phase() -> dict:
         row = mesh_train_gates(cfg, outdir, "27")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    opt = row["options"]
     summary = {"mesh_phase": "summary",
                "rank_flash_launches": sum(row["rank_flash_launches"]),
+               "options_rank_flash_launches": sum(opt["rank_flash_launches"]),
+               "step_s": {"plain": {"rank": row["rank_step_s"],
+                                    "card": row["single_step_s"]},
+                          "options": {"rank": opt["rank_step_s"],
+                                      "card": opt["single_step_s"]}},
                "seconds": time.perf_counter() - t_phase, "card": row["card"]}
     print(json.dumps(summary), flush=True)
     return summary
@@ -5047,9 +5101,10 @@ def dryrun_phase(dry: tuple) -> dict:
              and "Warning" not in x and "warn(" not in x]
     print("\n".join(lines), flush=True)
     cells = [x for x in lines if x.startswith('{"dryrun"')]
-    if proc.returncode != 0 or len(cells) != len(DRYRUN_CELLS):
+    want = len(dryrun_cells())
+    if proc.returncode != 0 or len(cells) != want:
         fail(f"dry run: exit code {proc.returncode}, {len(cells)} of "
-             f"{len(DRYRUN_CELLS)} cells:\n" + out[-4000:])
+             f"{want} cells:\n" + out[-4000:])
     moe_cells = [json.loads(x) for x in cells
                  if json.loads(x)["overrides"] == MOE_HINTS]
     if not moe_cells or any(c["collective_calls"].get("all-to-all", 0) <= 0
@@ -5064,7 +5119,10 @@ def dryrun_phase(dry: tuple) -> dict:
                 c["extrapolated"] != f"R=1,2 -> R={repeats}" for c in ext):
             fail(f"dry run: {arch}'s recurrent cells not extrapolated to "
                  f"its {repeats} repeats: {[c['extrapolated'] for c in ext]}")
+    total = [json.loads(x)["dryrun_total_s"] for x in lines
+             if x.startswith('{"dryrun_total_s"')]
     summary = {"dryrun_phase": "summary", "dry_run_cells": len(cells),
+               "process_cells_s": total[0] if total else None,
                "seconds_since_start": time.perf_counter() - t_dry}
     print(json.dumps(summary), flush=True)
     return summary
@@ -5103,7 +5161,9 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
     """Phase 27 (a) or 28: the single-device run (its parameters and first
     moments written to ``outdir``; phase 27 its checkpoint, phase 28 its
     routing), the no-update control, the dry run's count, then the 4
-    ranks, and every gate; returns the phase's row."""
+    ranks, and every gate; returns the phase's row. Phase 27 also runs
+    ``MESH_OPTIONS`` from the same init on one card and on the ranks, and
+    gates it alike (its row under ``options``)."""
     from repro_torch.convert import transformer_tree
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import dryrun
@@ -5131,11 +5191,7 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
         trainer, single = launch_train.train(argv_fn())
     single_launches = (k.launches, k.tensor_core_launches)
     single_peak = torch.cuda.max_memory_allocated() / 1e9
-    torch.save({n: p.detach().cpu() for n, p in
-                trainer.params.named_parameters()},
-               os.path.join(outdir, "single_params.pt"))
-    torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()},
-               os.path.join(outdir, "single_m.pt"))
+    save_single(trainer, single_files(outdir))
     if moe_phase_:
         torch.save([{"gate_idx": r.gate_idx.cpu(), "kept": r.kept.cpu()}
                     for r in routing],
@@ -5149,11 +5205,25 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
     del trainer, routing
     gc.collect()
     torch.cuda.empty_cache()
+    tokens = {"tokens": torch.empty((4, 512), dtype=torch.int32,
+                                    device="meta")}
+    if not moe_phase_:  # the options' run from the same init
+        flags, tag, _ = step_options(MESH_OPTIONS)
+        torch.cuda.reset_peak_memory_stats()
+        k.launches = k.tensor_core_launches = 0
+        trainer, single_o = launch_train.train(argv_fn() + flags)
+        single_o.update(launches=(k.launches, k.tensor_core_launches),
+                        peak=torch.cuda.max_memory_allocated() / 1e9)
+        save_single(trainer, single_files(outdir, tag))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        count_o = dryrun.count_train_step(
+            cfg, MESH_SHAPE, tokens,
+            TrainConfig(n_groups=MESH_RANKS, **MESH_OPTIONS))
     # the dry run's count of the same step under the same placements
-    count = dryrun.count_train_step(
-        cfg, MESH_SHAPE, {"tokens": torch.empty((4, 512), dtype=torch.int32,
-                                                device="meta")},
-        TrainConfig(n_groups=MESH_RANKS))
+    count = dryrun.count_train_step(cfg, MESH_SHAPE, tokens,
+                                    TrainConfig(n_groups=MESH_RANKS))
     t0 = time.perf_counter()
     env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
@@ -5183,6 +5253,35 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
     for r in range(MESH_RANKS):
         with open(os.path.join(outdir, f"checks{r}.json")) as f:
             checks.append(json.load(f))
+    single.update(launches=single_launches, peak=single_peak,
+                  gaps=gaps if moe_phase_ else None)
+    row = mesh_run_gates(cfg, phase, single, checks, count, at_start,
+                         control, groups, seconds, card)
+    if not moe_phase_:
+        row["options"] = mesh_run_gates(
+            cfg, phase, single_o, [c["options"] for c in checks], count_o,
+            at_start, control, groups, seconds, card, MESH_OPTIONS)
+    return row
+
+
+def save_single(trainer, files: tuple) -> None:
+    """The single-device run's parameters and first moments, on the host,
+    to ``files`` (:func:`single_files`)."""
+    params_file, m_file = files
+    torch.save({n: p.detach().cpu() for n, p in
+                trainer.params.named_parameters()}, params_file)
+    torch.save({n: m.cpu() for n, m in trainer.opt_state.m.items()}, m_file)
+
+
+def mesh_run_gates(cfg, phase: str, single: dict, checks: list, count: dict,
+                   at_start: float, control: float, groups: int,
+                   seconds: float, card, options: dict = None) -> dict:
+    """One run of phase 27 (a) or 28 (with the step ``options``:
+    ``MESH_OPTIONS``'s run) against one card's and the dry run's count:
+    its row, printed, and every gate (fatal)."""
+    moe_phase_ = phase == "28"
+    options = options or {}
+    single_launches, single_peak = single["launches"], single["peak"]
     bound = 2 * MESH_LR * MESH_STEPS
     rel = [abs(a - b) / abs(b) for c in checks
            for a, b in zip(c["loss"], single["loss"])]
@@ -5200,6 +5299,7 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
     top_rest = max(rest, key=moments.get)
     control_rel = abs(control - single["loss"][1]) / abs(single["loss"][1])
     row = {"mesh_train": cfg.name, "phase": phase, "layers": cfg.n_layers,
+           "step_options": options,
            "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
            "ranks": MESH_RANKS, "backend": "gloo, one card",
            "batch": [4, 512], "steps": MESH_STEPS, "n_groups": groups,
@@ -5255,8 +5355,8 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
             single_dropped_by_forward=[
                 sum(f["single_dropped"] for f in fs) for fs in
                 zip(*[c["routing"] for c in checks])],
-            single_min_topk_gap_by_forward=gaps)
-    else:
+            single_min_topk_gap_by_forward=single["gaps"])
+    elif not options:
         row["restore_bit_equal"] = [c["restore_bit_equal"] for c in checks]
     print(json.dumps(row), flush=True)
     if not max(rel) <= 1e-2 or any(len(c["loss"]) != MESH_STEPS
@@ -5281,7 +5381,7 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
         fail(f"mesh train: first moments off the single-device run's by "
              f"{moments[top]} of the leaf's largest |value| ({top}), above "
              f"{gated[top]}")
-    want = cfg.n_layers * MESH_STEPS
+    want = cfg.n_layers * MESH_STEPS * step_options(options)[2]
     if not single_launches[0] == want == single_launches[1]:
         fail(f"mesh train: the single-device run launched flash "
              f"{single_launches}, expected {want}")
@@ -5310,8 +5410,9 @@ def mesh_train_gates(cfg, outdir: str, phase: str) -> dict:
             if c["forwards"] != cfg.n_layers * MESH_STEPS:
                 fail(f"moe mesh: rank {c['rank']} recorded {c['forwards']} "
                      "MoE calls")
-    elif not all(c["restore_bit_equal"] and c["restored_sharded_leaves"] > 0
-                 for c in checks):
+    elif not options and not all(c["restore_bit_equal"] and
+                                 c["restored_sharded_leaves"] > 0
+                                 for c in checks):
         fail(f"mesh train: checkpoint restore onto the mesh {checks}")
     return row
 
@@ -5459,7 +5560,7 @@ def mamba_rank_main(rank: int, outdir: str) -> None:
                    trainer.place_batch(trainer.source.batch(0)))),
               "local_device": str(next(trainer.params.parameters())
                                   .to_local().device)}
-    report.update(chunk_errors(trainer, outdir))
+    report.update(chunk_errors(trainer, single_files(outdir)))
     with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
@@ -5709,7 +5810,7 @@ def xlstm_rank_main(rank: int, outdir: str) -> None:
                    trainer.place_batch(trainer.source.batch(0)))),
               "local_device": str(next(trainer.params.parameters())
                                   .to_local().device)}
-    report.update(chunk_errors(trainer, outdir))
+    report.update(chunk_errors(trainer, single_files(outdir)))
     trainer.train_cfg.ckpt_dir = os.path.join(outdir, "ckpt")
     t0 = time.perf_counter()
     tree = trainer.save_checkpoint(MESH_STEPS)
@@ -6435,6 +6536,7 @@ def main() -> None:
     attn_kernels[0].update(
         instances=[list(i) for i in flash_tc_instances()], hd80=hd80,
         mesh_train_rank_launches=mesh["rank_flash_launches"],
+        mesh_train_options_rank_launches=mesh["options_rank_flash_launches"],
         moe_mesh_rank_launches=moe_mesh["rank_flash_launches"])
     conv1d_kernel["mamba_mesh_rank_launches"] = mamba_mesh[
         "rank_conv1d_launches"]

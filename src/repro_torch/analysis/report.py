@@ -2,7 +2,9 @@
 ``repro.analysis.report``; the records are ``repro_torch.launch.dryrun``'s,
 with the reference's keys).
 
-    PYTHONPATH=src python -m repro_torch.analysis.report
+    PYTHONPATH=src python -m repro_torch.analysis.report [--cells] [DIR]
+
+``--cells`` prints :func:`cells_table` alone (one row a cell).
 """
 
 from __future__ import annotations
@@ -60,6 +62,41 @@ def dryrun_table(recs: List[dict]) -> str:
     return "\n".join(out)
 
 
+_WIRE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def _cell_fields(r: dict) -> List[str]:
+    mem = r["bytes_per_device"]
+    wire = " / ".join(_fmt_bytes(r["collectives"][k])
+                      if r["collectives"].get(k) else "0"
+                      for k in _WIRE_KINDS)
+    return [_fmt_bytes(mem["argument_bytes"]),
+            _fmt_bytes(mem["output_bytes"]), _fmt_bytes(mem["temp_bytes"]),
+            f"{r['hlo_flops'] / r['chips']:.3e}", wire,
+            f"{r.get('host_s', r.get('run_s', 0)):.1f}s"]
+
+
+def cells_table(recs: List[dict]) -> str:
+    """Per device: argument, output and temp bytes, FLOPs and wire bytes by
+    kind (all-reduce, all-gather, reduce-scatter, all-to-all,
+    collective-permute), with each record's host seconds (``host_s``).
+    One row a cell: a cell recorded on several meshes gives each field as
+    "16x16 ; 2x16x16" (the meshes in that order)."""
+    rows: Dict[tuple, Dict[str, dict]] = {}
+    for r in recs:
+        rows.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+    out = ["| arch | shape | mesh | arguments | outputs | temps | FLOPs | "
+           "wire AR / AG / RS / A2A / CP | host |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    for (arch, shape), by_mesh in rows.items():
+        meshes = sorted(by_mesh, key=len)
+        fields = zip(*(_cell_fields(by_mesh[m]) for m in meshes))
+        out.append(f"| {arch} | {shape} | {' ; '.join(meshes)} | "
+                   + " | ".join(" ; ".join(f) for f in fields) + " |")
+    return "\n".join(out)
+
+
 def roofline_table(recs: List[dict], mesh: str = "16x16") -> str:
     out = ["| arch | shape | compute | memory | collective | dominant | "
            "useful | roofline-MFU |",
@@ -100,7 +137,15 @@ def pick_hillclimb_cells(recs: List[dict], mesh: str = "16x16"
 
 
 if __name__ == "__main__":
-    recs = load()
+    import sys
+
+    args = sys.argv[1:]
+    cells_only = "--cells" in args
+    dirs = [a for a in args if a != "--cells"]
+    recs = load(directory=dirs[0] if dirs else None)
+    if cells_only:
+        print(cells_table(recs))
+        sys.exit(0)
     print(f"{len(recs)} records\n")
     print(dryrun_table(recs))
     print()

@@ -29,6 +29,7 @@ import sys
 import weakref
 from typing import Dict, List, Optional, Tuple
 
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.dtensors import is_dtensor_type, tensors
@@ -143,6 +144,22 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# in-place ops whose destination's old value is not read
+_OVERWRITES = {torch.ops.aten.copy_, torch.ops.aten.fill_,
+               torch.ops.aten.zero_}
+# factories whose ``self`` gives only its shape, dtype and device
+_METADATA_ONLY = {getattr(torch.ops.aten, f) for f in (
+    "empty_like", "zeros_like", "ones_like", "full_like", "rand_like",
+    "randn_like", "randint_like", "new_empty", "new_empty_strided",
+    "new_zeros", "new_ones", "new_full")}
+
+
+def storage_key(t) -> int:
+    """The identity of ``t``'s storage (shared by its views), unique among
+    the storages alive at once."""
+    return t.untyped_storage()._cdata
+
+
 # DTensor derives an op's output metadata by running it on fake tensors of
 # the global shapes, through whatever dispatch modes are active: not the
 # device's program
@@ -179,7 +196,15 @@ class CostMode:
     * ``collectives``: one ``(kind, result bytes)`` a collective;
     * ``peak_live_bytes``: the most bytes of op results alive at once (a
       result is freed when its tensor object is collected; results kept
-      for the backward pass stay alive, as they do on the card).
+      for the backward pass stay alive, as they do on the card);
+    * ``reads`` and ``writes``: the :func:`storage_key` of the tensor
+      operands that some op reads, and of those that some op overwrites
+      without reading (a ``copy_``'s or ``fill_``'s destination, an
+      ``out=``), so that a caller can tell which of its inputs the program
+      used. A view's operand is its base's storage; views, ``prim``
+      metadata queries and the ``self`` of a ``*_like`` or ``new_*``
+      factory read nothing; an in-place op that updates its operand
+      (``add_``) reads it.
 
     ``counts_only=True`` records the collectives alone (what the mesh
     trainer runs on a real process group: no FLOP formulas on its hot
@@ -198,6 +223,8 @@ class CostMode:
         self.collectives: List[Tuple[str, int]] = []
         self.live_bytes = 0
         self.peak_live_bytes = 0
+        self.reads: set = set()
+        self.writes: set = set()
 
     def __enter__(self):
         self._mode = _CostDispatch(self)
@@ -216,6 +243,8 @@ class CostMode:
             return
         from torch.utils.flop_counter import flop_registry
 
+        if not getattr(func, "is_view", False) and func.namespace != "prim":
+            self._note_operands(func, args, kwargs)
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += int(flop_registry[packet](*args, **kwargs,
@@ -231,6 +260,20 @@ class CostMode:
             self.peak_live_bytes = max(self.peak_live_bytes,
                                        self.live_bytes)
             weakref.finalize(t, self._free, n)
+
+    def _note_operands(self, func, args, kwargs) -> None:
+        overwrites = func._overloadpacket in _OVERWRITES
+        named = dict(zip((a.name for a in func._schema.arguments), args))
+        named.update(kwargs)
+        if func._overloadpacket in _METADATA_ONLY:
+            named.pop("self", None)
+        for arg in func._schema.arguments:
+            alias = arg.alias_info
+            only_written = alias is not None and alias.is_write and (
+                overwrites or arg.kwarg_only)  # the destination, an out=
+            for t in tensors(named.get(arg.name)):
+                (self.writes if only_written else self.reads).add(
+                    storage_key(t))
 
     def _free(self, n: int) -> None:
         self.live_bytes -= n

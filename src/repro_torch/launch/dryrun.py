@@ -19,9 +19,13 @@ on its local shards. A record holds the reference's keys:
 
 * ``bytes_per_device``: ``argument_bytes`` and ``output_bytes``, exact
   from the local shard shapes (uneven shards counted at device 0's, the
-  largest, chunk); ``temp_bytes``, the most bytes of op results alive at
-  once, and ``peak_bytes``, the arguments plus those (results freed when
-  their tensor is collected, as the caching allocator would reuse them);
+  largest, chunk): the arguments the step uses (an op reads them, or the
+  step returns them as they came; the reference's jit prunes the rest),
+  the outputs without the reference's 8 bytes a leaf of its output tuple
+  (XLA's table of the tuple's buffers); ``temp_bytes``, the most bytes of
+  op results alive at once, and ``peak_bytes``, the arguments plus those
+  (results freed when their tensor is collected, as the caching allocator
+  would reuse them);
 * ``hlo_flops``: the FLOPs of every local aten op by
   ``torch.utils.flop_counter``'s formulas (matmuls, attention products;
   elementwise ops count 0, as its formulas do), times ``chips``, as the
@@ -36,7 +40,9 @@ on its local shards. A record holds the reference's keys:
 
 Records go to ``results/dryrun_torch/`` (git-ignored). A decode cell's
 ``index`` is the last position of its cache (the program's costs do not
-depend on it). One default group per process: ``run_cell`` sets up a fake
+depend on it). ``run_s`` is the seconds the step ran, ``host_s`` those of
+the whole cell (placing the inputs included; an extrapolated cell sums its
+two runs). One default group per process: ``run_cell`` sets up a fake
 group for its cell and tears it down, unless a ``mesh`` over a group that
 exists is passed in.
 """
@@ -66,7 +72,8 @@ from repro_torch.models.config import LM_SHAPES
 from repro_torch.ops import ExecutionContext
 from repro_torch.plan import H100
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
-from repro_torch.train.trainer import TrainConfig, make_train_step
+from repro_torch.train.trainer import (TrainConfig, make_train_step,
+                                      place_on_mesh)
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -129,7 +136,7 @@ def build_prefill_step(cfg, n_groups: int, act_spec=None,
                 params, cfg, tokens=batch.get("tokens"),
                 embeds=batch.get("embeds"), cache=cache, cache_index=0,
                 n_groups=n_groups, act_spec=act_spec, ctx=ctx)
-            return logits[:, -1], cache
+            return _whole_rows(logits[:, -1]), cache
         # encoder: full bidirectional forward, no cache
         logits, _, _ = T.forward(params, cfg, tokens=batch.get("tokens"),
                                  embeds=batch.get("embeds"),
@@ -137,6 +144,19 @@ def build_prefill_step(cfg, n_groups: int, act_spec=None,
                                  ctx=ctx)
         return logits, cache
     return prefill_step
+
+
+def _whole_rows(logits):
+    """Last-token logits (B, V) with the batch on the data axes and each
+    row whole on every device: the placement the reference's compiled
+    prefill returns them in (its output sharding is left to the compiler,
+    which gathers the vocabulary)."""
+    if not dtensors.is_dtensor(logits):
+        return logits
+    from repro_torch.models import spmd
+
+    return spmd.constrain(
+        logits, shd.P(shd.batch_axes(logits.device_mesh), None))
 
 
 def build_decode_step(cfg, n_groups: int,
@@ -205,7 +225,7 @@ def _leaf_bytes(t) -> int:
     if isinstance(t, int):
         return 4  # an int32 scalar, as the reference's traced index
     if torch.is_tensor(t):
-        local = t.to_local() if dtensors.is_dtensor(t) else t
+        local = _local(t)
         return local.numel() * local.element_size()
     return 0
 
@@ -220,10 +240,20 @@ def _leaves(tree):
     return [tree]
 
 
-def argument_bytes(tree) -> int:
+def argument_bytes(tree, reads=None) -> int:
     """The bytes this device holds of ``tree``'s leaves (a DTensor's local
-    shard, a module's parameters, an int as an int32 scalar)."""
-    return sum(_leaf_bytes(t) for t in _leaves(tree))
+    shard, a module's parameters, an int as an int32 scalar). With
+    ``reads`` (the storages a step run on ``tree`` read, or returned
+    without overwriting them: ``_drive``'s), only those tensor leaves: the
+    reference's jit prunes an argument nothing uses (``keep_unused=False``)
+    before it counts."""
+    return sum(_leaf_bytes(t) for t in _leaves(tree)
+               if reads is None or not torch.is_tensor(t)
+               or rl.storage_key(_local(t)) in reads)
+
+
+def _local(t):
+    return t.to_local() if dtensors.is_dtensor(t) else t
 
 
 def _place(struct, sharding, requires_grad: bool = False):
@@ -270,7 +300,12 @@ def _drive(step, args, chips: int) -> dict:
     return {"out": out, "run_s": run_s, "flops": cost.flops,
             "bytes accessed": cost.bytes_accessed,
             "records": list(cost.collectives), "calls": calls,
-            "temp_bytes": cost.peak_live_bytes}
+            "temp_bytes": cost.peak_live_bytes,
+            # what an op read, or the step returns without overwriting it:
+            # the arguments the reference's compiled step keeps
+            "reads": cost.reads | ({rl.storage_key(_local(t))
+                                    for t in _leaves(out)
+                                    if torch.is_tensor(t)} - cost.writes)}
 
 
 def count_train_step(cfg, mesh_shape, batch: Dict[str, torch.Tensor],
@@ -280,8 +315,9 @@ def count_train_step(cfg, mesh_shape, batch: Dict[str, torch.Tensor],
     ``data x model`` ranks: the same step (``make_train_step`` with
     ``train_cfg``, on a CPU context), parameters and moments placed by
     ``param_specs``, ``batch`` (tensors or meta tensors: shapes and
-    dtypes) with its batch dim on the data axes. Returns ``collectives``
-    (wire bytes by kind), ``calls`` and ``argument_bytes`` of device 0."""
+    dtypes) placed as the trainer places it (``trainer.place_on_mesh``).
+    Returns ``collectives`` (wire bytes by kind), ``calls`` and
+    ``argument_bytes`` of device 0."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     data, model = mesh_shape
@@ -290,7 +326,6 @@ def count_train_step(cfg, mesh_shape, batch: Dict[str, torch.Tensor],
     with fake_group(data * model):
         mesh = make_host_mesh(data, model, device_type="cpu")
         pshard = shd.shardings(mesh, shd.param_specs(cfg))
-        ba = shd.batch_axes(mesh)
         structs = sp.param_structs("", cfg.param_dtype, cfg)
         step0 = torch.zeros((), dtype=torch.int32)  # a real step
         with FakeTensorMode(allow_non_fake_inputs=True):
@@ -300,9 +335,9 @@ def count_train_step(cfg, mesh_shape, batch: Dict[str, torch.Tensor],
                    for n, s in structs.items()}
             opt = AdamWState(step0, f32, {n: torch.zeros_like(t)
                                           for n, t in f32.items()})
-            placed = {k: _place(v, shd.NamedSharding(
-                mesh, shd.P(ba, *([None] * (v.ndim - 1)))))
-                for k, v in batch.items()}
+            placed = place_on_mesh(
+                {k: torch.empty(v.shape, dtype=v.dtype, device="cpu")
+                 for k, v in batch.items()}, mesh, tc.microbatches)
             args_b = argument_bytes((params, opt, placed))
             raw = _drive(step, (params, opt, placed), data * model)
     return {"collectives": rl.collective_bytes(raw["records"]),
@@ -391,6 +426,8 @@ def _extrapolate_cell(arch: str, shape_name: str, multi_pod: bool,
                              variant=variant, overrides=ov_r))
     one, two = recs
     out = dict(two)
+    out["run_s"] = one["run_s"] + two["run_s"]
+    out["host_s"] = one["host_s"] + two["host_s"]
 
     def lin(a, b):
         return b + (R - 2) * (b - a)
@@ -435,6 +472,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         _n_layers: int        depth cut
     With ``mesh=None`` a fake group of 256 (512 with ``multi_pod``) ranks
     is set up for the cell and torn down after."""
+    t_start = time.time()
     ov = overrides or {}
     shape = LM_SHAPES[shape_name]
     cfg = get_config(arch)
@@ -504,11 +542,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             step = build_decode_step(cfg, n_groups)
             args = (params, _place_tree(inputs["cache"], sh["cache"]),
                     _place(inputs["token"], sh["token"]), shape.seq_len - 1)
-        # only attention reads the decode position: without it the
-        # reference's jit prunes the unread argument (keep_unused=False)
-        args_b = argument_bytes(args[:3] if shape.kind == "decode" and
-                                "attn" not in cfg.pattern else args)
         raw = _drive(step, args, chips)
+        # the decode position is a Python int here (the program's costs do
+        # not depend on it), which no op reads as a tensor and every
+        # forward turns into positions; the reference traces it as an
+        # int32 argument that only attention reads
+        args_b = argument_bytes(args[:3] if shape.kind == "decode" and
+                                "attn" not in cfg.pattern else args,
+                                reads=raw.pop("reads"))
         out = raw.pop("out")
         if train:  # (params, opt_state, metrics{loss, grad_norm, lr})
             out_b = argument_bytes(out[:2]) + 4 * len(out[2])
@@ -530,6 +571,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "overrides": ov, "chunk_size": cfg.chunk_size,
         "collective_calls": raw["calls"], "n_layers": cfg.n_layers,
         "torch": torch.__version__,
+        "host_s": round(time.time() - t_start, 2),
     })
     if verbose:  # bytes are one device's already: no division by chips
         print(f"[{arch} x {shape_name} x {mesh_name}] "

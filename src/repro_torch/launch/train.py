@@ -165,8 +165,9 @@ def _rank_mesh(spec: str, device: str):
             raise DeviceLost("--device cuda: no GPU is visible")
         local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
         torch.cuda.set_device(local % torch.cuda.device_count())
-    dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
-                            world_size=world)
+    if not dist.is_initialized():  # a second run in the same ranks
+        dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                                world_size=world)
     return make_host_mesh(*shape, device_type=device), device
 
 

@@ -23,8 +23,9 @@ On a mesh (``Trainer(..., mesh=)``, a ``DeviceMesh`` with the axes
 ``data`` and ``model``) the parameters and moments are DTensors placed by
 ``models.sharding.param_specs`` (each device keeps its chunk of the same
 seeded values: nothing goes over the wire), each batch is placed with
-its batch dim on the data axes, and the same step runs: DTensor issues
-the forward's and backward's collectives (``models.spmd``). The
+its batch dim on the data axes (by microbatch: ``place_on_mesh``), and
+the same step runs: DTensor issues the forward's and backward's
+collectives (``models.spmd``). The
 gradients of parameters replicated over the data axes come back Partial
 over them, as GSPMD's do before its reduction: the step reduces each one
 to its parameter's placements (an all-reduce), and every collective of a
@@ -105,9 +106,38 @@ def quantize_int8(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+class Microbatches(dict):
+    """A batch stacked by microbatch: each leaf is (mb, B / mb, ...), and
+    microbatch i is ``leaf[i]`` (:func:`place_on_mesh` makes one)."""
+
+
 def _split(batch: Dict[str, torch.Tensor], mb: int, i: int):
+    """Microbatch ``i`` of ``mb``: the contiguous block i of the batch
+    dim, as the reference's ``scan`` takes it."""
+    if isinstance(batch, Microbatches):
+        return {k: v[i] for k, v in batch.items()}
     return {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
             for k, v in batch.items()}
+
+
+def place_on_mesh(batch: Dict[str, torch.Tensor], mesh, microbatches: int = 1
+                  ) -> Dict[str, torch.Tensor]:
+    """``batch`` (the same whole tensors on every rank) on ``mesh`` with
+    its batch dim on the data axes: each device keeps its rows, nothing
+    goes over the wire. With ``microbatches`` > 1 each leaf is stacked
+    first, (mb, B / mb, ...), with the data axes on dim 1 (a
+    :class:`Microbatches`): each data rank holds its share of every
+    contiguous microbatch, so no microbatch is gathered in the step."""
+    ba = shd.batch_axes(mesh)
+    lead = ()
+    if microbatches > 1:
+        batch = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                              *v.shape[1:]) for k, v in batch.items()}
+        lead = (None,)
+    placed = {k: shd.NamedSharding(mesh, shd.P(
+        *lead, ba, *([None] * (v.ndim - 1 - len(lead))))).place(v)
+        for k, v in batch.items()}
+    return Microbatches(placed) if microbatches > 1 else placed
 
 
 def make_train_step(
@@ -121,6 +151,7 @@ def make_train_step(
     ``batch`` a dict of tensors on the parameters' device; ``metrics``
     ``loss`` (the total, with the MoE aux term; a device scalar),
     ``grad_norm`` and ``lr``. Microbatching splits the batch's leading dim
+    into contiguous blocks (a :class:`Microbatches` batch comes split)
     and averages the gradients. The step runs inside ``ops.traced()``, as
     the reference jits it: a fault campaign's dispatch hook stands down
     there."""
@@ -235,16 +266,13 @@ class Trainer:
                 tree[n] = _own_chunk(specs[n].place(tree[n]))
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A host batch on the device; on a mesh, its batch dim on the data
-        axes (each device keeps its rows)."""
+        """A host batch on the device; on a mesh, placed by
+        :func:`place_on_mesh` with ``train_cfg.microbatches``."""
         out = {k: torch.as_tensor(v, device=self.device)
                for k, v in batch.items()}
         if self.mesh is None:
             return out
-        ba = shd.batch_axes(self.mesh)
-        return {k: shd.NamedSharding(
-            self.mesh, shd.P(ba, *([None] * (v.ndim - 1)))).place(v)
-            for k, v in out.items()}
+        return place_on_mesh(out, self.mesh, self.train_cfg.microbatches)
 
     def state_tree(self) -> dict:
         """``{"params": ..., "opt": (step, m, v)}`` as the reference's trees

@@ -340,3 +340,52 @@ def test_run_cell_on_the_production_mesh(parity, shape):
     assert args > 5e8
     assert parity["prod_rss_growth_kb"] * 1024 < args / 4
     assert rec["collectives"]["all-gather"] > 0
+
+
+def test_cost_mode_tells_reads_from_overwrites():
+    """``CostMode.reads`` and ``writes``: an op's operands are reads, a
+    ``copy_``'s or ``fill_``'s destination only a write, an ``add_``'s a
+    read; a view reads nothing (its later use reads its base's storage),
+    nor does a ``*_like`` or ``new_*`` factory its shape's source.
+    ``argument_bytes(reads=)`` counts the leaves read."""
+    a, b, c, d, e = (torch.ones(4, 4) for _ in range(5))
+    shapes = [torch.ones(4, 4) for _ in range(4)]
+    cost = rl.CostMode()
+    with cost:
+        a.t()  # a view alone
+        b.t().sum()  # a view's use reads its base
+        c.copy_(a * 2)  # the multiply reads a; the copy overwrites c
+        d.add_(1.0)  # reads and writes d
+        e.fill_(0.0)
+        torch.zeros_like(shapes[0])
+        torch.empty_like(shapes[1])
+        torch.full_like(shapes[2], 3.0)
+        shapes[3].new_zeros((2, 2))
+    key = rl.storage_key
+    assert cost.reads >= {key(a), key(b), key(d)}
+    assert key(c) not in cost.reads and key(e) not in cost.reads
+    assert not {key(t) for t in shapes} & cost.reads
+    assert {key(c), key(e)} <= cost.writes and key(d) not in cost.writes
+    assert dr.argument_bytes((a, b, c, d, e), reads=cost.reads) == 3 * 64
+    assert dr.argument_bytes((a, 7), reads=set()) == 4  # an int: kept
+
+
+def test_cells_table_pairs_a_cells_meshes():
+    """``report.cells_table``: one row a cell, each field "16x16 ;
+    2x16x16" where both meshes are recorded."""
+    recs = []
+    for i, r in enumerate(_records()[:2]):
+        r = dict(r, bytes_per_device={"argument_bytes": 2e9,
+                                      "output_bytes": 1e6,
+                                      "temp_bytes": 3e3},
+                 collectives={"all-gather": 5e9}, host_s=1.5)
+        recs.append(r)
+        if i == 0:
+            recs.append(dict(r, mesh="2x16x16", chips=512))
+    rows = report.cells_table(recs).splitlines()
+    assert len(rows) == 2 + 2
+    assert rows[2] == ("| qwen2_5_3b | decode_32k | 16x16 ; 2x16x16 | "
+                       "2.00GB ; 2.00GB | 1.0MB ; 1.0MB | 3KB ; 3KB | "
+                       "1.000e+12 ; 5.000e+11 | 0 / 5.00GB / 0 / 0 / 0 ; "
+                       "0 / 5.00GB / 0 / 0 / 0 | 1.5s ; 1.5s |")
+    assert rows[3].startswith("| qwen2_5_3b | train_4k | 16x16 | 2.00GB |")

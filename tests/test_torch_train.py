@@ -284,12 +284,13 @@ def test_loss_fn_chunks_and_aux_are_the_reference():
 
 # -- one training step a smoke config ----------------------------------------
 
-def _step_both(arch, monkeypatch, ref_kw=None, port_kw=None):
+def _step_both(arch, monkeypatch, ref_kw=None, port_kw=None, nb=None):
     """One reference step (jitted; its gradients returned through the
     metrics) and one port step (its gradients caught at
-    ``apply_updates``) on the same weights and batch."""
+    ``apply_updates``) on the same weights and batch (``_batch``'s by
+    default)."""
     jcfg, jparams, tcfg, model = _models(arch)
-    nb = _batch(jcfg)
+    nb = _batch(jcfg) if nb is None else nb
     orig_j = JTR.apply_updates
 
     def catch_j(p, g, s, c):
@@ -336,6 +337,27 @@ def test_train_step_is_the_reference(arch, monkeypatch):
     one step (hubert's and jamba's are in test_torch_hubert.py)."""
     kw = dict(n_groups=2)
     _assert_step_close(*_step_both(arch, monkeypatch, kw, kw))
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "phi3_5_moe_42b"])
+def test_microbatched_train_step_is_the_reference(arch, monkeypatch):
+    """``microbatches=2`` over B 4 on an MoE config, one routing group a
+    microbatch: the group's load-balancing term and capacity span the
+    microbatch's two rows, so the loss, grad norm and every leaf's
+    gradient are the reference's (1e-5 relative) only where each
+    microbatch is the reference's contiguous block."""
+    jcfg = _cfgs(arch)[0]
+    nb = {k: np.concatenate([a, b]) for (k, a), b in
+          zip(_batch(jcfg, 1).items(), _batch(jcfg, 2).values())}  # B 4
+    kw = dict(n_groups=1, microbatches=2)
+    jm, tm, jg, tg = _step_both(arch, monkeypatch, kw, kw, nb)
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                   rel=1e-5)
+    assert tg.keys() == jg.keys()
+    for n, g in tg.items():
+        scale = max(float(jg[n].abs().max()), 1e-30)
+        assert float((g - jg[n]).abs().max()) <= 1e-5 * scale, n
 
 
 def test_xlstm_loss_and_gradient_are_the_reference(monkeypatch):
