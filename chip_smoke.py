@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths. The conv path is the paper's experiment: the five ResNet-50
+Twelve paths. The conv path is the paper's experiment: the five ResNet-50
 convolutions at their published widths and batch 1000, planned for the H100
 preset and run through ``repro_torch.ops.conv2d`` on the ``cuda`` backend
 (the hand-written direct conv) and the ``im2col`` backend (patch expansion +
@@ -51,14 +51,21 @@ at its published widths (one block and its dense SwiGLU FFN) on a (data
 kernel on its quarter of the channels. The xLSTM mesh path trains
 xLSTM-1.3B at its published widths cut to two (mLSTM, sLSTM) units on the
 same (data 1, model 4) mesh, one mLSTM head and 512 sLSTM channels a
-rank, and saves a checkpoint from the ranks.
+rank, and saves a checkpoint from the ranks. The long-context decode
+path runs Qwen2.5-3B's ``decode_32k`` step at published widths and full
+depth over a 32,768-position cache sharded along its sequence on the
+same (data 1, model 4) mesh, each rank's attention through the flash
+kernel's launch with row statistics and the shards merged by
+all-reduces, against one card.
 Phases, each fatal on failure (from phase 3 to phase 24, and in phase
 26, each phase's dispatch decisions are recorded, and it fails if one of
 them was degraded or the quarantine table is not empty at its end: an
 organic fault never passes as a demotion):
 
   1. device: a CUDA device is required; name, power limit and versions;
-  2. build: all seven kernels, one nvcc per source (six), started together;
+  2. build: all seven kernels (and the flash launch with row statistics,
+     counted apart from the same library), one nvcc per source (six),
+     started together;
      the tensor-core variants of the GEMM, of the direct conv and of flash
      attention (every (hd, block, C) instance of ``flash_tc_kernel``), of
      paged decode (every head-dim instance of ``paged_decode_tc_kernel``),
@@ -465,8 +472,8 @@ organic fault never passes as a demotion):
      and remat's recomputation); the step s a rank and on one card, plain
      and with the options, in the summary line. (b)
      In a process of its own (``--dryrun``, no card memory), started
-     with phase 27 so that its host work runs beside phases 27-30, and
-     read after phase 30 (fatal past ``DRYRUN_TIMEOUT`` from its start):
+     with phase 27 so that its host work runs beside phases 27-31, and
+     read after phase 31 (fatal past ``DRYRUN_TIMEOUT`` from its start):
      the dry run at full depth of 27 of the 31 cells of
      ``configs.all_cells()`` on (16, 16) (``DRYRUN_LEFT_OUT``: four
      ``train_4k`` cells) and Qwen2.5-3B's ``train_4k`` on (2, 16, 16),
@@ -538,10 +545,40 @@ organic fault never passes as a demotion):
      writes a sha256 of each gathered leaf, and the checkpoint restored
      on the card (``checkpoint.restore``) must match every digest;
      a step's seconds and GB a rank printed;
- 31. the ``kernels`` JSON line (the flash entry lists its compiled
+ 31. decode over a sequence-sharded cache, beside phase 27 (b)'s dry
+     run. (a) The flash launch with row statistics (``stats=True``: the
+     unnormalised f32 accumulator, the row max and the row sum) against
+     its plain version at a rank's shard (16 rows = B 8 x KV 2, 8 folded
+     queries, 8,192 keys, hd 128, bf16) and at one card's cache (32,768
+     keys), with a scalar, a per-row and a negative offset (every key
+     masked), and at the rank's shard in f32 (the FMA kernel): the
+     accumulator within 2^-7 (bf16) or 1e-4 (f32) x max(1, max|plain|),
+     m and l within 1e-4 relative, the masked shard's m exactly NEG_INF
+     and its merge weight exactly 0, HMMA in the instance's SASS and
+     every bf16 launch a tensor-core launch; the bf16 launches' ms (a
+     call, a launch, device) beside the plain version, aten's
+     ``_scaled_dot_product_flash_attention`` on the folded rows and the
+     bound. (b) Qwen2.5-3B at published widths and
+     full depth (36 layers), B 8 (one data group's share of
+     ``decode_32k``), a 32,768-position cache: one card fills it with a
+     32,760-token seeded prompt (``hidden_forward`` a row at a time, no
+     full logits) and decodes 8 greedy steps through
+     ``dryrun.build_decode_step``; the cache's four sequence shards reach
+     4 gloo ranks on (data 1, model 4) through CUDA IPC (each this script
+     with ``--seqdec-rank``; no gloo), which decode the same 8 steps on
+     the ``cuda`` backend teacher-forced on one card's tokens: every
+     step's logits within the teacher-forced allowance (36 layers) of
+     one card's, 288 stats launches a rank all on the tensor cores and no
+     other launch, 288 plain flash launches on one card, each step's
+     wire bytes by kind and the argument bytes equal to
+     ``dryrun.count_decode_step``'s count under
+     ``dtensors.all_reduce_gathers`` (all-reduces only); the prefill's
+     and a step's seconds, GB a rank printed;
+ 32. the ``kernels`` JSON line (the flash entry lists its compiled
      instances, the hd-80 timing and phases 27's and 28's rank launches;
      the conv entry its phase-26 shard launches; the conv1d entry phase
-     29's rank launches), the card's name and power limit, and the last
+     29's rank launches; the stats entry phase 31 (b)'s rank launches and
+     phase 31 (a)'s times), the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Inputs are random, made on the device from fixed seeds. Tolerance: an
@@ -2632,6 +2669,24 @@ def audit_phase() -> int:
           "cuda", (qd, kd, vd), None, ("per_row_q_offset",),
           lambda: ops.attention(qd, kd, vd, q_offset=depth,
                                 ctx=ctxs["cuda"]), flash_expect)
+    # a rank's launch with row statistics over its shard of Qwen2.5-3B's
+    # sequence-sharded decode_32k cache (phase 31): per-row offsets, some
+    # past every key of the shard
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 16)
+    qs = torch.randn((SEQ_BATCH, 16, 1, 128), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ks, vs = (torch.randn((SEQ_BATCH, 2, SEQ_LEN // MESH_RANKS, 128),
+                          generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in "kv")
+    offs = torch.randint(-SEQ_LEN // 2, SEQ_LEN // MESH_RANKS, (SEQ_BATCH,),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    check("attention/qwen sequence-sharded decode, a rank's stats launch",
+          "attention", "flash_attention_stats", "cuda", (qs, ks, vs),
+          {"stats": True}, ("per_row_q_offset",),
+          lambda: ops.attention(qs, ks, vs, q_offset=offs, ctx=ctxs["cuda"],
+                                stats=True), flash_expect)
+    del qs, ks, vs
     qp, kp, vp, tables, lengths = att["paged"]
 
     def paged_expect(d, got):
@@ -5028,7 +5083,7 @@ def _free_port() -> int:
 
 def start_dryrun() -> tuple:
     """Phase 27 (b)'s process (this script with ``--dryrun``; host work
-    only), started with phase 27 so that it runs beside phases 27-30 (not
+    only), started with phase 27 so that it runs beside phases 27-31 (not
     beside the host-paced timings of the earlier phases): (the process,
     its output file, its start time). It is stopped at exit if it still
     runs."""
@@ -5083,7 +5138,7 @@ def mesh_phase() -> dict:
 
 def dryrun_phase(dry: tuple) -> dict:
     """Phase 27 (b) (module docstring): the dry run's process
-    (:func:`start_dryrun`'s ``dry``), read after phase 30: its lines, and
+    (:func:`start_dryrun`'s ``dry``), read after phase 31: its lines, and
     its gates. Fatal on any failure."""
     from repro_torch.configs import get_config
 
@@ -6038,6 +6093,419 @@ def xlstm_mesh_phase() -> dict:
     return summary
 
 
+# phase 31: decode over a sequence-sharded cache on the card. Qwen2.5-3B at
+# published widths and full depth; B 8 is one data group's share of
+# decode_32k (128 rows over data 16), its 32,768-position cache split over
+# RECURRENT_MESH_SHAPE's model axis (cache_specs), 8,192 positions a rank
+SEQ_ARCH = "qwen2_5_3b"
+SEQ_BATCH = 8
+SEQ_LEN = 32768
+SEQ_PROMPT = SEQ_LEN - 8  # the one-card prefill; the steps fill the rest
+SEQ_STEPS = 8
+SEQ_TIMEOUT = 600  # seconds for the ranks to finish
+
+
+def stats_kernel_phase() -> dict:
+    """Phase 31 (a) (module docstring): the flash launch with row
+    statistics against its plain version at a rank's shard and at one
+    card's cache (bf16: the tensor-core kernel), and at a rank's shard in
+    f32 (the FMA kernel), with a scalar, a per-row and a negative offset;
+    the bf16 launches' times beside the plain version, the library's
+    flash attention (which returns the log-sum-exp) and the bound.
+    Returns the ``kernels`` line's entry (``launches`` set by phase 31
+    (b)). Fatal on any failure."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.flash_attention import (NEG_INF,
+                                                     flash_attention,
+                                                     flash_attention_plain,
+                                                     launch_config)
+
+    kern = KERNELS["flash_attention_stats"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    rows, fq, hd = SEQ_BATCH * 2, 8, 128  # (B x KV, g x Lq): Qwen's fold
+    c = launch_config(fq, SEQ_LEN // MESH_RANKS, hd, 64, torch.bfloat16,
+                      rows=rows)["warp_grid"][1]
+    sym = template_symbol("flash_tc_kernel", hd, 64, c)
+    body = [t for f, t in sass_functions(kern.library_path()).items()
+            if sym in f]
+    hmma = body[0].count("HMMA") if len(body) == 1 else 0
+    if hmma == 0:
+        fail(f"flash stats: {sym} has no HMMA in its SASS")
+    entry, worst = {}, 0.0
+    shard_keys = SEQ_LEN // MESH_RANKS
+    for tag, Lk, dt in (("rank shard", shard_keys, torch.bfloat16),
+                        ("one card", SEQ_LEN, torch.bfloat16),
+                        ("rank shard, f32", shard_keys, torch.float32)):
+        tc = dt == torch.bfloat16
+        q = torch.randn((rows, fq, hd), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((rows, Lk, hd), generator=gen,
+                            device=dev).to(dt) for _ in "kv")
+        offs = {"scalar": Lk - 1,
+                "per-row": torch.randint(0, Lk, (rows,), generator=gen,
+                                         device=dev, dtype=torch.int32),
+                "negative": -5}  # a shard wholly past every query
+        parts = {}
+        for name, off in offs.items():
+            n0, tc0 = kern.launches, kern.tensor_core_launches
+            got = flash_attention(q, k, v, True, off, q_seq_len=1,
+                                  stats=True)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, True, off, 1, stats=True)
+            acc_err = (got[0] - want[0]).abs().max().item()
+            acc_tol = TOL[dt] * max(1.0, want[0].abs().max().item())
+            m_rel = ((got[1] - want[1]).abs()
+                     / want[1].abs().clamp(min=1.0)).max().item()
+            l_rel = ((got[2] - want[2]).abs() / want[2]).max().item()
+            line = {"flash_stats": tag, "offset": name, "rows": rows,
+                    "folded_q": fq, "Lk": Lk, "hd": hd,
+                    "acc_max_abs_err": acc_err, "acc_allowed": acc_tol,
+                    "m_max_rel_err": m_rel, "l_max_rel_err": l_rel,
+                    "bound": 1e-4, "launched": kern.launches == n0 + 1,
+                    "tensor_core": kern.tensor_core_launches == tc0 + int(tc),
+                    "hmma": hmma}
+            print(json.dumps(line), flush=True)
+            if not (acc_err <= acc_tol and m_rel <= 1e-4 and l_rel <= 1e-4
+                    and line["launched"] and line["tensor_core"]):
+                fail(f"flash stats: {tag}, {name} offset: {line}")
+            worst = max(worst, acc_err)
+            parts[name] = got
+        m_neg = parts["negative"][1]
+        w = torch.exp(m_neg - torch.maximum(m_neg, parts["scalar"][1]))
+        if not bool((m_neg == NEG_INF).all()) or not bool((w == 0).all()):
+            fail(f"flash stats: {tag}: the shard past every query reports "
+                 f"m in [{m_neg.min().item()}, {m_neg.max().item()}], "
+                 f"merge weight up to {w.max().item()}")
+        if not tc:
+            continue
+        # the decode launch (every key valid) and its yardstick: aten's
+        # flash attention on the folded rows (it returns the log-sum-exp)
+        qs, ks, vs = (t.reshape(1, rows, -1, hd) for t in (q, k, v))
+
+        def run(q=q, k=k, v=v, Lk=Lk):
+            return flash_attention(q, k, v, True, Lk - 1, q_seq_len=1,
+                                   stats=True)
+
+        def run_lib(qs=qs, ks=ks, vs=vs):
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qs, ks, vs, scale=hd ** -0.5)
+
+        ms = median_ms(run, 3, 20)
+        nbytes = (2 * k.numel() + q.numel()) * 2 + rows * fq * (hd + 2) * 4
+        bms, by = bound_ms(4.0 * rows * fq * Lk * hd, nbytes,
+                           PEAK_BF16_FLOPS)
+        times = {"ms": ms, "ms_per_launch": per_launch_ms(run),
+                 "device_ms_per_call": graph_ms_per_call(run),
+                 "plain_ms": median_ms(lambda: flash_attention_plain(
+                     q, k, v, True, Lk - 1, 1, stats=True), 1, 3),
+                 "library_ms": median_ms(run_lib, 3, 20),
+                 "library_ms_per_launch": per_launch_ms(run_lib),
+                 "library_device_ms_per_call": graph_ms_per_call(run_lib),
+                 "bound_ms": bms, "bound_by": by,
+                 "kv_bytes": 2 * k.numel() * 2,
+                 "gbytes_per_s": nbytes / ms / 1e6}
+        print(json.dumps({"flash_stats_times": tag, **times,
+                          "card": smi()}), flush=True)
+        entry[tag] = times
+        del q, k, v, parts
+        torch.cuda.empty_cache()
+    shard = entry["rank shard"]
+    return {"name": "flash_attention_stats", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:96",
+            "max_abs_err": worst, "ms": shard["ms"],
+            "plain_ms": shard["plain_ms"], "bound_ms": shard["bound_ms"],
+            "bound_by": shard["bound_by"],
+            "library_ms": shard["library_ms"],
+            "ms_per_launch": shard["ms_per_launch"],
+            "device_ms_per_call": shard["device_ms_per_call"],
+            "library_ms_per_launch": shard["library_ms_per_launch"],
+            "library_device_ms_per_call": shard["library_device_ms_per_call"],
+            "library_call":
+                "torch.ops.aten._scaled_dot_product_flash_attention",
+            "one_card": entry["one card"], "ok": True,
+            "shapes": f"rank shard: {rows} rows x {fq} folded queries, "
+                      f"{SEQ_LEN // MESH_RANKS} keys, hd {hd}, bf16 in, f32 "
+                      "out with row max and sum"}
+
+
+def seq_decode_rank_main(rank: int, outdir: str) -> None:
+    """One rank of phase 31 (b): Qwen2.5-3B's parameters placed as they are
+    made (``placed_as_made``: a quarter of every ``model``-sharded leaf),
+    its shard of the one-card cache from the parent through CUDA IPC (no
+    gloo), then ``SEQ_STEPS`` decode steps through
+    ``launch.dryrun.build_decode_step`` on the ``cuda`` backend, teacher
+    forced on the one card's tokens, every kernel's count set to 0 just
+    before and read just after, each step's collectives counted
+    (``CostMode``, the gloo guard on); its logits (made whole by
+    all-reduces after each step) against the one card's."""
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import dtensors
+    from repro_torch.analysis.roofline import CostMode, collective_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+    from repro_torch.train.trainer import placed_as_made
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=MESH_RANKS)
+    mesh = make_host_mesh(*RECURRENT_MESH_SHAPE, device_type="cuda")
+    cfg = get_config(SEQ_ARCH)
+    with placed_as_made(cfg, mesh):
+        params = T.init_params(cfg, seed=SEED, device="cuda")
+    cspecs = shd.shardings(mesh, shd.cache_specs(cfg, mesh, SEQ_BATCH,
+                                                 SEQ_LEN))
+    leaf = (cfg.repeats, SEQ_BATCH, cfg.n_kv_heads, SEQ_LEN, cfg.hd)
+    seq = cspecs["b0"]["k"].local_slices(leaf)[3]
+    shard = seq.start // (seq.stop - seq.start)
+    with open(os.path.join(outdir, f"shard{shard}.ipc"), "rb") as f:
+        local = pickle.load(f)  # the parent's tensors, mapped (CUDA IPC)
+    shard_bytes = sum(t.numel() * t.element_size()
+                      for leaves in local.values() for t in leaves.values())
+    cache = {b: {n: DTensor.from_local(t, mesh, cspecs[b][n].placements,
+                                       run_check=False)
+                 for n, t in leaves.items()} for b, leaves in local.items()}
+    single = torch.load(os.path.join(outdir, "single.pt"))
+    tok_sh = shd.NamedSharding(mesh, shd.P(shd.batch_axes(mesh), None))
+    step = dr.build_decode_step(cfg, math.gcd(SEQ_BATCH, MESH_RANKS),
+                                ctx=ExecutionContext(target=H100,
+                                                     backend="cuda"))
+    allowance = logit_allowance(cfg.n_layers)
+    report = {"rank": rank, "shard": [seq.start, seq.stop],
+              "logit_err": [], "logit_allowed": [], "collectives": [],
+              "step_s": [], "local_device": str(
+                  next(params.parameters()).to_local().device)}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for i in range(SEQ_STEPS):
+        tok = tok_sh.place(single["tokens"][i][:, None].cuda())
+        if i == 0:
+            report["argument_bytes"] = dr.argument_bytes(
+                (params, cache, tok, SEQ_PROMPT))
+        count = CostMode(counts_only=True, check=dtensors.gloo_guard)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count:
+            logits, cache = step(params, cache, tok, SEQ_PROMPT + i)
+        torch.cuda.synchronize()
+        report["step_s"].append(time.perf_counter() - t0)
+        report["collectives"].append(collective_bytes(count.collectives))
+        got = dtensors.whole(logits).float().cpu()
+        want = single["logits"][i]
+        report["logit_err"].append((got - want).abs().max().item())
+        report["logit_allowed"].append(allowance(want))
+        report["finite"] = (report.get("finite", True)
+                            and bool(torch.isfinite(got).all()))
+    report["kernel_launches"] = kernel_launches()
+    report["tensor_core_launches"] = {n: k.tensor_core_launches
+                                      for n, k in KERNELS.items()}
+    report["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                         / 1e9)
+    report["shard_gb"] = shard_bytes / 1e9
+    with open(os.path.join(outdir, f"checks{rank}.json"), "w") as f:
+        json.dump(report, f)
+    del cache, local
+    dist.destroy_process_group()
+
+
+def seq_decode_phase(stats: dict) -> dict:
+    """Phase 31 (b) (module docstring): Qwen2.5-3B decoded over a cache
+    sharded along its sequence on 4 gloo ranks sharing the card, against
+    one card and the dry run's count of the step. ``stats`` is phase 31
+    (a)'s ``kernels`` entry; its ``launches`` are set here. Fatal on any
+    failure; the files and the shared shards are released at the end."""
+    import shutil
+    import tempfile
+    from multiprocessing.reduction import ForkingPickler
+
+    import torch.multiprocessing  # noqa: F401  (CUDA tensors' IPC reducer)
+
+    from repro_torch import dtensors
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.ops import ExecutionContext
+    from repro_torch.plan import H100
+
+    t_phase = time.perf_counter()
+    card = smi()
+    cfg = get_config(SEQ_ARCH)
+    ctx = ExecutionContext(target=H100, backend="cuda")
+    outdir = tempfile.mkdtemp(prefix="seq_decode_")
+    shards = []
+    try:
+        t0 = time.perf_counter()
+        with dtensors.all_reduce_gathers():  # what gloo runs on the card
+            count = dr.count_decode_step(cfg, RECURRENT_MESH_SHAPE,
+                                         SEQ_BATCH, SEQ_LEN, SEQ_PROMPT)
+        count_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 32)
+        params = T.init_params(cfg, seed=SEED, device="cuda")
+        cache = T.init_cache(cfg, SEQ_BATCH, SEQ_LEN, device="cuda")
+        prompt = torch.randint(0, cfg.vocab_size, (SEQ_BATCH, SEQ_PROMPT),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = []
+        with torch.no_grad():
+            # a row at a time: at B 8 one (B, L, d_ff) activation is 5.8 GB
+            for b in range(SEQ_BATCH):
+                row = {blk: {n: t[:, b:b + 1] for n, t in leaves.items()}
+                       for blk, leaves in cache.items()}
+                x, _, _ = T.hidden_forward(params, cfg,
+                                           tokens=prompt[b:b + 1],
+                                           cache=row, cache_index=0, ctx=ctx)
+                first.append(lm_logits(params.head, x[:, -1:],
+                                       torch.bfloat16)[:, -1].float()
+                             .argmax(-1))
+                del x
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        # each rank's shard of the filled cache, shared through CUDA IPC
+        n = SEQ_LEN // MESH_RANKS
+        for j in range(MESH_RANKS):
+            shards.append({blk: {nm: t[:, :, :, j * n:(j + 1) * n]
+                                 .contiguous() for nm, t in leaves.items()}
+                           for blk, leaves in cache.items()})
+            with open(os.path.join(outdir, f"shard{j}.ipc"), "wb") as f:
+                f.write(ForkingPickler.dumps(shards[-1]))
+        step = dr.build_decode_step(cfg, math.gcd(SEQ_BATCH, MESH_RANKS),
+                                    ctx=ctx)
+        tok = torch.cat(first).to(torch.int32)
+        toks, logits, single_s = [], [], []
+        zero_counts()
+        for i in range(SEQ_STEPS):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, tok[:, None], SEQ_PROMPT + i)
+            torch.cuda.synchronize()
+            single_s.append(time.perf_counter() - t0)
+            logits.append(lg.float().cpu())
+            tok = lg.float().argmax(-1).to(torch.int32)
+        single_launches = kernel_launches()
+        single_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.save({"tokens": torch.stack(toks).cpu(),
+                    "logits": torch.stack(logits)},
+                   os.path.join(outdir, "single.pt"))
+        del params, cache, step, lg, prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   LOCAL_RANK="0")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seqdec-rank",
+             str(r), outdir], env=dict(env, RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                left = SEQ_TIMEOUT - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(left, 1.0))[0])
+        except subprocess.TimeoutExpired:
+            fail(f"seq decode: a rank did not finish in {SEQ_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            fail("seq decode: rank exit codes "
+                 f"{[p.returncode for p in procs]}:\n"
+                 + "\n".join(logs)[-6000:])
+        checks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, f"checks{r}.json")) as f:
+                checks.append(json.load(f))
+    finally:
+        shards.clear()
+        shutil.rmtree(outdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    per_step = cfg.n_layers * SEQ_STEPS
+    row = {"seq_decode": cfg.name, "phase": "31", "layers": cfg.n_layers,
+           "mesh": {"data": RECURRENT_MESH_SHAPE[0],
+                    "model": RECURRENT_MESH_SHAPE[1]},
+           "ranks": MESH_RANKS, "backend": "gloo, one card",
+           "batch": SEQ_BATCH, "cache": SEQ_LEN, "prompt": SEQ_PROMPT,
+           "steps": SEQ_STEPS, "shards": [c["shard"] for c in checks],
+           "rank_logit_max_err": [max(c["logit_err"]) for c in checks],
+           "logit_allowed": checks[0]["logit_allowed"],
+           "rank_logit_err_per_step": checks[0]["logit_err"],
+           "wire_bytes_per_step": checks[0]["collectives"][0],
+           "dry_run_wire_bytes": count["collectives"],
+           "dry_run_calls": count["calls"],
+           "argument_bytes": [c["argument_bytes"] for c in checks],
+           "dry_run_argument_bytes": count["argument_bytes"],
+           "dry_run_count_s": count_s,
+           "rank_kernel_launches": [c["kernel_launches"] for c in checks],
+           "rank_tensor_core_launches": [c["tensor_core_launches"]
+                                         for c in checks],
+           "single_kernel_launches": single_launches,
+           "prefill_s": prefill_s, "single_step_s": single_s,
+           "rank_step_s": [c["step_s"] for c in checks],
+           "rank_gb": [c["max_memory_allocated_gb"] + c["shard_gb"]
+                       for c in checks],
+           "rank_shard_gb": checks[0]["shard_gb"],
+           "single_max_memory_allocated_gb": single_peak,
+           "ranks_seconds": ranks_s, "card": card}
+    print(json.dumps(row), flush=True)
+    for c in checks:
+        r = c["rank"]
+        if not c["finite"] or len(c["logit_err"]) != SEQ_STEPS or any(
+                e > a for e, a in zip(c["logit_err"], c["logit_allowed"])):
+            fail(f"seq decode: rank {r}'s logits {c['logit_err']} vs one "
+                 f"card's, allowed {c['logit_allowed']}")
+        kl, tc = c["kernel_launches"], c["tensor_core_launches"]
+        if kl["flash_attention_stats"] != per_step or \
+                tc["flash_attention_stats"] != per_step or any(
+                    v for k, v in kl.items() if k != "flash_attention_stats"):
+            fail(f"seq decode: rank {r} launched {kl} ({tc} on the tensor "
+                 f"cores), not {per_step} stats launches alone")
+        if any(s != count["collectives"] for s in c["collectives"]) or \
+                set(count["calls"]) != {"all-reduce"}:
+            fail(f"seq decode: rank {r} wire bytes {c['collectives']} vs "
+                 f"the dry run's {count['collectives']} "
+                 f"({count['calls']}): all-reduces only")
+        if c["argument_bytes"] != count["argument_bytes"]:
+            fail(f"seq decode: rank {r} argument bytes "
+                 f"{c['argument_bytes']} vs the dry run's "
+                 f"{count['argument_bytes']}")
+        if not c["local_device"].startswith("cuda"):
+            fail(f"seq decode: rank {r} ran on {c['local_device']}")
+    if single_launches["flash_attention"] != per_step or any(
+            v for k, v in single_launches.items() if k != "flash_attention"):
+        fail(f"seq decode: one card launched {single_launches}, not "
+             f"{per_step} flash launches alone")
+    stats["launches"] = checks[0]["kernel_launches"]["flash_attention_stats"]
+    stats["tensor_core_launches"] = checks[0]["tensor_core_launches"][
+        "flash_attention_stats"]
+    stats["rank_launches"] = [c["kernel_launches"]["flash_attention_stats"]
+                              for c in checks]
+    summary = {"seq_decode_phase": "summary",
+               "rank_stats_launches": sum(stats["rank_launches"]),
+               "all_reduce_calls_per_step": count["calls"]["all-reduce"],
+               "seconds": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6477,7 +6945,7 @@ def main() -> None:
     quiet.close()
 
     # -- 27. the language-model mesh: the mesh trainer and the dry run -------
-    dry = start_dryrun()  # (b), on the host beside phases 27-30
+    dry = start_dryrun()  # (b), on the host beside phases 27-31
     mesh = mesh_phase()
     cycle_check("27")
 
@@ -6493,10 +6961,16 @@ def main() -> None:
     xlstm_mesh_phase()
     cycle_check("30")
 
-    # -- 27 (b). the dry run of production cells, read after phase 30 ------
+    # -- 31. decode over a sequence-sharded cache: the stats kernel, then
+    # Qwen2.5-3B on 4 gloo ranks against one card (beside the dry run) ---
+    stats_kernel = stats_kernel_phase()
+    seq_decode_phase(stats_kernel)
+    cycle_check("31")
+
+    # -- 27 (b). the dry run of production cells, read after phase 31 ------
     dryrun_phase(dry)
 
-    # -- 31. summary --------------------------------------------------------
+    # -- 32. summary --------------------------------------------------------
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     meta = {"conv2d": (csrc + "conv2d.cu", ref + "conv2d.py:82"),
             "matmul": (csrc + "matmul.cu", ref + "matmul.py:41"),
@@ -6540,7 +7014,7 @@ def main() -> None:
         moe_mesh_rank_launches=moe_mesh["rank_flash_launches"])
     conv1d_kernel["mamba_mesh_rank_launches"] = mamba_mesh[
         "rank_conv1d_launches"]
-    kernels += attn_kernels + quant_kernels + [conv1d_kernel]
+    kernels += attn_kernels + quant_kernels + [conv1d_kernel, stats_kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6561,5 +7035,7 @@ if __name__ == "__main__":
         mamba_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--xlstm-rank"]:  # and phase 30 its ranks
         xlstm_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--seqdec-rank"]:  # and phase 31 (b) its ranks
+        seq_decode_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

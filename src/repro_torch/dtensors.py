@@ -16,6 +16,11 @@ below ``ops`` and ``analysis`` (the model's own layout hooks are
   whole as a sum of zero-padded chunks (one all-reduce); each on dims
   that split evenly. :func:`whole` gathers every sharded dim so (a
   checkpoint's leaves).
+* :func:`move` / :func:`make_whole`: a layout move (sharded dims made
+  whole) by DTensor's all-gather or, on a gloo group with card tensors
+  (gloo's all-gather of CUDA tensors does not return) and inside
+  :func:`all_reduce_gathers` (a dry run counting such a group's step), by
+  :func:`reshard`'s all-reduce of zero-padded chunks.
 * :func:`split_columns`: a column-parallel projection's output cut into
   equal column blocks each sharded as the whole was (the mamba block's x/z
   split): one all-to-all with uneven splits, where slicing would gather.
@@ -27,11 +32,12 @@ below ``ops`` and ``analysis`` (the model's own layout hooks are
   on ``model`` (K/V heads expanded to the query heads where the KV heads
   do not divide the axis). Over K/V sharded along their sequence with
   fewer query rows than key rows (a decode step on a sequence-sharded
-  cache), :func:`sequence_parallel_attention` merges the shards' outputs
-  in aten, GSPMD's flash-decode pattern: the flash kernels return no row
-  statistics to merge, so only the ``torch`` backend off the card takes
-  it (the dry run included); the ``cuda`` backend, or shards on the card,
-  raise ``NotImplementedError``.
+  cache), :func:`sequence_parallel_attention` merges the shards'
+  partials, GSPMD's flash-decode pattern: each device's partial (the
+  unnormalised output, the row max and the row sum) comes from the
+  chosen backend's attention with ``stats`` (on ``cuda`` the flash
+  kernel's launch with row statistics, on ``torch`` aten), and three
+  all-reduces merge them.
 * :func:`gloo_guard`: ``GLOO_CUDA_COLLECTIVES`` is what gloo runs on CUDA
   tensors (torch 2.11 on the H100 machine: all-reduce, reduce-scatter,
   all-to-all and broadcast; its all-gather does not return); the guard
@@ -44,6 +50,7 @@ class is imported at the first call.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -54,6 +61,7 @@ GLOO_CUDA_COLLECTIVES = ("all-reduce", "reduce-scatter", "all-to-all",
 BATCH_AXES = ("pod", "data")
 
 _DTENSOR = []  # the DTensor class, imported at the first call
+_ALL_REDUCE_GATHERS: List[bool] = []  # all_reduce_gathers() is active
 
 
 def _dtensor_class():
@@ -326,6 +334,43 @@ def reshard(t, placements):
     return relayout(t, t.device_mesh, placements)
 
 
+@contextlib.contextmanager
+def all_reduce_gathers():
+    """Inside: :func:`move` gathers by all-reduces on any group, as it
+    does on its own on a gloo group with card tensors; a dry run's count
+    of a step that gloo ranks run on the card is taken inside it."""
+    _ALL_REDUCE_GATHERS.append(True)
+    try:
+        yield
+    finally:
+        _ALL_REDUCE_GATHERS.pop()
+
+
+def move(t, placements):
+    """``t`` in ``placements``: DTensor's redistribution (an all-gather a
+    sharded dim made whole), or, inside :func:`all_reduce_gathers` and on
+    a gloo group with ``t`` on the card (``GLOO_CUDA_COLLECTIVES``),
+    :func:`reshard`'s moves (one all-reduce of zero-padded chunks a
+    sharded dim made whole)."""
+    import torch.distributed as dist
+
+    if _ALL_REDUCE_GATHERS or (dist.is_initialized()
+                               and dist.get_backend() == "gloo"
+                               and t.to_local().is_cuda):
+        return reshard(t, tuple(placements))
+    return t.redistribute(t.device_mesh, tuple(placements))
+
+
+def make_whole(t, mesh_dims):
+    """``t`` replicated along the mesh dims ``mesh_dims`` (:func:`move`)."""
+    from torch.distributed.tensor import Replicate
+
+    pl = list(t.placements)
+    for i in mesh_dims:
+        pl[i] = Replicate()
+    return move(t, pl)
+
+
 def _piece_order(rank: int, m: int, parts: int):
     """The exchange of :func:`split_columns` seen from device ``rank`` of
     ``m``: its local chunk is ``parts`` pieces, global piece p = rank x
@@ -528,19 +573,17 @@ def as_dtensor(t, mesh, placements):
     return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
-def local_attention(fn, q, k, v, key_mask=None, causal: bool = True,
-                    q_offset=0, backend: str = "cuda"):
+def local_attention(fn, q, k, v, key_mask=None, q_offset=0):
     """``fn(q, k, v, key_mask)`` on each device's local shards
     (``local_map``): q, k, v (B, H|KV, L, hd) in :func:`_head_placements`;
     K/V heads that do not divide the axis are gathered and repeated up to
     the query heads (their ``g`` copies are local), so each shard's
     grouping is H/KV's. K/V sharded along their sequence (a cache) are
     gathered, or, where the queries' rows are fewer than the keys' (a
-    decode step), take :func:`sequence_parallel_attention` (``causal`` and
-    ``q_offset`` are ``fn``'s): its three all-reduces move q-sized rows,
-    the gather K/V. That merge runs in aten, not through ``fn``: only
-    ``backend`` ``"torch"`` with shards off the card takes it; else it
-    raises ``NotImplementedError``."""
+    decode step), take :func:`sequence_parallel_attention` with ``fn``'s
+    partials (``fn(q, k, v, key_mask, q_offset=, stats=True)``; ``q_offset``
+    is the call's, ``fn``'s own): its three all-reduces move q-sized rows,
+    the gather K/V."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -548,16 +591,8 @@ def local_attention(fn, q, k, v, key_mask=None, causal: bool = True,
     H, KV = q.shape[1], k.shape[1]
     if sharding_dims(k, 2) and q.shape[2] * H < k.shape[2] * KV:
         # fewer query rows than key rows (decode): merge the shards'
-        # outputs; else (prefill) gather K/V, as GSPMD chooses
-        if backend != "torch" or k.to_local().is_cuda:
-            raise NotImplementedError(
-                f"attention over K/V sharded along their sequence on the "
-                f"{backend!r} backend ({k.to_local().device}): the "
-                "sequence-parallel merge needs each shard's row max and "
-                "sum, which no attention kernel returns; it runs on the "
-                "'torch' backend off the card only")
-        return sequence_parallel_attention(q, k, v, causal, q_offset,
-                                           key_mask)
+        # partials; else (prefill) gather K/V, as GSPMD chooses
+        return sequence_parallel_attention(fn, q, k, v, q_offset, key_mask)
     pl = _head_placements(q, H)
     kv_pl = _head_placements(k, KV) if KV != H else pl
     if kv_pl != pl:
@@ -579,65 +614,63 @@ def local_attention(fn, q, k, v, key_mask=None, causal: bool = True,
     return run(q, k, v)
 
 
-def sequence_parallel_attention(q, k, v, causal: bool = True, q_offset=0,
-                                key_mask=None):
+def sequence_parallel_attention(fn, q, k, v, q_offset=0, key_mask=None):
     """GQA attention over K/V sharded along their sequence (dim 2): the
     flash-decode pattern GSPMD makes of the reference's attention over a
     sequence-sharded cache. Each device attends its queries (whole along
-    the sequence axes) to the keys it holds and keeps the unnormalized
-    output, the row max and the row sum (``local_map``); three all-reduces
-    over the sequence axes (a max, then two sums) merge them. In aten, as
-    the reference's XLA attention is partitioned: the flash kernels return
-    no row statistics to merge. Masked logits take the finite -1e30, so a
-    shard with no valid key weighs 0."""
+    the sequence axes) to the keys it holds (``local_map``) through
+    ``fn(q, k, v, key_mask, q_offset=, stats=True)``, ``ops.attention``'s
+    partial (the unnormalised f32 output, the row max and the row sum): on
+    ``cuda`` the flash kernel's launch with row statistics, on ``torch``
+    aten. Its causal offset is local: ``q_offset`` (an int, a tensor
+    scalar or a (B,) tensor, one a row) less the shard's first key
+    position (from :func:`shard_ids`, so any order of sequence axes), which
+    may be negative; the shard's key mask rides along. Three all-reduces
+    over the sequence axes (a max, then two sums) merge the partials, the
+    same on both backends. Masked logits take the finite -1e30, so a shard
+    with no valid key reports that max and weighs 0."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.kernels.flash_attention import NEG_INF
 
     mesh = q.device_mesh
     seq = sharding_dims(k, 2)
     batch = sharding_dims(k, 0)
-    B, H, Lq, hd = q.shape
-    KV = k.shape[1]
+    B = q.shape[0]
+    dev = k.to_local().device
     q_pl = tuple(Shard(0) if i in batch else Replicate()
                  for i in range(mesh.ndim))
+    # the queries whole along heads (make_whole: by all-reduces on gloo
+    # with card tensors); local_map then moves nothing but local chunks
+    q = make_whole(q, [i for i, p in enumerate(q.placements)
+                       if q_pl[i] == Replicate() and p != Replicate()])
     kv_pl = tuple(Shard(0) if i in batch else Shard(2) if i in seq
                   else Replicate() for i in range(mesh.ndim))
     pos = shard_ids(k, 2, seq)  # each device's key positions
     if key_mask is None:
-        key_mask = torch.ones((B, k.shape[2]), dtype=torch.bool,
-                              device=k.to_local().device)
+        key_mask = torch.ones((B, k.shape[2]), dtype=torch.bool, device=dev)
     mask_pl = tuple(Shard(0) if i in batch else Shard(1) if i in seq
                     else Replicate() for i in range(mesh.ndim))
     key_mask = as_dtensor(key_mask, mesh, mask_pl)
-    qpos = torch.arange(Lq, device=k.to_local().device)
+    args = [q, k, v, pos, key_mask]
     if torch.is_tensor(q_offset) and q_offset.ndim:
-        raise NotImplementedError("per-row q_offset over a sequence-sharded "
-                                  "cache")
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+        # one offset a row: each device's rows (a local chunk, no wire)
+        args.append(as_dtensor(
+            q_offset.to(device=dev, dtype=torch.int32), mesh,
+            tuple(Shard(0) if i in batch else Replicate()
+                  for i in range(mesh.ndim))))
 
-    def local(q_, k_, v_, pos_, km_):
-        b = q_.shape[0]
-        qg = q_.reshape(b, KV, H // KV, Lq, hd).float()
-        logits = torch.einsum("bkgqd,bkld->bkgql", qg, k_.float()) * \
-            scale.to(q_.device)
-        keep = km_.to(torch.bool)[:, None, None, None, :]
-        if causal:
-            at = (qpos + q_offset).to(pos_.device)
-            keep = keep & (pos_[None, :] <= at[:, None])[None, None, None]
-        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
-        m = logits.amax(dim=-1, keepdim=True)
-        p = torch.exp(logits - m)
-        o = torch.einsum("bkgql,bkld->bkgqd", p, v_.float())
-        return (o.reshape(b, H, Lq, hd)[None], m.reshape(b, H, Lq, 1)[None],
-                p.sum(dim=-1).reshape(b, H, Lq, 1)[None])
+    def local(q_, k_, v_, pos_, km_, offs_=None):
+        # the causal offset from the shard's first key (it may be negative)
+        off = (q_offset if offs_ is None else offs_) - pos_[0].to(torch.int32)
+        o, m, l_ = fn(q_, k_, v_, km_, q_offset=off, stats=True)
+        return o[None], m[..., None][None], l_[..., None][None]
 
     stacked = stacked_placements(q_pl, seq)
     o, m, l_ = local_map(
         local, out_placements=(stacked, stacked, stacked),
-        in_placements=(q_pl, kv_pl, kv_pl, pos.placements, mask_pl),
-        device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos, key_mask)
+        in_placements=(q_pl, kv_pl, kv_pl)
+        + tuple(a.placements for a in args[3:]),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
     top = relayout(m.amax(dim=0), mesh, q_pl)  # all-reduce (max)
     w = torch.exp(m - top)
     num = sum_partials(o * w, mesh, q_pl)

@@ -43,6 +43,8 @@ from .quant import (  # noqa: F401
 from .conv1d import KERNEL as _CONV1D_KERNEL  # noqa: E402
 from .conv2d import KERNEL as _CONV2D_KERNEL  # noqa: E402
 from .flash_attention import FLASH_KERNEL as _FLASH_KERNEL  # noqa: E402
+from .flash_attention import (  # noqa: E402
+    FLASH_STATS_KERNEL as _FLASH_STATS_KERNEL)
 from .flash_attention import PAGED_KERNEL as _PAGED_KERNEL  # noqa: E402
 from .matmul import KERNEL as _MATMUL_KERNEL  # noqa: E402
 from .quant import CONV_KERNEL as _CONV2D_Q_KERNEL  # noqa: E402
@@ -51,4 +53,5 @@ from .quant import MATMUL_KERNEL as _MATMUL_Q_KERNEL  # noqa: E402
 KERNELS = {"conv2d": _CONV2D_KERNEL, "matmul": _MATMUL_KERNEL,
            "flash_attention": _FLASH_KERNEL, "paged_decode": _PAGED_KERNEL,
            "conv2d_q": _CONV2D_Q_KERNEL, "matmul_q": _MATMUL_Q_KERNEL,
-           "conv1d_causal": _CONV1D_KERNEL}
+           "conv1d_causal": _CONV1D_KERNEL,
+           "flash_attention_stats": _FLASH_STATS_KERNEL}

@@ -79,6 +79,16 @@
 //    zeros nor NaN. The store divides by l (l == 0 -> 1).
 //  * The launch attributes (dynamic shared memory, carveout) are set once
 //    per instance and device, not on every launch.
+//  * Row statistics (``m``/``l`` set, the output f32): the flash-decode
+//    partial of a key shard (repro_torch.dtensors.sequence_parallel_attention
+//    merges the shards of a sequence-sharded cache). The store then writes
+//    the unnormalised f32 accumulator, and per folded row the row max in
+//    the logits' natural units (the tensor-core kernel's log2 max over
+//    LOG2E; NEG_INF stays NEG_INF, so a shard with no valid key weighs 0 in
+//    the merge) and the row sum. A runtime branch at the store, no new
+//    template instance; with m/l null the store and its bits are as
+//    before. The tensor-core kernel's f32 store (with or without the
+//    statistics) writes 8-byte pairs from the C fragments, no staging.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,6 +109,7 @@ struct FAParams {
   int q_seq_len;        // queries per GQA group (0 = plain positions)
   int rows_per_batch;   // folded rows per key-mask row (Hkv)
   int causal, kv_resident;
+  int out_f32;          // the output is f32 (the tensor-core kernel: else bf16)
   float scale;
 };
 
@@ -125,7 +136,8 @@ constexpr int smem_floats() {
 template <int HD, int BLOCK>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out,
+             const float* __restrict__ v, void* __restrict__ out,
+             float* __restrict__ m_out, float* __restrict__ l_out,
              const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
              const uint8_t* __restrict__ key_mask, FAParams p) {
   constexpr int QS = HD + 1;     // q/k row pitch in shared memory
@@ -152,7 +164,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qr = q + row * p.Lq * (long long)HD;
   const float* kr = k + row * p.Lk * (long long)HD;
   const float* vr = v + row * p.Lk * (long long)HD;
-  float* orow = out + row * p.Lq * (long long)HD;
+  float* orow = static_cast<float*>(out) + row * p.Lq * (long long)HD;
 
   for (int qt = blockIdx.y; qt < p.n_q; qt += gridDim.y) {
     const int q0 = qt * p.bq;
@@ -271,8 +283,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = ty + 16 * i, qi = q0 + r;
       if (r >= p.bq || qi >= p.Lq) continue;
       float l = sl[r];
-      l = (l == 0.f) ? 1.f : l;
-      const float inv = 1.f / l;
+      float inv;
+      if (m_out) {  // the shard's partial: unnormalised, with (m, l)
+        inv = 1.f;
+        if (tx == 0) {
+          m_out[row * p.Lq + qi] = sm[r];  // natural units already
+          l_out[row * p.Lq + qi] = l;
+        }
+      } else {
+        l = (l == 0.f) ? 1.f : l;
+        inv = 1.f / l;
+      }
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         orow[(long long)qi * HD + tx + 16 * j] = acc[i][j] * inv;
@@ -301,7 +322,8 @@ constexpr int tc_smem_bytes() {
 template <int HD, int BLOCK, int C>
 __global__ void __launch_bounds__(32 * tc_warps<BLOCK>(), 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out,
+                const bf16* __restrict__ v, void* __restrict__ out,
+                float* __restrict__ m_out, float* __restrict__ l_out,
                 const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
                 const uint8_t* __restrict__ key_mask, FAParams p) {
   constexpr int W = tc_warps<BLOCK>(), R = W / C;  // row slabs x key slabs
@@ -331,7 +353,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qr = q + row * p.Lq * (long long)HD;
   const bf16* kr = k + row * p.Lk * (long long)HD;
   const bf16* vr = v + row * p.Lk * (long long)HD;
-  bf16* orow = out + row * p.Lq * (long long)HD;
+  bf16* orow = static_cast<bf16*>(out) + row * p.Lq * (long long)HD;
+  float* orow_f = static_cast<float*>(out) + row * p.Lq * (long long)HD;
   const CopyPlan pl = copy_plan(HD / 8, tid, NTHR);
   const float sl2 = p.scale * LOG2E;
   const int c0 = kslab * NW;  // the warp's first key column of a tile
@@ -527,9 +550,29 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e) o[j][e] += w[e >> 1] * src[(4 + 4 * j + e) * 32];
         }
+        m[0] = ms[0];  // the merged row max (read by the statistics' store)
+        m[1] = ms[1];
       }
     }
-    if (kslab == 0) {
+    if (kslab == 0 && p.out_f32) {
+      // f32 rows straight from the C fragments: lane (g, t) holds columns
+      // 8 j + 2 t and + 1 of rows g and g + 8; with the statistics the
+      // accumulator stays unnormalised and lane t = 0 writes (m, l)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = slab * 16 + g + 8 * h, qi = q0 + r;
+        if (r >= p.bq || qi >= p.Lq) continue;
+        const float inv = m_out ? 1.f : 1.f / (l[h] == 0.f ? 1.f : l[h]);
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+          *reinterpret_cast<float2*>(orow_f + (long long)qi * HD + j * 8 + 2 * t) =
+              make_float2(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+        if (m_out && t == 0) {
+          m_out[row * p.Lq + qi] = m[h] == NEG_INF ? NEG_INF : m[h] / LOG2E;
+          l_out[row * p.Lq + qi] = l[h];
+        }
+      }
+    } else if (kslab == 0) {
       // stage the slab's bf16 rows in its Q rows, then 16-byte stores
       float inv[2];
 #pragma unroll
@@ -560,6 +603,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* out;
+  float *m, *l;  // row statistics, or null
   const int *offs, *lens;
   const uint8_t* km;
   long long rows;
@@ -574,8 +618,7 @@ cudaError_t launch(K kern, int threads, int smem, unsigned& done, const Args& a)
   dim3 grid((unsigned)a.rows, a.p.kv_resident ? 1u : (unsigned)a.p.n_q);
   kern<<<grid, threads, smem, a.s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.offs, a.lens, a.km,
-      a.p);
+      static_cast<const T*>(a.v), a.out, a.m, a.l, a.offs, a.lens, a.km, a.p);
   return cudaGetLastError();
 }
 
@@ -628,20 +671,26 @@ cudaError_t launch_b(int dtype, int block, const Args& a) {
 
 }  // namespace
 
-// q (rows, Lq, hd), k/v (rows, Lk, hd), out like q, all one dtype (0 =
-// float32: the FMA kernel, 1 = bfloat16: the tensor-core kernel, every
-// pointer on 16 bytes), contiguous; q_offset and kv_lens int32 (rows,);
-// key_mask bool (rows / rows_per_batch, Lk) or null. ``block`` selects the
-// compiled tile (the plan's), bq/bk <= block the clamped runtime tiles.
-// Returns the launch's cudaError_t.
+// q (rows, Lq, hd), k/v (rows, Lk, hd), all one dtype (0 = float32: the
+// FMA kernel, 1 = bfloat16: the tensor-core kernel, every pointer on 16
+// bytes), contiguous; out (rows, Lq, hd) of out_dtype (the FMA kernel's
+// float32; the tensor-core kernel's bfloat16 or float32); m and l float32
+// (rows, Lq), both null or both set (then out_dtype is float32: the
+// unnormalised accumulator and the row statistics); q_offset and kv_lens
+// int32 (rows,), an offset possibly negative; key_mask bool (rows /
+// rows_per_batch, Lk) or null. ``block`` selects the compiled tile (the
+// plan's), bq/bk <= block the clamped runtime tiles. Returns the launch's
+// cudaError_t.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, void* m, void* l,
     const void* q_offset, const void* kv_lens, const void* key_mask,
-    int dtype, int hd, int block, long long rows, int Lq, int Lk, int bq,
-    int bk, int q_seq_len, int rows_per_batch, int causal, float scale,
-    void* stream) {
+    int dtype, int out_dtype, int hd, int block, long long rows, int Lq,
+    int Lk, int bq, int bk, int q_seq_len, int rows_per_batch, int causal,
+    float scale, void* stream) {
   if (rows <= 0 || rows > 0x7fffffffLL || bq <= 0 || bk <= 0 || bq > block ||
-      bk > block || (dtype != 0 && dtype != 1))
+      bk > block || (dtype != 0 && dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1) || (dtype == 0 && out_dtype != 0) ||
+      ((m == nullptr) != (l == nullptr)) || (m != nullptr && out_dtype != 0))
     return (int)cudaErrorInvalidConfiguration;
   if (dtype == 1 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15))
@@ -651,6 +700,8 @@ extern "C" int repro_flash_attention(
   a.k = k;
   a.v = v;
   a.out = out;
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
   a.offs = static_cast<const int*>(q_offset);
   a.lens = static_cast<const int*>(kv_lens);
   a.km = static_cast<const uint8_t*>(key_mask);
@@ -667,6 +718,7 @@ extern "C" int repro_flash_attention(
   p.rows_per_batch = rows_per_batch;
   p.causal = causal;
   p.kv_resident = p.n_k == 1;
+  p.out_f32 = out_dtype == 0;
   p.scale = scale;
   if (p.n_q > 65535) return (int)cudaErrorInvalidConfiguration;
   switch (hd) {

@@ -31,8 +31,18 @@ Masking follows the reference's finite ``NEG_INF = -1e30``: a query row whose
 keys are all masked averages V over its keys, giving neither zeros nor NaN.
 Keys past the array's end (the kernel's ragged tile edge) get zero weight.
 
+``stats=True`` (the flash entries, their plain version and the emulation)
+returns a key shard's flash-decode partial ``(acc, m, l)`` instead of the
+output: the unnormalised f32 accumulator (BH, Lq, Dh), the row max in the
+logits' natural units and the row sum, each f32 (BH, Lq), so that the
+shards of a sequence-sharded cache merge as ``sum e^(m_j - m*) acc_j /
+sum e^(m_j - m*) l_j`` (``repro_torch.dtensors``). A shard whose keys are
+all masked reports ``m = NEG_INF`` and weighs 0 beside any shard with a
+valid key.
+
 ``attention_hbm_words`` / ``paged_decode_hbm_words`` are the reference's
 counters, unchanged: the words one launch moves, from its launch geometry.
+``attention_stats_hbm_words`` is the port's for a launch with statistics.
 ``paged_decode_issued_words`` counts what the paged kernel issues, which
 skips dead slots: at most the counter.
 """
@@ -57,15 +67,21 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # the kernel's logits are scaled to base 2
 
 _c = ctypes
-FLASH_KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention", [
+_FLASH_ARGS = [
     _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # q, k, v, out
+    _c.c_void_p, _c.c_void_p,                            # row max, row sum
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # offsets, lens, mask
-    _c.c_int, _c.c_int, _c.c_int,                        # dtype, hd, block
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # dtypes in/out, hd, block
     _c.c_longlong, _c.c_int, _c.c_int,                   # rows, Lq, Lk
     _c.c_int, _c.c_int,                                  # bq, bk
     _c.c_int, _c.c_int, _c.c_int,                        # q_seq_len, rows/batch, causal
     _c.c_float, _c.c_void_p,                             # scale, stream
-])
+]
+FLASH_KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention",
+                          _FLASH_ARGS)
+# the same library's launches with row statistics, counted on their own
+FLASH_STATS_KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention",
+                                _FLASH_ARGS)
 PAGED_KERNEL = CudaKernel("paged_decode.cu", "repro_paged_decode", [
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q, kp, vp
     _c.c_void_p, _c.c_void_p, _c.c_void_p,               # tables, lengths, out
@@ -133,9 +149,11 @@ def flash_attention_plain(
     q_seq_len: Optional[int] = None,
     kv_lens: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """The kernel's function in plain PyTorch: f32 logits and softmax over
-    all Lk keys, masked keys at ``NEG_INF``."""
+    all Lk keys, masked keys at ``NEG_INF``. ``stats``: the partial
+    ``(acc, m, l)`` (module docstring) in f32."""
     BH, Lq, Dh = q.shape
     Lk = k.shape[1]
     dev = q.device
@@ -157,6 +175,12 @@ def flash_attention_plain(
             _rows_of(key_mask, BH), dim=0)
         keep = keep & km[:, None, :]
     s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    if stats:
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        with no_tf32():
+            acc = torch.einsum("bqk,bkd->bqd", p, v.float())
+        return acc, m, p.sum(dim=-1)
     p = torch.softmax(s, dim=-1)
     with no_tf32():
         return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
@@ -245,14 +269,17 @@ def flash_attention_tc_emulate(
     kv_lens: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
     block: Optional[int] = None,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """``flash_tc_kernel``'s arithmetic in plain PyTorch, for the CPU tests
     only: the same q tiles, key tiles and C key slabs of each tile (the R
     row slabs compute independently, so they go together), each slab an
     online softmax in the log2 domain with f32 logits of the bf16 operands,
     P rounded to bf16 before P V, l summed from the f32 probabilities, and
     the C partials merged as the kernel merges them. ``block`` defaults to
-    the H100 plan's."""
+    the H100 plan's. ``stats``: the kernel's f32 store with statistics,
+    ``(acc, m, l)`` (the merged log2 max over ``LOG2E``, ``NEG_INF``
+    kept)."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core kernel takes bfloat16, not {q.dtype}")
     BH, Lq, Dh = q.shape
@@ -275,6 +302,8 @@ def flash_attention_tc_emulate(
     sl2 = torch.tensor((1.0 / Dh ** 0.5) * LOG2E, dtype=torch.float32,
                        device=dev)
     out = torch.empty((BH, Lq, Dh), dtype=torch.float32, device=dev)
+    m_out = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+    l_out = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
     for qt in range(cfg["n_q"]):
         q0 = qt * bq
         nr = min(bq, Lq - q0)
@@ -314,8 +343,18 @@ def flash_attention_tc_emulate(
         ms = m.amax(0)
         wgt = torch.exp2(m - ms)
         den = (wgt * lsum).sum(0)
+        num = (wgt[..., None] * o).sum(0)
+        if stats:
+            out[:, q0:q0 + nr] = num
+            m_out[:, q0:q0 + nr] = torch.where(
+                ms == NEG_INF, ms, ms / torch.tensor(LOG2E,
+                                                     dtype=torch.float32))
+            l_out[:, q0:q0 + nr] = den
+            continue
         den = torch.where(den == 0, torch.ones_like(den), den)
-        out[:, q0:q0 + nr] = (wgt[..., None] * o).sum(0) / den[..., None]
+        out[:, q0:q0 + nr] = num / den[..., None]
+    if stats:
+        return out, m_out, l_out
     return out.to(q.dtype)
 
 
@@ -342,7 +381,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
-                  block: int) -> torch.Tensor:
+                  block: int, stats: bool = False):
+    """One launch of ``csrc/flash_attention.cu``; ``stats``: its output
+    f32 and unnormalised, with the row statistics (``(acc, m, l)``)."""
     check_cuda_operands("flash_attention", q, k, v)
     BH, Lq, Dh = q.shape
     Lk = k.shape[1]
@@ -366,18 +407,25 @@ def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
         if key_mask.shape != (BH // per_batch, Lk):
             raise ValueError(f"key_mask shape {tuple(key_mask.shape)}, "
                              f"expected ({BH // per_batch}, {Lk})")
-    out = torch.empty_like(q)
+    if stats:  # torch.empty: 16-byte aligned, as the f32 pair stores need
+        out = torch.empty((BH, Lq, Dh), dtype=torch.float32, device=dev)
+        m, l_ = (torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+                 for _ in "ml")
+    else:
+        out, m, l_ = torch.empty_like(q), None, None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FLASH_KERNEL.launch(
+        (FLASH_STATS_KERNEL if stats else FLASH_KERNEL).launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if l_ is None else l_.data_ptr(),
             offs.data_ptr(), lens.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
-            dtype_code(q.dtype), Dh, block, BH, Lq, Lk, bq, bk,
-            q_seq_len or 0, per_batch, int(bool(causal)), 1.0 / Dh ** 0.5,
-            stream, tensor_core=tc, grid=cfg["grid"],
+            dtype_code(q.dtype), dtype_code(out.dtype), Dh, block, BH, Lq,
+            Lk, bq, bk, q_seq_len or 0, per_batch, int(bool(causal)),
+            1.0 / Dh ** 0.5, stream, tensor_core=tc, grid=cfg["grid"],
             block=(cfg["threads"],), smem=cfg["smem"])
-    return out
+    return (out, m, l_) if stats else out
 
 
 def flash_attention(
@@ -392,7 +440,8 @@ def flash_attention(
     q_seq_len: Optional[int] = None,
     kv_lens: Optional[torch.Tensor] = None,  # int32 (BH,): valid keys per row
     key_mask: Optional[torch.Tensor] = None,  # bool (B, Lk), B | BH
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """``q_seq_len``: set when the query axis folds GQA groups — q rows are g
     groups of ``q_seq_len`` queries stacked, each group restarting at absolute
     position ``q_offset`` (K/V stay un-repeated at (B*Hkv, Lk, Dh)). None =
@@ -402,7 +451,9 @@ def flash_attention(
     Tiles come from ``block_q``/``block_k`` or ``attention_blocks`` for
     ``target`` (default ``H100``), clamped to the padded sequence lengths
     exactly as the reference clamps them. CUDA tensors run the kernel, CPU
-    tensors :func:`flash_attention_plain`."""
+    tensors :func:`flash_attention_plain`. ``stats``: the key shard's
+    partial ``(acc, m, l)`` in f32 (module docstring); a ``q_offset`` may
+    then be negative (the shard starts past the queries)."""
     BH, Lq, Dh = q.shape
     Lk = k.shape[1]
     if k.shape != (BH, Lk, Dh) or v.shape != k.shape:
@@ -412,7 +463,7 @@ def flash_attention(
         q_seq_len = None  # a single group degenerates to plain positions
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, q_offset, q_seq_len,
-                                     kv_lens, key_mask)
+                                     kv_lens, key_mask, stats)
     tq, tk = attention_blocks(Dh, target or H100,
                               kv_word=k.element_size() / 4.0)
     block_q = block_q if block_q is not None else tq
@@ -421,7 +472,7 @@ def flash_attention(
         raise ValueError(f"flash_attention compiles square tiles, got "
                          f"block_q={block_q}, block_k={block_k}")
     return _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens,
-                         key_mask, block_q)
+                         key_mask, block_q, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -680,6 +731,20 @@ def attention_hbm_words(BH: int, Lq: int, Lk: int, dh: int,
             + p_o * BH * lqp * dh)
 
 
+def attention_stats_hbm_words(BH: int, Lq: int, Lk: int, dh: int,
+                              block_q: int, block_k: int, p_q: float = 1.0,
+                              p_kv: float = 1.0) -> float:
+    """Words a flash launch with statistics moves (the port's counter; the
+    reference's kernel has no such launch): :func:`attention_hbm_words`
+    with the f32 accumulator stored (``p_o = 1``), plus the row max and
+    row sum, one f32 word each a folded query row, at the same padded
+    rows."""
+    lqp = round_up(Lq, min(block_q, round_up(Lq, 8)))
+    return (attention_hbm_words(BH, Lq, Lk, dh, block_q, block_k, p_q=p_q,
+                                p_kv=p_kv, p_o=1.0)
+            + 2.0 * BH * lqp)
+
+
 def paged_decode_issued_words(lengths, B: int, KV: int, g: int, w: int,
                               block_size: int, hd: int, p_q: float = 1.0,
                               p_kv: float = 1.0, p_o: float = 1.0) -> float:
@@ -719,7 +784,8 @@ def _dtype_of(p: float):
     return torch.bfloat16 if p == 0.5 else torch.float32
 
 
-def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool):
+def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool,
+                  staged: bool = True):
     """``flash_tc_kernel``'s events for one CTA walking ``n_q_cta`` q tiles:
     each opens with a ``__syncthreads`` (the previous tile's output was
     staged in Q's rows) and issues its Q tile and K/V tile 0 (K/V only at
@@ -728,7 +794,8 @@ def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool):
     slot (kt + 1) % 2, reads Q (at kt = 0) and slot kt % 2; with C > 1 key
     slabs (``merge``) slabs 1 .. C - 1 write the merge area and slab 0
     reads it after a ``__syncthreads``; slab 0 stages its output rows in
-    its own Q rows (a warp's own rows: ``__syncwarp``); a
+    its own Q rows (a warp's own rows: ``__syncwarp``), unless the output
+    is f32 (not ``staged``: slab 0 stores it from its registers); a
     ``wait_group(0)`` at exit."""
     from repro_torch.verify.hazards import Program
 
@@ -754,8 +821,9 @@ def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool):
             prog.write("merge", 0, i)
             prog.barrier()
             prog.read("merge", 0, i)
-        prog.write("q", 0, 2 * i + 1, local=not merge)
-        prog.read("q", 0, 2 * i + 1, local=True)
+        if staged:
+            prog.write("q", 0, 2 * i + 1, local=not merge)
+            prog.read("q", 0, 2 * i + 1, local=True)
     prog.wait_group(0)
     return prog
 
@@ -764,7 +832,7 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
                                 block_q: int, block_k: int,
                                 p_q: float = 1.0, p_kv: float = 1.0,
                                 p_o: float = 1.0, dynamic: bool = False,
-                                op: str = "attention"):
+                                op: str = "attention", stats: bool = False):
     """The :class:`repro_torch.verify.access.KernelAccessPlan` of one flash
     launch over the folded (BH, Lq) view, as :func:`launch_config` gives it
     (bf16 when ``p_q`` is 0.5: ``flash_tc_kernel``; else the FMA
@@ -774,8 +842,11 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
     (q tile, K/V tile) step (once a row when resident), O once a q tile;
     uncounted: the int32 offset and length every CTA reads (the wrapper
     always passes both; ``dynamic`` is kept for the reference's signature).
-    The key mask of padded prefill is not modeled. Raises ValueError for a
-    (dh, block) the source does not compile."""
+    The key mask of padded prefill is not modeled. ``stats``: the launch
+    with row statistics (:func:`attention_stats_hbm_words`): O stored in
+    f32 (``p_o`` 1) from the registers, and the row max and sum once a q
+    tile. Raises ValueError for a (dh, block) the source does not
+    compile."""
     import numpy as np  # noqa: F401
 
     from repro_torch.verify.access import (BlockAccess, CudaLaunch,
@@ -792,6 +863,8 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
     tc = cfg["kernel"] == "tensor core"
     q_idx = (lambda b, i, t: (b, t, 0)) if resident else \
         (lambda b, i, t: (b, i, 0))
+    if stats:
+        p_o = 1.0
     accesses = [
         BlockAccess(name="q", kind="load", block_shape=(1, bq, dh),
                     array_shape=(BH, lqp, dh), word_size=p_q,
@@ -800,6 +873,12 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
                     array_shape=(BH, lqp, dh), word_size=p_o,
                     index_map=q_idx),
     ]
+    if stats:
+        accesses += [BlockAccess(
+            name=name, kind="store", block_shape=(1, bq),
+            array_shape=(BH, lqp), word_size=1.0,
+            index_map=(lambda b, i, t: (b, t)) if resident else
+            (lambda b, i, t: (b, i))) for name in ("row max", "row sum")]
     for name in ("k", "v"):
         if resident:
             accesses.append(BlockAccess(
@@ -827,7 +906,8 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
                    ScratchAlloc("merge (m, l, O)",
                                 (cfg["smem"] - (1 + 2 * cfg["slots"]) * tile)
                                 / 4.0))
-        prog = flash_program(n_q if resident else 1, n_k, resident, c > 1)
+        prog = flash_program(n_q if resident else 1, n_k, resident, c > 1,
+                             staged=not stats)
         bufs = {"q": 1, "k/v": cfg["slots"]}
         if c > 1:
             bufs["merge"] = 1

@@ -345,6 +345,51 @@ def count_train_step(cfg, mesh_shape, batch: Dict[str, torch.Tensor],
             "flops": raw["flops"], "run_s": raw["run_s"]}
 
 
+def count_decode_step(cfg, mesh_shape, batch: int, seq_len: int,
+                      index: Optional[int] = None,
+                      cache_dtype=torch.bfloat16) -> dict:
+    """One ``build_decode_step`` of ``cfg`` on a fake group of ``data x
+    model`` ranks (``mesh_shape``): parameters placed by ``param_specs``
+    (in ``cfg.param_dtype``), a ``batch`` x ``seq_len`` cache of
+    ``cache_dtype`` by ``cache_specs``, the (batch, 1) int32 token as a
+    decode cell places it, the index an int (default the cache's last
+    position: the program does not depend on it). Returns
+    ``collectives`` (wire bytes by kind), ``calls`` and
+    ``argument_bytes`` of device 0: every argument, as a rank of a real
+    group counts its own (:func:`argument_bytes` without pruning)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    data, model = mesh_shape
+    chips = data * model
+    step = build_decode_step(cfg, math.gcd(batch, chips))
+    with fake_group(chips):
+        mesh = make_host_mesh(data, model, device_type="cpu")
+        sizes = shd.mesh_axis_sizes(mesh)
+        dsize = math.prod(sizes[a] for a in shd.data_axes(mesh))
+        tok_spec = (shd.P(shd.batch_axes(mesh), None)
+                    if batch % max(dsize, 1) == 0 and batch > 1
+                    else shd.P(None, None))
+        pshard = shd.shardings(mesh, shd.param_specs(cfg))
+        cshard = shd.shardings(mesh, shd.cache_specs(cfg, mesh, batch,
+                                                     seq_len))
+        structs = sp.param_structs("", cfg.param_dtype, cfg)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            params = place_params(cfg, structs, pshard, False)
+            cache = _place_tree(T.init_cache(cfg, batch, seq_len,
+                                             dtype=cache_dtype,
+                                             device="meta"), cshard)
+            token = _place(torch.empty((batch, 1), dtype=torch.int32,
+                                       device="meta"),
+                           shd.NamedSharding(mesh, tok_spec))
+            args = (params, cache, token,
+                    seq_len - 1 if index is None else index)
+            args_b = argument_bytes(args)
+            raw = _drive(step, args, chips)
+    return {"collectives": rl.collective_bytes(raw["records"]),
+            "calls": raw["calls"], "argument_bytes": args_b,
+            "flops": raw["flops"], "run_s": raw["run_s"]}
+
+
 # ---------------------------------------------------------------------------
 # One cell
 # ---------------------------------------------------------------------------

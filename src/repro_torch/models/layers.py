@@ -258,7 +258,10 @@ def attention_block(
             at = rows.long()[:, None] + torch.arange(L, device=x.device)
             b_ix = torch.arange(B, device=x.device)[:, None]
             for c, u in zip(cache, new):
-                c[b_ix, :, at] = u.transpose(1, 2).to(c.dtype)
+                if dtensors.is_dtensor(c):  # each shard writes its rows
+                    spmd.cache_write(c, u, rows)
+                else:
+                    c[b_ix, :, at] = u.transpose(1, 2).to(c.dtype)
             q_offset = rows
         else:
             for c, u in zip(cache, new):

@@ -28,10 +28,11 @@ choose for it, each a no-op on a plain tensor:
 * :func:`split_heads`: a projection's columns split inside a head cannot
   be viewed as heads (DTensor refuses an uneven unflatten, GSPMD reshards
   silently): where the heads do not divide the axes sharding the columns,
-  the columns are gathered first, and the gather is counted.
+  the columns are gathered first (``dtensors.make_whole``: by all-reduces
+  on gloo with card tensors), and the gather is counted.
 * :func:`cache_write`: a K/V write into a cache sharded along its
-  sequence: each shard writes the positions it holds. :func:`pad` pads
-  shard by shard.
+  sequence: each shard writes the positions it holds, one a row for a
+  per-row index. :func:`pad` pads shard by shard.
 * :func:`split_columns` / :func:`on_channels`: the mamba block's x/z
   split of its in-projection (``dtensors.split_columns``: one all-to-all
   where slicing a sharded dim would gather) and its short conv on each
@@ -49,13 +50,12 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence
 
 import torch
 
-from repro_torch.dtensors import (is_dtensor, relayout, shard_ids,
-                                  sharding_dims, stacked_placements,
-                                  sum_partials)
+from repro_torch.dtensors import (is_dtensor, make_whole, move, relayout,
+                                  shard_ids, sharding_dims,
+                                  stacked_placements, sum_partials)
 
 
 @contextlib.contextmanager
@@ -216,15 +216,6 @@ def embed_lookup(table, tokens, compute_dtype):
                          tokens.placements).to(compute_dtype)
 
 
-def _unshard(t, mesh_dims: Sequence[int]):
-    from torch.distributed.tensor import Replicate
-
-    pl = list(t.placements)
-    for i in mesh_dims:
-        pl[i] = Replicate()
-    return t.redistribute(t.device_mesh, pl)
-
-
 def split_heads(t, n_heads: int):
     """A (B, L, n_heads * hd) projection ready for its head view: where the
     mesh dims sharding its columns do not divide ``n_heads``, the columns
@@ -234,7 +225,7 @@ def split_heads(t, n_heads: int):
     dims = sharding_dims(t, t.ndim - 1)
     size = math.prod(t.device_mesh.size(i) for i in dims)
     if dims and n_heads % size:
-        return _unshard(t, dims)
+        return make_whole(t, dims)
     return t
 
 
@@ -303,11 +294,13 @@ def mean(t):
     return t.sum() / t.numel()
 
 
-def cache_write(c, u, start: int) -> None:
+def cache_write(c, u, start) -> None:
     """``c[:, :, start:start + L] = u`` (L = u.shape[2]) on a cache leaf
     DTensor whose sequence dim (2) may be sharded: ``u`` is redistributed to
     the cache's placements with that dim whole, and each device writes the
-    positions its shard holds, in place."""
+    positions its shard holds, in place. ``start`` may be a (B,) tensor, one
+    offset a row, for one position a row (a decode step, L == 1): each
+    device writes its rows whose position its shard holds."""
     from torch.distributed.tensor import Replicate, distribute_tensor
 
     from .sharding import shard_range
@@ -316,9 +309,22 @@ def cache_write(c, u, start: int) -> None:
     seq = sharding_dims(c, 2)
     u_pl = tuple(Replicate() if i in seq else p
                  for i, p in enumerate(c.placements))
-    u = (u.redistribute(mesh, u_pl) if is_dtensor(u) else
+    u = (move(u, u_pl) if is_dtensor(u) else
          distribute_tensor(u, mesh, u_pl, src_data_rank=None))
     off, n = shard_range(c.shape[2], mesh, seq)
+    if torch.is_tensor(start):
+        if u.shape[2] != 1:
+            raise NotImplementedError("per-row cache writes of more than "
+                                      "one position on a mesh")
+        cl, ul = c.to_local(), u.to_local()
+        b0, nb = shard_range(c.shape[0], mesh, sharding_dims(c, 0))
+        at = start.to(device=cl.device, dtype=torch.long)[b0:b0 + nb] - off
+        inside = ((at >= 0) & (at < n)).view(-1, *(1,) * (cl.ndim - 2))
+        li = at.clamp(0, max(n - 1, 0))  # a row's one index: no collision
+        rows = torch.arange(nb, device=cl.device)
+        cl[rows, :, li] = torch.where(inside, ul[:, :, 0].to(cl.dtype),
+                                      cl[rows, :, li])
+        return
     lo, hi = max(start, off), min(start + u.shape[2], off + n)
     if lo < hi:
         c.to_local()[:, :, lo - off:hi - off] = \

@@ -623,6 +623,15 @@ def conv2d_q(x, w, scale, stride=(1, 1),
                                   "out_dtype": out_dtype})
 
 
+def _refuse_mesh(op: str, *tensors) -> None:
+    """A paged pool on a device mesh: the reference's ``cache_specs`` has
+    no paged layout, so neither has the port."""
+    if any(dtensors.is_dtensor(t) for t in tensors):
+        raise NotImplementedError(f"{op}: a paged KV pool on a device mesh "
+                                  "(the mesh serves contiguous caches, "
+                                  "sharded by cache_specs)")
+
+
 def attention_needs(q_offset=0, key_mask=None) -> Tuple[str, ...]:
     """Required capability flags of one attention call (shared with tests):
     a tensor ``q_offset`` needs ``dynamic_q_offset`` (a scalar) or
@@ -637,7 +646,7 @@ def attention_needs(q_offset=0, key_mask=None) -> Tuple[str, ...]:
 
 
 def attention(q, k, v, causal: bool = True, q_offset=0, key_mask=None,
-              ctx: Optional[ExecutionContext] = None):
+              ctx: Optional[ExecutionContext] = None, stats: bool = False):
     """GQA attention, (B, H, L, Dh) layout; Hkv divides H.
 
     ``q_offset``: absolute position of the first query — an int
@@ -645,27 +654,32 @@ def attention(q, k, v, causal: bool = True, q_offset=0, key_mask=None,
     tensor (continuous-batching decode, every slot at its own depth).
     ``key_mask`` is an optional (B, Lk) validity mask over the keys (padded
     prefill). The ``cuda`` entry serves all three call features.
+    ``stats`` (plain tensors) returns a key shard's flash-decode partial
+    ``(acc, m, l)`` in f32 instead (``registry.torch_attention``), from
+    the flash kernel's launch with row statistics on ``cuda``.
 
     On DTensors (a model on a device mesh) the call runs on each device's
     local shards, heads sharded on ``model``
     (``repro_torch.dtensors.local_attention``): the chosen backend sees
     plain tensors, on the card its kernel. A decode step over K/V sharded
-    along their sequence runs only on the ``torch`` backend off the card
-    (the shards' merge needs row statistics no kernel returns); elsewhere
-    it raises ``NotImplementedError``."""
+    along their sequence takes each shard's partial through this op with
+    ``stats`` (on ``cuda`` the kernel, on ``torch`` aten) and merges the
+    shards (``dtensors.sequence_parallel_attention``)."""
     ctx = default_context() if ctx is None else ctx
     if dtensors.is_dtensor(q):
+        if stats:
+            raise ValueError("stats= is for plain tensors (a shard's "
+                             "partial)")
         return dtensors.local_attention(
-            lambda q_, k_, v_, m_: attention(q_, k_, v_, causal=causal,
-                                             q_offset=q_offset, key_mask=m_,
-                                             ctx=ctx), q, k, v, key_mask,
-            causal=causal, q_offset=q_offset,
-            backend=ctx.resolved_backend())
+            lambda q_, k_, v_, m_, q_offset=q_offset, stats=False: attention(
+                q_, k_, v_, causal=causal, q_offset=q_offset, key_mask=m_,
+                ctx=ctx, stats=stats), q, k, v, key_mask, q_offset=q_offset)
     _check_device("attention", ctx, q, k, v)
     return dispatch_call("attention", ctx, q.dtype,
                          attention_needs(q_offset, key_mask), (q, k, v),
+                         spec_kw={"stats": True} if stats else None,
                          call_kw={"causal": causal, "q_offset": q_offset,
-                                  "key_mask": key_mask})
+                                  "key_mask": key_mask, "stats": stats})
 
 
 def attention_decode(q, kp, vp, tables, lengths,
@@ -682,8 +696,10 @@ def attention_decode(q, kp, vp, tables, lengths,
     rows can reach, default w: the kernel takes its split over table slots
     from it, so that a row's result does not depend on w
     (``kernels.flash_attention.paged_launch_config``); the words charged
-    do not depend on it."""
+    do not depend on it. Not on a device mesh (``NotImplementedError``):
+    the reference's ``cache_specs`` has no paged layout."""
     ctx = default_context() if ctx is None else ctx
+    _refuse_mesh("attention_decode", q, kp, vp)
     _check_device("attention_decode", ctx, q, kp, vp)
     return dispatch_call("attention_decode", ctx, q.dtype, (),
                          (q, kp, vp, tables, lengths),
@@ -699,8 +715,10 @@ def attention_decode_quant(q, kp, ks, vp, vs, tables, lengths,
     ``ks``/``vs`` their (num_blocks, KV, block_size) f32 per-(block, head,
     position) scales (written together by the engine's quantizing insert).
     Registered on the ``torch`` backend only, as the reference registers it
-    on ``xla`` only: callers on the card request ``backend="torch"``."""
+    on ``xla`` only: callers on the card request ``backend="torch"``. Not
+    on a device mesh, as :func:`attention_decode`."""
     ctx = default_context() if ctx is None else ctx
+    _refuse_mesh("attention_decode_quant", q, kp, vp)
     _check_device("attention_decode_quant", ctx, q, kp, ks, vp, vs)
     return dispatch_call("attention_decode_quant", ctx, q.dtype, (),
                          (q, kp, ks, vp, vs, tables, lengths))

@@ -53,6 +53,7 @@ from repro_torch.kernels.conv2d import (_conv_spec, conv2d as _conv2d_cuda,
                                         conv2d_access_plan, conv2d_hbm_words)
 from repro_torch.kernels.flash_attention import (NEG_INF, attention_blocks,
                                                  attention_hbm_words,
+                                                 attention_stats_hbm_words,
                                                  flash_attention as _flash_cuda,
                                                  flash_attention_access_plan,
                                                  paged_decode_access_plan,
@@ -186,7 +187,7 @@ def _torch_conv1d(ctx, plan, x, w):
 
 
 def torch_attention(q, k, v, causal: bool = True, q_offset=0,
-                    key_mask=None) -> torch.Tensor:
+                    key_mask=None, stats: bool = False):
     """GQA attention in aten with the grouping kept factored (no KV repeat):
     the counterpart of the reference's ``xla_attention``.
 
@@ -195,7 +196,10 @@ def torch_attention(q, k, v, causal: bool = True, q_offset=0,
     lockstep batches, or a (B,) tensor when every row decodes at its own
     depth. ``key_mask`` is an optional (B, Lk) validity mask over the keys.
     Logits, softmax and PV accumulate in f32 (TF32 off); masked logits take
-    the finite -1e30, so a fully masked row averages V."""
+    the finite -1e30, so a fully masked row averages V. ``stats``: the
+    key shard's flash-decode partial in f32, ``(acc, m, l)``: the
+    unnormalised (B, H, Lq, hd) output and the (B, H, Lq) row max and row
+    sum (``kernels.flash_attention``'s module docstring)."""
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     g = H // KV
@@ -222,6 +226,13 @@ def torch_attention(q, k, v, causal: bool = True, q_offset=0,
     if mask is not None:
         logits = torch.where(mask[:, None, None], logits,
                              torch.full_like(logits, NEG_INF))
+    if stats:
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        with ref.no_tf32():
+            o = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
+        return (o.reshape(B, H, Lq, hd), m.reshape(B, H, Lq),
+                p.sum(dim=-1).reshape(B, H, Lq))
     probs = torch.softmax(logits, dim=-1)
     with ref.no_tf32():
         o = torch.einsum("bkgql,bkld->bkgqd", probs, v.float())
@@ -229,9 +240,9 @@ def torch_attention(q, k, v, causal: bool = True, q_offset=0,
 
 
 def _torch_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
-                     key_mask=None):
+                     key_mask=None, stats=False):
     return torch_attention(q, k, v, causal=causal, q_offset=q_offset,
-                           key_mask=key_mask)
+                           key_mask=key_mask, stats=stats)
 
 
 def _torch_attention_decode(ctx, plan, q, kp, vp, tables, lengths,
@@ -416,8 +427,9 @@ def _attention_plan_spec(q, k, v, **kw):
     KV, Lk = k.shape[1], k.shape[2]
     p_io = q.dtype.itemsize / 4.0
     p_kv = k.dtype.itemsize / 4.0
+    p_o = 1.0 if kw.get("stats") else p_io  # the f32 partial
     return AttentionSpec(B=B, H=H, KV=KV, Lq=Lq, Lk=Lk, hd=hd,
-                         prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_io))
+                         prec=Precision(p_I=p_io, p_F=p_kv, p_O=p_o))
 
 
 def _attention_decode_plan_spec(q, kp, vp, tables, lengths, **kw):
@@ -464,12 +476,15 @@ def _cuda_conv1d_words(ctx, plan, x, w, **kw):
 
 
 def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
-                    key_mask=None):
+                    key_mask=None, stats=False):
     """GQA via group folding: the g query heads sharing one KV head are
     stacked along the query axis ((B*Hkv, g*Lq, Dh)), so K/V stream at their
     (B*Hkv, Lk, Dh) size; the kernel recovers positions with ``q_seq_len``.
     An int ``q_offset`` is the static case, a tensor scalar or (B,) tensor
-    the dynamic one (one int32 per folded row); the key mask rides along."""
+    the dynamic one (one int32 per folded row); the key mask rides along.
+    ``stats``: the kernel's launch with row statistics, ``(acc, m, l)`` in
+    ``torch_attention``'s layout; a forward only (a key shard's partial of
+    a decode step: no gradient)."""
     B, H, Lq, Dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -483,8 +498,19 @@ def _cuda_attention(ctx, plan, q, k, v, causal=True, q_offset=0,
                           k_.reshape(B * Hkv, Lk, Dh).contiguous(),
                           v_.reshape(B * Hkv, Lk, Dh).contiguous(),
                           causal=causal, q_offset=row_offs, q_seq_len=Lq,
-                          target=ctx.target, key_mask=key_mask)
+                          target=ctx.target, key_mask=key_mask, stats=stats)
+        if stats:
+            acc, m, l_ = out
+            return (acc.reshape(B, H, Lq, Dh), m.reshape(B, H, Lq),
+                    l_.reshape(B, H, Lq))
         return out.reshape(B, H, Lq, Dh)
+
+    if stats:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError("attention with row statistics has "
+                                      "no backward")
+        return fwd(q, k, v)
 
     return _with_aten_grad(
         fwd, lambda q_, k_, v_: torch_attention(
@@ -504,13 +530,16 @@ def _cuda_attention_decode(ctx, plan, q, kp, vp, tables, lengths,
                                                 lengths), q, kp, vp)
 
 
-def _cuda_attention_words(ctx, plan, q, k, v, **kw):
+def _cuda_attention_words(ctx, plan, q, k, v, stats=False, **kw):
     B, H, Lq, Dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     g = H // Hkv
     p_io = q.dtype.itemsize / 4.0
     p_kv = k.dtype.itemsize / 4.0
     bq, bk = attention_blocks(Dh, ctx.target, kv_word=p_kv)
+    if stats:
+        return attention_stats_hbm_words(B * Hkv, g * Lq, Lk, Dh, bq, bk,
+                                         p_q=p_io, p_kv=p_kv)
     return attention_hbm_words(B * Hkv, g * Lq, Lk, Dh, bq, bk,
                                p_q=p_io, p_kv=p_kv, p_o=p_io)
 
@@ -579,7 +608,7 @@ def _cuda_conv1d_access(ctx, plan, x, w, **kw):
     return conv1d_access_plan(x, w, target=ctx.target)
 
 
-def _cuda_attention_access(ctx, plan, q, k, v, **kw):
+def _cuda_attention_access(ctx, plan, q, k, v, stats=False, **kw):
     # the launch over the GQA-folded view (_cuda_attention)
     B, H, Lq, Dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -588,7 +617,8 @@ def _cuda_attention_access(ctx, plan, q, k, v, **kw):
     p_kv = k.dtype.itemsize / 4.0
     bq, bk = attention_blocks(Dh, ctx.target, kv_word=p_kv)
     return flash_attention_access_plan(B * Hkv, g * Lq, Lk, Dh, bq, bk,
-                                       p_q=p_io, p_kv=p_kv, p_o=p_io)
+                                       p_q=p_io, p_kv=p_kv, p_o=p_io,
+                                       stats=stats)
 
 
 def _host_ints(t):

@@ -273,14 +273,18 @@ def test_sequence_sharded_cache_serves_as_one_device(single_and_mesh):
 
 
 def test_sequence_parallel_attention_refuses_the_cuda_backend():
-    """A decode step over K/V sharded along their sequence merges the
-    shards in aten (no kernel returns row statistics): the ``torch``
-    backend runs it, the ``cuda`` backend raises instead of taking the
-    plain version quietly."""
+    """A decode step over K/V sharded along their sequence takes each
+    shard's partial through ``ops.attention`` with row statistics on the
+    chosen backend: the ``cuda`` route dispatches the flash entry with
+    statistics (its plain version on the CPU, one decision a device,
+    charged the stats counter) and returns the ``torch`` route's output
+    placements; a paged pool on a mesh still raises."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch import ops
+    from repro_torch.kernels.flash_attention import (
+        attention_blocks, attention_stats_hbm_words)
     from repro_torch.launch.mesh import make_host_mesh
 
     Bq, H, KV, Lk, hd = 4, 8, 2, 16, 32
@@ -295,11 +299,30 @@ def test_sequence_parallel_attention_refuses_the_cuda_backend():
                                       src_data_rank=None) for _ in "kv")
             cuda = ExecutionContext(target=H100, backend="cuda",
                                     device="cpu")
-            with pytest.raises(NotImplementedError, match="sequence"):
+            outs = {}
+            for name, ctx in (("cuda", cuda), ("torch", CPU)):
+                with ops.record_dispatch() as log:
+                    outs[name] = ops.attention(q, k, v, q_offset=Lk - 1,
+                                               ctx=ctx)
+                assert [d.chosen for d in log] == [name]
+            (d,) = [d for d in log]  # the torch route has no counter
+            assert d.measured_words is None
+            for out in outs.values():
+                assert out.shape == (Bq, H, 1, hd)
+                assert out.placements == (Shard(0), Replicate())
+            with ops.record_dispatch() as log:
                 ops.attention(q, k, v, q_offset=Lk - 1, ctx=cuda)
-            out = ops.attention(q, k, v, q_offset=Lk - 1, ctx=CPU)
-            assert out.shape == (Bq, H, 1, hd)
-            assert out.placements == (Shard(0), Replicate())
+            assert log[0].measured_words == attention_stats_hbm_words(
+                Bq // 2 * KV, H // KV, Lk // 2, hd,
+                *attention_blocks(hd, H100, kv_word=1.0))
+            pool = distribute_tensor(torch.empty(8, KV, 4, hd), mesh,
+                                     (Replicate(), Replicate()),
+                                     src_data_rank=None)
+            with pytest.raises(NotImplementedError, match="paged"):
+                ops.attention_decode(q, pool, pool,
+                                     torch.zeros(Bq, 2, dtype=torch.int32),
+                                     torch.ones(Bq, dtype=torch.int32),
+                                     ctx=cuda)
 
 
 def test_checkpoint_restores_onto_the_mesh_bit_equal(single_and_mesh):

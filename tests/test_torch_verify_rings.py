@@ -103,6 +103,13 @@ CASES = {
         8, 8 * 20, 20, 128, 64, 64, 0.5, 0.5, 0.5),
     "flash/one tile": lambda: flash_attention_access_plan(
         4, 24, 40, 64, 64, 64, 0.5, 0.5, 0.5),
+    # the launch with row statistics (f32 out from the registers, no
+    # staging in Q's rows): a rank's shard of Qwen2.5-3B's decode_32k
+    # cache (16 rows, 8 folded queries, 8,192 keys) and one key tile
+    "flash/stats decode": lambda: flash_attention_access_plan(
+        16, 8, 8192, 128, 64, 64, 0.5, 0.5, stats=True),
+    "flash/stats one tile": lambda: flash_attention_access_plan(
+        4, 8, 40, 128, 64, 64, 0.5, 0.5, stats=True),
     # flash at hd 80: HuBERT-xLarge's prefill (B 8 x 16 heads, 512 frames)
     # and a bq-8 launch (C 4, the merge area)
     "flash/hd 80 prefill": lambda: flash_attention_access_plan(
