@@ -103,7 +103,10 @@ organic fault never passes as a demotion):
      f32; GQA groups 1 and 8; hd 64 and 128; ragged lengths; int and
      per-row offsets; a pad-tail key mask with one fully masked row; then
      every compiled (hd, block) instance in bf16 at runtime tiles bq 8, 24,
-     40 and 128, so that every warp grid R x C runs; ``PAGED_CASES``: paged
+     40 and 128, so that every warp grid R x C runs, over 37, 300 and
+     2,085 keys (the last split over clusters of 2 to 8 CTAs wherever the
+     folded queries fit one row slab, the launch's cluster that of
+     ``launch_config``); ``PAGED_CASES``: paged
      tables with padding and a dead row on block 0, g 1, 8 and 16, hd 16,
      32, 64 and 128, blocks of 4 and 16 keys, w from 1 to 32 with several
      slots a CTA, rows of length 0; and the paged engine's launch, its
@@ -551,14 +554,19 @@ organic fault never passes as a demotion):
      its plain version at a rank's shard (16 rows = B 8 x KV 2, 8 folded
      queries, 8,192 keys, hd 128, bf16) and at one card's cache (32,768
      keys), with a scalar, a per-row and a negative offset (every key
-     masked), and at the rank's shard in f32 (the FMA kernel): the
-     accumulator within 2^-7 (bf16) or 1e-4 (f32) x max(1, max|plain|),
-     m and l within 1e-4 relative, the masked shard's m exactly NEG_INF
-     and its merge weight exactly 0, HMMA in the instance's SASS and
-     every bf16 launch a tensor-core launch; the bf16 launches' ms (a
-     call, a launch, device) beside the plain version, aten's
+     masked), and at the rank's shard in f32 (the FMA kernel, not split):
+     the accumulator within 2^-7 (bf16) or 1e-4 (f32) x max(1,
+     max|plain|), m and l within 1e-4 relative, the masked shard's m
+     exactly NEG_INF and its merge weight exactly 0, HMMA in the
+     instance's SASS and every bf16 launch a tensor-core launch on the
+     key split (S 8, 128 CTAs, the grid and cluster of
+     ``launch_config``); the bf16 launches' ms (a call, a launch, device)
+     beside the plain version, aten's
      ``_scaled_dot_product_flash_attention`` on the folded rows and the
-     bound. (b) Qwen2.5-3B at published widths and
+     bound; then one card's launch without statistics (bf16 out, the
+     launch of (b)'s one-card step) within 2^-7 of its plain version, on
+     the split, timed beside ``F.scaled_dot_product_attention`` on the
+     same folded rows. (b) Qwen2.5-3B at published widths and
      full depth (36 layers), B 8 (one data group's share of
      ``decode_32k``), a 32,768-position cache: one card fills it with a
      32,760-token seeded prompt (``hidden_forward`` a row at a time, no
@@ -1415,10 +1423,12 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
     # tiles bq 8, 24, 40 and 128 (every warp grid R x C it compiles),
     # folded GQA groups, per-row offsets, a pad-tail mask with a fully
     # masked row, one resident key tile (Lk 37 at block 64 and 128) and
-    # several; hd 80 (the encoder's) causal and not
+    # several; hd 80 (the encoder's) causal and not; 2,085 keys (17 to 66
+    # tiles) split over clusters of 2 to 8 CTAs wherever the folded
+    # queries fit one row slab (R 1, every C the split takes)
     for hd, blk in sorted(FLASH_INSTANCES):
         for g, Lq in ((1, 8), (8, 3), (1, 40), (8, 16)):
-            for Lk in (37, 300):
+            for Lk in (37, 300, 2085):
                 rows = B * 2
                 q = randn((rows, g * Lq, hd), torch.bfloat16)
                 k = randn((rows, Lk, hd), torch.bfloat16)
@@ -1428,13 +1438,18 @@ def serving_phases(gen: torch.Generator, record) -> tuple:
                 km[1, :] = False
                 offs = randint(0, Lk, (rows,))
                 for kind, mask in (("rows", None), ("rows+mask", km)):
-                    r, c = flash_config(g * Lq, Lk, hd, blk, torch.bfloat16)[
-                        "warp_grid"]
+                    fc = flash_config(g * Lq, Lk, hd, blk, torch.bfloat16)
+                    r, c = fc["warp_grid"]
                     for causal in (True, False) if hd == 80 else (True,):
                         flash_check(f"bf16 hd={hd} block={blk} (R {r}, C "
-                                    f"{c}) g={g} Lq={Lq} Lk={Lk} {kind}"
+                                    f"{c}, S {fc['split']}) g={g} Lq={Lq} "
+                                    f"Lk={Lk} {kind}"
                                     f"{'' if causal else ' non-causal'}", q,
                                     k, v, offs, Lq, mask, blk, causal)
+                        if fk.last_launch["cluster"] != fc["cluster"]:
+                            fail(f"flash_attention: launched "
+                                 f"{fk.last_launch}, launch_config says "
+                                 f"cluster {fc['cluster']}")
     paged_checks(gen, record)
     del q, k, v
     torch.cuda.empty_cache()
@@ -6108,12 +6123,14 @@ SEQ_TIMEOUT = 600  # seconds for the ranks to finish
 def stats_kernel_phase() -> dict:
     """Phase 31 (a) (module docstring): the flash launch with row
     statistics against its plain version at a rank's shard and at one
-    card's cache (bf16: the tensor-core kernel), and at a rank's shard in
-    f32 (the FMA kernel), with a scalar, a per-row and a negative offset;
-    the bf16 launches' times beside the plain version, the library's
-    flash attention (which returns the log-sum-exp) and the bound.
-    Returns the ``kernels`` line's entry (``launches`` set by phase 31
-    (b)). Fatal on any failure."""
+    card's cache (bf16: the tensor-core kernel, split over a cluster of
+    CTAs), and at a rank's shard in f32 (the FMA kernel, not split), with
+    a scalar, a per-row and a negative offset; the bf16 launches' times
+    beside the plain version, the library's flash attention (which
+    returns the log-sum-exp) and the bound; then one card's launch
+    without statistics (bf16 out) against its plain version, timed beside
+    ``F.scaled_dot_product_attention``. Returns the ``kernels`` line's
+    entry (``launches`` set by phase 31 (b)). Fatal on any failure."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.flash_attention import (NEG_INF,
                                                      flash_attention,
@@ -6127,7 +6144,7 @@ def stats_kernel_phase() -> dict:
     rows, fq, hd = SEQ_BATCH * 2, 8, 128  # (B x KV, g x Lq): Qwen's fold
     c = launch_config(fq, SEQ_LEN // MESH_RANKS, hd, 64, torch.bfloat16,
                       rows=rows)["warp_grid"][1]
-    sym = template_symbol("flash_tc_kernel", hd, 64, c)
+    sym = template_symbol("flash_tc_kernel", hd, 64, c, True)  # the split's
     body = [t for f, t in sass_functions(kern.library_path()).items()
             if sym in f]
     hmma = body[0].count("HMMA") if len(body) == 1 else 0
@@ -6135,10 +6152,27 @@ def stats_kernel_phase() -> dict:
         fail(f"flash stats: {sym} has no HMMA in its SASS")
     entry, worst = {}, 0.0
     shard_keys = SEQ_LEN // MESH_RANKS
+
+    def split_launch(tag, k, cfg):
+        """The launch just made was the key split: S 8, 128 CTAs in
+        clusters of 8 (launch_config's, as the wrapper passed them)."""
+        got = k.last_launch
+        line = {"flash_split": tag, "split": cfg["split"],
+                "ctas": cfg["ctas"], "grid": list(got["grid"]),
+                "cluster": list(got["cluster"]), "symbol": sym,
+                "hmma": hmma}
+        print(json.dumps(line), flush=True)
+        if cfg["split"] != 8 or cfg["ctas"] != 8 * rows or \
+                got["grid"] != (*cfg["grid"], 1) or \
+                got["cluster"] != cfg["cluster"]:
+            fail(f"flash split: {tag}: {line}, launch_config {cfg}")
+        return line
+
     for tag, Lk, dt in (("rank shard", shard_keys, torch.bfloat16),
                         ("one card", SEQ_LEN, torch.bfloat16),
                         ("rank shard, f32", shard_keys, torch.float32)):
         tc = dt == torch.bfloat16
+        cfg = launch_config(fq, Lk, hd, 64, dt, rows=rows)
         q = torch.randn((rows, fq, hd), generator=gen, device=dev).to(dt)
         k, v = (torch.randn((rows, Lk, hd), generator=gen,
                             device=dev).to(dt) for _ in "kv")
@@ -6169,6 +6203,10 @@ def stats_kernel_phase() -> dict:
             if not (acc_err <= acc_tol and m_rel <= 1e-4 and l_rel <= 1e-4
                     and line["launched"] and line["tensor_core"]):
                 fail(f"flash stats: {tag}, {name} offset: {line}")
+            if tc:
+                split_launch(f"{tag}, {name} offset", kern, cfg)
+            elif kern.last_launch["cluster"] != (1, 1, 1):
+                fail(f"flash stats: {tag}: the FMA kernel was split")
             worst = max(worst, acc_err)
             parts[name] = got
         m_neg = parts["negative"][1]
@@ -6205,9 +6243,13 @@ def stats_kernel_phase() -> dict:
                  "bound_ms": bms, "bound_by": by,
                  "kv_bytes": 2 * k.numel() * 2,
                  "gbytes_per_s": nbytes / ms / 1e6}
+        times.update(split=cfg["split"], ctas=cfg["ctas"])
         print(json.dumps({"flash_stats_times": tag, **times,
                           "card": smi()}), flush=True)
         entry[tag] = times
+        if tag == "one card":
+            entry["one card, bf16 out"] = one_card_plain(
+                q, k, v, cfg, split_launch)
         del q, k, v, parts
         torch.cuda.empty_cache()
     shard = entry["rank shard"]
@@ -6224,10 +6266,69 @@ def stats_kernel_phase() -> dict:
             "library_device_ms_per_call": shard["library_device_ms_per_call"],
             "library_call":
                 "torch.ops.aten._scaled_dot_product_flash_attention",
-            "one_card": entry["one card"], "ok": True,
+            "one_card": entry["one card"],
+            "one_card_bf16_out": entry["one card, bf16 out"],
+            "split": shard["split"], "ctas": shard["ctas"], "ok": True,
             "shapes": f"rank shard: {rows} rows x {fq} folded queries, "
                       f"{SEQ_LEN // MESH_RANKS} keys, hd {hd}, bf16 in, f32 "
                       "out with row max and sum"}
+
+
+def one_card_plain(q, k, v, cfg, split_launch) -> dict:
+    """Phase 31 (a)'s last check: one card's launch without statistics
+    (bf16 out) over the whole 32,768-key cache (16 folded rows of 8
+    queries, every key valid), as phase 31 (b)'s one-card step launches
+    it, against its plain version (2^-7), on the key split, timed (a call,
+    a launch, device) beside ``F.scaled_dot_product_attention`` on the
+    same folded rows (each row a head: the same function with every key
+    valid) and the bound. Fatal on any failure."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    kern = KERNELS["flash_attention"]
+    rows, fq, hd = q.shape
+    Lk = k.shape[1]
+    n0, tc0 = kern.launches, kern.tensor_core_launches
+    got = flash_attention(q, k, v, True, Lk - 1, q_seq_len=1)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, True, Lk - 1, 1)
+    err = (got.float() - want.float()).abs().max().item()
+    allowed = TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    line = split_launch("one card, bf16 out", kern, cfg)
+    if not (err <= allowed and kern.launches == n0 + 1
+            and kern.tensor_core_launches == tc0 + 1):
+        fail(f"flash split: one card, bf16 out: max abs err {err} (allowed "
+             f"{allowed}), launches {kern.launches - n0}, tensor core "
+             f"{kern.tensor_core_launches - tc0}")
+    qs, ks, vs = (t.reshape(1, rows, -1, hd) for t in (q, k, v))
+
+    def run():
+        return flash_attention(q, k, v, True, Lk - 1, q_seq_len=1)
+
+    def run_lib():
+        return F.scaled_dot_product_attention(qs, ks, vs)
+
+    lib = run_lib()
+    lib_err = (lib.reshape(got.shape).float() - want.float()).abs().max()
+    ms = median_ms(run, 3, 20)
+    nbytes = (2 * k.numel() + 2 * q.numel()) * 2
+    bms, by = bound_ms(4.0 * rows * fq * Lk * hd, nbytes, PEAK_BF16_FLOPS)
+    times = {"flash_one_card": "bf16 out", "rows": rows, "folded_q": fq,
+             "Lk": Lk, "hd": hd, "max_abs_err": err, "allowed": allowed,
+             "library_max_abs_err": lib_err.item(), "ms": ms,
+             "ms_per_launch": per_launch_ms(run),
+             "device_ms_per_call": graph_ms_per_call(run),
+             "plain_ms": median_ms(lambda: flash_attention_plain(
+                 q, k, v, True, Lk - 1, 1), 1, 3),
+             "library_ms": median_ms(run_lib, 3, 20),
+             "library_ms_per_launch": per_launch_ms(run_lib),
+             "library_device_ms_per_call": graph_ms_per_call(run_lib),
+             "library_call": "F.scaled_dot_product_attention",
+             "bound_ms": bms, "bound_by": by, "split": line["split"],
+             "ctas": line["ctas"], "gbytes_per_s": nbytes / ms / 1e6}
+    print(json.dumps({**times, "card": smi()}), flush=True)
+    return times
 
 
 def seq_decode_rank_main(rank: int, outdir: str) -> None:
@@ -6552,7 +6653,8 @@ def main() -> None:
     from repro_torch.kernels.conv2d import launch_config as conv_config
     from repro_torch.kernels.matmul import (LINEAR, LINEAR_TILES,
                                             TC_VARIANTS)
-    from repro_torch.kernels.flash_attention import flash_tc_instances
+    from repro_torch.kernels.flash_attention import (flash_split_instances,
+                                                     flash_tc_instances)
     from repro_torch.kernels.matmul import launch_config as mm_config
     layers = resnet50_layers(BATCH)
     main_variants = {mm_config(*t, 2, mnk[2])["variant"] for mnk, t in
@@ -6566,14 +6668,17 @@ def main() -> None:
                                       s.c_I)["variant"])
     tc_variants("conv2d", "conv2d_tc_kernel", *gemm_like_variants(
         CONV_VARIANTS + ((1, LINEAR_TILES),), main_variants, CONV_LINEAR))
-    # flash attention's bf16 kernel: every (hd, block, C) instance; the
-    # main path takes hd 128 at block 64 (C 1 at prefill, 4 at decode, 2 at
-    # the hybrid's short prefills) and, training HuBERT-xLarge, hd 80 at
-    # block 64
-    flash_variants = [(f"(hd {hd}, block {b}, C {c})", (hd, b, c))
-                      for hd, b, c in flash_tc_instances()]
+    # flash attention's bf16 kernel: every (hd, block, C) instance, without
+    # and with the key split; the main path takes hd 128 at block 64 (C 1 at
+    # prefill, 4 at decode, 2 at the hybrid's short prefills, 4 split at
+    # phase 31's long caches) and, training HuBERT-xLarge, hd 80 at block 64
+    flash_variants = [(f"(hd {hd}, block {b}, C {c}{', split' if sp else ''})",
+                       (hd, b, c, sp))
+                      for sp, inst in ((False, flash_tc_instances()),
+                                       (True, flash_split_instances()))
+                      for hd, b, c in inst]
     tc_variants("flash_attention", "flash_tc_kernel", flash_variants,
-                {label for label, (hd, b, _) in flash_variants
+                {label for label, (hd, b, _, _) in flash_variants
                  if (hd, b) in ((128, 64), (80, 64))})
     # paged decode's bf16 kernel: HMMA in every head-dim instance; the main
     # path's (hd 128) must not spill
@@ -7006,9 +7111,11 @@ def main() -> None:
         source, replaces = meta[k["name"]]
         k.update(source=source, replaces=replaces,
                  max_abs_err=max_err[k["name"]])
-    from repro_torch.kernels.flash_attention import flash_tc_instances
+    from repro_torch.kernels.flash_attention import (flash_split_instances,
+                                                     flash_tc_instances)
     attn_kernels[0].update(
-        instances=[list(i) for i in flash_tc_instances()], hd80=hd80,
+        instances=[list(i) for i in flash_tc_instances()],
+        split_instances=[list(i) for i in flash_split_instances()], hd80=hd80,
         mesh_train_rank_launches=mesh["rank_flash_launches"],
         mesh_train_options_rank_launches=mesh["options_rank_flash_launches"],
         moe_mesh_rank_launches=moe_mesh["rank_flash_launches"])

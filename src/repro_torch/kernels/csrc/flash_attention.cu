@@ -16,9 +16,38 @@
 //  What bounds it on an H100: at prefill shapes the products (S = Q K^T and
 //  O += P V, every key tile of every q tile, no causal block skipping); at
 //  decode shapes (Lq = 1, g query heads folded into 8 rows) the K/V stream
-//  from HBM, with one CTA per (batch row, kv head) in flight. So the design
-//  puts both products on the tensor cores and overlaps each tile's loads
-//  with the previous tile's products:
+//  from HBM. At 8 folded rows a key tile is about 2 FLOP a byte: half of
+//  an m16 mma.sync tile is live, and wgmma's 64-row tiles would buy
+//  nothing. What such a launch lacks is parallelism over the keys: one CTA
+//  a (batch row, kv head) is 16 CTAs for Qwen2.5-3B's 8 rows, each with
+//  one K/V tile in flight. So the design puts both products on the tensor
+//  cores, overlaps each tile's loads with the previous tile's products,
+//  and at decode shapes splits a row's keys over a thread-block cluster:
+//  * The key split (the SPLIT instances, p.split = S > 1;
+//    kernels/flash_attention.py, launch_config, takes S from the key tiles
+//    alone: the largest power of two up to 8, the portable cluster size,
+//    that leaves every CTA at least 8 tiles, and only when the folded
+//    queries fit one q tile of one row slab, R = 1). The
+//    grid is (rows x S, 1) in clusters of (S, 1, 1); rank r of a row's
+//    cluster walks the key tiles [r n_k / S, (r + 1) n_k / S) through its
+//    own ring, with its own running max. Rank 0 copies the Q tile from
+//    HBM; after the first cluster.sync the other ranks copy it from rank
+//    0's shared memory (distributed shared memory), so Q is read once a
+//    row as before. After the walk (and the C-warp merge below) ranks 1 ..
+//    S - 1 leave their (m, l, O) over their ring; after the second
+//    cluster.sync rank 0 reads them with map_shared_rank and merges in
+//    rank order as m* = max m_j, O = sum e^(m_j - m*) O_j, l = sum e^(m_j
+//    - m*) l_j (a rank with no tile holds m = NEG_INF, l = 0, O = 0 and
+//    weighs nothing); a third cluster.sync keeps every rank resident until
+//    rank 0 has read it. Rank 0 then stores as the unsplit kernel does. No
+//    partial goes to HBM: the launch moves the words attention_hbm_words
+//    charges. At S = 1 (every prefill, every launch whose keys span fewer
+//    than 16 tiles, or of more than one row slab) the launch takes the
+//    instance without SPLIT, which compiles none of this: its grid, commit
+//    groups and bits are the unsplit kernel's, and so are the main path's
+//    registers. (As a runtime branch in every instance, the cluster code
+//    raised the registers of the S = 1 instances by up to 63 and made the
+//    serve's decode and prefill 11-25% slower in device time on an H100.)
 //  * mma.sync m16n8k16 bf16 x bf16 -> f32. Q's A fragments come once a q
 //    tile by ldmatrix.x4 and stay in registers; K's B fragments by
 //    ldmatrix (non-transposed) from the row-major (key, d) tile; V's by
@@ -62,7 +91,8 @@
 //  row.
 //
 // Both:
-//  * One CTA per (folded row b * Hkv + kv, q tile of bq folded query rows).
+//  * One CTA per (folded row b * Hkv + kv, q tile of bq folded query rows;
+//    under the tensor-core kernel's key split, S CTAs a row, above).
 //    Row j of the folded query axis is query j % q_seq_len of its group, so
 //    its absolute position is (j % q_seq_len) + q_offset[row] (q_seq_len = 0:
 //    plain positions).
@@ -89,12 +119,15 @@
 //    template instance; with m/l null the store and its bits are as
 //    before. The tensor-core kernel's f32 store (with or without the
 //    statistics) writes 8-byte pairs from the C fragments, no staging.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tc_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -110,6 +143,7 @@ struct FAParams {
   int rows_per_batch;   // folded rows per key-mask row (Hkv)
   int causal, kv_resident;
   int out_f32;          // the output is f32 (the tensor-core kernel: else bf16)
+  int split;            // CTAs of a row's cluster (the tensor-core kernel; 1: none)
   float scale;
 };
 
@@ -312,14 +346,15 @@ __host__ __device__ constexpr int tc_warps() { return BLOCK == 128 ? 8 : 4; }
 // Dynamic shared memory: the Q tile, two ring slots of K and V (rows of
 // HD + 8 bf16), and, for C > 1, the (m, l, O) that key slabs 1 .. C - 1 of
 // each row slab hand to key slab 0 (kernels/flash_attention.py,
-// launch_config, computes the same).
+// launch_config, computes the same). A rank's partial for the key split's
+// merge lies over ring slot 0 after the walk.
 template <int HD, int BLOCK, int C>
 constexpr int tc_smem_bytes() {
   constexpr int R = tc_warps<BLOCK>() / C;
   return 5 * BLOCK * (HD + 8) * 2 + (C - 1) * R * 32 * (4 + HD / 2) * 4;
 }
 
-template <int HD, int BLOCK, int C>
+template <int HD, int BLOCK, int C, bool SPLIT>
 __global__ void __launch_bounds__(32 * tc_warps<BLOCK>(), 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, void* __restrict__ out,
@@ -337,13 +372,19 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int SLOT = 2 * BLOCK * P;  // one ring slot: K, then V
   constexpr int PART = 4 + 4 * DT;     // floats a lane hands over to merge
   static_assert(R >= 1 && R * C == W && NW >= 8, "warp grid");
+  static_assert(R * PART * 32 * 4 <= SLOT * 2, "a rank's partial fits a ring slot");
   static_assert(HD % 16 == 0, "k16 steps of Q K^T, n8 pairs of P V");
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* const sq = reinterpret_cast<bf16*>(smem_tc);
   bf16* const ring = sq + BLOCK * P;
   float* const merge = reinterpret_cast<float*>(ring + 2 * SLOT);
 
-  const long long row = blockIdx.x;
+  // the key split: rank r of the row's cluster of S walks tiles [t0, t0 + nt)
+  const int S = SPLIT ? p.split : 1;
+  const long long row = SPLIT ? (long long)blockIdx.x / S : (long long)blockIdx.x;
+  const int rank = SPLIT ? (int)cg::this_cluster().block_rank() : 0;
+  const int t0 = SPLIT ? (int)((long long)rank * p.n_k / S) : 0;
+  const int nt = SPLIT ? (int)((long long)(rank + 1) * p.n_k / S) - t0 : p.n_k;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int slab = warp / C, kslab = warp % C;
   const int g = lane >> 2, t = lane & 3;
@@ -359,10 +400,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sl2 = p.scale * LOG2E;
   const int c0 = kslab * NW;  // the warp's first key column of a tile
 
-  // issue the copies of K/V tile kt into ring slot kt % 2, zero past Lk
+  // issue the copies of K/V tile kt into ring slot (kt - t0) % 2, zero past Lk
   auto load_kv = [&](int kt) {
     const int k0 = kt * p.bk, kv = min(p.bk, p.Lk - k0);
-    bf16* dst = ring + (kt & 1) * SLOT;
+    bf16* dst = ring + ((kt - t0) & 1) * SLOT;
     copy_tile<8, 8>(dst, P, kr + (long long)k0 * HD, HD, BLOCK, kv, HD, HD, pl,
                     tid, NTHR);
     copy_tile<8, 8>(dst + BLOCK * P, P, vr + (long long)k0 * HD, HD, BLOCK, kv,
@@ -372,10 +413,25 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int qt = blockIdx.y; qt < p.n_q; qt += gridDim.y) {
     const int q0 = qt * p.bq;
     __syncthreads();  // the previous q tile's output staging is read
-    copy_tile<8, 8>(sq, P, qr + (long long)q0 * HD, HD, 16 * R,
-                    min(p.bq, p.Lq - q0), HD, HD, pl, tid, NTHR);
-    if (!p.kv_resident || qt == (int)blockIdx.y) load_kv(0);
+    if (rank == 0)    // a split's other ranks copy rank 0's Q tile
+      copy_tile<8, 8>(sq, P, qr + (long long)q0 * HD, HD, 16 * R,
+                      min(p.bq, p.Lq - q0), HD, HD, pl, tid, NTHR);
+    if constexpr (SPLIT) cp_async_commit();  // Q in a group of its own
+    if ((!SPLIT || nt > 0) && (!p.kv_resident || qt == (int)blockIdx.y)) load_kv(t0);
     cp_async_commit();
+    if constexpr (SPLIT) {
+      const cg::cluster_group cluster = cg::this_cluster();
+      cp_async_wait<1>();  // rank 0: the Q tile has landed
+      cluster.sync();  // every CTA of the row has started; Q is visible
+      if (rank > 0 && nt > 0) {
+        const bf16* rq = cluster.map_shared_rank(sq, 0);
+        for (int i = tid; i < 16 * R * (HD / 8); i += NTHR) {
+          const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+          *reinterpret_cast<uint4*>(sq + r * P + c) =
+              *reinterpret_cast<const uint4*>(rq + r * P + c);
+        }
+      }
+    }
 
     float o[DT][4];
 #pragma unroll
@@ -391,12 +447,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     uint32_t qf[DK][4];
 
-    for (int kt = 0; kt < p.n_k; ++kt) {
-      cp_async_wait<0>();  // tile kt (and at kt = 0 the Q tile) has landed ...
-      __syncthreads();     // ... for every thread; slot (kt + 1) % 2 is free
-      if (!p.kv_resident && kt + 1 < p.n_k) load_kv(kt + 1);
+    for (int it = 0; it < nt; ++it) {  // the CTA's it-th tile, kt
+      const int kt = t0 + it;
+      cp_async_wait<0>();  // tile kt (and at it = 0 the Q tile) has landed ...
+      __syncthreads();     // ... for every thread; slot (it + 1) % 2 is free
+      if (!p.kv_resident && it + 1 < nt) load_kv(kt + 1);
       cp_async_commit();
-      if (kt == 0) {
+      if (it == 0) {
 #pragma unroll
         for (int kk = 0; kk < DK; ++kk)
           ldsm_x4(qf[kk], sq + (slab * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
@@ -404,7 +461,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int k0 = kt * p.bk;
       const int kv = min(p.bk, p.Lk - k0);  // key columns of this tile
       if (c0 >= kv) continue;               // no key in the slab: zero weight
-      const bf16* sk = ring + (kt & 1) * SLOT;
+      const bf16* sk = ring + (it & 1) * SLOT;
       const bf16* sv = sk + BLOCK * P;
 
       // S = Q K^T over the warp's key slab (n8 tiles past the keys skipped)
@@ -554,7 +611,60 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m[1] = ms[1];
       }
     }
-    if (kslab == 0 && p.out_f32) {
+    if constexpr (SPLIT) {
+      // the key split's merge: ranks 1 .. S - 1 leave each row slab's (m,
+      // l, O) over ring slot 0, lane by lane as the key slabs' merge does;
+      // rank 0 reads them through distributed shared memory
+      const cg::cluster_group cluster = cg::this_cluster();
+      __syncthreads();  // every warp is done with the ring
+      float* part = reinterpret_cast<float*>(ring) + slab * PART * 32 + lane;
+      if (kslab == 0 && rank > 0) {
+        part[0] = m[0];
+        part[32] = m[1];
+        part[64] = l[0];
+        part[96] = l[1];
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[(4 + 4 * j + e) * 32] = o[j][e];
+      }
+      cluster.sync();  // the partials are published
+      if (kslab == 0 && rank == 0) {
+        float ms[2] = {m[0], m[1]};
+        for (int r = 1; r < S; ++r) {
+          const float* src = cluster.map_shared_rank(part, r);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) ms[h] = fmaxf(ms[h], src[h * 32]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float w0 = exp2f(m[h] - ms[h]);
+          l[h] *= w0;
+#pragma unroll
+          for (int j = 0; j < DT; ++j) {
+            o[j][2 * h] *= w0;
+            o[j][2 * h + 1] *= w0;
+          }
+        }
+        for (int r = 1; r < S; ++r) {
+          const float* src = cluster.map_shared_rank(part, r);
+          float w[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            w[h] = exp2f(src[h * 32] - ms[h]);
+            l[h] += w[h] * src[(2 + h) * 32];
+          }
+#pragma unroll
+          for (int j = 0; j < DT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[j][e] += w[e >> 1] * src[(4 + 4 * j + e) * 32];
+        }
+        m[0] = ms[0];
+        m[1] = ms[1];
+      }
+      cluster.sync();  // no rank exits before rank 0 has read its partial
+    }
+    if (kslab == 0 && rank == 0 && p.out_f32) {
       // f32 rows straight from the C fragments: lane (g, t) holds columns
       // 8 j + 2 t and + 1 of rows g and g + 8; with the statistics the
       // accumulator stays unnormalised and lane t = 0 writes (m, l)
@@ -572,7 +682,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l_out[row * p.Lq + qi] = l[h];
         }
       }
-    } else if (kslab == 0) {
+    } else if (kslab == 0 && rank == 0) {
       // stage the slab's bf16 rows in its Q rows, then 16-byte stores
       float inv[2];
 #pragma unroll
@@ -611,15 +721,35 @@ struct Args {
   cudaStream_t s;
 };
 
+// The grid (rows x S, q tiles or 1); S > 1 launches clusters of (S, 1, 1)
+// through cudaLaunchKernelEx, whose refusal is returned as it is.
 template <typename T, typename K>
 cudaError_t launch(K kern, int threads, int smem, unsigned& done, const Args& a) {
   cudaError_t e = configure_once(kern, smem, done);
   if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)a.rows, a.p.kv_resident ? 1u : (unsigned)a.p.n_q);
-  kern<<<grid, threads, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.out, a.m, a.l, a.offs, a.lens, a.km, a.p);
-  return cudaGetLastError();
+  dim3 grid((unsigned)(a.rows * a.p.split), a.p.kv_resident ? 1u : (unsigned)a.p.n_q);
+  if (a.p.split == 1) {
+    kern<<<grid, threads, smem, a.s>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.out, a.m, a.l, a.offs, a.lens, a.km, a.p);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = a.s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.p.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.q),
+                         static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                         a.out, a.m, a.l, a.offs, a.lens, a.km, a.p);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int HD, int BLOCK>
@@ -629,20 +759,23 @@ cudaError_t launch_fma(const Args& a) {
                        smem_floats<HD, BLOCK>() * (int)sizeof(float), done, a);
 }
 
-template <int HD, int BLOCK, int C>
+template <int HD, int BLOCK, int C, bool SPLIT = false>
 cudaError_t launch_tc_c(const Args& a) {
   static unsigned done = 0;
-  return launch<bf16>(flash_tc_kernel<HD, BLOCK, C>, 32 * tc_warps<BLOCK>(),
+  return launch<bf16>(flash_tc_kernel<HD, BLOCK, C, SPLIT>, 32 * tc_warps<BLOCK>(),
                       tc_smem_bytes<HD, BLOCK, C>(), done, a);
 }
 
 // R: the smallest power of two with 16 R >= bq (R <= W since bq <= BLOCK);
-// C = W / R key slabs. A block of 32 never has R = 4 (C = 1).
+// C = W / R key slabs. A block of 32 never has R = 4 (C = 1). A key split
+// takes one row slab (R 1, C = W) and the SPLIT instance.
 template <int HD, int BLOCK>
 cudaError_t launch_tc(const Args& a) {
   constexpr int W = tc_warps<BLOCK>();
   int r = 1;
   while (16 * r < a.p.bq) r *= 2;
+  if (a.p.split > 1)
+    return r == 1 ? launch_tc_c<HD, BLOCK, W, true>(a) : cudaErrorInvalidValue;
   switch (W / r) {
     case 1:
       if constexpr (BLOCK >= 16 * W) return launch_tc_c<HD, BLOCK, 1>(a);
@@ -679,15 +812,17 @@ cudaError_t launch_b(int dtype, int block, const Args& a) {
 // unnormalised accumulator and the row statistics); q_offset and kv_lens
 // int32 (rows,), an offset possibly negative; key_mask bool (rows /
 // rows_per_batch, Lk) or null. ``block`` selects the compiled tile (the
-// plan's), bq/bk <= block the clamped runtime tiles. Returns the launch's
-// cudaError_t.
+// plan's), bq/bk <= block the clamped runtime tiles; ``split`` the CTAs of
+// a row's cluster (1 to 8; above 1 only for the tensor-core kernel with one
+// q tile of one row slab). Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* m, void* l,
     const void* q_offset, const void* kv_lens, const void* key_mask,
     int dtype, int out_dtype, int hd, int block, long long rows, int Lq,
     int Lk, int bq, int bk, int q_seq_len, int rows_per_batch, int causal,
-    float scale, void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || bq <= 0 || bk <= 0 || bq > block ||
+    int split, float scale, void* stream) {
+  if (rows <= 0 || split < 1 || split > 8 || rows * split > 0x7fffffffLL ||
+      bq <= 0 || bk <= 0 || bq > block ||
       bk > block || (dtype != 0 && dtype != 1) ||
       (out_dtype != 0 && out_dtype != 1) || (dtype == 0 && out_dtype != 0) ||
       ((m == nullptr) != (l == nullptr)) || (m != nullptr && out_dtype != 0))
@@ -719,8 +854,10 @@ extern "C" int repro_flash_attention(
   p.causal = causal;
   p.kv_resident = p.n_k == 1;
   p.out_f32 = out_dtype == 0;
+  p.split = split;
   p.scale = scale;
-  if (p.n_q > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (p.n_q > 65535 || (split > 1 && (dtype != 1 || p.n_q != 1)))
+    return (int)cudaErrorInvalidConfiguration;
   switch (hd) {
     case 16: return (int)launch_b<16>(dtype, block, a);
     case 32: return (int)launch_b<32>(dtype, block, a);

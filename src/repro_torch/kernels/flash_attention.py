@@ -15,7 +15,10 @@ reference's ``_paged_decode_kernel``). Each source has two kernels, chosen
 by the input dtype: for flash (:func:`launch_config`) bf16 takes
 ``flash_tc_kernel`` (both products on the tensor cores with ``mma.sync``, a
 two-slot ``cp.async`` K/V ring, an R x C warp grid that splits the keys of
-a tile over C warps at decode shapes) and f32 the FMA ``flash_kernel``; for
+a tile over C warps at decode shapes and, where the keys span many tiles,
+a split of each row's key tiles over the CTAs of one thread-block cluster,
+merged through distributed shared memory) and f32 the FMA
+``flash_kernel``; for
 paged decode (:func:`paged_launch_config`) bf16 takes
 ``paged_decode_tc_kernel`` (``mma.sync``) and f32 the FMA
 ``paged_decode_fma_kernel``, both a split of each row's table slots over
@@ -42,7 +45,9 @@ valid key.
 
 ``attention_hbm_words`` / ``paged_decode_hbm_words`` are the reference's
 counters, unchanged: the words one launch moves, from its launch geometry.
-``attention_stats_hbm_words`` is the port's for a launch with statistics.
+``attention_stats_hbm_words`` is the port's for a launch with statistics,
+``attention_split_hbm_words`` the port's for a launch as the key split
+walks it (equal to the reference's: Q is read once a row).
 ``paged_decode_issued_words`` counts what the paged kernel issues, which
 skips dead slots: at most the counter.
 """
@@ -75,6 +80,7 @@ _FLASH_ARGS = [
     _c.c_longlong, _c.c_int, _c.c_int,                   # rows, Lq, Lk
     _c.c_int, _c.c_int,                                  # bq, bk
     _c.c_int, _c.c_int, _c.c_int,                        # q_seq_len, rows/batch, causal
+    _c.c_int,                                            # split
     _c.c_float, _c.c_void_p,                             # scale, stream
 ]
 FLASH_KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention",
@@ -188,6 +194,30 @@ def flash_attention_plain(
 
 FMA_THREADS = 256  # csrc/flash_attention.cu, flash_kernel's THREADS
 RING_SLOTS = 2  # K/V ring slots of flash_tc_kernel
+FLASH_MAX_SPLIT = 8  # CTAs a row's cluster at most: the portable cluster size
+FLASH_SPLIT_TILES = 8  # key tiles each CTA of a split walks at least
+
+
+def flash_split(n_q: int, n_k: int, row_slabs: int = 1) -> int:
+    """S, the CTAs of ``flash_tc_kernel``'s key split for a row of ``n_q``
+    q tiles of ``row_slabs`` row slabs (R) and ``n_k`` key tiles: with one
+    q tile of one row slab (decode shapes: 16 folded queries at most), the
+    largest power of two up to ``FLASH_MAX_SPLIT`` that leaves every CTA
+    at least ``FLASH_SPLIT_TILES`` tiles; else 1. From the tiles alone, so
+    a row's walk does not depend on the rows that share its launch."""
+    s = 1
+    while (n_q == 1 and row_slabs == 1 and 2 * s <= FLASH_MAX_SPLIT
+           and n_k // (2 * s) >= FLASH_SPLIT_TILES):
+        s *= 2
+    return s
+
+
+def split_tiles(n_k: int, split: int) -> list:
+    """The key tiles [t0, t1) rank r of a row's cluster walks, for r in
+    0 .. split - 1: [r n_k // S, (r + 1) n_k // S), the kernel's shares
+    (empty for a rank when n_k < S)."""
+    return [(r * n_k // split, (r + 1) * n_k // split)
+            for r in range(split)]
 
 
 def tc_warps(block: int) -> int:
@@ -208,12 +238,20 @@ def warp_grid(bq: int, block: int) -> Tuple[int, int]:
 
 
 def flash_tc_instances() -> list:
-    """The (hd, block, C) instances of ``flash_tc_kernel`` compiled into
-    the source: every C that some runtime bq (a multiple of 8 up to the
-    block) takes at each instance of ``FLASH_INSTANCES``."""
+    """The (hd, block, C) instances of ``flash_tc_kernel`` without the key
+    split compiled into the source: every C that some runtime bq (a
+    multiple of 8 up to the block) takes at each instance of
+    ``FLASH_INSTANCES``."""
     return sorted({(hd, b, warp_grid(bq, b)[1])
                    for hd, b in FLASH_INSTANCES
                    for bq in range(8, b + 1, 8)})
+
+
+def flash_split_instances() -> list:
+    """The (hd, block, C) instances of ``flash_tc_kernel`` with the key
+    split (its ``SPLIT`` template argument): one row slab, C = W, at each
+    instance of ``FLASH_INSTANCES``."""
+    return sorted((hd, b, tc_warps(b)) for hd, b in FLASH_INSTANCES)
 
 
 @functools.lru_cache(maxsize=None)  # read-only: a launch copies what it sends
@@ -225,11 +263,15 @@ def launch_config(Lq: int, Lk: int, hd: int, block: int, dtype,
     ``threads``, ``grid`` (rows, q tiles; 1 when the keys fit one tile and
     the CTA walks its q tiles with them resident), the runtime tiles ``bq``
     and ``bk`` (clamped as the reference clamps them), ``n_q``, ``n_k``,
-    ``kv_resident``, and ``smem`` (dynamic shared-memory bytes, as the
-    source computes them). The tensor-core kernel adds ``warp_grid`` (R, C),
-    ``key_slab`` (keys a warp takes of each tile), ``slots`` (the K/V
-    ring's) and ``pitch`` (shared-memory row, elements). Raises ValueError
-    for an instance that is not compiled, TypeError for another dtype."""
+    ``kv_resident``, ``smem`` (dynamic shared-memory bytes, as the
+    source computes them), ``split`` (S, :func:`flash_split`; the FMA
+    kernel's is 1), ``cluster`` ((S, 1, 1)) and ``ctas``. With S > 1 the
+    grid is (rows x S, 1): each row's S CTAs form one cluster and split its
+    key tiles (:func:`split_tiles`). The tensor-core kernel adds
+    ``warp_grid`` (R, C), ``key_slab`` (keys a warp takes of each tile),
+    ``slots`` (the K/V ring's) and ``pitch`` (shared-memory row,
+    elements). Raises ValueError for an instance that is not compiled,
+    TypeError for another dtype."""
     if (hd, block) not in FLASH_INSTANCES:
         raise ValueError(
             f"flash_attention: no compiled kernel for hd={hd}, block={block} "
@@ -238,8 +280,10 @@ def launch_config(Lq: int, Lk: int, hd: int, block: int, dtype,
     bk = min(block, round_up(Lk, 8))
     n_q, n_k = -(-Lq // bq), -(-Lk // bk)
     resident = n_k == 1
+    grid = (rows, 1 if resident else n_q)
     cfg = dict(bq=bq, bk=bk, n_q=n_q, n_k=n_k, kv_resident=resident,
-               grid=(rows, 1 if resident else n_q))
+               grid=grid, split=1, cluster=(1, 1, 1),
+               ctas=grid[0] * grid[1])
     if dtype == torch.float32:
         smem = 4 * (2 * block * (hd + 1) + block * hd + block * (block + 1)
                     + 3 * block)
@@ -250,6 +294,10 @@ def launch_config(Lq: int, Lk: int, hd: int, block: int, dtype,
                         f"{dtype}")
     w = tc_warps(block)
     r, c = warp_grid(bq, block)
+    split = flash_split(n_q, n_k, r)
+    if split > 1:
+        cfg.update(grid=(rows * split, 1), split=split,
+                   cluster=(split, 1, 1), ctas=rows * split)
     pitch = hd + 8  # an odd multiple of 16 bytes: conflict-free ldmatrix
     merge = (c - 1) * r * 32 * (4 + hd // 2) * 4  # (m, l, O) of key slabs 1..
     smem = (1 + 2 * RING_SLOTS) * block * pitch * 2 + merge
@@ -270,16 +318,22 @@ def flash_attention_tc_emulate(
     key_mask: Optional[torch.Tensor] = None,
     block: Optional[int] = None,
     stats: bool = False,
+    split: Optional[int] = None,
 ):
     """``flash_tc_kernel``'s arithmetic in plain PyTorch, for the CPU tests
     only: the same q tiles, key tiles and C key slabs of each tile (the R
     row slabs compute independently, so they go together), each slab an
     online softmax in the log2 domain with f32 logits of the bf16 operands,
     P rounded to bf16 before P V, l summed from the f32 probabilities, and
-    the C partials merged as the kernel merges them. ``block`` defaults to
-    the H100 plan's. ``stats``: the kernel's f32 store with statistics,
-    ``(acc, m, l)`` (the merged log2 max over ``LOG2E``, ``NEG_INF``
-    kept)."""
+    the C partials merged as the kernel merges them; under a key split the
+    S ranks each walk their share of the key tiles (:func:`split_tiles`)
+    with their own running maxima (P rounded against the rank's), and
+    their merged partials merge in rank order as the cluster merges them.
+    ``block`` defaults to the H100 plan's, ``split`` to
+    :func:`launch_config`'s S (another S models the kernel launched with
+    it; it needs one q tile of one row slab). ``stats``: the kernel's f32 store with
+    statistics, ``(acc, m, l)`` (the merged log2 max over ``LOG2E``,
+    ``NEG_INF`` kept)."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core kernel takes bfloat16, not {q.dtype}")
     BH, Lq, Dh = q.shape
@@ -291,6 +345,10 @@ def flash_attention_tc_emulate(
     cfg = launch_config(Lq, Lk, Dh, block, q.dtype, rows=BH)
     bq, bk, nw = cfg["bq"], cfg["bk"], cfg["key_slab"]
     n_slabs = cfg["warp_grid"][1]
+    split = cfg["split"] if split is None else split
+    if split > 1 and (cfg["n_q"], cfg["warp_grid"][0]) != (1, 1):
+        raise ValueError(f"a key split takes one q tile of one row slab, "
+                         f"not {cfg['n_q']} of {cfg['warp_grid'][0]}")
     dev = q.device
     qf, kf, vf = q.float(), k.float(), v.float()
     offs = _row_ints(q_offset, BH, dev)
@@ -310,40 +368,42 @@ def flash_attention_tc_emulate(
         qi = torch.arange(q0, q0 + nr, device=dev)
         qpos = ((qi % q_seq_len if q_seq_len else qi)[None]
                 + offs[:, None])  # (BH, nr)
-        m = torch.full((n_slabs, BH, nr), NEG_INF, device=dev)
-        lsum = torch.zeros((n_slabs, BH, nr), device=dev)
-        o = torch.zeros((n_slabs, BH, nr, Dh), device=dev)
-        for kt in range(cfg["n_k"]):
-            k0 = kt * bk
-            kv = min(bk, Lk - k0)
-            for j in range(n_slabs):
-                c0 = j * nw
-                if c0 >= kv:
-                    continue  # keys past Lk: zero weight
-                kpos = torch.arange(k0 + c0, k0 + min(c0 + nw, kv), device=dev)
-                with no_tf32():
-                    s = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + nr],
-                                     kf[:, kpos]) * sl2
-                keep = kpos[None, None, :] < lens[:, None, None]
-                if causal:
-                    keep = keep & (kpos[None, None, :] <= qpos[:, :, None])
-                if km is not None:
-                    keep = keep & km[:, kpos][:, None, :]
-                s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-                mx = torch.maximum(m[j], s.amax(-1))
-                alpha = torch.exp2(m[j] - mx)
-                p = torch.exp2(s - mx[..., None])
-                lsum[j] = alpha * lsum[j] + p.sum(-1)
-                with no_tf32():
-                    pv = torch.einsum("bqk,bkd->bqd",
-                                      p.to(torch.bfloat16).float(),
-                                      vf[:, kpos])
-                o[j] = alpha[..., None] * o[j] + pv
-                m[j] = mx
-        ms = m.amax(0)
-        wgt = torch.exp2(m - ms)
-        den = (wgt * lsum).sum(0)
-        num = (wgt[..., None] * o).sum(0)
+        parts = []  # each rank's (m, l, O), its key slabs merged
+        for t0, t1 in split_tiles(cfg["n_k"], split):
+            m = torch.full((n_slabs, BH, nr), NEG_INF, device=dev)
+            lsum = torch.zeros((n_slabs, BH, nr), device=dev)
+            o = torch.zeros((n_slabs, BH, nr, Dh), device=dev)
+            for kt in range(t0, t1):
+                k0 = kt * bk
+                kv = min(bk, Lk - k0)
+                for j in range(n_slabs):
+                    c0 = j * nw
+                    if c0 >= kv:
+                        continue  # keys past Lk: zero weight
+                    kpos = torch.arange(k0 + c0, k0 + min(c0 + nw, kv),
+                                        device=dev)
+                    with no_tf32():
+                        s = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + nr],
+                                         kf[:, kpos]) * sl2
+                    keep = kpos[None, None, :] < lens[:, None, None]
+                    if causal:
+                        keep = keep & (kpos[None, None, :]
+                                       <= qpos[:, :, None])
+                    if km is not None:
+                        keep = keep & km[:, kpos][:, None, :]
+                    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+                    mx = torch.maximum(m[j], s.amax(-1))
+                    alpha = torch.exp2(m[j] - mx)
+                    p = torch.exp2(s - mx[..., None])
+                    lsum[j] = alpha * lsum[j] + p.sum(-1)
+                    with no_tf32():
+                        pv = torch.einsum("bqk,bkd->bqd",
+                                          p.to(torch.bfloat16).float(),
+                                          vf[:, kpos])
+                    o[j] = alpha[..., None] * o[j] + pv
+                    m[j] = mx
+            parts.append(_merge_partials(list(zip(m, lsum, o))))
+        ms, den, num = _merge_partials(parts)
         if stats:
             out[:, q0:q0 + nr] = num
             m_out[:, q0:q0 + nr] = torch.where(
@@ -423,8 +483,9 @@ def _flash_launch(q, k, v, causal, q_offset, q_seq_len, kv_lens, key_mask,
             None if key_mask is None else key_mask.data_ptr(),
             dtype_code(q.dtype), dtype_code(out.dtype), Dh, block, BH, Lq,
             Lk, bq, bk, q_seq_len or 0, per_batch, int(bool(causal)),
-            1.0 / Dh ** 0.5, stream, tensor_core=tc, grid=cfg["grid"],
-            block=(cfg["threads"],), smem=cfg["smem"])
+            cfg["split"], 1.0 / Dh ** 0.5, stream, tensor_core=tc,
+            grid=cfg["grid"], block=(cfg["threads"],), smem=cfg["smem"],
+            cluster=cfg["cluster"])
     return (out, m, l_) if stats else out
 
 
@@ -745,6 +806,33 @@ def attention_stats_hbm_words(BH: int, Lq: int, Lk: int, dh: int,
             + 2.0 * BH * lqp)
 
 
+def attention_split_hbm_words(BH: int, Lq: int, Lk: int, dh: int,
+                              block_q: int, block_k: int, p_q: float = 1.0,
+                              p_kv: float = 1.0, p_o: float = 1.0,
+                              stats: bool = False) -> float:
+    """Words a flash launch moves as :func:`launch_config` walks it, key
+    split included (the port's counter; bf16 when ``p_q`` is 0.5, where
+    the tensor-core kernel splits): Q once a q tile (under a split rank 0
+    reads it and the other ranks copy it through distributed shared
+    memory), K and V of each rank's key tiles (:func:`split_tiles`) once a
+    q tile (once a row when resident), O once a q tile; ``stats``: O in f32
+    and the row max and sum, one f32 word each a folded query row. Equal
+    to :func:`attention_hbm_words` (:func:`attention_stats_hbm_words` with
+    ``stats``) at every shape: a split moves no extra word."""
+    if block_k != block_q:
+        raise ValueError(f"flash_attention compiles square tiles, got "
+                         f"block_q={block_q}, block_k={block_k}")
+    cfg = launch_config(Lq, Lk, dh, block_q, _dtype_of(p_q))
+    bq, bk, n_q, n_k = cfg["bq"], cfg["bk"], cfg["n_q"], cfg["n_k"]
+    kv_fetches = 1 if cfg["kv_resident"] else n_q
+    tiles = sum(t1 - t0 for t0, t1 in split_tiles(n_k, cfg["split"]))
+    words = (p_q * BH * n_q * bq * dh
+             + 2.0 * p_kv * BH * kv_fetches * tiles * bk * dh)
+    if stats:
+        return words + BH * n_q * bq * (dh + 2.0)
+    return words + p_o * BH * n_q * bq * dh
+
+
 def paged_decode_issued_words(lengths, B: int, KV: int, g: int, w: int,
                               block_size: int, hd: int, p_q: float = 1.0,
                               p_kv: float = 1.0, p_o: float = 1.0) -> float:
@@ -784,6 +872,31 @@ def _dtype_of(p: float):
     return torch.bfloat16 if p == 0.5 else torch.float32
 
 
+def _flash_walk(prog, n_k: int, base: int, q_step: int, resident: bool,
+                rank: int = 0) -> None:
+    """``flash_tc_kernel``'s walk of ``n_k`` K/V tiles into ``prog``: tile
+    kt runs ``wait_group(0)``, ``__syncthreads``, issues tile kt + 1 into
+    slot (kt + 1) % 2 (none when ``resident``), reads Q (step ``q_step``,
+    at kt = 0) and slot kt % 2 (step ``base + kt``)."""
+    for kt in range(n_k):
+        prog.wait_group(0, rank=rank)
+        prog.barrier(rank=rank)
+        if not resident and kt + 1 < n_k:
+            prog.start("k/v", (kt + 1) % 2, base + kt + 1, rank=rank)
+        prog.commit(rank=rank)
+        if kt == 0:
+            prog.read("q", 0, q_step, rank=rank)
+        prog.read("k/v", kt % 2, base + kt, rank=rank)
+
+
+def _flash_merge(prog, step: int, rank: int = 0) -> None:
+    """The key slabs' merge (C > 1) of q tile ``step``: slabs 1 .. C - 1
+    write the merge area, slab 0 reads it after a ``__syncthreads``."""
+    prog.write("merge", 0, step, rank=rank)
+    prog.barrier(rank=rank)
+    prog.read("merge", 0, step, rank=rank)
+
+
 def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool,
                   staged: bool = True):
     """``flash_tc_kernel``'s events for one CTA walking ``n_q_cta`` q tiles:
@@ -808,23 +921,60 @@ def flash_program(n_q_cta: int, n_k: int, resident: bool, merge: bool,
         if not resident or i == 0:
             prog.start("k/v", 0, base)
         prog.commit()
-        for kt in range(n_k):
-            prog.wait_group(0)
-            prog.barrier()
-            if not resident and kt + 1 < n_k:
-                prog.start("k/v", (kt + 1) % 2, base + kt + 1)
-            prog.commit()
-            if kt == 0:
-                prog.read("q", 0, 2 * i)
-            prog.read("k/v", kt % 2, base + kt)
+        _flash_walk(prog, n_k, base, 2 * i, resident)
         if merge:
-            prog.write("merge", 0, i)
-            prog.barrier()
-            prog.read("merge", 0, i)
+            _flash_merge(prog, i)
         if staged:
             prog.write("q", 0, 2 * i + 1, local=not merge)
             prog.read("q", 0, 2 * i + 1, local=True)
     prog.wait_group(0)
+    return prog
+
+
+def flash_split_program(tiles, merge: bool, staged: bool = True):
+    """``flash_tc_kernel``'s events for one row's cluster of a key split,
+    ``tiles[r]`` key tiles for rank r: after the opening ``__syncthreads``
+    rank 0 issues the Q tile in a commit group of its own (empty in the
+    others), every rank with a tile its first K/V tile in the next;
+    ``wait_group(1)`` and the first ``cluster.sync``; each other rank with
+    a tile copies Q from rank 0's shared memory into its own; then the
+    rank's walk as :func:`flash_program`'s; the key slabs' merge
+    (``merge``); a ``__syncthreads`` and ranks 1 .. S - 1 write their
+    partial over ring slot 0; the second ``cluster.sync``; rank 0 reads
+    the other ranks' partials; the third ``cluster.sync``; rank 0 stages
+    its output rows (``staged``); ``wait_group(0)``; exit."""
+    from repro_torch.verify.hazards import Program
+
+    prog = Program()
+    for r, n in enumerate(tiles):
+        prog.barrier(rank=r)
+        if r == 0:
+            prog.start("q", 0, 0, rank=r)
+        prog.commit(rank=r)
+        if n:
+            prog.start("k/v", 0, 0, rank=r)
+        prog.commit(rank=r)
+        prog.wait_group(1, rank=r)
+        prog.cluster_sync(rank=r)
+        if r and n:
+            prog.remote_read("q", 0, 0, rank=r, peer=0)
+            prog.write("q", 0, 0, rank=r)
+        _flash_walk(prog, n, 0, 0, False, rank=r)
+        if merge:
+            _flash_merge(prog, 0, rank=r)
+        prog.barrier(rank=r)
+        if r:
+            prog.write("k/v", 0, -1, rank=r)  # the partial, over slot 0
+        prog.cluster_sync(rank=r)
+        if r == 0:
+            for k in range(1, len(tiles)):
+                prog.remote_read("k/v", 0, -1, rank=r, peer=k)
+        prog.cluster_sync(rank=r)
+        if staged and r == 0:
+            prog.write("q", 0, 1, rank=r, local=not merge)
+            prog.read("q", 0, 1, rank=r, local=True)
+        prog.wait_group(0, rank=r)
+        prog.exit(rank=r)
     return prog
 
 
@@ -845,9 +995,14 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
     The key mask of padded prefill is not modeled. ``stats``: the launch
     with row statistics (:func:`attention_stats_hbm_words`): O stored in
     f32 (``p_o`` 1) from the registers, and the row max and sum once a q
-    tile. Raises ValueError for a (dh, block) the source does not
-    compile."""
-    import numpy as np  # noqa: F401
+    tile. Under a key split (``launch_config``'s S > 1) the walk is
+    (row, rank, the rank's K/V tiles): Q, O and the statistics once a row
+    (rank 0 reads Q, the other ranks copy it through distributed shared
+    memory), K and V of each rank's tiles, the offset and length once a
+    CTA, and one schedule for a row's cluster
+    (:func:`flash_split_program`). Raises ValueError for a (dh, block) the
+    source does not compile."""
+    import numpy as np
 
     from repro_torch.verify.access import (BlockAccess, CudaLaunch,
                                            FlatAccess, KernelAccessPlan,
@@ -861,8 +1016,12 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
     lqp, lkp = n_q * bq, n_k * bk
     resident = cfg["kv_resident"]
     tc = cfg["kernel"] == "tensor core"
-    q_idx = (lambda b, i, t: (b, t, 0)) if resident else \
-        (lambda b, i, t: (b, i, 0))
+    S = cfg["split"]
+    shares = np.array(split_tiles(n_k, S), dtype=np.int64).reshape(S, 2)
+    # a split's walk is (row, rank, tile): its one q tile moves once a row
+    q_idx = ((lambda b, r, t: (b, 0, 0)) if S > 1 else
+             (lambda b, i, t: (b, t, 0)) if resident else
+             (lambda b, i, t: (b, i, 0)))
     if stats:
         p_o = 1.0
     accesses = [
@@ -877,10 +1036,21 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
         accesses += [BlockAccess(
             name=name, kind="store", block_shape=(1, bq),
             array_shape=(BH, lqp), word_size=1.0,
-            index_map=(lambda b, i, t: (b, t)) if resident else
-            (lambda b, i, t: (b, i))) for name in ("row max", "row sum")]
+            index_map=lambda b, i, t: q_idx(b, i, t)[:2])
+            for name in ("row max", "row sum")]
+
+    def split_window(b, r, t):  # rank r's t-th tile, none past its share
+        t0, t1 = shares[r, 0], shares[r, 1]
+        rows = np.where(t0 + t < t1, bk, 0)
+        return (b, 1), (np.where(rows > 0, (t0 + t) * bk, 0), rows), (0, dh)
+
     for name in ("k", "v"):
-        if resident:
+        if S > 1:
+            accesses.append(WindowAccess(
+                name=name, kind="load", array_shape=(BH, lkp, dh),
+                word_size=p_kv, window=split_window,
+                note="the key tiles of each rank's share"))
+        elif resident:
             accesses.append(BlockAccess(
                 name=name, kind="load", block_shape=(1, bk, dh),
                 array_shape=(BH, lkp, dh), word_size=p_kv,
@@ -891,11 +1061,12 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
                 name=name, kind="load", array_shape=(BH, lkp, dh),
                 word_size=p_kv,
                 window=lambda b, i, t: ((b, 1), (t * bk, bk), (0, dh))))
-    ctas = cfg["grid"][0] * cfg["grid"][1]
     accesses.append(FlatAccess(
-        name="q_offset/kv_lens", kind="load", words=2.0 * ctas,
+        name="q_offset/kv_lens", kind="load", words=2.0 * cfg["ctas"],
         counted=False, note="one int32 offset and length a CTA"))
     walk = (BH, 1, n_q) if resident else (BH, n_q, n_k)
+    if S > 1:
+        walk = (BH, S, int((shares[:, 1] - shares[:, 0]).max()))
     dma = None
     if tc:
         r, c = cfg["warp_grid"]
@@ -906,8 +1077,12 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
                    ScratchAlloc("merge (m, l, O)",
                                 (cfg["smem"] - (1 + 2 * cfg["slots"]) * tile)
                                 / 4.0))
-        prog = flash_program(n_q if resident else 1, n_k, resident, c > 1,
-                             staged=not stats)
+        if S > 1:
+            prog = flash_split_program(
+                [int(t1 - t0) for t0, t1 in shares], c > 1, staged=not stats)
+        else:
+            prog = flash_program(n_q if resident else 1, n_k, resident,
+                                 c > 1, staged=not stats)
         bufs = {"q": 1, "k/v": cfg["slots"]}
         if c > 1:
             bufs["merge"] = 1
@@ -920,8 +1095,10 @@ def flash_attention_access_plan(BH: int, Lq: int, Lk: int, dh: int,
     return KernelAccessPlan(
         op=op, grid=walk, accesses=tuple(accesses), scratch=scratch,
         dma=dma, launch=CudaLaunch(kernel, (*cfg["grid"], 1),
-                                   (cfg["threads"], 1, 1), cfg["smem"]),
-        note="K/V tiles (or, resident, q tiles) innermost")
+                                   (cfg["threads"], 1, 1), cfg["smem"],
+                                   cfg["cluster"]),
+        note="K/V tiles (or, resident, q tiles) innermost"
+        + (f"; clusters of {S} ranks" if S > 1 else ""))
 
 
 def paged_program(tiles, tc: bool):

@@ -7,8 +7,10 @@ merges them, against the reference's flash kernel
 (``repro.kernels.flash_attention.flash_attention``, interpret mode) over
 the whole keys; each shard's row max and row sum against a float64 numpy
 logsumexp of the same masked logits; the ``ops.attention`` entries with
-statistics on both backends; and the launch's word counter against its
-access plan.
+statistics on both backends; the launch's word counter against its
+access plan; and the key split over a thread-block cluster (S 2, 4 and
+8: each rank's running max, the merge in rank order) with statistics,
+against the plain version and, normalised, against the reference.
 
 Cases: head dims 64, 80 and 128; GQA groups 1, 4 and 8 folded into the
 query axis (``q_seq_len``); int, scalar and per-row offsets (each shard's
@@ -195,3 +197,48 @@ def test_stats_counter_is_the_access_plan(shape):
     assert rep.hazards == [] and rep.problems == []
     assert rep.counted_words == attention_stats_hbm_words(
         BH, Lq, Lk, 128, 64, 64, p_q=0.5, p_kv=0.5)
+
+
+SPLIT_CASES = {  # (Lk, block, S, offsets): 4 rows x 8 folded queries, hd 64
+    "b64_S2_scalar": (1000, 64, 2, "scalar"),
+    "b64_S4_rows": (1500, 64, 4, "rows"),
+    "b32_S8_rows": (2048, 32, 8, "rows"),
+    "b32_S8_negative": (1027, 32, 8, "negative"),
+    "b64_S8_empty_ranks": (200, 64, 8, "rows"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_stats_match_the_plain_version_and_the_reference(case):
+    """The split launch's partial ``(acc, m, l)`` (``flash_attention_tc_
+    emulate(..., stats=True, split=S)``) against the plain version's (acc
+    within the bf16 tolerance of max(1, max|acc|), m and l as above), and
+    acc / l against the reference's flash kernel on the rows with a valid
+    key; a row (or, with the negative offset, every row) with no valid key
+    reports m = NEG_INF and l = Lk, every key at weight 1."""
+    Lk, block, S, kind = SPLIT_CASES[case]
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(torch.bfloat16)
+               for sh in ((4, 8, 64), (4, Lk, 64), (4, Lk, 64)))
+    off = {"scalar": np.int32(Lk - 10), "negative": -5,
+           "rows": np.array([Lk - 1, Lk // 2, -7, 3], np.int32)}[kind]
+    toff = off if isinstance(off, int) else torch.from_numpy(np.asarray(off))
+    acc, m, l_ = flash_attention_tc_emulate(q, k, v, True, toff, 1,
+                                            block=block, stats=True,
+                                            split=S)
+    pa, pm, pl = flash_attention(q.float(), k.float(), v.float(), True,
+                                 toff, q_seq_len=1, stats=True)
+    assert acc.dtype == m.dtype == l_.dtype == torch.float32
+    err = (acc - pa).abs().max().item()
+    assert err <= TOL["bf16"] * max(1.0, pa.abs().max().item()), err
+    torch.testing.assert_close(m, pm, rtol=0, atol=1e-4)
+    torch.testing.assert_close(l_, pl, rtol=1e-4, atol=0)
+    live = np.broadcast_to(np.asarray(off), (4,)) >= 0
+    assert bool((m[~live] == NEG_INF).all()) and bool((l_[~live] == Lk).all())
+    if live.any():
+        want = _reference(q.float().numpy(), k.float().numpy(),
+                          v.float().numpy(), off, None, 1, "bf16")
+        got = (acc / l_[..., None]).numpy()
+        assert np.abs(got[live] - want[live]).max() <= TOL["bf16"] * max(
+            1.0, float(np.abs(want[live]).max()))

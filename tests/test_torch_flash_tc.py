@@ -4,8 +4,11 @@
 the R x C warp grid, P rounded to bf16, the C partials merged), against the
 reference's flash kernel in interpret mode (its XLA attention where a key
 mask is given, which the Pallas kernel declines) and against the port's
-plain version, on the same numpy inputs; its launch configuration; and the
-word counter it must keep equal to the reference's.
+plain version, on the same numpy inputs; its launch configuration; the
+key split over a thread-block cluster at decode shapes (each rank's share
+of the key tiles, its own running max, the merge in rank order), held to
+the same two, with the split taken from the key tiles alone; and the word
+counters it must keep equal to the reference's.
 
 Tolerance: the outputs are bf16, so an output agrees when max|got - want| <=
 2^-7 x max(1, max|want|): one bf16 rounding of the output on each side, and
@@ -30,10 +33,16 @@ from repro_torch.kernels import attention_hbm_words, flash_attention_plain
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.kernels.flash_attention import (FLASH_INSTANCES,
                                                  attention_blocks,
+                                                 attention_split_hbm_words,
+                                                 attention_stats_hbm_words,
+                                                 flash_attention_access_plan,
                                                  flash_attention_tc_emulate,
+                                                 flash_split,
+                                                 flash_split_instances,
                                                  flash_tc_instances,
-                                                 launch_config, tc_warps,
-                                                 warp_grid)
+                                                 launch_config, split_tiles,
+                                                 tc_warps, warp_grid)
+from repro_torch.verify.audit import audit_access_plan
 
 jfa = importlib.import_module("repro.kernels.flash_attention")
 BF16 = torch.bfloat16
@@ -231,6 +240,9 @@ def test_launch_config_main_path():
     assert dec["smem"] == 5 * 64 * 136 * 2 + 3 * 32 * (4 + 64) * 4
     for cfg in (pre, dec):
         assert 2 * (cfg["smem"] + CTA_RESERVED) <= SM_SHARED
+        # no key split: 8 key tiles are below two CTAs' worth
+        assert cfg["split"] == 1 and cfg["cluster"] == (1, 1, 1)
+        assert cfg["ctas"] == cfg["grid"][0] * cfg["grid"][1]
 
 
 def test_every_bf16_instance_takes_the_tensor_cores():
@@ -287,3 +299,176 @@ def test_attention_words_unchanged_on_the_main_path(spec):
                       spec_args=(jq, jk, jk))
     assert d.measured_words == jd.measured_words
     assert d.bound_ratio == jd.bound_ratio
+
+
+# -- the key split at decode shapes ------------------------------------------
+
+def test_split_launch_config_pins():
+    """S from the key tiles alone: 8 (128 CTAs in clusters of 8, grid (128,
+    1)) at phase 31's rank shard (8,192 keys) and one card's cache (32,768)
+    of Qwen2.5-3B (16 rows x 8 folded queries, hd 128, block 64), whatever
+    the rows; none at the Qwen prefill, HuBERT-xLarge's hd-80 step, the
+    serve's decode (8 tiles), any launch of several q tiles or row slabs,
+    or f32; every split launch takes a compiled SPLIT instance."""
+    for Lk in (8192, 32768):
+        for rows in (16, 1, 5):
+            cfg = launch_config(8, Lk, 128, 64, BF16, rows=rows)
+            assert cfg["split"] == 8 and cfg["cluster"] == (8, 1, 1)
+            assert cfg["grid"] == (8 * rows, 1) and cfg["ctas"] == 8 * rows
+            assert cfg["warp_grid"] == (1, 4) and cfg["n_q"] == 1
+        assert launch_config(8, Lk, 128, 64, BF16, rows=16)["ctas"] == 128
+        assert launch_config(8, Lk, 128, 64, torch.float32)["split"] == 1
+    unsplit = {  # (Lq, Lk, hd, block, rows): the grid it keeps
+        "qwen prefill": ((8 * 176, 512, 128, 64, 2), (2, 22)),
+        "qwen contiguous decode": ((8, 512, 128, 64, 8), (8, 1)),
+        "hubert hd 80 step": ((512, 512, 80, 64, 128), (128, 8)),
+        "one card's cache fill": ((8 * 32760, 32768, 128, 64, 2),
+                                  (2, 4095)),
+        "40 folded queries, 4 row slabs": ((40, 2085, 64, 64, 2), (2, 1)),
+    }
+    for name, (shape, grid) in unsplit.items():
+        cfg = launch_config(*shape[:4], BF16, rows=shape[4])
+        assert cfg["split"] == 1 and cfg["cluster"] == (1, 1, 1), name
+        assert cfg["grid"] == grid and cfg["ctas"] == grid[0] * grid[1]
+    # the rule: the largest power of two up to 8 leaving 8 tiles a CTA
+    for n_k, want in ((1, 1), (8, 1), (15, 1), (16, 2), (31, 2), (32, 4),
+                      (63, 4), (64, 8), (128, 8), (512, 8)):
+        assert flash_split(1, n_k) == want
+        assert flash_split(2, n_k) == 1 and flash_split(1, n_k, 2) == 1
+    assert split_tiles(17, 2) == [(0, 8), (8, 17)]
+    split = set()
+    for hd, block in FLASH_INSTANCES:
+        for bq in range(8, block + 1, 8):
+            cfg = launch_config(bq, 64 * block, hd, block, BF16, rows=3)
+            if cfg["split"] > 1:
+                assert cfg["warp_grid"] == (1, tc_warps(block))
+                split.add((hd, block, cfg["warp_grid"][1]))
+    assert sorted(split) == flash_split_instances() and len(split) == 12
+    assert split_tiles(4, 8) == [(0, 0), (0, 1), (1, 1), (1, 2), (2, 2),
+                                 (2, 3), (3, 3), (3, 4)]
+
+
+SPLIT_CASES = {  # (Lk, hd, block, S, offsets, kv_lens): 4 rows x 8 folded
+    # queries (q_seq_len 1); Lk 1,000-2,048 at blocks 32 and 64, S 2, 4 and
+    # 8 (launch_config's own or another), keys ending inside a tile, ranks
+    # with no tile (4 tiles over 8 ranks: ranks 0, 2, 4 and 6)
+    "b64_S2_scalar": (1000, 64, 64, 2, "scalar", False),
+    "b64_S4_rows_lens": (1500, 128, 64, 4, "rows", True),
+    "b64_S8_rows": (2048, 64, 64, 8, "rows", False),
+    "b32_S8_negative": (1027, 64, 32, 8, "negative", False),
+    "b32_S4_scalar_lens": (1999, 64, 32, 4, "scalar", True),
+    "b32_S2_rows": (1283, 128, 32, 2, "rows", False),
+    "b64_S8_empty_ranks": (200, 64, 64, 8, "rows", False),
+    "b32_S8_empty_ranks_lens": (100, 64, 32, 8, "rows", True),
+}
+
+
+def _split_inputs(Lk, hd, offsets, lens, rows=4, seed=13):
+    """numpy q (rows, 8, hd), k and v (rows, Lk, hd) as bf16 values, the
+    offsets (``scalar``: an int32 scalar; ``rows``: one a row, the third
+    before every key so that its keys are all masked; ``negative``: -5,
+    every key masked) and, with ``lens``, per-row key lengths (one of 0:
+    every key masked)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(BF16).float().numpy()
+               for s in ((rows, 8, hd), (rows, Lk, hd), (rows, Lk, hd)))
+    off = {"scalar": np.int32(Lk - 10),
+           "rows": np.array([Lk - 1, Lk // 2, -7, 3] * (rows // 4),
+                            np.int32),
+           "negative": -5}[offsets]
+    kv = (np.array([Lk, Lk // 3, 0, Lk - 1] * (rows // 4), np.int32)
+          if lens else None)
+    return q, k, v, off, kv
+
+
+def _torch_off(off):
+    return off if isinstance(off, int) else torch.from_numpy(
+        np.asarray(off))
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_emulate_matches_pallas_interpret(case):
+    """The split walk (each rank's tiles, its own running max and bf16 P,
+    the merge in rank order) against the reference's flash kernel in
+    interpret mode (``kv_lens`` for the key lengths) on every row with a
+    valid key, and against the plain version on every row; a row whose
+    keys are all masked averages V over its Lk keys, as the unsplit walk
+    does (the reference averages over its own padded key blocks there)."""
+    Lk, hd, block, S, kind, lens = SPLIT_CASES[case]
+    q, k, v, off, kv = _split_inputs(Lk, hd, kind, lens)
+    joff = off if isinstance(off, int) else jnp.asarray(off)
+    want = jfa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
+        q_offset=joff, block_q=8, block_k=128, interpret=True, q_seq_len=1,
+        kv_lens=None if kv is None else jnp.asarray(kv))
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    tkv = None if kv is None else torch.from_numpy(kv)
+    toff = _torch_off(off)
+    got = flash_attention_tc_emulate(tq, tk, tv, True, toff, 1, tkv,
+                                     block=block, split=S)
+    assert got.dtype == BF16 and got.shape == tq.shape
+    live = ((np.broadcast_to(np.asarray(off), (4,)) >= 0)
+            & (True if kv is None else kv > 0))
+    if live.any():
+        _check(got[live], np.asarray(want.astype(jnp.float32))[live])
+    _check(got, flash_attention_plain(tq, tk, tv, True, toff, 1, tkv))
+    for r in np.flatnonzero(~live):  # every key masked: the mean of V
+        _check(got[r], tv[r].float().mean(0).expand(8, hd))
+    assert (~live).any() == (kind != "scalar" or lens)
+
+
+def test_split_row_is_bit_equal_alone_and_in_a_batch():
+    """A row's split comes from its key tiles alone, so its bf16 output in
+    the emulated walk is bit for bit the same launched alone or among 8
+    rows (2,048 keys at block 64, S 4), and so are its launch's split and
+    tile shares. (The f32 statistics are held to the same split by the
+    shares: CPU batched products may differ in the last f32 bit with the
+    batch, which the kernel's per-row walk does not.)"""
+    q, k, v, off, kv = _split_inputs(2048, 64, "rows", True, rows=8,
+                                     seed=17)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    toff, tkv = torch.from_numpy(off), torch.from_numpy(kv)
+    assert launch_config(8, 2048, 64, 64, BF16, rows=8)["split"] == 4
+    assert launch_config(8, 2048, 64, 64, BF16, rows=1)["split"] == 4
+    batch = flash_attention_tc_emulate(tq, tk, tv, True, toff, 1, tkv,
+                                       block=64)
+    for i in range(8):
+        alone = flash_attention_tc_emulate(
+            tq[i:i + 1], tk[i:i + 1], tv[i:i + 1], True, toff[i:i + 1], 1,
+            tkv[i:i + 1], block=64)
+        assert torch.equal(alone, batch[i:i + 1]), i
+
+
+SPLIT_WORDS = [  # (BH, Lq, Lk, hd, stats): the split launches and others
+    (16, 8, 8192, 128, True), (16, 8, 32768, 128, False),
+    (4, 8, 1030, 128, True), (2, 40, 2085, 64, False),
+    (8, 8, 512, 128, False), (2, 8 * 176, 512, 128, False),
+    (128, 512, 512, 80, False),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_WORDS)
+def test_split_counter_is_the_reference_counter_and_the_plan(shape):
+    """``attention_split_hbm_words`` (the words the launch moves as the key
+    split walks it) differs from the reference's counter (the stats
+    counter with statistics) by 0 words: rank 0 reads Q, the other ranks
+    copy it through distributed shared memory. It equals the access plan's
+    counted words, whose launch is launch_config's (grid, cluster), and the
+    plan is hazard-free."""
+    BH, Lq, Lk, hd, stats = shape
+    base = (attention_stats_hbm_words(BH, Lq, Lk, hd, 64, 64, 0.5, 0.5)
+            if stats else
+            attention_hbm_words(BH, Lq, Lk, hd, 64, 64, 0.5, 0.5, 0.5))
+    split = attention_split_hbm_words(BH, Lq, Lk, hd, 64, 64, 0.5, 0.5,
+                                      0.5, stats=stats)
+    assert split - base == 0
+    ap = flash_attention_access_plan(BH, Lq, Lk, hd, 64, 64, 0.5, 0.5, 0.5,
+                                     stats=stats)
+    rep = audit_access_plan(ap)
+    assert rep.hazards == [] and rep.problems == []
+    assert rep.counted_words == split
+    cfg = launch_config(Lq, Lk, hd, 64, BF16, rows=BH)
+    assert ap.launch.grid == (*cfg["grid"], 1)
+    assert ap.launch.cluster == cfg["cluster"]
+    assert rep.uncounted == {"q_offset/kv_lens": 2.0 * cfg["ctas"]}

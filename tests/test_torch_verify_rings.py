@@ -6,8 +6,9 @@ hazard-free at every main-path launch configuration and at the edge cases
 the kernels' CPU emulations cover (one stage, fewer stages than slots,
 ragged tails, dead slots, length-0 rows); without their waits they read
 data that never landed (H1), without their ``__syncthreads`` a warp reads
-or refills a slot unfenced (H6), and paged decode without its second
-``cluster.sync`` reads partials before they are published (H7). Then the
+or refills a slot unfenced (H6), and paged decode and the flash key
+split without any of their three ``cluster.sync`` read another CTA's
+shared memory unfenced or after it may have exited (H7). Then the
 window copies' run overhang (``conv2d.window_overhang``) against a
 run-by-run replay of ``copy_window`` (csrc/tc_common.cuh).
 """
@@ -110,6 +111,16 @@ CASES = {
         16, 8, 8192, 128, 64, 64, 0.5, 0.5, stats=True),
     "flash/stats one tile": lambda: flash_attention_access_plan(
         4, 8, 40, 128, 64, 64, 0.5, 0.5, stats=True),
+    # the key split over a cluster (Q shared from rank 0, the partials
+    # merged on rank 0): one card's decode_32k cache (32,768 keys, S 8,
+    # bf16 out, staged); 17 tiles over S 2 with statistics (shares 8 and
+    # 9); block 128 (8 warps, C 8), 17 tiles over S 2
+    "flash/split decode": lambda: flash_attention_access_plan(
+        16, 8, 32768, 128, 64, 64, 0.5, 0.5, 0.5),
+    "flash/split stats": lambda: flash_attention_access_plan(
+        4, 8, 1030, 128, 64, 64, 0.5, 0.5, stats=True),
+    "flash/split block 128": lambda: flash_attention_access_plan(
+        4, 8, 2100, 32, 128, 128, 0.5, 0.5, 0.5),
     # flash at hd 80: HuBERT-xLarge's prefill (B 8 x 16 heads, 512 frames)
     # and a bq-8 launch (C 4, the merge area)
     "flash/hd 80 prefill": lambda: flash_attention_access_plan(
@@ -190,6 +201,22 @@ def test_dropped_barriers_leave_warps_unfenced(name, plans):
 
 
 @pytest.mark.parametrize("name", sorted(n for n in CASES
+                                        if n.startswith("flash/split")
+                                        or n == "flash/stats decode"))
+@pytest.mark.parametrize("which", [1, 2, 3])
+def test_flash_split_cluster_syncs(name, which, plans):
+    """The flash key split's three cluster barriers: without the first the
+    other ranks copy Q before rank 0 has it; without the second rank 0
+    reads partials before they are published; without the third a rank
+    may exit before rank 0 reads its partial."""
+    ap = _plan(name, plans)
+    assert ap.launch.cluster[0] > 1
+    found = [h.code for s in ap.schedules()
+             for h in hz.check_schedule(drop_cluster_sync(s, which))]
+    assert "H7" in found
+
+
+@pytest.mark.parametrize("name", sorted(n for n in CASES
                                         if n.startswith("paged")))
 @pytest.mark.parametrize("which, code", [(1, "H7"), (2, "H7"), (3, "H7")])
 def test_paged_cluster_syncs(name, which, code, plans):
@@ -211,7 +238,9 @@ def test_ring_constants_come_from_the_sources():
     """The schedules' depths and waits are the sources': the GEMM's
     wait_group(slots - 2), the convs' wait_group(0), conv1d's
     wait_group(STAGES - 3), paged decode's wait_group(RING - 2) and (RING -
-    1), matmul_q's wait_group(1) then (0)."""
+    1), matmul_q's wait_group(1) then (0), flash's wait_group(0) and, under
+    a key split, wait_group(1) for rank 0's Q tile and three
+    cluster.sync."""
     from pathlib import Path
 
     import repro_torch.kernels as K
@@ -229,6 +258,8 @@ def test_ring_constants_come_from_the_sources():
     assert "cp_async_wait<A_SLOTS - 2>();" in src["quant.cu"]
     assert "cp_async_wait<A_SLOTS - 3>();" in src["quant.cu"]
     assert src["paged_decode.cu"].count("cluster.sync();") == 3
+    assert src["flash_attention.cu"].count("cluster.sync();") == 3
+    assert "cp_async_wait<1>();" in src["flash_attention.cu"]
     for f in ("conv2d.cu", "quant.cu", "flash_attention.cu"):
         assert "cp_async_wait<0>();" in src[f]
 
@@ -241,6 +272,10 @@ def test_ring_constants_come_from_the_sources():
     assert waits(_conv1d(1, 300)) == [0, 5]
     assert waits(_paged((205, 151, 120, 41))) == [0, 2, 3]
     assert waits(_gemm(512, 384, 256, torch.int8)) == [0, 1]
+    assert waits(flash_attention_access_plan(
+        16, 8, 8192, 128, 64, 64, 0.5, 0.5, stats=True)) == [0, 1]
+    assert waits(flash_attention_access_plan(
+        8, 8, 512, 128, 64, 64, 0.5, 0.5, 0.5)) == [0]
 
 
 # -- the window runs' overhang against a replay of copy_window ----------------
